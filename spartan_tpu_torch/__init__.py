@@ -1,0 +1,65 @@
+"""spartan_tpu_torch: the PyTorch and CUDA port of spartan-tpu.
+
+The lazy NumPy-style expression DAG of ``spartan_tpu`` (creation,
+elementwise map, reduce, dot), its fusion passes and region evaluator, run
+on one ``torch.device`` — an NVIDIA GPU by default — with the TPU's Pallas
+kernels replaced by hand-written CUDA kernels.  ``spartan_tpu`` stays the
+reference the port is tested against; this package never imports jax.
+
+    import spartan_tpu_torch as sp
+    sp.initialize()                      # --device=cuda by default
+    b = sp.from_numpy(host_array)
+    print(abs(1 + b * 2).sum().glom())   # fused map+reduce, one kernel
+
+Only the first slice of the reference surface is here (see ROADMAP.md);
+names it lacks are absent rather than stubbed.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from spartan_tpu_torch import util
+from spartan_tpu_torch.config import FLAGS
+from spartan_tpu_torch.core import (Mesh, SpartanArray, TileExtent, Tiling,
+                                    get_mesh, make_mesh, set_default_mesh,
+                                    with_mesh)
+
+__version__ = "0.1.0"
+
+
+def initialize(argv: Optional[List[str]] = None, mesh: Optional[Mesh] = None
+               ) -> None:
+  """Parse flags and install the default mesh.
+
+  The mesh is one device, ``FLAGS.device`` (default ``cuda``); if that
+  device is absent this raises instead of carrying on elsewhere.  TF32 is
+  switched off for matmuls and convolutions, so float32 math is full
+  float32 on the card.
+  """
+  FLAGS.parse(argv)
+  util.set_log_level(FLAGS.log_level)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  set_default_mesh(mesh if mesh is not None else make_mesh())
+
+
+def shutdown() -> None:
+  set_default_mesh(None)
+
+
+from spartan_tpu_torch.expr.builtins import *  # noqa: F401,F403,E402
+from spartan_tpu_torch.expr.builtins import __all__ as _builtin_all  # noqa: E402
+from spartan_tpu_torch.expr.base import (Expr, ListExpr, Val, evaluate,  # noqa: E402
+                                         force, lazify)
+from spartan_tpu_torch.expr.map import map  # noqa: E402,A004
+from spartan_tpu_torch.expr.reduce import reduce  # noqa: E402,A004
+from spartan_tpu_torch.expr.loop import fori_loop, make_fori  # noqa: E402
+from spartan_tpu_torch import interop  # noqa: E402
+
+__all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
+           "Mesh", "SpartanArray", "get_mesh", "make_mesh", "with_mesh",
+           "Expr", "ListExpr", "Val", "evaluate", "force", "lazify", "map",
+           "reduce", "fori_loop", "make_fori", "interop"] + list(_builtin_all)

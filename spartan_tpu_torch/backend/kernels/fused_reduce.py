@@ -1,0 +1,330 @@
+"""Fused elementwise + full-sum kernel (K1) and its plain torch version.
+
+Replaces ``spartan_tpu/backend/kernels/fused_reduce.py:fused_sum``:
+``sum(f(x, *scalars))`` in one read of ``x``, where ``f`` is the fused
+``LocalExpr`` chain that ``ReduceMapFusion`` spliced into a full sum and
+the scalars are the region's 0-d operands.
+
+The chain reaches the GPU as an *op program*: :func:`plan` translates the
+``LocalExpr`` tree into a flat list of instructions over a fixed op table
+(add, subtract, multiply, true_divide, negative, absolute, square, sqrt,
+exp, log, maximum, minimum), keyed on the ufunc names that ``map2``'s
+wrappers keep (and on the callable being the port's own ufunc).  Each instruction carries an opcode, the dtype it computes in (the
+dtype the plain torch evaluation of that node has), a destination register
+and source registers or slots.  Leaves are the big operand's element
+(``LOADX``), a 0-d device tensor (``LOADS``, read from a float64 vector)
+and an immediate (``LOADI``: a weak Python scalar or a ``LocalConst``).
+A chain outside the table — another op, an integer or complex dtype, more
+than ``MAX_INSTR`` instructions — is refused up front by :func:`plan` and
+counted in ``counts["routed_plain"]``; the reduction then takes its plain
+path.  Nothing is decided by catching an exception.
+
+:func:`fused_sum` routes by the tensor's device: a CUDA tensor launches
+``csrc/fused_reduce.cu`` (or raises), a CPU tensor runs
+:func:`fused_sum_plain`, which evaluates the same program with torch ops.
+The kernel is bound by the bytes of one read of ``x``; the source note in
+the ``.cu`` file says how its two-pass design answers that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from spartan_tpu_torch.expr.base import Aval
+from spartan_tpu_torch.expr.local import (FnCallExpr, LocalConst, LocalExpr,
+                                          LocalInput, _postorder)
+from spartan_tpu_torch.expr.map import UFUNCS
+
+MAX_INSTR = 64
+MAX_IMM = 16
+THREADS = 256
+BLOCKS_PER_SM = 8
+
+LOADX, LOADS, LOADI = 0, 1, 2
+OPS = {"add": 3, "subtract": 4, "multiply": 5, "true_divide": 6,
+       "negative": 7, "absolute": 8, "square": 9, "sqrt": 10, "exp": 11,
+       "log": 12, "maximum": 13, "minimum": 14}
+_ARITY = {name: (2 if name in ("add", "subtract", "multiply", "true_divide",
+                               "maximum", "minimum") else 1)
+          for name in OPS}
+DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
+               torch.float16: 3}
+_CODE_DTYPES = {c: d for d, c in DTYPE_CODES.items()}
+
+counts = {"launches": 0, "plain_runs": 0, "routed_plain": 0}
+
+
+def reset_counts() -> None:
+  for k in counts:
+    counts[k] = 0
+
+
+class _ProgramStruct(ctypes.Structure):
+  """Mirror of ``struct Program`` in ``csrc/fused_reduce.cu``."""
+  _fields_ = [("n", ctypes.c_int32), ("out", ctypes.c_int32),
+              ("op", ctypes.c_int8 * MAX_INSTR),
+              ("dt", ctypes.c_int8 * MAX_INSTR),
+              ("dst", ctypes.c_int8 * MAX_INSTR),
+              ("a", ctypes.c_int8 * MAX_INSTR),
+              ("b", ctypes.c_int8 * MAX_INSTR),
+              ("imm", ctypes.c_double * MAX_IMM)]
+
+
+class Program:
+  """A fused chain as a flat op program.
+
+  ``instrs`` holds ``(opcode, dtype_code, dst, a, b)``; ``imm_sources``
+  says where each immediate comes from (``("scalar", k)``: the k-th scalar
+  operand, a weak Python number; ``("const", v)``); ``dev_scalars`` lists
+  the scalar operands read from device memory, in slot order; ``dtype`` is
+  the chain's result dtype."""
+
+  __slots__ = ("instrs", "out", "imm_sources", "dev_scalars", "dtype")
+
+  def __init__(self, instrs, out, imm_sources, dev_scalars, dtype):
+    self.instrs: List[Tuple[int, int, int, int, int]] = instrs
+    self.out: int = out
+    self.imm_sources: List[Tuple[str, Any]] = imm_sources
+    self.dev_scalars: List[int] = dev_scalars
+    self.dtype: torch.dtype = dtype
+
+  def immediates(self, scalars: Sequence[Any]) -> List[float]:
+    return [float(scalars[v]) if kind == "scalar" else float(v)
+            for kind, v in self.imm_sources]
+
+  def host_struct(self, scalars: Sequence[Any]) -> _ProgramStruct:
+    s = _ProgramStruct()
+    s.n = len(self.instrs)
+    s.out = self.out
+    for i, (op, dt, dst, a, b) in enumerate(self.instrs):
+      s.op[i], s.dt[i], s.dst[i], s.a[i], s.b[i] = op, dt, dst, a, b
+    for i, v in enumerate(self.immediates(scalars)):
+      s.imm[i] = v
+    return s
+
+
+class _Reg:
+  """Translation-time value: its register and its abstract value (a meta
+  tensor, or a Python scalar for weak values)."""
+  __slots__ = ("reg", "meta")
+
+  def __init__(self, reg: int, meta: Any):
+    self.reg = reg
+    self.meta = meta
+
+
+def _translate(local_op: Optional[LocalExpr], main_slot: int,
+               main_dtype: torch.dtype, scalar_avals: Dict[int, Aval]
+               ) -> Optional[Program]:
+  """The op program of ``local_op``, or None when the chain is outside the
+  op table (the up-front predicate: no exception decides the route)."""
+  if main_dtype not in DTYPE_CODES:
+    return None
+  instrs: List[Tuple[int, int, int, int, int]] = []
+  imm_sources: List[Tuple[str, Any]] = []
+  dev_scalars: List[int] = []
+  scalar_order = sorted(scalar_avals)
+  slot_regs: Dict[int, _Reg] = {}
+
+  def emit(op: int, dt: int, a: int = 0, b: int = 0) -> Optional[int]:
+    if len(instrs) >= MAX_INSTR:
+      return None
+    instrs.append((op, dt, len(instrs), a, b))
+    return len(instrs) - 1
+
+  def leaf(node: LocalExpr) -> Optional[_Reg]:
+    if isinstance(node, LocalInput):
+      hit = slot_regs.get(node.idx)
+      if hit is not None:
+        return hit
+      if node.idx == main_slot:
+        reg = emit(LOADX, DTYPE_CODES[main_dtype])
+        meta: Any = torch.empty((1,), dtype=main_dtype, device="meta")
+      elif node.idx in scalar_avals:
+        aval = scalar_avals[node.idx]
+        k = scalar_order.index(node.idx)
+        meta = aval.abstract_value()
+        if aval.weak:
+          if aval.dtype.is_complex or len(imm_sources) >= MAX_IMM:
+            return None
+          reg = emit(LOADI, 0, len(imm_sources))
+          imm_sources.append(("scalar", k))
+        else:
+          reg = emit(LOADS, 0, len(dev_scalars))
+          dev_scalars.append(k)
+      else:
+        return None
+      if reg is None:
+        return None
+      slot_regs[node.idx] = _Reg(reg, meta)
+      return slot_regs[node.idx]
+    if isinstance(node, LocalConst):
+      v = node.value
+      if type(v) not in (bool, int, float) or len(imm_sources) >= MAX_IMM:
+        return None
+      reg = emit(LOADI, 0, len(imm_sources))
+      if reg is None:
+        return None
+      imm_sources.append(("const", v))
+      return _Reg(reg, Aval.of(v).abstract_value())
+    return None
+
+  def call(node: FnCallExpr, deps: List[Optional[_Reg]]) -> Optional[_Reg]:
+    name = getattr(node.fn, "__name__", "")
+    # the port's own ufunc under that name, not just any callable named so
+    if (any(d is None for d in deps) or name not in OPS
+        or UFUNCS.get(name) is not node.fn or node.kw
+        or len(deps) != _ARITY[name]):
+      return None
+    meta = node.fn(*[d.meta for d in deps])
+    dtype = Aval.of(meta).dtype
+    if dtype not in DTYPE_CODES:
+      return None  # integer, bool or complex node: not in the program
+    b = deps[1].reg if len(deps) == 2 else 0
+    reg = emit(OPS[name], DTYPE_CODES[dtype], deps[0].reg, b)
+    return None if reg is None else _Reg(reg, meta)
+
+  if local_op is None:
+    local_op = LocalInput(main_slot)
+  root = _postorder(local_op, leaf, call)
+  if root is None or main_slot not in slot_regs:
+    return None
+  return Program(instrs, root.reg, imm_sources, dev_scalars,
+                 Aval.of(root.meta).dtype)
+
+
+_plans: Dict[Tuple, Optional[Program]] = {}
+
+
+def plan(local_op: Optional[LocalExpr], main_slot: int,
+         main_dtype: torch.dtype, scalars: Dict[int, Any]) -> Optional[Program]:
+  """Translate ``local_op`` for a main operand in ``main_slot`` and 0-d
+  ``scalars`` (slot → value: a tensor, or a weak Python scalar).  Returns
+  None — counted in ``counts["routed_plain"]`` — when the chain cannot be
+  expressed; the caller then takes its plain path."""
+  avals = {k: Aval.of(v) for k, v in scalars.items()}
+  key = (local_op.signature() if local_op is not None else None, main_slot,
+         main_dtype, tuple((k, avals[k].key) for k in sorted(avals)))
+  if key not in _plans:
+    if len(_plans) > 1024:
+      _plans.clear()
+    _plans[key] = _translate(local_op, main_slot, main_dtype, avals)
+  program = _plans[key]
+  if program is None:
+    counts["routed_plain"] += 1
+  return program
+
+
+_TORCH_OPS = {
+    OPS["add"]: torch.add, OPS["subtract"]: torch.sub,
+    OPS["multiply"]: torch.mul, OPS["true_divide"]: torch.div,
+    OPS["negative"]: torch.neg, OPS["absolute"]: torch.abs,
+    OPS["square"]: lambda v: v * v, OPS["sqrt"]: torch.sqrt,
+    OPS["exp"]: torch.exp, OPS["log"]: torch.log,
+    OPS["maximum"]: torch.maximum, OPS["minimum"]: torch.minimum,
+}
+
+
+def evaluate_program(program: Program, x: torch.Tensor,
+                     scalars: Sequence[Any]) -> torch.Tensor:
+  """The program's elementwise value over ``x``, with torch ops: every
+  instruction casts its operands to its dtype and computes there, exactly
+  as the kernel does."""
+  imm = program.immediates(scalars)
+  regs: List[torch.Tensor] = []
+  for op, dt, _, a, b in program.instrs:
+    if op == LOADX:
+      v = x
+    elif op == LOADS:
+      v = scalars[program.dev_scalars[a]].reshape(()).to(torch.float64)
+    elif op == LOADI:
+      v = torch.tensor(imm[a], dtype=torch.float64, device=x.device)
+    else:
+      dtype = _CODE_DTYPES[dt]
+      args = [regs[a].to(dtype)]
+      if op in (OPS["add"], OPS["subtract"], OPS["multiply"],
+                OPS["true_divide"], OPS["maximum"], OPS["minimum"]):
+        args.append(regs[b].to(dtype))
+      v = _TORCH_OPS[op](*args)
+    regs.append(v)
+  return regs[program.out]
+
+
+def fused_sum_plain(x: torch.Tensor, program: Program,
+                    scalars: Sequence[Any], acc_dtype: torch.dtype
+                    ) -> torch.Tensor:
+  """Plain torch version of the kernel: the same program, then
+  ``torch.sum(..., dtype=acc_dtype)``."""
+  return torch.sum(evaluate_program(program, x, scalars), dtype=acc_dtype)
+
+
+def fused_sum(x: torch.Tensor, program: Program, scalars: Sequence[Any] = (),
+              acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+  """``sum(program(x, *scalars))`` as a 0-d tensor of ``acc_dtype``.
+
+  A CUDA ``x`` launches the kernel (or raises); a CPU or meta ``x`` runs
+  :func:`fused_sum_plain`."""
+  if x.device.type != "cuda":
+    counts["plain_runs"] += 1
+    return fused_sum_plain(x, program, scalars, acc_dtype)
+  return _launch(x, program, scalars, acc_dtype)
+
+
+_IN_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
+_ACC_CODES = {torch.float64: 0, torch.float32: 1}
+
+
+def _library() -> ctypes.CDLL:
+  from spartan_tpu_torch.backend.kernels import build
+  lib = build.load("fused_reduce")
+  if lib.spartan_fused_sum.argtypes is None:
+    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
+    lib.spartan_fused_sum.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.spartan_fused_sum.restype = ctypes.c_int
+    lib.spartan_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.spartan_cuda_error_string.restype = ctypes.c_char_p
+  return lib
+
+
+def _launch(x: torch.Tensor, program: Program, scalars: Sequence[Any],
+            acc_dtype: torch.dtype) -> torch.Tensor:
+  if x.dtype not in _IN_CODES:
+    raise TypeError(f"fused_sum kernel reads float32/bfloat16/float16, "
+                    f"not {x.dtype}")
+  if acc_dtype not in _ACC_CODES:
+    raise TypeError(f"fused_sum kernel accumulates in float32/float64, "
+                    f"not {acc_dtype}")
+  if not x.is_contiguous():
+    raise ValueError("fused_sum kernel needs a contiguous x")
+  dev_vals = [scalars[k] for k in program.dev_scalars]
+  for v in dev_vals:
+    if v.device != x.device or v.numel() != 1:
+      raise ValueError(f"device scalar {tuple(v.shape)} on {v.device} does "
+                       f"not fit x on {x.device}")
+  lib = _library()
+  n = x.numel()
+  sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+  blocks = max(1, min(-(-n // THREADS), sms * BLOCKS_PER_SM))
+  partials = torch.empty(blocks, dtype=acc_dtype, device=x.device)
+  out = torch.empty((), dtype=acc_dtype, device=x.device)
+  dscal = (torch.stack([v.reshape(()).to(torch.float64) for v in dev_vals])
+           if dev_vals else None)
+  prog = program.host_struct(scalars)
+  with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.spartan_fused_sum(
+        x.data_ptr(), _IN_CODES[x.dtype], n, ctypes.addressof(prog),
+        dscal.data_ptr() if dscal is not None else None,
+        partials.data_ptr(), blocks, out.data_ptr(), _ACC_CODES[acc_dtype],
+        stream)
+  if rc != 0:
+    raise RuntimeError("fused_sum kernel launch failed: "
+                       + lib.spartan_cuda_error_string(rc).decode())
+  counts["launches"] += 1
+  return out

@@ -1,0 +1,38 @@
+"""Linear regression by batch gradient descent (port of
+``spartan_tpu/examples/linear_reg.py``).
+
+Repeated map (prediction error) + dot (gradient) over the design matrix;
+each step is one region of the evaluator, replayed from its cache after
+the first step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+import spartan_tpu_torch as sp
+
+
+def gradient_step(X, y, w, alpha: float):
+  """One GD step: ``w - alpha * 2/N * X^T (X w - y)`` (lazy)."""
+  n = X.shape[0]
+  residual = sp.dot(X, w) - y
+  grad = sp.dot(X.T, residual) * (2.0 / n)
+  return w - alpha * grad
+
+
+def fit(X, y, iterations: int = 50, alpha: float = 0.05):
+  """Train; X/y are SpartanArrays, exprs, or numpy arrays."""
+  X, y = sp.lazify(X), sp.lazify(y)
+  w = sp.zeros((X.shape[1],), dtype=np.float64)
+  for _ in range(iterations):
+    w = sp.Val(gradient_step(X, y, w, alpha).evaluate())
+  return w.evaluate()
+
+
+def make_data(n: int = 4096, d: int = 16, seed: int = 0, tile_hint=None):
+  rng = np.random.default_rng(seed)
+  X = rng.standard_normal((n, d))
+  w_true = rng.standard_normal(d)
+  y = X @ w_true + 0.01 * rng.standard_normal(n)
+  return (sp.from_numpy(X, tile_hint=tile_hint), sp.from_numpy(y), w_true)

@@ -1,0 +1,124 @@
+"""Dense matmul / outer product / tensordot (port of
+``spartan_tpu/expr/dot.py``).
+
+The contraction is one ``torch.matmul``, as the reference left it to XLA's
+matmul.  torch has no ``preferred_element_type``, so the accumulator type
+of ``_acc_type`` is reached by casting the operands first: under
+``float64_reductions`` float32 operands are contracted in float64.  TF32 is
+off (``initialize`` sets it), so every ``dot_precision`` runs full float32
+on the card, where the reference's 'default' meant bf16 passes on the TPU.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List
+
+import torch
+
+from spartan_tpu_torch.config import FLAGS
+from spartan_tpu_torch.core.array import dtype_kind
+from spartan_tpu_torch.expr.base import EmitCtx, Expr, lazify
+
+_PRECISIONS = (None, "default", "high", "highest")
+
+
+def _acc_type(a_dtype: torch.dtype, b_dtype: torch.dtype) -> torch.dtype:
+  from spartan_tpu_torch.expr.map import result_type
+  out = result_type(a_dtype, b_dtype)
+  if dtype_kind(out) == "f":
+    if FLAGS.float64_reductions:
+      return torch.promote_types(out, torch.float64)
+    return torch.promote_types(out, torch.float32)
+  return out
+
+
+def _as_tensor(v, dtype: torch.dtype, device) -> torch.Tensor:
+  if isinstance(v, torch.Tensor):
+    return v.to(dtype)
+  return torch.as_tensor(v, dtype=dtype, device=device)
+
+
+class DotExpr(Expr):
+  """Matrix/vector contraction of the trailing/leading dims."""
+
+  _members = ("inputs",)
+  _params = ("precision",)
+
+  def __init__(self, a, b, precision=None):
+    if precision not in _PRECISIONS:
+      raise ValueError(f"precision must be one of {_PRECISIONS}")
+    super().__init__(inputs=[lazify(a), lazify(b)], precision=precision)
+
+  def _emit(self, ctx: EmitCtx, deps: List[Any]):
+    a, b = deps
+    acc = _acc_type(_dtype(a), _dtype(b))
+    a, b = _as_tensor(a, acc, ctx.device), _as_tensor(b, acc, ctx.device)
+    if a.ndim >= 1 and b.ndim >= 1:
+      return torch.matmul(a, b)
+    return a * b
+
+
+class OuterExpr(Expr):
+  """Outer product of two 1-D arrays."""
+
+  _members = ("inputs",)
+  _params = ()
+
+  def __init__(self, a, b):
+    super().__init__(inputs=[lazify(a), lazify(b)])
+
+  def _emit(self, ctx: EmitCtx, deps: List[Any]):
+    from spartan_tpu_torch.expr.map import result_type
+    a, b = deps
+    dt = result_type(_dtype(a), _dtype(b))
+    return torch.outer(_as_tensor(a, dt, ctx.device).reshape(-1),
+                       _as_tensor(b, dt, ctx.device).reshape(-1))
+
+
+class TensorDotExpr(Expr):
+  """General tensordot (axes-based contraction)."""
+
+  _members = ("inputs",)
+  _params = ("axes",)
+
+  def __init__(self, a, b, axes):
+    super().__init__(inputs=[lazify(a), lazify(b)], axes=axes)
+
+  def _emit(self, ctx: EmitCtx, deps: List[Any]):
+    a, b = deps
+    acc = _acc_type(_dtype(a), _dtype(b))
+    return torch.tensordot(_as_tensor(a, acc, ctx.device),
+                           _as_tensor(b, acc, ctx.device), dims=self.axes)
+
+
+def _dtype(v) -> torch.dtype:
+  if isinstance(v, torch.Tensor):
+    return v.dtype
+  from spartan_tpu_torch.expr.base import Aval
+  return Aval.of(v).dtype
+
+
+def _is_sparse(v) -> bool:
+  if isinstance(v, torch.Tensor):
+    return v.layout != torch.strided
+  return type(v).__module__.startswith("scipy.sparse") or (
+      type(v).__name__ in ("SparseArray", "BlockSparseArray"))
+
+
+def dot(a, b, precision=None) -> Expr:
+  """Dense contraction; ``precision`` is accepted for API parity (all
+  values run full float32 on the port)."""
+  if _is_sparse(a) or _is_sparse(b):
+    raise NotImplementedError(
+        "dot with a sparse operand needs the sparse slice "
+        "(backend/sparse.py and its SpMV/SpMM kernels), which the port has "
+        "not reached yet")
+  return DotExpr(a, b, precision=precision)
+
+
+def outer(a, b) -> Expr:
+  return OuterExpr(a, b)
+
+
+def tensordot(a, b, axes=2) -> Expr:
+  return TensorDotExpr(a, b, axes)

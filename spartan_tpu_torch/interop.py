@@ -1,0 +1,36 @@
+"""Carry state across from the reference package.
+
+The reference's arrays reach the port as numpy — what ``spartan_tpu``'s
+``SpartanArray.glom()`` returns — and come out as the port's
+``SpartanArray``s on a given device with the exact dtype (float64 stays
+float64, int64 stays int64, bool stays bool).  Objects with a ``glom()``
+method (the reference's arrays and exprs) are gathered first, by duck
+typing, so this module never imports jax.  Tests use it to give both
+packages the same data and the same initial weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Union
+
+import numpy as np
+import torch
+
+from spartan_tpu_torch.core.array import from_numpy
+from spartan_tpu_torch.core.mesh import get_mesh, make_mesh
+
+
+def from_reference(value: Any,
+                   device: Union[str, torch.device, None] = None) -> Any:
+  """Port ``value`` (an ndarray, a reference array/expr, or a list, tuple
+  or dict of them) to ``SpartanArray``s on ``device`` (default: the active
+  mesh's)."""
+  mesh = make_mesh(device) if device is not None else get_mesh()
+  if isinstance(value, dict):
+    return {k: from_reference(v, mesh.device) for k, v in value.items()}
+  if isinstance(value, (list, tuple)):
+    return type(value)(from_reference(v, mesh.device) for v in value)
+  glom = getattr(value, "glom", None)
+  host = np.asarray(glom() if callable(glom) else value)
+  return from_numpy(host, mesh=mesh)
+

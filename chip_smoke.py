@@ -2,23 +2,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once through its user entry points, at the
-sizes of the reference's benchmark configs 1-3, and raises on any failure:
+Drives the port's main paths once through its user entry points, at the
+sizes of the reference's benchmark configs 1-3 and of PageRank at full
+width, and raises on any failure:
 
   0. identify the card (nvidia-smi name and power limit, torch and CUDA);
-  1. build kernel K1 (csrc/fused_reduce.cu) from source with nvcc;
+  1. build the kernels (csrc/fused_reduce.cu, spmv_ell.cu, spmv_csr.cu)
+     from source, one nvcc per file, all started together;
   2. K1 against its plain torch version on the card, over five chains,
-     four shapes and two accumulators, and both timed at 16384^2 float32;
+     four shapes and two accumulators, and timed at 16384^2 float32 beside
+     its plain version and torch.sum;
   3. the fused map+reduce (affine and kernel paths) and a 4096^2 dot,
      against float64 NumPy oracles;
   4. linear-regression training at n = 2^20, d = 64, float64, against a
-     NumPy loop, and make_fori against fit.
+     NumPy loop, and make_fori against fit;
+  5. the SpMV kernels K3a (spmv_ell) and K3b (spmv_csr) against their plain
+     versions on five matrices, then timed beside their plain versions and
+     cuSPARSE (torch.sparse_csr_tensor @ x);
+  6. PageRank through pagerank.fit_sparse(sparse.from_scipy(A)): a GAP
+     "urand" graph (uniform random targets, 16 out-edges a node) at
+     n = 2^22 (CSR kernel) and n = 32768 (ELL kernel), and the
+     block-structured shape of the reference's benchmark config 5 (block
+     route, no kernel), each against a float64 scipy power iteration.
 
-The last two lines are a JSON object describing each kernel of the path
-(its launches during phases 3-4, its worst disagreement with the plain
-version, its time and the plain version's time) and the result object
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
-and prints no result.
+The count of each kernel's launches is set to 0 just before the path that
+runs it (phases 3-4 for K1, phase 6 for K3a/K3b) and read just after.  The
+last two lines are a JSON object describing each kernel (its launches on
+its path, its worst disagreement with the plain version, its time, the
+plain version's, one library call's, and the card's bound for the same
+work) and the result object ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -27,26 +40,38 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
+import scipy.sparse as ss
 import torch
 
 import spartan_tpu_torch as sp
+from spartan_tpu_torch.backend import sparse
 from spartan_tpu_torch.backend.kernels import build
 from spartan_tpu_torch.backend.kernels import fused_reduce as K
-from spartan_tpu_torch.examples import linear_reg
+from spartan_tpu_torch.backend.kernels import spmv as KS
+from spartan_tpu_torch.examples import linear_reg, pagerank
 from spartan_tpu_torch.expr.local import FnCallExpr, LocalConst, LocalInput
 from spartan_tpu_torch.expr.map import UFUNCS
 from spartan_tpu_torch.util import Timer
 
 DEVICE = "cuda"
+KERNELS = ("fused_reduce", "spmv_ell", "spmv_csr")
 KERNEL_SHAPES = [((16384, 16384), torch.float32), ((8192, 8192), torch.bfloat16),
                  ((10_000_019,), torch.float32), ((13, 20), torch.float32)]
 TIMED_SHAPE = (16384, 16384)
 SUM_N = 16384
 DOT_N = 4096
 LINREG_N, LINREG_D, LINREG_STEPS, ALPHA = 1 << 20, 64, 5, 0.05
+# PageRank: GAP urand graphs, scale 22 (cut from the suite's 27) and the
+# n = 32768 shape at the ELL kernel's limit; config 5's block shape
+PR_BIG_N, PR_SMALL_N, PR_DEGREE, PR_ITERS, DAMPING = 1 << 22, 32768, 16, 30, 0.85
+CFG5_BLOCKS, CFG5_PER_ROW, CFG5_BS = 64, 8, 128
 TIMING_REPS = 7
+# H100 SXM: HBM rate and the float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -63,6 +88,13 @@ def card_line() -> str:
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
       capture_output=True, text=True, check=True, timeout=60).stdout
   return out.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float):
+  """(least ms for this work on an H100 SXM, which of the two bounds it)."""
+  t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+  return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                     else "operations")
 
 
 def call(name, *deps):
@@ -93,14 +125,37 @@ def tolerance(transcendental: bool, acc: torch.dtype) -> float:
   return 1e-9     # IEEE-rounded chain, float64 sum: only the order differs
 
 
-def event_ms(fn) -> float:
+def event_ms(fn, inner: int = 1):
+  """(device ms, host ms to issue) per call of ``fn`` over ``inner``
+  back-to-back calls; device time by CUDA events."""
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   start.record()
-  fn()
+  t0 = time.perf_counter()
+  for _ in range(inner):
+    fn()
+  host = (time.perf_counter() - t0) * 1e3 / inner
   end.record()
   end.synchronize()
-  return start.elapsed_time(end)
+  return start.elapsed_time(end) / inner, host
+
+
+def time_in_turns(fns, inner: int = 1):
+  """Median device ms of each of ``fns`` (name → callable), timed in
+  turns, and the median host ms to issue one call under ``name + ' host'``."""
+  for fn in fns.values():
+    fn()
+  samples = {name: [] for name in fns}
+  hosts = {name: [] for name in fns}
+  for _ in range(TIMING_REPS):
+    for name, fn in fns.items():
+      dev, host = event_ms(fn, inner)
+      samples[name].append(dev)
+      hosts[name].append(host)
+  out = {name: statistics.median(v) for name, v in samples.items()}
+  out.update({f"{name} host": statistics.median(v)
+              for name, v in hosts.items()})
+  return out
 
 
 def phase_kernel_vs_plain(device, card: str):
@@ -135,23 +190,27 @@ def phase_kernel_vs_plain(device, card: str):
         f"launches rose by {K.counts['launches'] - launches0}, expected "
         f"{n_cases}")
   # time at the main path's shape: abs(1+2v) over 16384^2 float32, float64
-  # accumulation; kernel and plain in turns
+  # accumulation; kernel and plain in turns, with the identity program and
+  # torch.sum(dtype=float64), the library call for that program
   x = torch.randn(TIMED_SHAPE, generator=gen, device=device)
   program = K.plan(CHAINS["abs(1+2v)"][0], 0, torch.float32, {})
-  kernel = lambda: K.fused_sum(x, program, [], torch.float64)
-  plain = lambda: K.fused_sum_plain(x, program, [], torch.float64)
-  kernel(), plain()
-  k_ms, p_ms = [], []
-  for _ in range(TIMING_REPS):
-    p_ms.append(event_ms(plain))
-    k_ms.append(event_ms(kernel))
-  ms, plain_ms = statistics.median(k_ms), statistics.median(p_ms)
-  gbytes = x.numel() * x.element_size() / 1e9
+  identity = K.plan(None, 0, torch.float32, {})
+  t = time_in_turns({
+      "plain": lambda: K.fused_sum_plain(x, program, [], torch.float64),
+      "kernel": lambda: K.fused_sum(x, program, [], torch.float64),
+      "identity": lambda: K.fused_sum(x, identity, [], torch.float64),
+      "torch.sum": lambda: torch.sum(x, dtype=torch.float64)})
+  nbytes = x.numel() * x.element_size()
+  bound_ms, bound_by = bound(nbytes + 8, x.numel() * len(program.instrs))
   print(f"  K1 time at {TIMED_SHAPE} float32, abs(1+2v), float64 acc: "
-        f"kernel {ms:.4f} ms ({gbytes / ms * 1e3:.1f} GB/s), "
-        f"plain {plain_ms:.4f} ms (median of {TIMING_REPS}, CUDA events, in "
-        f"turns) on {card}")
-  return worst_abs, ms, plain_ms
+        f"kernel {t['kernel']:.4f} ms ({nbytes / t['kernel'] / 1e6:.1f} GB/s), "
+        f"plain {t['plain']:.4f} ms; identity program: kernel "
+        f"{t['identity']:.4f} ms, torch.sum(dtype=float64) "
+        f"{t['torch.sum']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}) "
+        f"(median of {TIMING_REPS}, CUDA events, in turns) on {card}")
+  return {"max_abs_err": worst_abs, "ms": t["kernel"], "plain_ms": t["plain"],
+          "library_ms": t["torch.sum"], "bound_ms": bound_ms,
+          "bound_by": bound_by}
 
 
 def phase_map_reduce_and_dot(rng):
@@ -231,6 +290,207 @@ def phase_training(rng):
         f"{t_fori.elapsed / LINREG_STEPS * 1e3:.3f} ms/step (host clock, synced)")
 
 
+# -- sparse ---------------------------------------------------------------------
+
+def urand_graph(n: int, seed: int):
+  """GAP's urand graph as a column-stochastic float32 link matrix: node j
+  has PR_DEGREE out-edges to uniformly random targets i, A[i, j] = 1/16
+  per edge (a repeated edge adds up), no dangling column."""
+  rng = np.random.default_rng(seed)
+  dst = rng.integers(0, n, n * PR_DEGREE, dtype=np.int32)
+  data = np.full(n * PR_DEGREE, 1.0 / PR_DEGREE, dtype=np.float32)
+  indptr = np.arange(0, n * PR_DEGREE + 1, PR_DEGREE, dtype=np.int64)
+  return ss.csc_matrix((data, dst, indptr), shape=(n, n))
+
+
+def config5_graph():
+  """The block-structured link matrix of the reference's config 5
+  (bench.py's bench_pagerank_step): 64 block-rows of 128, 8 random blocks a
+  row, column-normalised, float32."""
+  rng = np.random.default_rng(0)
+  n = CFG5_BLOCKS * CFG5_BS
+  cols_b = rng.integers(0, CFG5_BLOCKS, CFG5_BLOCKS * CFG5_PER_ROW)
+  data = rng.random((CFG5_BLOCKS * CFG5_PER_ROW, CFG5_BS, CFG5_BS)).astype(
+      np.float32)
+  A = ss.bsr_matrix((data, cols_b, np.arange(CFG5_BLOCKS + 1) * CFG5_PER_ROW),
+                    shape=(n, n)).tocsr()
+  A = A @ ss.diags(1.0 / np.maximum(np.asarray(A.sum(axis=0)).ravel(), 1e-9))
+  return A.tocsr().astype(np.float32)
+
+
+def spmv_cases(big):
+  rng = np.random.default_rng(7)
+  cases = [("urand 2^22", big),
+           ("random 1500x2300 d=0.005",
+            ss.random(1500, 2300, density=0.005, random_state=3,
+                      format="csr", dtype=np.float32))]
+  empty = ss.random(4096, 2500, density=0.004, random_state=4, format="lil",
+                    dtype=np.float32)
+  empty[2048:3072, :] = 0
+  cases.append(("rows 2048-3071 empty", empty.tocsr()))
+  long_row = ss.random(64, 20000, density=0.0003, random_state=5,
+                       format="lil", dtype=np.float32)
+  long_row[7, rng.choice(20000, 10_000, replace=False)] = rng.random(
+      10_000).astype(np.float32)
+  cases.append(("one row of 10000", long_row.tocsr()))
+  cases.append(("13x20", ss.random(13, 20, density=0.3, random_state=6,
+                                   format="csr", dtype=np.float32)))
+  return cases
+
+
+def phase_spmv_kernels(device, card: str, big, small):
+  """K3a/K3b against their plain versions on the card, then timed beside
+  the plain versions and cuSPARSE."""
+  gen = torch.Generator(device=device).manual_seed(99)
+  worst = {"spmv_ell": 0.0, "spmv_csr": 0.0}
+  for label, A in spmv_cases(big):
+    S = sparse.from_scipy(A)
+    indptr, indices, data = S.to_csr()
+    x = torch.randn(A.shape[1], generator=gen, device=device)
+    long_row = label.startswith("one row")
+    if long_row:
+      # f32 sums of k terms in two orders: |diff| <= k 2^-24 sum|a x|
+      sum_abs = KS.spmv_csr_plain(indptr, indices, data.abs(), x.abs())
+      tol = S.max_nnz_per_row * 2.0 ** -24 * sum_abs
+    for name, kernel, plain, args in (
+        ("spmv_ell", KS.spmv_ell, KS.spmv_ell_plain, (S.cols, S.vals, x)),
+        ("spmv_csr", KS.spmv_csr, KS.spmv_csr_plain,
+         (indptr, indices, data, x))):
+      got, want = kernel(*args), plain(*args)
+      again = kernel(*args)
+      torch.cuda.synchronize()
+      diff = (got - want).abs()
+      err = float(diff.max())
+      worst[name] = max(worst[name], err)
+      scale = float(want.abs().max())
+      if long_row:
+        ok = bool((diff <= tol).all())
+        rule = "per-row k 2^-24 sum|a x|"
+      else:
+        ok = err <= 1e-5 * scale
+        rule = "1e-5 max|y|"
+      print(f"  {name} {label:26s} {A.shape[0]}x{A.shape[1]} nnz={S.nnz} "
+            f"k={S.max_nnz_per_row}: max|kernel-plain| {err:.3g} "
+            f"(max|y| {scale:.4g}, tolerance {rule}); "
+            f"repeat bitwise equal: {bool(torch.equal(got, again))}")
+      check(bool(torch.isfinite(got).all()) and ok,
+            f"{name} disagrees with its plain version on {label}")
+      check(torch.equal(got, again), f"{name} is not deterministic on {label}")
+    del S, indptr, indices, data, x
+
+  timings = {}
+  for label, A, names, inner in (("urand 2^22", big, ("spmv_csr", "spmv_ell"), 20),
+                                 ("urand 32768", small, ("spmv_ell",), 200)):
+    S = sparse.from_scipy(A)
+    indptr, indices, data = S.to_csr()
+    n, m = S.shape
+    k = S.max_nnz_per_row
+    x = torch.randn(m, generator=gen, device=device)
+    lib = torch.sparse_csr_tensor(indptr.int(), indices, data, size=(n, m),
+                                  check_invariants=False)
+    for name in names:
+      if name == "spmv_csr":
+        args = (indptr, indices, data, x)
+        nbytes = S.nnz * 8 + (n + 1) * 8 + (m + n) * 4
+        flops = 2 * S.nnz
+      else:
+        args = (S.cols, S.vals, x)
+        nbytes = n * k * 8 + (m + n) * 4
+        flops = 2 * n * k
+      kernel = getattr(KS, name)
+      plain = getattr(KS, f"{name}_plain")
+      t = time_in_turns({"plain": lambda: plain(*args),
+                         "kernel": lambda: kernel(*args),
+                         "cuSPARSE": lambda: lib @ x}, inner)
+      bound_ms, bound_by = bound(nbytes, flops)
+      print(f"  {name} time on {label} (n={n}, nnz={S.nnz}, k={k}): kernel "
+            f"{t['kernel']:.4f} ms ({S.nnz / t['kernel'] / 1e6:.2f} Gnnz/s, "
+            f"{nbytes / t['kernel'] / 1e6:.1f} GB/s), plain "
+            f"{t['plain']:.4f} ms, cuSPARSE {t['cuSPARSE']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB); host "
+            f"issue {t['kernel host'] * 1e3:.1f} us/call "
+            f"(median of {TIMING_REPS} x {inner} calls, CUDA events, in "
+            f"turns) on {card}")
+      timings[(name, label)] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                                "library_ms": t["cuSPARSE"],
+                                "bound_ms": bound_ms, "bound_by": bound_by}
+    del S, indptr, indices, data, x, lib
+  # each kernel's numbers at the shape its main path gives it
+  return {"spmv_csr": dict(timings[("spmv_csr", "urand 2^22")],
+                           max_abs_err=worst["spmv_csr"]),
+          "spmv_ell": dict(timings[("spmv_ell", "urand 32768")],
+                           max_abs_err=worst["spmv_ell"])}
+
+
+def scipy_pagerank(A) -> np.ndarray:
+  A64 = ss.csr_matrix(A, dtype=np.float64)
+  n = A64.shape[0]
+  r = np.full(n, 1.0 / n)
+  for _ in range(PR_ITERS):
+    r = DAMPING * (A64 @ r) + (1.0 - DAMPING) / n
+  return r
+
+
+def pagerank_case(label: str, A, want_fmt: str, kernel_count,
+                  stochastic: bool = True):
+  """fit_sparse(from_scipy(A)) against scipy in float64; returns the
+  steady make_fori ms/step.  ``kernel_count`` is the counts key that must
+  rise by at least PR_ITERS, or None for the block route (no kernel).  A
+  ``stochastic`` matrix (no dangling column) keeps the ranks' sum at 1."""
+  n = A.shape[0]
+  with Timer() as t_ingest:
+    S = sparse.from_scipy(A)
+  fmt = sparse.spmv_expr(S, sp.ones((n,), dtype=S.dtype)).fmt
+  check(fmt == want_fmt, f"{label}: SpMVExpr took fmt {fmt!r}, not "
+        f"{want_fmt!r}")
+  before = dict(KS.counts)
+  torch.cuda.synchronize()
+  with Timer() as t_fit:
+    r = pagerank.fit_sparse(S, iterations=PR_ITERS, damping=DAMPING)
+  rose = {k: KS.counts[k] - before[k] for k in KS.counts}
+  if kernel_count is None:
+    check(not any(rose.values()), f"{label}: the block route launched an "
+          f"SpMV kernel ({rose})")
+  else:
+    check(rose[kernel_count] >= PR_ITERS,
+          f"{label}: {kernel_count} rose by {rose[kernel_count]}, expected "
+          f">= {PR_ITERS}")
+    check(rose["ell_plain_runs"] == rose["csr_plain_runs"] == 0,
+          f"{label}: a card tensor reached a plain SpMV ({rose})")
+  with Timer() as t_oracle:
+    want = scipy_pagerank(A)
+  err = float(np.abs(r.astype(np.float64) - want).max())
+  total = float(r.sum(dtype=np.float64))
+  print(f"  PageRank {label} (n={n}, nnz={S.nnz}, fmt {fmt!r}): "
+        f"{PR_ITERS} iterations, max|r - r64| {err:.3g} (<= 1e-5 max r64 = "
+        f"{1e-5 * want.max():.3g}), |sum r - 1| {abs(total - 1):.3g} "
+        f"({'<= 1e-4' if stochastic else 'dangling columns'}); launches {rose}; from_scipy {t_ingest.elapsed:.2f} s, "
+        f"fit_sparse {t_fit.elapsed:.3f} s, scipy oracle "
+        f"{t_oracle.elapsed:.2f} s")
+  check(r.shape == (n,) and r.dtype == np.float32
+        and bool(np.isfinite(r).all()), f"{label}: bad ranks")
+  check(err <= 1e-5 * want.max(), f"{label}: disagrees with scipy")
+  check(not stochastic or abs(total - 1) <= 1e-4,
+        f"{label}: ranks do not sum to 1")
+  run = sp.make_fori(
+      lambda r_: sparse.spmv_expr(S, r_) * DAMPING + (1.0 - DAMPING) / n,
+      sp.ones((n,), dtype=S.dtype) / n)
+  run(2).data.sum().item()
+  torch.cuda.synchronize()
+  with Timer() as t_steady:
+    run(PR_ITERS).data.sum().item()
+  ms = t_steady.elapsed / PR_ITERS * 1e3
+  print(f"  make_fori steady {ms:.4f} ms/step, {S.nnz / ms / 1e6:.3f} "
+        "Gnnz/s (host clock, synced)")
+  return ms
+
+
+def phase_pagerank(big, small, cfg5):
+  pagerank_case("urand 2^22", big, "win", "csr_launches")
+  pagerank_case("urand 32768", small, "ell", "ell_launches")
+  pagerank_case("config-5 blocks", cfg5, "bsr", None, stochastic=False)
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -242,34 +502,66 @@ def main() -> None:
         f"python {sys.version.split()[0]}")
   sp.initialize([f"--device={DEVICE}"])
   device = sp.get_mesh().device
+  t_start = time.perf_counter()
+  t_phase = [t_start]
 
-  print("phase 1: build K1")
-  with Timer() as t_build:
-    build.load("fused_reduce")
-  print(f"  built {build.library_path('fused_reduce').name} in "
-        f"{t_build.elapsed:.2f} s")
-  for line in build.build_log("fused_reduce").splitlines():
-    if "registers" in line or "spill" in line:
-      print("  ptxas:", line.strip())
+  def done(phase: int) -> None:
+    now = time.perf_counter()
+    print(f"  phase {phase} wall {now - t_phase[0]:.2f} s")
+    t_phase[0] = now
+
+  print("phase 1: build the kernels, one nvcc per source, in parallel")
+  build.load_all(KERNELS)
+  for name in KERNELS:
+    print(f"  built {build.library_path(name).name} in "
+          f"{build.build_seconds.get(name, 0.0):.2f} s")
+    for line in build.build_log(name).splitlines():
+      if "registers" in line or "spill" in line:
+        print("  ptxas:", line.strip())
+  done(1)
 
   print("phase 2: K1 against its plain version on the card")
-  worst_abs, ms, plain_ms = phase_kernel_vs_plain(device, card)
+  k1 = phase_kernel_vs_plain(device, card)
+  done(2)
 
   rng = np.random.default_rng(0)
   K.reset_counts()  # count the main path's launches only
   print("phase 3: fused map+reduce and dot through the port's entry points")
   phase_map_reduce_and_dot(rng)
+  done(3)
   print("phase 4: linear-regression training")
   phase_training(rng)
-  launches = K.counts["launches"]
-  check(launches >= 1, "the main path never launched K1")
+  k1["launches"] = K.counts["launches"]
+  check(k1["launches"] >= 1, "the main path never launched K1")
+  done(4)
 
-  print(json.dumps({"kernels": [{
-      "name": "fused_sum", "route": "cuda",
-      "source": "spartan_tpu_torch/csrc/fused_reduce.cu",
-      "replaces": "spartan_tpu/backend/kernels/fused_reduce.py:65",
-      "launches": launches, "max_abs_err": worst_abs, "ms": ms,
-      "plain_ms": plain_ms}]}))
+  big, small, cfg5 = (urand_graph(PR_BIG_N, 1), urand_graph(PR_SMALL_N, 2),
+                      config5_graph())
+  print("phase 5: K3a and K3b against their plain versions on the card")
+  k3 = phase_spmv_kernels(device, card, big, small)
+  done(5)
+
+  KS.reset_counts()  # count the PageRank path's launches only
+  print("phase 6: PageRank through pagerank.fit_sparse at full width")
+  phase_pagerank(big, small, cfg5)
+  k3["spmv_ell"]["launches"] = KS.counts["ell_launches"]
+  k3["spmv_csr"]["launches"] = KS.counts["csr_launches"]
+  done(6)
+  print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
+
+  rows = [("fused_sum", "fused_reduce.cu",
+           "spartan_tpu/backend/kernels/fused_reduce.py:65", k1),
+          ("spmv_ell", "spmv_ell.cu",
+           "spartan_tpu/backend/kernels/spmv_pallas.py:106", k3["spmv_ell"]),
+          ("spmv_csr", "spmv_csr.cu",
+           "spartan_tpu/backend/kernels/spmv_pallas.py:657", k3["spmv_csr"])]
+  print(json.dumps({"kernels": [
+      {"name": name, "route": "cuda",
+       "source": f"spartan_tpu_torch/csrc/{source}", "replaces": replaces,
+       **{key: row[key] for key in ("launches", "max_abs_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}}
+      for name, source, replaces, row in rows]}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """spartan_tpu_torch: the PyTorch and CUDA port of spartan-tpu.
 
 The lazy NumPy-style expression DAG of ``spartan_tpu`` (creation,
-elementwise map, reduce, dot), its fusion passes and region evaluator, run
-on one ``torch.device`` — an NVIDIA GPU by default — with the TPU's Pallas
-kernels replaced by hand-written CUDA kernels.  ``spartan_tpu`` stays the
+elementwise map, reduce, dot, sparse matrix-vector products), its fusion
+passes and region evaluator, run on one ``torch.device`` — an NVIDIA GPU by
+default — with the TPU's Pallas kernels replaced by hand-written CUDA
+kernels.  ``spartan_tpu`` stays the
 reference the port is tested against; this package never imports jax.
 
     import spartan_tpu_torch as sp
@@ -11,8 +12,8 @@ reference the port is tested against; this package never imports jax.
     b = sp.from_numpy(host_array)
     print(abs(1 + b * 2).sum().glom())   # fused map+reduce, one kernel
 
-Only the first slice of the reference surface is here (see ROADMAP.md);
-names it lacks are absent rather than stubbed.
+Only the first slices of the reference surface are here (see ROADMAP.md);
+names they lack are absent rather than stubbed.
 """
 
 from __future__ import annotations
@@ -58,8 +59,12 @@ from spartan_tpu_torch.expr.map import map  # noqa: E402,A004
 from spartan_tpu_torch.expr.reduce import reduce  # noqa: E402,A004
 from spartan_tpu_torch.expr.loop import fori_loop, make_fori  # noqa: E402
 from spartan_tpu_torch import interop  # noqa: E402
+from spartan_tpu_torch.backend import sparse  # noqa: E402
+from spartan_tpu_torch.backend.sparse import (SparseArray,  # noqa: E402
+                                              sparse_diagonal, sprandn)
 
 __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "Mesh", "SpartanArray", "get_mesh", "make_mesh", "with_mesh",
            "Expr", "ListExpr", "Val", "evaluate", "force", "lazify", "map",
-           "reduce", "fori_loop", "make_fori", "interop"] + list(_builtin_all)
+           "reduce", "fori_loop", "make_fori", "interop", "sparse",
+           "SparseArray", "sparse_diagonal", "sprandn"] + list(_builtin_all)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  On
-first use it is compiled with ``nvcc`` into a shared library under
+first use it is compiled with ``nvcc`` (several sources in parallel through
+:func:`load_all`) into a shared library under
 ``spartan_tpu_torch/_build/`` (named by a hash of the sources and flags, so
 an edit rebuilds) and loaded with ``ctypes``.  No PyTorch headers are
 involved, so a build takes seconds.  ``nvcc`` comes from ``CUDA_HOME``,
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -66,22 +67,41 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
   """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-  lib = _libs.get(name)
-  if lib is not None:
-    return lib
-  so = library_path(name)
-  if not so.is_file():
+  return load_all([name])[name]
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+  """The loaded libraries for ``names``.  Those not built yet are compiled
+  at once, one ``nvcc`` process per source, all started together."""
+  nvcc = None
+  started = []
+  for name in names:
+    if name in _libs:
+      continue  # loaded: no hashing or file access on the launch path
+    so = library_path(name)
+    if so.is_file():
+      continue
+    nvcc = nvcc or find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    log = so.with_name(f"{so.name}.{os.getpid()}.log")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    with open(log, "w") as out:
+      proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+    started.append((name, so, tmp, log, proc, time.perf_counter()))
+  failed = []
+  for name, so, tmp, log, proc, t0 in started:
+    rc = proc.wait()
     build_seconds[name] = time.perf_counter() - t0
-    if proc.returncode != 0:
-      raise RuntimeError(f"nvcc failed building {name} "
-                         f"(exit {proc.returncode}):\n{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if rc != 0:
+      failed.append(f"nvcc failed building {name} (exit {rc}):\n"
+                    f"{log.read_text()}")
+      continue
+    os.replace(log, so.with_suffix(".log"))
     os.replace(tmp, so)  # atomic: concurrent builders never see a partial .so
-  lib = ctypes.CDLL(str(so))
-  _libs[name] = lib
-  return lib
+  if failed:
+    raise RuntimeError("\n".join(failed))
+  for name in names:
+    if name not in _libs:
+      _libs[name] = ctypes.CDLL(str(library_path(name)))
+  return {name: _libs[name] for name in names}

@@ -57,6 +57,10 @@ def IntFlag(name: str, default: int = 0, help: str = "") -> Flag:
   return Flag(name, int(default), help)
 
 
+def FloatFlag(name: str, default: float = 0.0, help: str = "") -> Flag:
+  return Flag(name, float(default), help)
+
+
 def StrFlag(name: str, default: str = "", help: str = "") -> Flag:
   return Flag(name, str(default), help)
 
@@ -176,3 +180,43 @@ FLAGS.add(StrFlag("dot_precision", "default",
                   "matmul precision for float inputs: 'default', 'high' and "
                   "'highest' all run full float32 on the port (TF32 is "
                   "off); per-call sp.dot(precision=...) overrides"))
+# Sparse routing.  The names, defaults and thresholds are the reference's
+# (measured on a TPU v5e); the force flags route to the CUDA counterparts of
+# the one-hot (K3a: ELL kernel) and windowed (K3b: CSR kernel) TPU kernels.
+FLAGS.add(BoolFlag("sparse_auto_bsr", True,
+                   "auto-detect block structure in sparse matrices and "
+                   "route SpMV to the MXU block-ELL path"))
+FLAGS.add(FloatFlag("sparse_bsr_max_expansion", 16.0,
+                    "max stored-elements-per-nonzero the block-ELL repack "
+                    "may pay (the MXU path is ~1000x faster per element, "
+                    "so modest expansion still wins)"))
+FLAGS.add(BoolFlag("sparse_force_windowed", False,
+                   "route SpMVExpr through the windowed Pallas kernel "
+                   "regardless of size/platform (interpret mode off-TPU) "
+                   "— testing/debug"))
+FLAGS.add(BoolFlag("sparse_dense_route", True,
+                   "let spmm/SpMMExpr densify moderately-dense sparse "
+                   "matrices and ride the MXU dense matmul — on TPU the "
+                   "dense path beats per-nonzero gathers once density and "
+                   "memory allow (see sparse_dense_min_density/max_bytes)"))
+FLAGS.add(FloatFlag("sparse_dense_min_density", 2e-3,
+                    "min nnz/(n*m) for the densified SpMM route: below "
+                    "this the dense matmul's wasted FLOPs/bandwidth lose "
+                    "to the windowed Pallas kernel / XLA gather"))
+FLAGS.add(IntFlag("sparse_dense_max_bytes", 2 << 30,
+                  "max f32 bytes (4*n*m) the densified SpMM route may "
+                  "materialize on device; larger matrices stay sparse"))
+FLAGS.add(FloatFlag("sparse_dense_min_density_spmv", 8e-3,
+                    "min density for the densified SpMV route — higher "
+                    "than SpMM's because the windowed/one-hot Pallas "
+                    "SpMV kernels (~1.4 Gnnz/s) set a higher bar than "
+                    "the SpMM gather did"))
+FLAGS.add(BoolFlag("sparse_force_dense", False,
+                   "route spmm/SpMMExpr AND spmv/SpMVExpr through the "
+                   "densified MXU path regardless of platform/density "
+                   "— testing/debug"))
+FLAGS.add(BoolFlag("sparse_force_onehot", False,
+                   "route SpMVExpr's ELL path through the one-hot MXU "
+                   "Pallas kernel regardless of platform (interpret mode "
+                   "off-TPU; sharded via shard_map on >1-device meshes) "
+                   "— testing/debug"))

@@ -98,21 +98,45 @@ def _dtype(v) -> torch.dtype:
   return Aval.of(v).dtype
 
 
-def _is_sparse(v) -> bool:
+def _resolve_precision(precision):
+  """Per-call precision, else the --dot_precision flag; None for
+  'default'.  Sparse routing reads it: 'high'/'highest' keep SpMV off the
+  kernel routes, as in the reference."""
+  p = precision if precision is not None else FLAGS.dot_precision
+  return None if p in (None, "default") else p
+
+
+def _foreign_sparse(v) -> bool:
+  """A scipy.sparse matrix or a torch sparse tensor: neither is a sparse
+  operand of the port (``sparse.from_scipy`` makes one)."""
   if isinstance(v, torch.Tensor):
     return v.layout != torch.strided
-  return type(v).__module__.startswith("scipy.sparse") or (
-      type(v).__name__ in ("SparseArray", "BlockSparseArray"))
+  return type(v).__module__.startswith("scipy.sparse")
 
 
 def dot(a, b, precision=None) -> Expr:
-  """Dense contraction; ``precision`` is accepted for API parity (all
-  values run full float32 on the port)."""
-  if _is_sparse(a) or _is_sparse(b):
-    raise NotImplementedError(
-        "dot with a sparse operand needs the sparse slice "
-        "(backend/sparse.py and its SpMV/SpMM kernels), which the port has "
-        "not reached yet")
+  """Contraction; ``precision`` is accepted for API parity (all values run
+  full float32 on the port).
+
+  Sparse operands dispatch to the sparse module: ``dot(S, v)`` is an
+  SpMV expr, ``dot(v, S)`` is ``Sᵀv`` through the memoized transpose."""
+  from spartan_tpu_torch.backend import sparse as _sp
+  if _foreign_sparse(a) or _foreign_sparse(b):
+    raise TypeError("convert scipy/torch sparse operands with "
+                    "sparse.from_scipy first")
+  if isinstance(a, (_sp.SparseArray, _sp.BlockSparseArray)):
+    return _sp.sparse_dot(a, b, precision=precision)
+  if isinstance(b, (_sp.SparseArray, _sp.BlockSparseArray)):
+    if isinstance(b, _sp.BlockSparseArray):
+      raise TypeError("dot(dense, BlockSparseArray) is unsupported: "
+                      "transpose the product or use a SparseArray")
+    a_l = lazify(a)
+    nd = len(a_l.shape)
+    if nd == 1:
+      return _sp.sparse_dot(b.transpose(), a_l, precision=precision)
+    if nd == 2:
+      return _sp.sparse_dot(b.transpose(), a_l.T, precision=precision).T
+    raise ValueError(f"dot(dense {nd}-D, sparse) unsupported")
   return DotExpr(a, b, precision=precision)
 
 

@@ -4,9 +4,12 @@ The reference's arrays reach the port as numpy — what ``spartan_tpu``'s
 ``SpartanArray.glom()`` returns — and come out as the port's
 ``SpartanArray``s on a given device with the exact dtype (float64 stays
 float64, int64 stays int64, bool stays bool).  Objects with a ``glom()``
-method (the reference's arrays and exprs) are gathered first, by duck
-typing, so this module never imports jax.  Tests use it to give both
-packages the same data and the same initial weights.
+method (the reference's arrays and exprs) are gathered first, and the
+reference's sparse matrices (``cols``/``vals``/``shape``/``nnz`` for the
+padded ELL, ``block_cols``/``block_vals``/``shape``/``bs``/``nnz_blocks``
+for block-ELL) are rebuilt from their buffers, all by duck typing, so this
+module never imports jax.  Tests use it to give both packages the same data,
+the same matrices and the same initial weights.
 """
 
 from __future__ import annotations
@@ -16,21 +19,39 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-from spartan_tpu_torch.core.array import from_numpy
+from spartan_tpu_torch.backend.sparse import (BlockSparseArray, SparseArray,
+                                              _from_host)
+from spartan_tpu_torch.core.array import from_numpy, to_torch_dtype
 from spartan_tpu_torch.core.mesh import get_mesh, make_mesh
+
+
+def _tensor(buf: Any, device: torch.device) -> torch.Tensor:
+  host = np.asarray(buf)
+  if host.dtype.name == "bfloat16":  # ml_dtypes, which torch cannot read
+    return _from_host(host.astype(np.float32), torch.bfloat16, device)
+  return _from_host(host, to_torch_dtype(host.dtype), device)
 
 
 def from_reference(value: Any,
                    device: Union[str, torch.device, None] = None) -> Any:
-  """Port ``value`` (an ndarray, a reference array/expr, or a list, tuple
-  or dict of them) to ``SpartanArray``s on ``device`` (default: the active
+  """Port ``value`` (an ndarray, a reference array/expr or sparse matrix,
+  or a list, tuple or dict of them) onto ``device`` (default: the active
   mesh's)."""
   mesh = make_mesh(device) if device is not None else get_mesh()
   if isinstance(value, dict):
     return {k: from_reference(v, mesh.device) for k, v in value.items()}
   if isinstance(value, (list, tuple)):
     return type(value)(from_reference(v, mesh.device) for v in value)
+  if hasattr(value, "block_cols"):
+    return BlockSparseArray(_tensor(value.block_cols, mesh.device),
+                            _tensor(value.block_vals, mesh.device),
+                            value.shape, value.bs, value.nnz_blocks)
+  if hasattr(value, "cols") and hasattr(value, "nnz"):
+    out = SparseArray(_tensor(value.cols, mesh.device),
+                      _tensor(value.vals, mesh.device), value.shape,
+                      value.nnz)
+    out.fmt = getattr(value, "fmt", "csr")
+    return out
   glom = getattr(value, "glom", None)
   host = np.asarray(glom() if callable(glom) else value)
   return from_numpy(host, mesh=mesh)
-

@@ -1,6 +1,7 @@
-"""Card-only tests of the port: kernel K1 (csrc/fused_reduce.cu) against
-its plain torch version on the same CUDA tensors, and the expression
-layer's kernel path.  Run on a machine with an NVIDIA GPU:
+"""Card-only tests of the port: kernels K1 (csrc/fused_reduce.cu), K3a
+(csrc/spmv_ell.cu) and K3b (csrc/spmv_csr.cu) against their plain torch
+versions on the same CUDA tensors, and the expression layer's and
+PageRank's kernel paths.  Run on a machine with an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -120,3 +121,119 @@ def test_untranslatable_chain_routes_plain_on_card(device):
   np.testing.assert_allclose(
       got, np.sin(np.linspace(0, 1, 4096, dtype=np.float32)).astype(
           np.float64).sum(), rtol=1e-6)
+
+
+# -- SpMV kernels K3a (spmv_ell) and K3b (spmv_csr) ----------------------------
+# Tolerance: max |kernel - plain| <= 1e-5 max|y|, float32 sums of the same
+# products in another order.
+
+from spartan_tpu_torch.backend import sparse as sps  # noqa: E402
+from spartan_tpu_torch.backend.kernels import spmv as KS  # noqa: E402
+
+
+def _matrix(kind):
+  import scipy.sparse as ss
+  if kind == "random":
+    return ss.random(1500, 2300, density=0.005, random_state=3, format="csr",
+                     dtype=np.float32)
+  if kind == "empty_rows":
+    A = ss.random(4096, 2500, density=0.004, random_state=4, format="lil",
+                  dtype=np.float32)
+    A[2048:3072, :] = 0
+    return A.tocsr()
+  if kind == "long_row":
+    A = ss.random(64, 20000, density=0.0003, random_state=5, format="lil",
+                  dtype=np.float32)
+    A[7, np.random.default_rng(5).choice(20000, 10_000, replace=False)] = 1.5
+    return A.tocsr()
+  return ss.random(13, 20, density=0.3, random_state=6, format="csr",
+                   dtype=np.float32)
+
+
+MATRICES = ["random", "empty_rows", "long_row", "tiny"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("kind", MATRICES)
+def test_spmv_kernels_match_plain(device, kind, dtype):
+  S = sps.from_scipy(_matrix(kind))
+  gen = torch.Generator(device=device).manual_seed(8)
+  x = torch.randn(S.shape[1], generator=gen, device=device).to(dtype)
+  vals = S.vals.to(dtype)
+  indptr, indices, data = S.to_csr()
+  for kernel, plain, args, key in (
+      (KS.spmv_ell, KS.spmv_ell_plain, (S.cols, vals, x), "ell_launches"),
+      (KS.spmv_csr, KS.spmv_csr_plain, (indptr, indices, data, x),
+       "csr_launches")):
+    before = dict(KS.counts)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert KS.counts[key] == before[key] + 1
+    assert KS.counts["ell_plain_runs"] == before["ell_plain_runs"]
+    assert KS.counts["csr_plain_runs"] == before["csr_plain_runs"]
+    want = plain(*args)
+    assert got.dtype == want.dtype and got.device == x.device
+    scale = float(want.float().abs().max())
+    # the result is rounded to dtype on both sides: one ulp of dtype
+    ulp = {torch.float32: 0.0, torch.bfloat16: 2 ** -8,
+           torch.float16: 2 ** -11}[dtype]
+    tol = (1e-5 + ulp) * scale if kind != "long_row" else (
+        (S.max_nnz_per_row * 2.0 ** -24 + ulp) * float(
+            KS.spmv_csr_plain(indptr, indices, data.abs(),
+                              x.float().abs()).max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_spmv_kernels_are_deterministic(device):
+  S = sps.from_scipy(_matrix("random"))
+  x = torch.randn(S.shape[1], device=device)
+  assert torch.equal(KS.spmv_ell(S.cols, S.vals, x),
+                     KS.spmv_ell(S.cols, S.vals, x))
+  assert torch.equal(KS.spmv_csr(*S.to_csr(), x), KS.spmv_csr(*S.to_csr(), x))
+
+
+def test_spmv_wrappers_refuse_what_the_kernels_do_not_take(device):
+  S = sps.from_scipy(_matrix("tiny"))
+  x = torch.randn(S.shape[1], device=device)
+  with pytest.raises(TypeError, match="int32 cols"):
+    KS.spmv_ell(S.cols.long(), S.vals, x)
+  with pytest.raises(TypeError, match="float32/bfloat16/float16"):
+    KS.spmv_ell(S.cols, S.vals, x.double())
+  with pytest.raises(ValueError, match="one device"):
+    KS.spmv_csr(*S.to_csr(), x.cpu())
+
+
+@pytest.mark.parametrize("n, fmt, key", [(2048, "ell", "ell_launches"),
+                                         (40000, "win", "csr_launches")])
+def test_spmv_expr_launches_its_kernel_on_card(device, n, fmt, key):
+  import scipy.sparse as ss
+  A = ss.random(n, n, density=8.0 / n, random_state=1, format="csr",
+                dtype=np.float32)
+  S = sps.from_scipy(A)
+  x = np.random.default_rng(3).standard_normal(n).astype(np.float32)
+  e = sps.spmv_expr(S, sp.from_numpy(x))
+  assert e.fmt == fmt
+  before = dict(KS.counts)
+  got = e.glom()
+  assert KS.counts[key] == before[key] + 1
+  assert KS.counts["ell_plain_runs"] == before["ell_plain_runs"]
+  assert KS.counts["csr_plain_runs"] == before["csr_plain_runs"]
+  want = A.astype(np.float64) @ x.astype(np.float64)
+  assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+  eager = sps.spmv(S, x)
+  assert KS.counts[key] == before[key] + 2
+  np.testing.assert_allclose(eager.cpu().numpy(), got, rtol=0, atol=1e-5 *
+                             np.abs(want).max())
+
+
+def test_pagerank_fit_sparse_on_card(device):
+  from spartan_tpu_torch.examples import pagerank
+  import scipy.sparse as ss
+  M = pagerank.make_link_matrix(512)
+  got = pagerank.fit_sparse(sps.from_scipy(ss.csr_matrix(M.astype(np.float32))),
+                            iterations=20)
+  r = np.full(512, 1.0 / 512)
+  for _ in range(20):
+    r = 0.85 * (M @ r) + 0.15 / 512
+  assert np.abs(got - r).max() <= 1e-5 * r.max()

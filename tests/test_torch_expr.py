@@ -215,6 +215,11 @@ def test_initialize_refuses_missing_cuda(monkeypatch):
 
 
 def test_sparse_dot_names_the_later_slice():
+  """SpMV is ported; a sparse x dense-matrix product names the SpMM kernel
+  still to come, and a scipy matrix must be converted first."""
   import scipy.sparse as ss
-  with pytest.raises(NotImplementedError, match="sparse slice"):
+  S = sp.sparse.from_scipy(ss.eye(4, format="csr"))
+  with pytest.raises(NotImplementedError, match="K5a"):
+    sp.dot(S, sp.from_numpy(np.ones((4, 2))))
+  with pytest.raises(TypeError, match="from_scipy"):
     sp.dot(ss.eye(4, format="csr"), sp.from_numpy(np.ones(4)))

@@ -1,5 +1,6 @@
-"""The port never imports jax: it imports with jax unavailable, and no
-source file under spartan_tpu_torch/ contains a jax import."""
+"""The port never imports jax or the JAX package: it imports with both
+unavailable, and no source file under spartan_tpu_torch/, nor
+chip_smoke.py, contains an import of either."""
 
 import pathlib
 import re
@@ -8,7 +9,8 @@ import sys
 
 import pytest
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "spartan_tpu_torch"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "spartan_tpu_torch"
 # _build/ holds build outputs (gitignored), not sources
 SOURCES = sorted(p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")
                  if "_build" not in p.relative_to(PKG).parts)
@@ -17,6 +19,10 @@ MODULES = sorted("spartan_tpu_torch." + s[:-3].replace("/", ".")
                  else "spartan_tpu_torch" for s in SOURCES)
 
 _JAX_IMPORT = re.compile(r"^\s*(import\s+jax|from\s+jax(\.|\s))", re.M)
+# spartan_tpu itself or any of its modules, but not spartan_tpu_torch
+_REF_IMPORT = re.compile(
+    r"^\s*(import\s+spartan_tpu(?!_torch)\b|from\s+spartan_tpu(?!_torch)\b)",
+    re.M)
 
 
 @pytest.mark.parametrize("source", SOURCES)
@@ -24,12 +30,34 @@ def test_no_jax_import_in_source(source):
   assert not _JAX_IMPORT.search((PKG / source).read_text())
 
 
+@pytest.mark.parametrize("source", SOURCES)
+def test_no_reference_package_import_in_source(source):
+  assert not _REF_IMPORT.search((PKG / source).read_text())
+
+
+@pytest.mark.parametrize("pattern", [_JAX_IMPORT, _REF_IMPORT],
+                         ids=["jax", "spartan_tpu"])
+def test_no_forbidden_import_in_chip_smoke(pattern):
+  assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+
+
+@pytest.mark.parametrize("line, hit", [
+    ("import spartan_tpu", True), ("import spartan_tpu as sp", True),
+    ("  from spartan_tpu.backend import sparse", True),
+    ("from spartan_tpu import interop", True),
+    ("import spartan_tpu_torch as sp", False),
+    ("from spartan_tpu_torch.backend import sparse", False)])
+def test_reference_import_pattern(line, hit):
+  assert bool(_REF_IMPORT.search(line)) == hit
+
+
 def test_port_imports_with_jax_unavailable():
   code = ("import sys; sys.modules['jax'] = None\n"
+          "sys.modules['spartan_tpu'] = None\n"
           "import importlib\n"
           f"for m in {MODULES!r}: importlib.import_module(m)\n"
-          "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
-          "sys.modules.items() if v is not None)\n"
+          "assert not any(k.split('.')[0] in ('jax', 'spartan_tpu') for k, v "
+          "in sys.modules.items() if v is not None)\n"
           "import spartan_tpu_torch as sp\n"
           "sp.initialize(['--device=cpu'])\n"
           "print(float((abs(1 + sp.from_numpy([1.0, -2.0]) * 2)).sum().glom()))\n")

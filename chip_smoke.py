@@ -17,8 +17,10 @@ width, and raises on any failure:
   4. linear-regression training at n = 2^20, d = 64, float64, against a
      NumPy loop, and make_fori against fit;
   5. the SpMV kernels K3a (spmv_ell) and K3b (spmv_csr) against their plain
-     versions on five matrices, then timed beside their plain versions and
-     cuSPARSE (torch.sparse_csr_tensor @ x);
+     versions on six matrices (the two PageRank graphs among them), then
+     timed beside their plain versions and cuSPARSE (torch.sparse_csr_tensor
+     @ x), with the calls queued ahead of the device so that the events
+     read device time, and the host's issue time per call apart;
   6. PageRank through pagerank.fit_sparse(sparse.from_scipy(A)): a GAP
      "urand" graph (uniform random targets, 16 out-edges a node) at
      n = 2^22 (CSR kernel) and n = 32768 (ELL kernel), and the
@@ -69,6 +71,7 @@ LINREG_N, LINREG_D, LINREG_STEPS, ALPHA = 1 << 20, 64, 5, 0.05
 PR_BIG_N, PR_SMALL_N, PR_DEGREE, PR_ITERS, DAMPING = 1 << 22, 32768, 16, 30, 0.85
 CFG5_BLOCKS, CFG5_PER_ROW, CFG5_BS = 64, 8, 128
 TIMING_REPS = 7
+SPIN_CYCLES = 20_000_000  # about 10 ms of an H100 SM clock
 # H100 SXM: HBM rate and the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -126,35 +129,49 @@ def tolerance(transcendental: bool, acc: torch.dtype) -> float:
 
 
 def event_ms(fn, inner: int = 1):
-  """(device ms, host ms to issue) per call of ``fn`` over ``inner``
-  back-to-back calls; device time by CUDA events."""
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  t0 = time.perf_counter()
-  for _ in range(inner):
-    fn()
-  host = (time.perf_counter() - t0) * 1e3 / inner
-  end.record()
-  end.synchronize()
-  return start.elapsed_time(end) / inner, host
+  """(device ms, host ms to issue, queued ahead) per call of ``fn`` over
+  ``inner`` back-to-back calls.  The calls are queued behind a spin kernel
+  (``torch.cuda._sleep``) that outlasts their issue, so the CUDA events time
+  the device running them back to back, not the host issuing them; the
+  spin is lengthened until it outlasts the issue (``queued ahead``)."""
+  cycles = SPIN_CYCLES
+  for _ in range(4):
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    torch.cuda._sleep(cycles)
+    marks[1].record()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+      fn()
+    host = (time.perf_counter() - t0) * 1e3
+    marks[2].record()
+    marks[2].synchronize()
+    ahead = host < 0.5 * marks[0].elapsed_time(marks[1])
+    if ahead:
+      break
+    cycles *= 4
+  return marks[1].elapsed_time(marks[2]) / inner, host / inner, ahead
 
 
 def time_in_turns(fns, inner: int = 1):
   """Median device ms of each of ``fns`` (name → callable), timed in
-  turns, and the median host ms to issue one call under ``name + ' host'``."""
+  turns; under ``name + ' host'`` the median host ms to issue one call, and
+  under ``name + ' ahead'`` whether every sample was queued ahead."""
   for fn in fns.values():
     fn()
   samples = {name: [] for name in fns}
   hosts = {name: [] for name in fns}
+  aheads = {name: True for name in fns}
   for _ in range(TIMING_REPS):
     for name, fn in fns.items():
-      dev, host = event_ms(fn, inner)
+      dev, host, ahead = event_ms(fn, inner)
       samples[name].append(dev)
       hosts[name].append(host)
+      aheads[name] = aheads[name] and ahead
   out = {name: statistics.median(v) for name, v in samples.items()}
   out.update({f"{name} host": statistics.median(v)
               for name, v in hosts.items()})
+  out.update({f"{name} ahead": v for name, v in aheads.items()})
   return out
 
 
@@ -207,7 +224,8 @@ def phase_kernel_vs_plain(device, card: str):
         f"plain {t['plain']:.4f} ms; identity program: kernel "
         f"{t['identity']:.4f} ms, torch.sum(dtype=float64) "
         f"{t['torch.sum']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}) "
-        f"(median of {TIMING_REPS}, CUDA events, in turns) on {card}")
+        f"(median of {TIMING_REPS}, queued ahead of the device, CUDA events, "
+        f"in turns) on {card}")
   return {"max_abs_err": worst_abs, "ms": t["kernel"], "plain_ms": t["plain"],
           "library_ms": t["torch.sum"], "bound_ms": bound_ms,
           "bound_by": bound_by}
@@ -318,9 +336,9 @@ def config5_graph():
   return A.tocsr().astype(np.float32)
 
 
-def spmv_cases(big):
+def spmv_cases(big, small):
   rng = np.random.default_rng(7)
-  cases = [("urand 2^22", big),
+  cases = [("urand 2^22", big), ("urand 32768", small),
            ("random 1500x2300 d=0.005",
             ss.random(1500, 2300, density=0.005, random_state=3,
                       format="csr", dtype=np.float32))]
@@ -343,7 +361,7 @@ def phase_spmv_kernels(device, card: str, big, small):
   the plain versions and cuSPARSE."""
   gen = torch.Generator(device=device).manual_seed(99)
   worst = {"spmv_ell": 0.0, "spmv_csr": 0.0}
-  for label, A in spmv_cases(big):
+  for label, A in spmv_cases(big, small):
     S = sparse.from_scipy(A)
     indptr, indices, data = S.to_csr()
     x = torch.randn(A.shape[1], generator=gen, device=device)
@@ -407,10 +425,13 @@ def phase_spmv_kernels(device, card: str, big, small):
             f"{t['kernel']:.4f} ms ({S.nnz / t['kernel'] / 1e6:.2f} Gnnz/s, "
             f"{nbytes / t['kernel'] / 1e6:.1f} GB/s), plain "
             f"{t['plain']:.4f} ms, cuSPARSE {t['cuSPARSE']:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB); host "
-            f"issue {t['kernel host'] * 1e3:.1f} us/call "
-            f"(median of {TIMING_REPS} x {inner} calls, CUDA events, in "
-            f"turns) on {card}")
+            f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB) "
+            f"(median of {TIMING_REPS} x {inner} calls queued ahead of the "
+            f"device, CUDA events, in turns; queued ahead: "
+            f"{all(t[f'{v} ahead'] for v in ('kernel', 'plain', 'cuSPARSE'))})"
+            f"; host issue per call: kernel {t['kernel host']:.4f} ms, plain "
+            f"{t['plain host']:.4f} ms, cuSPARSE {t['cuSPARSE host']:.4f} ms; "
+            f"on {card}")
       timings[(name, label)] = {"ms": t["kernel"], "plain_ms": t["plain"],
                                 "library_ms": t["cuSPARSE"],
                                 "bound_ms": bound_ms, "bound_by": bound_by}

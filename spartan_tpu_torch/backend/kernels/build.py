@@ -67,7 +67,10 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
   """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-  return load_all([name])[name]
+  lib = _libs.get(name)
+  if lib is None:
+    lib = load_all([name])[name]
+  return lib
 
 
 def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
@@ -77,7 +80,7 @@ def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
   started = []
   for name in names:
     if name in _libs:
-      continue  # loaded: no hashing or file access on the launch path
+      continue
     so = library_path(name)
     if so.is_file():
       continue

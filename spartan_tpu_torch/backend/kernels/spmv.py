@@ -26,6 +26,7 @@ launches and plain runs of each.
 from __future__ import annotations
 
 import ctypes
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -103,13 +104,8 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
   cols_c, vals_c, x_c = (t.contiguous() for t in (cols, vals.float(),
                                                   x.float()))
   y = torch.empty(n, dtype=torch.float32, device=x.device)
-  lib = _library("spmv_ell")
-  with torch.cuda.device(x.device):
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.spartan_spmv_ell(cols_c.data_ptr(), vals_c.data_ptr(),
-                              x_c.data_ptr(), y.data_ptr(), n, k,
-                              group_size(k), stream)
-  _raise_on(lib, rc, "spmv_ell")
+  _launch("spmv_ell", x.device, cols_c.data_ptr(), vals_c.data_ptr(),
+          x_c.data_ptr(), y.data_ptr(), n, k, group_size(k))
   counts["ell_launches"] += 1
   return y.to(vals.dtype)
 
@@ -140,13 +136,9 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
   indptr_c, indices_c, data_c, x_c = (
       t.contiguous() for t in (indptr, indices, data.float(), x.float()))
   y = torch.empty(n, dtype=torch.float32, device=x.device)
-  lib = _library("spmv_csr")
-  with torch.cuda.device(x.device):
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.spartan_spmv_csr(indptr_c.data_ptr(), indices_c.data_ptr(),
-                              data_c.data_ptr(), x_c.data_ptr(), y.data_ptr(),
-                              n, group_size(indices.shape[0] / n), stream)
-  _raise_on(lib, rc, "spmv_csr")
+  _launch("spmv_csr", x.device, indptr_c.data_ptr(), indices_c.data_ptr(),
+          data_c.data_ptr(), x_c.data_ptr(), y.data_ptr(), n,
+          group_size(indices.shape[0] / n))
   counts["csr_launches"] += 1
   return y.to(x.dtype)
 
@@ -160,12 +152,6 @@ def _one_device(*tensors: torch.Tensor) -> None:
                      f"{sorted(map(str, devices))}")
 
 
-def _raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:
-  if rc != 0:
-    raise RuntimeError(f"{name} kernel launch failed: "
-                       + lib.spartan_cuda_error_string(rc).decode())
-
-
 _ARGTYPES = {
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
     "spmv_ell": [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
@@ -173,15 +159,28 @@ _ARGTYPES = {
     "spmv_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
                                          ctypes.c_void_p],
 }
+# name -> (bound C function, its library), filled at the first launch
+_bound: Dict[str, Tuple[Any, ctypes.CDLL]] = {}
 
 
-def _library(name: str) -> ctypes.CDLL:
-  from spartan_tpu_torch.backend.kernels import build
-  lib = build.load(name)
-  fn = getattr(lib, f"spartan_{name}")
-  if fn.argtypes is None:
+def _launch(name: str, device: torch.device, *args) -> None:
+  """Launch ``spartan_<name>`` on ``device``'s current stream; raises if the
+  launch fails.  The library is built and bound at the first call only."""
+  if name not in _bound:
+    from spartan_tpu_torch.backend.kernels import build
+    lib = build.load(name)
+    fn = getattr(lib, f"spartan_{name}")
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     lib.spartan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.spartan_cuda_error_string.restype = ctypes.c_char_p
-  return lib
+    _bound[name] = (fn, lib)
+  fn, lib = _bound[name]
+  if device.index == torch.cuda.current_device():
+    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+  else:
+    with torch.cuda.device(device):
+      rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+  if rc != 0:
+    raise RuntimeError(f"{name} kernel launch failed: "
+                       + lib.spartan_cuda_error_string(rc).decode())

@@ -15,13 +15,14 @@ Two device layouts, as in the reference:
   batched ``bs x bs`` block matvecs (``torch.einsum``, as the reference left
   them to XLA's einsum).
 
-Routing follows the reference (``spmv`` and :class:`SpMVExpr`): block
-structure first, then the densified route, then the ELL kernel for vectors
-up to ``ONEHOT_MAX_M`` entries and the CSR kernel beyond, float64 on the
-plain gather.  "On the accelerator" means the tensors lie on a CUDA device.
-The thresholds are the reference's (measured on a TPU v5e) and wait to be
-re-measured on the H100.  A CUDA tensor that reaches a kernel route
-launches the kernel or raises: there is no fallback.
+Routing follows the reference, in one function (``_route``) that ``spmv``
+and :class:`SpMVExpr` share: block structure first, then the densified
+route, then the ELL kernel for vectors up to ``ONEHOT_MAX_M`` entries and
+the CSR kernel beyond, float64 on the plain gather.  "On the accelerator"
+means the tensors lie on a CUDA device.  The thresholds are the
+reference's (measured on a TPU v5e) and wait to be re-measured on the
+H100.  A CUDA tensor that reaches a kernel route launches the kernel or
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -429,21 +430,68 @@ def _vector(x, a_dtype: torch.dtype, device: torch.device) -> torch.Tensor:
   return _from_host(arr, dt, device)
 
 
-def _dense_routable(A, spmv: bool = False) -> bool:
-  """Should ``A`` be densified and multiplied with ``torch.matmul``?  True
-  on a CUDA device when density and the float32 memory budget allow (the
-  flags' thresholds), or under ``--sparse_force_dense``.  float64 stays
-  sparse."""
+def _dense_routable(A) -> bool:
+  """Should SpMV densify ``A`` and multiply with ``torch.matmul``?  True on
+  a CUDA device when density and the float32 memory budget allow
+  (``--sparse_dense_min_density_spmv``, ``--sparse_dense_max_bytes``), or
+  under ``--sparse_force_dense``.  float64 stays sparse."""
   if (not FLAGS.sparse_dense_route or not isinstance(A, SparseArray)
       or A.dtype == torch.float64):
     return False
   if FLAGS.sparse_force_dense:
     return True
   n, m = A.shape
-  min_d = (FLAGS.sparse_dense_min_density_spmv if spmv
-           else FLAGS.sparse_dense_min_density)
-  return (A.cols.device.type == "cuda" and A.nnz >= min_d * n * m
+  return (A.cols.device.type == "cuda"
+          and A.nnz >= FLAGS.sparse_dense_min_density_spmv * n * m
           and 4 * n * m <= FLAGS.sparse_dense_max_bytes)
+
+
+def _kernels_on(on_accel: bool, use_kernels: Optional[bool] = None) -> bool:
+  """May SpMV launch K3a/K3b?  An explicit ``use_kernels`` decides; else
+  ``--use_kernels`` on a CUDA device, or a forcing flag anywhere (on the
+  CPU the wrappers then run their plain versions)."""
+  if use_kernels is not None:
+    return use_kernels
+  return ((FLAGS.use_kernels and on_accel) or FLAGS.sparse_force_onehot
+          or FLAGS.sparse_force_windowed)
+
+
+def _route(A, x_dtype: torch.dtype, on_accel: bool,
+           use_kernels: Optional[bool] = None, exact: bool = False):
+  """The SpMV route, shared by :func:`spmv` and :class:`SpMVExpr`:
+  ``(fmt, matrix)``.  In the reference's order: block structure
+  (``"bsr"``, on the accelerator), the densified route (``"dense"``), the
+  CSR kernel past ``ONEHOT_MAX_M`` columns or under
+  ``--sparse_force_windowed`` (``"win"``), else the ELL form (``"ell"``,
+  K3a or the plain gather, decided by :func:`_spmv_apply`).  float64
+  operands and ``exact`` precision stay off the kernels;
+  ``use_kernels=False`` also skips the block and dense routes."""
+  allowed = use_kernels is not False
+  if allowed and on_accel and isinstance(A, SparseArray):
+    A = A.auto_route() or A
+  if isinstance(A, BlockSparseArray):
+    return "bsr", A
+  forced = FLAGS.sparse_force_onehot or FLAGS.sparse_force_windowed
+  if (allowed and x_dtype != torch.float64 and not forced
+      and _dense_routable(A)):
+    return "dense", A
+  small = ((A.shape[1] <= ONEHOT_MAX_M or FLAGS.sparse_force_onehot)
+           and not FLAGS.sparse_force_windowed)
+  if (_kernels_on(on_accel, use_kernels) and not exact and not small
+      and torch.float64 not in (A.dtype, x_dtype)):
+    return "win", A
+  return "ell", A
+
+
+def _operands(fmt: str, A) -> list:
+  """The device tensors that route ``fmt`` reads."""
+  if fmt == "bsr":
+    return [A.block_cols, A.block_vals]
+  if fmt == "dense":
+    return [A.to_densified()]
+  if fmt == "win":
+    return list(A.to_csr())
+  return [A.cols, A.vals]
 
 
 def _spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
@@ -453,11 +501,31 @@ def _spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
   return (vals * gathered).sum(1)
 
 
+def _spmv_apply(fmt: str, mat, x: torch.Tensor, dt: torch.dtype,
+                n_rows: int, pad_m: int, kernels: bool) -> torch.Tensor:
+  """``y = A @ x`` in ``dt`` over ``_operands(fmt, A)``; ``kernels`` says
+  whether the ``"win"`` and ``"ell"`` routes may launch K3b/K3a."""
+  if fmt == "dense":
+    return torch.matmul(mat[0], x.float())[:n_rows].to(dt)
+  if fmt == "bsr":
+    if x.shape[0] < pad_m:
+      x = torch.nn.functional.pad(x, (0, pad_m - x.shape[0]))
+    return _bsr_matvec(mat[0], mat[1], x, dt)[:n_rows]
+  if fmt == "win":
+    spmv_fn = K.spmv_csr if kernels else K.spmv_csr_plain
+    return spmv_fn(*mat, x.float()).to(dt)
+  cols, vals = mat
+  if (kernels and dt in _KERNEL_FLOATS
+      and (x.shape[0] <= ONEHOT_MAX_M or FLAGS.sparse_force_onehot)):
+    return K.spmv_ell(cols, vals.to(dt), x.to(dt))[:n_rows]
+  return _spmv_ell(cols, vals.to(dt), x.to(dt))[:n_rows]
+
+
 def spmv(A, x, use_kernels: Optional[bool] = None) -> torch.Tensor:
   """y = A @ x for a SparseArray / BlockSparseArray and a dense vector, on
-  the matrix's device.  ``use_kernels=False`` keeps the plain gather (and
-  skips the block and dense routes), as the reference's
-  ``use_pallas=False`` does."""
+  the matrix's device, by the route :class:`SpMVExpr` takes.
+  ``use_kernels=False`` keeps the plain gather (and skips the block and
+  dense routes), as the reference's ``use_pallas=False`` does."""
   if isinstance(A, BlockSparseArray):
     return bsr_spmv(A, x)
   xj = _vector(x, A.dtype, A.cols.device)
@@ -465,35 +533,19 @@ def spmv(A, x, use_kernels: Optional[bool] = None) -> torch.Tensor:
     raise ValueError(f"spmv dim mismatch: A is {A.shape}, x has "
                      f"{xj.shape[0]} rows")
   on_accel = xj.device.type == "cuda"
-  if on_accel and use_kernels is not False:
-    routed = A.auto_route()
-    if routed is not None:
-      xp = torch.nn.functional.pad(xj, (0, routed.shape[1] - xj.shape[0]))
-      return bsr_spmv(routed, xp)[: A.shape[0]].to(xj.dtype)
-  forced = FLAGS.sparse_force_onehot or FLAGS.sparse_force_windowed
-  if (xj.dtype != torch.float64 and use_kernels is not False and not forced
-      and _dense_routable(A, spmv=True)):
-    return torch.matmul(A.to_densified(), xj.float()).to(xj.dtype)
-  if use_kernels is None:
-    use_kernels = (FLAGS.use_kernels and on_accel) or forced
-  if use_kernels and xj.dtype in _KERNEL_FLOATS and A.dtype in _KERNEL_FLOATS:
-    small = ((xj.shape[0] <= ONEHOT_MAX_M or FLAGS.sparse_force_onehot)
-             and not FLAGS.sparse_force_windowed)
-    if small:
-      return K.spmv_ell(A.cols, A.vals, xj).to(xj.dtype)
-    return K.spmv_csr(*A.to_csr(), xj).to(xj.dtype)
-  return _spmv_ell(A.cols, A.vals, xj)
+  fmt, B = _route(A, xj.dtype, on_accel, use_kernels)
+  return _spmv_apply(fmt, _operands(fmt, B), xj,
+                     result_type(A.dtype, xj.dtype), A.shape[0], B.shape[1],
+                     _kernels_on(on_accel, use_kernels))
 
 
 class SpMVExpr(Expr):
   """Lazy SpMV over a sparse leaf; composes with the rest of the DAG (the
   PageRank damping map fuses in after it).
 
-  Construction picks the layout and records it in ``fmt`` (a cache-key
-  param): ``"bsr"`` for detectable block structure on the accelerator,
-  ``"dense"`` for the densified route, ``"win"`` (the CSR kernel) past
-  ``ONEHOT_MAX_M`` columns on the accelerator or under
-  ``--sparse_force_windowed``, else ``"ell"``."""
+  Construction picks the route with :func:`_route` and records it in
+  ``fmt`` (a cache-key param): ``"bsr"``, ``"dense"``, ``"win"`` (the CSR
+  kernel) or ``"ell"``."""
 
   _members = ("inputs",)
   _params = ("n_rows", "fmt", "bs", "pad_m", "n_shards", "precision",
@@ -502,61 +554,25 @@ class SpMVExpr(Expr):
   def __init__(self, A, x, precision=None):
     if precision not in _PRECISIONS:
       raise ValueError(f"precision must be one of {_PRECISIONS}")
-    n_rows, src_dtype = A.shape[0], A.dtype
-    common = dict(n_rows=n_rows, n_shards=0, precision=precision,
-                  src_dtype=src_dtype)
-    # 'high'/'highest' ask for the exact formulations: no kernel routes
-    exact = _resolve_precision(precision) is not None
-    on_accel = get_mesh().device.type == "cuda"
-    if isinstance(A, SparseArray) and on_accel:
-      A = A.auto_route() or A
     xl = lazify(x)
-    if isinstance(A, BlockSparseArray):
-      super().__init__(
-          inputs=[Val(A.block_cols), Val(A.block_vals), xl], fmt="bsr",
-          bs=A.bs, pad_m=A.shape[1], **common)
-      return
-    forced = FLAGS.sparse_force_onehot or FLAGS.sparse_force_windowed
-    if (xl.dtype != torch.float64 and not forced
-        and _dense_routable(A, spmv=True)):
-      super().__init__(inputs=[Val(A.to_densified()), xl], fmt="dense",
-                       bs=0, pad_m=A.shape[1], **common)
-      return
-    if (not exact and A.dtype != torch.float64
-        and (FLAGS.sparse_force_windowed
-             or (on_accel and A.shape[1] > ONEHOT_MAX_M))):
-      super().__init__(inputs=[Val(t) for t in A.to_csr()] + [xl],
-                       fmt="win", bs=0, pad_m=A.shape[1], **common)
-      return
-    super().__init__(inputs=[Val(A.cols), Val(A.vals), xl], fmt="ell",
-                     bs=0, pad_m=A.shape[1], **common)
+    # 'high'/'highest' ask for the exact formulations: no kernel routes
+    fmt, B = _route(A, xl.dtype, get_mesh().device.type == "cuda",
+                    exact=_resolve_precision(precision) is not None)
+    super().__init__(inputs=[Val(t) for t in _operands(fmt, B)] + [xl],
+                     n_rows=A.shape[0], fmt=fmt,
+                     bs=B.bs if fmt == "bsr" else 0, pad_m=B.shape[1],
+                     n_shards=0, precision=precision, src_dtype=A.dtype)
 
   def _emit(self, ctx: EmitCtx, deps):
     *mat, x = deps
-    if self.fmt == "dense":
-      dt = result_type(self.src_dtype, x.dtype)
-    else:
-      dt = result_type(mat[-1].dtype, x.dtype)
+    dt = result_type(self.src_dtype, x.dtype)
     if ctx.abstract:
       return torch.empty((self.n_rows,), dtype=dt, device="meta")
-    if self.fmt == "dense":
-      return torch.matmul(mat[0], x.float())[: self.n_rows].to(dt)
-    if self.fmt == "win":
-      indptr, indices, data = mat
-      spmv_fn = K.spmv_csr_plain if ctx.differentiable else K.spmv_csr
-      return spmv_fn(indptr, indices, data, x.float()).to(dt)
-    cols, vals = mat
-    if self.fmt == "bsr":
-      if x.shape[0] < self.pad_m:
-        x = torch.nn.functional.pad(x, (0, self.pad_m - x.shape[0]))
-      return _bsr_matvec(cols, vals, x, dt)[: self.n_rows]
-    if (dt == torch.float32 and x.shape[0] <= ONEHOT_MAX_M
-        and not ctx.differentiable
-        and _resolve_precision(self.precision) is None
-        and (FLAGS.sparse_force_onehot
-             or (FLAGS.use_kernels and x.device.type == "cuda"))):
-      return K.spmv_ell(cols, vals.to(dt), x.to(dt))[: self.n_rows]
-    return _spmv_ell(cols, vals.to(dt), x.to(dt))[: self.n_rows]
+    kernels = (not ctx.differentiable
+               and _resolve_precision(self.precision) is None
+               and _kernels_on(x.device.type == "cuda"))
+    return _spmv_apply(self.fmt, mat, x, dt, self.n_rows, self.pad_m,
+                       kernels)
 
 
 def spmv_expr(A, x) -> SpMVExpr:

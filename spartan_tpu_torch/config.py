@@ -181,42 +181,37 @@ FLAGS.add(StrFlag("dot_precision", "default",
                   "'highest' all run full float32 on the port (TF32 is "
                   "off); per-call sp.dot(precision=...) overrides"))
 # Sparse routing.  The names, defaults and thresholds are the reference's
-# (measured on a TPU v5e); the force flags route to the CUDA counterparts of
+# (measured on a TPU v5e, to be measured again on the H100); the force
+# flags keep the reference's names and route to the CUDA counterparts of
 # the one-hot (K3a: ELL kernel) and windowed (K3b: CSR kernel) TPU kernels.
 FLAGS.add(BoolFlag("sparse_auto_bsr", True,
-                   "auto-detect block structure in sparse matrices and "
-                   "route SpMV to the MXU block-ELL path"))
+                   "on a CUDA device, detect block structure in a sparse "
+                   "matrix and route its SpMV to the block-ELL einsum"))
 FLAGS.add(FloatFlag("sparse_bsr_max_expansion", 16.0,
-                    "max stored-elements-per-nonzero the block-ELL repack "
-                    "may pay (the MXU path is ~1000x faster per element, "
-                    "so modest expansion still wins)"))
+                    "max stored elements per nonzero that the block-ELL "
+                    "repack may pay; above it SpMV stays on the ELL/CSR "
+                    "kernels"))
 FLAGS.add(BoolFlag("sparse_force_windowed", False,
-                   "route SpMVExpr through the windowed Pallas kernel "
-                   "regardless of size/platform (interpret mode off-TPU) "
+                   "route SpMV through the CSR kernel (K3b) whatever the "
+                   "size or device; on the CPU it runs its plain version "
                    "— testing/debug"))
 FLAGS.add(BoolFlag("sparse_dense_route", True,
-                   "let spmm/SpMMExpr densify moderately-dense sparse "
-                   "matrices and ride the MXU dense matmul — on TPU the "
-                   "dense path beats per-nonzero gathers once density and "
-                   "memory allow (see sparse_dense_min_density/max_bytes)"))
+                   "let SpMV densify moderately dense sparse matrices on "
+                   "a CUDA device and multiply with torch.matmul (see "
+                   "sparse_dense_min_density_spmv/max_bytes)"))
 FLAGS.add(FloatFlag("sparse_dense_min_density", 2e-3,
-                    "min nnz/(n*m) for the densified SpMM route: below "
-                    "this the dense matmul's wasted FLOPs/bandwidth lose "
-                    "to the windowed Pallas kernel / XLA gather"))
+                    "min nnz/(n*m) for the densified SpMM route; SpMM is "
+                    "not ported yet, so nothing reads it"))
 FLAGS.add(IntFlag("sparse_dense_max_bytes", 2 << 30,
-                  "max f32 bytes (4*n*m) the densified SpMM route may "
-                  "materialize on device; larger matrices stay sparse"))
+                  "max float32 bytes (4*n*m) the densified route may "
+                  "materialize on the device; larger matrices stay sparse"))
 FLAGS.add(FloatFlag("sparse_dense_min_density_spmv", 8e-3,
-                    "min density for the densified SpMV route — higher "
-                    "than SpMM's because the windowed/one-hot Pallas "
-                    "SpMV kernels (~1.4 Gnnz/s) set a higher bar than "
-                    "the SpMM gather did"))
+                    "min nnz/(n*m) for the densified SpMV route; below it "
+                    "SpMV takes the ELL/CSR kernels"))
 FLAGS.add(BoolFlag("sparse_force_dense", False,
-                   "route spmm/SpMMExpr AND spmv/SpMVExpr through the "
-                   "densified MXU path regardless of platform/density "
-                   "— testing/debug"))
+                   "route SpMV through the densified torch.matmul whatever "
+                   "the device or density — testing/debug"))
 FLAGS.add(BoolFlag("sparse_force_onehot", False,
-                   "route SpMVExpr's ELL path through the one-hot MXU "
-                   "Pallas kernel regardless of platform (interpret mode "
-                   "off-TPU; sharded via shard_map on >1-device meshes) "
+                   "route SpMV through the ELL kernel (K3a) whatever the "
+                   "size or device; on the CPU it runs its plain version "
                    "— testing/debug"))

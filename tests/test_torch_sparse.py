@@ -242,10 +242,10 @@ def test_dense_route_stays_off_for_float64_and_on_the_cpu(flags):
   S32 = sps.from_scipy(matrix("random", np.float32))
   S64 = sps.from_scipy(matrix("random"))
   assert S32.density > FLAGS.sparse_dense_min_density_spmv
-  assert not sps._dense_routable(S32, spmv=True)  # dense enough, but CPU
+  assert not sps._dense_routable(S32)  # dense enough, but CPU
   flags("sparse_force_dense", True)
-  assert sps._dense_routable(S32, spmv=True)
-  assert not sps._dense_routable(S64, spmv=True)
+  assert sps._dense_routable(S32)
+  assert not sps._dense_routable(S64)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=str)

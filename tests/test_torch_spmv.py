@@ -299,3 +299,31 @@ def test_differentiable_emit_takes_the_plain_version(flag, fmt, flags):
   g = np.random.default_rng(18).standard_normal(120).astype(np.float32)
   y.backward(torch.from_numpy(g))
   close(xt.grad.numpy(), A.T @ g)
+
+
+@pytest.mark.parametrize("flag", [None, "sparse_force_onehot",
+                                  "sparse_force_windowed",
+                                  "sparse_force_dense"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
+def test_eager_spmv_and_spmv_expr_take_one_route(flag, dtype, flags):
+  """The eager ``spmv`` and ``SpMVExpr`` share their route: the same
+  wrapper counts rise and the results agree (1e-6 of max|y| in float32,
+  1e-12 in float64)."""
+  if flag:
+    flags(flag, True)
+  A, x = _problem(dtype, n=300, seed=19)
+  S = sps.from_scipy(A)
+  before = dict(KS.counts)
+  eager = sps.spmv(S, x)
+  mid = dict(KS.counts)
+  e = sps.spmv_expr(S, sp.from_numpy(x))
+  got = e.glom()
+  assert ({k: mid[k] - before[k] for k in KS.counts}
+          == {k: KS.counts[k] - mid[k] for k in KS.counts})
+  assert e.fmt == sps._route(S, eager.dtype, on_accel=False)[0]
+  if dtype == np.float64 or flag is None:
+    assert e.fmt == "ell" and KS.counts == before  # the plain gather
+  assert eager.numpy().dtype == got.dtype == dtype
+  tol = 1e-6 if dtype == np.float32 else 1e-12
+  np.testing.assert_allclose(eager.numpy(), got, rtol=0,
+                             atol=tol * np.abs(got).max())

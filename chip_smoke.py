@@ -3,12 +3,12 @@
     python3 chip_smoke.py
 
 Drives the port's main paths once through its user entry points, at the
-sizes of the reference's benchmark configs 1-3 and of PageRank at full
-width, and raises on any failure:
+sizes of the reference's benchmark configs 1-3, of PageRank at full width
+and of ALS at the shape of MovieLens 20M, and raises on any failure:
 
   0. identify the card (nvidia-smi name and power limit, torch and CUDA);
-  1. build the kernels (csrc/fused_reduce.cu, spmv_ell.cu, spmv_csr.cu)
-     from source, one nvcc per file, all started together;
+  1. build the kernels (csrc/fused_reduce.cu, spmv_ell.cu, spmv_csr.cu,
+     spmm_csr.cu) from source, one nvcc per file, all started together;
   2. K1 against its plain torch version on the card, over five chains,
      four shapes and two accumulators, and timed at 16384^2 float32 beside
      its plain version and torch.sum;
@@ -25,10 +25,22 @@ width, and raises on any failure:
      "urand" graph (uniform random targets, 16 out-edges a node) at
      n = 2^22 (CSR kernel) and n = 32768 (ELL kernel), and the
      block-structured shape of the reference's benchmark config 5 (block
-     route, no kernel), each against a float64 scipy power iteration.
+     route, no kernel), each against a float64 scipy power iteration;
+  7. a ratings matrix of MovieLens 20M's shape (138,493 users, 26,744
+     movies, 20,000,263 ratings, the heaviest user and the most-rated movie
+     near the dataset's), drawn on the card from a seed and ingested through
+     sparse.from_scipy(R, dtype=np.float32); the SpMM kernel K5a (spmm_csr)
+     against its plain version on small odd shapes, k in {1, 3, 64, 130,
+     512}, bfloat16/float16/float64 and non-contiguous B, and both ALS
+     products at k = 64, then those two products timed beside the plain
+     version and cuSPARSE (torch.sparse_csr_tensor @ B);
+  8. ALS through als.fit(R, k=64, iterations=5) on that matrix, against a
+     float64 scipy ALS from the same initial factors, with the RMSE over the
+     stored ratings, ms per iteration and a profile of one iteration.
 
 The count of each kernel's launches is set to 0 just before the path that
-runs it (phases 3-4 for K1, phase 6 for K3a/K3b) and read just after.  The
+runs it (phases 3-4 for K1, phase 6 for K3a/K3b, phase 8 for K5a) and read
+just after.  The
 last two lines are a JSON object describing each kernel (its launches on
 its path, its worst disagreement with the plain version, its time, the
 plain version's, one library call's, and the card's bound for the same
@@ -52,14 +64,15 @@ import spartan_tpu_torch as sp
 from spartan_tpu_torch.backend import sparse
 from spartan_tpu_torch.backend.kernels import build
 from spartan_tpu_torch.backend.kernels import fused_reduce as K
+from spartan_tpu_torch.backend.kernels import spmm as K5
 from spartan_tpu_torch.backend.kernels import spmv as KS
-from spartan_tpu_torch.examples import linear_reg, pagerank
+from spartan_tpu_torch.examples import als, linear_reg, pagerank
 from spartan_tpu_torch.expr.local import FnCallExpr, LocalConst, LocalInput
 from spartan_tpu_torch.expr.map import UFUNCS
 from spartan_tpu_torch.util import Timer
 
 DEVICE = "cuda"
-KERNELS = ("fused_reduce", "spmv_ell", "spmv_csr")
+KERNELS = ("fused_reduce", "spmv_ell", "spmv_csr", "spmm_csr")
 KERNEL_SHAPES = [((16384, 16384), torch.float32), ((8192, 8192), torch.bfloat16),
                  ((10_000_019,), torch.float32), ((13, 20), torch.float32)]
 TIMED_SHAPE = (16384, 16384)
@@ -70,6 +83,16 @@ LINREG_N, LINREG_D, LINREG_STEPS, ALPHA = 1 << 20, 64, 5, 0.05
 # n = 32768 shape at the ELL kernel's limit; config 5's block shape
 PR_BIG_N, PR_SMALL_N, PR_DEGREE, PR_ITERS, DAMPING = 1 << 22, 32768, 16, 30, 0.85
 CFG5_BLOCKS, CFG5_PER_ROW, CFG5_BS = 64, 8, 128
+# ALS at the shape of GroupLens MovieLens 20M (Harper and Konstan, ACM TiiS
+# 5(4), 2015): users, rated movies, ratings, the fewest ratings a user has,
+# the most a user has and the most a movie has
+ML_USERS, ML_MOVIES, ML_RATINGS = 138_493, 26_744, 20_000_263
+ML_MIN_USER, ML_MAX_USER, ML_TOP_MOVIE = 20, 9_254, 67_310
+# weights of the ratings 0.5, 1.0, ..., 5.0, shaped like the dataset's
+# histogram (most at 4.0, then 3.0)
+ML_RATING_WEIGHTS = (1.2, 3.4, 1.4, 7.2, 4.4, 21.4, 11.0, 27.8, 7.7, 14.5)
+ALS_K, ALS_ITERS, ALS_REG = 64, 5, 0.1
+SPMM_KS = (1, 3, 64, 130, 512)
 TIMING_REPS = 7
 SPIN_CYCLES = 20_000_000  # about 10 ms of an H100 SM clock
 # H100 SXM: HBM rate and the float32 rate outside the tensor cores
@@ -336,10 +359,11 @@ def config5_graph():
   return A.tocsr().astype(np.float32)
 
 
-def spmv_cases(big, small):
+def small_cases():
+  """Odd shapes: random, a band of empty rows, one row of 10,000 entries,
+  13 x 20."""
   rng = np.random.default_rng(7)
-  cases = [("urand 2^22", big), ("urand 32768", small),
-           ("random 1500x2300 d=0.005",
+  cases = [("random 1500x2300 d=0.005",
             ss.random(1500, 2300, density=0.005, random_state=3,
                       format="csr", dtype=np.float32))]
   empty = ss.random(4096, 2500, density=0.004, random_state=4, format="lil",
@@ -354,6 +378,10 @@ def spmv_cases(big, small):
   cases.append(("13x20", ss.random(13, 20, density=0.3, random_state=6,
                                    format="csr", dtype=np.float32)))
   return cases
+
+
+def spmv_cases(big, small):
+  return [("urand 2^22", big), ("urand 32768", small)] + small_cases()
 
 
 def phase_spmv_kernels(device, card: str, big, small):
@@ -511,6 +539,315 @@ def phase_pagerank(big, small, cfg5):
   pagerank_case("urand 32768", small, "ell", "ell_launches")
   pagerank_case("config-5 blocks", cfg5, "bsr", None, stochastic=False)
 
+# -- SpMM and ALS ---------------------------------------------------------------
+
+def user_lengths(rng) -> np.ndarray:
+  """Ratings per user: ML_MIN_USER plus a power-law tail
+  c·(r^-a - n^-a) over the ranks r = 1..n, which runs from ML_MAX_USER at
+  rank 1 down to ML_MIN_USER at rank n, with a set so that the lengths sum
+  to ML_RATINGS; the ranks are shuffled over the users."""
+  n = ML_USERS
+  ranks = np.arange(1, n + 1, dtype=np.float64)
+  extra = ML_RATINGS - ML_MIN_USER * n
+
+  def tail(a: float) -> np.ndarray:
+    c = (ML_MAX_USER - ML_MIN_USER) / (1.0 - n ** -a)
+    return np.floor(np.maximum(c * (ranks ** -a - n ** -a), 0)).astype(
+        np.int64)
+
+  lo, hi = 0.1, 2.0  # the tail's sum falls as a rises past 0.1
+  for _ in range(60):
+    mid = (lo + hi) / 2
+    if tail(mid).sum() > extra:
+      lo = mid
+    else:
+      hi = mid
+  lengths = ML_MIN_USER + tail(hi)
+  lengths[1:1 + extra - int(lengths.sum() - ML_MIN_USER * n)] += 1
+  return rng.permutation(lengths)
+
+
+def movielens_shaped(device, seed: int = 0):
+  """A float32 scipy CSR ratings matrix of MovieLens 20M's shape, drawn on
+  the card from ``seed``: user row lengths from :func:`user_lengths`; each
+  user's movies drawn without replacement (so no duplicates) with
+  Zipf-like popularity weights 1/(rank + j0), by the smallest of
+  Exp(1)/weight keys; j0 set by bisection so that the most popular movie
+  is rated by about ML_TOP_MOVIE of the users (estimated on 8192 users
+  with fixed keys); popularity ranks shuffled over the movie ids; ratings
+  0.5..5.0 from ML_RATING_WEIGHTS."""
+  rng = np.random.default_rng(seed)
+  lengths = user_lengths(rng)
+  gen = torch.Generator(device=device).manual_seed(seed)
+  L = torch.from_numpy(lengths).to(device)
+  rank = torch.arange(ML_MOVIES, device=device, dtype=torch.float64)
+  probe = torch.randperm(ML_USERS, generator=gen, device=device)[:8192]
+  probe_keys = torch.empty((probe.shape[0], ML_MOVIES),
+                           device=device).exponential_(generator=gen)
+
+  def top_share(j0: float) -> float:
+    keys = probe_keys * (rank + j0).float()
+    return float(((keys < keys[:, :1]).sum(1) < L[probe]).double().mean())
+
+  lo, hi = 1.0, 1e5  # a larger offset flattens the popularity
+  for _ in range(40):
+    mid = (lo * hi) ** 0.5
+    if top_share(mid) * ML_USERS > ML_TOP_MOVIE:
+      lo = mid
+    else:
+      hi = mid
+  inv_weight = (rank + (lo * hi) ** 0.5).float()
+  del probe_keys
+  movie_of_rank = torch.randperm(ML_MOVIES, generator=gen, device=device)
+  chunks = []
+  for start in range(0, ML_USERS, 4096):
+    Lc = L[start:start + 4096]
+    width = int(Lc.max())
+    keys = torch.empty((Lc.shape[0], ML_MOVIES), device=device).exponential_(
+        generator=gen) * inv_weight
+    ids = movie_of_rank[torch.sort(keys, dim=1).indices[:, :width]]
+    keep = torch.arange(width, device=device) < Lc[:, None]
+    ids = torch.where(keep, ids, ML_MOVIES).sort(dim=1).values
+    chunks.append(ids[ids < ML_MOVIES].int())
+    del keys, ids, keep
+  indices = torch.cat(chunks)
+  cdf = torch.tensor(np.cumsum(ML_RATING_WEIGHTS) / sum(ML_RATING_WEIGHTS),
+                     device=device, dtype=torch.float32)
+  draws = torch.rand(ML_RATINGS, generator=gen, device=device)
+  data = (torch.searchsorted(cdf, draws, right=True).clamp_max(9).float()
+          + 1) * 0.5
+  indptr = np.concatenate([[0], np.cumsum(lengths)])
+  return ss.csr_matrix((data.cpu().numpy(), indices.cpu().numpy(), indptr),
+                       shape=(ML_USERS, ML_MOVIES))
+
+
+def spmm_tolerance(indptr, indices, data, B):
+  """Per entry 2·len(row)·2^-24·Σ|a_p·b_p,c|: both sides sum the same
+  rounded float32 products, in another order."""
+  lengths = (indptr[1:] - indptr[:-1]).double()
+  sum_abs = K5.spmm_csr_plain(indptr, indices, data.abs(), B.float().abs())
+  return 2.0 * lengths[:, None] * 2.0 ** -24 * sum_abs.double()
+
+
+def spmm_check(label, csr, B):
+  """K5a against its plain version on ``csr`` and ``B``; returns the worst
+  |kernel - plain|."""
+  got = K5.spmm_csr(*csr, B)
+  again = K5.spmm_csr(*csr, B)
+  want = K5.spmm_csr_plain(*csr, B)
+  torch.cuda.synchronize()
+  diff = (got.double() - want.double()).abs()
+  tol = spmm_tolerance(*csr, B)
+  err = float(diff.max()) if diff.numel() else 0.0
+  ratio = float((diff / tol.clamp_min(1e-300)).max()) if diff.numel() else 0.0
+  same = bool(torch.equal(got, again))
+  print(f"  spmm_csr {label}: max|kernel-plain| {err:.3g}, worst share of "
+        f"the per-entry bound 2 len 2^-24 sum|a b| {ratio:.3g}; repeat "
+        f"bitwise equal: {same}")
+  check(got.dtype == torch.promote_types(torch.float32, B.dtype)
+        and bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
+        f"spmm_csr disagrees with its plain version on {label}")
+  check(same, f"spmm_csr is not deterministic on {label}")
+  return err
+
+
+def ingest_ratings(R):
+  """sparse.from_scipy(R, dtype=float32) as ALS's caller does, and the
+  route set-up both products need (transpose, block test, CSR forms)."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  with Timer() as t_ingest:
+    S = sparse.from_scipy(R, dtype=np.float32)
+    torch.cuda.synchronize()
+  with Timer() as t_route:
+    fmts = (sparse.spmm_expr(S, sp.zeros((ML_MOVIES, ALS_K))).fmt,
+            sparse.spmm_expr(S.T, sp.zeros((ML_USERS, ALS_K))).fmt)
+    torch.cuda.synchronize()
+  print(f"  ratings: {S.shape[0]} users x {S.shape[1]} movies, nnz "
+        f"{S.nnz} ({S.nnz / ML_RATINGS - 1:+.4%} of {ML_RATINGS}), longest "
+        f"user row {S.max_nnz_per_row}, most-rated movie "
+        f"{S.T.max_nnz_per_row}, fewest per user "
+        f"{int(np.diff(R.indptr).min())}; from_scipy {t_ingest.elapsed:.2f} s, "
+        f"route set-up (transpose, block test, CSR forms) "
+        f"{t_route.elapsed:.2f} s; padded ELL of R and R.T "
+        f"{(S.cols.numel() + S.T.cols.numel()) * 8 / 1e9:.2f} GB; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; SpMMExpr "
+        f"fmts {fmts}")
+  check(fmts == ("winmm", "winmm"), f"ALS's products took {fmts}, not winmm")
+  check(abs(S.nnz - ML_RATINGS) <= 0.01 * ML_RATINGS,
+        f"nnz {S.nnz} is not within 1 % of {ML_RATINGS}")
+  return S
+
+
+def phase_spmm_kernel(device, card: str, S):
+  """K5a against its plain version on the card, then both ALS products
+  timed beside the plain version and cuSPARSE."""
+  gen = torch.Generator(device=device).manual_seed(5)
+  worst = 0.0
+  for label, A in small_cases():
+    csr = sparse.from_scipy(A).to_csr()
+    m = A.shape[1]
+    for k in SPMM_KS:
+      B = torch.randn(m, k, generator=gen, device=device)
+      worst = max(worst, spmm_check(f"{label} k={k}", csr, B))
+    B = torch.randn(m, 64, generator=gen, device=device)
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+      worst = max(worst, spmm_check(f"{label} k=64 {str(dtype)[6:]} B", csr,
+                                    B.to(dtype)))
+    Bt = torch.randn(64, m, generator=gen, device=device)
+    worst = max(worst, spmm_check(f"{label} k=64 B a transposed view", csr,
+                                  Bt.t()))
+  products = (("R @ V", S, ML_MOVIES), ("R.T @ U", S.T, ML_USERS))
+  total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+  bytes_all = flops_all = 0.0
+  for label, A, m in products:
+    csr = A.to_csr()
+    B = torch.randn(m, ALS_K, generator=gen, device=device)
+    worst = max(worst, spmm_check(f"ML-20M {label} k={ALS_K}", csr, B))
+    n, nnz = A.shape[0], A.nnz
+    lib = torch.sparse_csr_tensor(csr[0].int(), csr[1], csr[2], size=A.shape,
+                                  check_invariants=False)
+    t = time_in_turns({"plain": lambda: K5.spmm_csr_plain(*csr, B),
+                       "kernel": lambda: K5.spmm_csr(*csr, B),
+                       "cuSPARSE": lambda: lib @ B}, 3)
+    nbytes = nnz * 8 + (n + 1) * 8 + (m + n) * ALS_K * 4
+    flops = 2 * nnz * ALS_K
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"  spmm_csr time on ML-20M {label} (n={n}, nnz={nnz}, longest row "
+          f"{A.max_nnz_per_row}, k={ALS_K}): kernel {t['kernel']:.4f} ms "
+          f"({nnz / t['kernel'] / 1e6:.2f} Gnnz/s, "
+          f"{flops / t['kernel'] / 1e6:.1f} GFLOP/s), plain "
+          f"{t['plain']:.4f} ms, cuSPARSE {t['cuSPARSE']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP) (median of {TIMING_REPS} x 3 calls "
+          f"queued ahead of the device, CUDA events, in turns; queued ahead: "
+          f"{all(t[f'{v} ahead'] for v in ('kernel', 'plain', 'cuSPARSE'))})"
+          f"; host issue per call: kernel {t['kernel host']:.4f} ms, plain "
+          f"{t['plain host']:.4f} ms, cuSPARSE {t['cuSPARSE host']:.4f} ms; "
+          f"on {card}")
+    for key, name in (("ms", "kernel"), ("plain_ms", "plain"),
+                      ("library_ms", "cuSPARSE")):
+      total[key] += t[name]
+    total["bound_ms"] += bound_ms
+    bytes_all += nbytes
+    flops_all += flops
+    del lib, B
+  # the row reports one ALS iteration's two products
+  _, total["bound_by"] = bound(bytes_all, flops_all)
+  total["max_abs_err"] = worst
+  print(f"  spmm_csr both products: kernel {total['ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.4f} ms, cuSPARSE {total['library_ms']:.4f} ms, "
+        f"bound {total['bound_ms']:.4f} ms; worst |kernel-plain| {worst:.3g}")
+  return total
+
+
+def scipy_als(R, U, V):
+  """float64 ALS in numpy/scipy from factors U, V; returns them and the
+  largest condition number of the Gram matrices it solved with."""
+  R64 = R.astype(np.float64)
+  R64t = R64.T.tocsr()
+  eye = ALS_REG * np.eye(ALS_K)
+  cond = 0.0
+  for _ in range(ALS_ITERS):
+    gram_v = V.T @ V + eye
+    U = np.linalg.solve(gram_v, (R64 @ V).T).T
+    gram_u = U.T @ U + eye
+    V = np.linalg.solve(gram_u, (R64t @ U).T).T
+    cond = max(cond, np.linalg.cond(gram_v), np.linalg.cond(gram_u))
+  return U, V, cond
+
+
+def stored_rmse(S, U, V) -> float:
+  """RMSE of U @ V.T over the stored ratings, on the card in float64."""
+  indptr, indices, data = S.to_csr()
+  rows = torch.repeat_interleave(
+      torch.arange(S.shape[0], device=indptr.device), indptr[1:] - indptr[:-1],
+      output_size=S.nnz)
+  Ut = torch.from_numpy(U).to(indptr.device)
+  Vt = torch.from_numpy(V).to(indptr.device)
+  sse = 0.0
+  for lo in range(0, S.nnz, 1 << 21):
+    hi = min(lo + (1 << 21), S.nnz)
+    pred = (Ut[rows[lo:hi]] * Vt[indices[lo:hi].long()]).sum(1)
+    sse += float(((data[lo:hi].double() - pred) ** 2).sum())
+  return (sse / S.nnz) ** 0.5
+
+
+def device_share(fn):
+  """(device-busy ms by kernel name, summed device ms, wall ms) of one call
+  of ``fn`` under torch.profiler (device events only: kernels and
+  copies)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    with Timer() as t_wall:
+      fn()
+      torch.cuda.synchronize()
+  by_name = {}
+  for ev in prof.key_averages():
+    if ev.device_type == DeviceType.CUDA:
+      by_name[ev.key] = ev.self_device_time_total / 1e3
+  return by_name, sum(by_name.values()), t_wall.elapsed * 1e3
+
+
+def phase_als(R, S) -> int:
+  """als.fit at full width against a float64 scipy ALS; returns K5a's
+  launches in that fit."""
+  torch.cuda.synchronize()
+  with Timer() as t_fit:
+    U, V = als.fit(S, k=ALS_K, iterations=ALS_ITERS, reg=ALS_REG, seed=0)
+  launches, plain_runs = K5.counts["launches"], K5.counts["plain_runs"]
+  check(launches == 2 * ALS_ITERS and plain_runs == 0,
+        f"ALS launched K5a {launches} times and ran its plain version "
+        f"{plain_runs} times; expected {2 * ALS_ITERS} and 0")
+  rng = np.random.default_rng(0)
+  U0 = rng.standard_normal((ML_USERS, ALS_K)) * 0.1
+  V0 = rng.standard_normal((ML_MOVIES, ALS_K)) * 0.1
+  with Timer() as t_oracle:
+    U64, V64, cond = scipy_als(R, U0, V0)
+  err_u = np.abs(U - U64).max() / np.abs(U64).max()
+  err_v = np.abs(V - V64).max() / np.abs(V64).max()
+  # float32 products within about 2e-5 of their size (sqrt(len)·2^-24 at
+  # rows of up to 70 k ratings), amplified by the Gram solves' condition
+  # number (first order)
+  tol = cond * 2e-5
+  rmse, rmse64 = stored_rmse(S, U, V), stored_rmse(S, U64, V64)
+  print(f"  als.fit k={ALS_K}, {ALS_ITERS} iterations, reg {ALS_REG}: "
+        f"{t_fit.elapsed / ALS_ITERS * 1e3:.1f} ms/iteration (host clock, "
+        f"synced, first call included); K5a launches {launches}; max rel "
+        f"err vs float64 scipy ALS: U {err_u:.3g}, V {err_v:.3g} (tolerance "
+        f"largest Gram condition number {cond:.4g} x 2e-5 = {tol:.3g}); "
+        f"RMSE over the stored ratings {rmse:.6f} (float64 ALS "
+        f"{rmse64:.6f}); scipy ALS {t_oracle.elapsed:.1f} s")
+  check(U.shape == (ML_USERS, ALS_K) and V.shape == (ML_MOVIES, ALS_K)
+        and bool(np.isfinite(U).all() and np.isfinite(V).all()),
+        "ALS factors are not finite or of the wrong shape")
+  check(max(err_u, err_v) <= tol, "ALS disagrees with the float64 ALS")
+  with Timer() as t_steady:
+    als.fit(S, k=ALS_K, iterations=ALS_ITERS, reg=ALS_REG, seed=0)
+  # the pieces of an iteration: a product with its transfers, a host solve
+  sv = sp.from_numpy(V)
+  np.asarray(sp.dot(S, sv).glom())
+  with Timer() as t_product:
+    rv = np.asarray(sp.dot(S, sp.from_numpy(V)).glom())
+  gram = np.asarray(sp.dot(sv.T, sv).glom()) + ALS_REG * np.eye(ALS_K)
+  with Timer() as t_solve:
+    np.linalg.solve(gram, rv.T)
+  print(f"  an iteration's pieces (host clock): R @ V with V's upload and "
+        f"the result's download {t_product.elapsed * 1e3:.1f} ms, the host "
+        f"solve for U {t_solve.elapsed * 1e3:.1f} ms")
+  by_name, busy, wall = device_share(
+      lambda: als.fit(S, k=ALS_K, iterations=1, reg=ALS_REG, seed=0))
+  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+  print(f"  als.fit steady {t_steady.elapsed / ALS_ITERS * 1e3:.1f} "
+        f"ms/iteration (host clock, synced); one iteration under "
+        f"torch.profiler: wall {wall:.1f} ms, device busy {busy:.2f} ms "
+        f"(idle share {1 - busy / wall:.3f}); by kernel (ms): "
+        + ", ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
+  return launches
+
 
 def main() -> None:
   # phase 0: identify the card; no card, no result
@@ -568,6 +905,21 @@ def main() -> None:
   k3["spmv_ell"]["launches"] = KS.counts["ell_launches"]
   k3["spmv_csr"]["launches"] = KS.counts["csr_launches"]
   done(6)
+  del big, small, cfg5
+
+  print("phase 7: K5a against its plain version on the card; ratings of "
+        "MovieLens 20M's shape")
+  with Timer() as t_draw:
+    R = movielens_shaped(device)
+  print(f"  drew the ratings in {t_draw.elapsed:.2f} s")
+  S = ingest_ratings(R)
+  k5 = phase_spmm_kernel(device, card, S)
+  done(7)
+
+  K5.reset_counts()  # count the ALS path's launches only
+  print("phase 8: ALS through als.fit at full width")
+  k5["launches"] = phase_als(R, S)
+  done(8)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",
@@ -575,7 +927,9 @@ def main() -> None:
           ("spmv_ell", "spmv_ell.cu",
            "spartan_tpu/backend/kernels/spmv_pallas.py:106", k3["spmv_ell"]),
           ("spmv_csr", "spmv_csr.cu",
-           "spartan_tpu/backend/kernels/spmv_pallas.py:657", k3["spmv_csr"])]
+           "spartan_tpu/backend/kernels/spmv_pallas.py:657", k3["spmv_csr"]),
+          ("spmm_csr", "spmm_csr.cu",
+           "spartan_tpu/backend/kernels/spmm_pallas.py:232", k5)]
   print(json.dumps({"kernels": [
       {"name": name, "route": "cuda",
        "source": f"spartan_tpu_torch/csrc/{source}", "replaces": replaces,

@@ -1,7 +1,7 @@
 """spartan_tpu_torch: the PyTorch and CUDA port of spartan-tpu.
 
 The lazy NumPy-style expression DAG of ``spartan_tpu`` (creation,
-elementwise map, reduce, dot, sparse matrix-vector products), its fusion
+elementwise map, reduce, dot, sparse × dense products), its fusion
 passes and region evaluator, run on one ``torch.device`` — an NVIDIA GPU by
 default — with the TPU's Pallas kernels replaced by hand-written CUDA
 kernels.  ``spartan_tpu`` stays the

@@ -4,8 +4,9 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  On
 first use it is compiled with ``nvcc`` (several sources in parallel through
 :func:`load_all`) into a shared library under
 ``spartan_tpu_torch/_build/`` (named by a hash of the sources and flags, so
-an edit rebuilds) and loaded with ``ctypes``.  No PyTorch headers are
-involved, so a build takes seconds.  ``nvcc`` comes from ``CUDA_HOME``,
+an edit rebuilds) and loaded with ``ctypes``; :func:`launch` binds and calls
+its ``spartan_<name>`` entry point.  No PyTorch headers are involved, so a
+build takes seconds.  ``nvcc`` comes from ``CUDA_HOME``,
 then ``PATH``, then ``/usr/local/cuda/bin``; without one the build raises.
 """
 
@@ -18,7 +19,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Any, Dict, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -108,3 +111,49 @@ def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
     if name not in _libs:
       _libs[name] = ctypes.CDLL(str(library_path(name)))
   return {name: _libs[name] for name in names}
+
+
+def one_device(*tensors: torch.Tensor) -> None:
+  """Raise unless every operand of a kernel wrapper lies on one device
+  (checked before the wrapper picks kernel or plain version by that
+  device)."""
+  devices = {t.device for t in tensors}
+  if len(devices) != 1:
+    raise ValueError(f"kernel operands must share one device, got "
+                     f"{sorted(map(str, devices))}")
+
+
+# The C signature of each ``spartan_<name>`` launched through :func:`launch`,
+# less the trailing stream.  Pointers as c_void_p: ctypes would cut them to
+# 32 bits.
+ARGTYPES = {
+    "spmv_ell": [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int],
+    "spmv_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int],
+    "spmm_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int],
+}
+# name -> (bound C function, its library), filled at the first launch
+_bound: Dict[str, Tuple[Any, ctypes.CDLL]] = {}
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+  """Launch ``spartan_<name>(*args, stream)`` on ``device``'s current
+  stream; raises if the launch fails.  The library is built and bound at
+  the first call only."""
+  if name not in _bound:
+    lib = load(name)
+    fn = getattr(lib, f"spartan_{name}")
+    fn.argtypes = ARGTYPES[name] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.spartan_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.spartan_cuda_error_string.restype = ctypes.c_char_p
+    _bound[name] = (fn, lib)
+  fn, lib = _bound[name]
+  if device.index == torch.cuda.current_device():
+    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+  else:
+    with torch.cuda.device(device):
+      rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+  if rc != 0:
+    raise RuntimeError(f"{name} kernel launch failed: "
+                       + lib.spartan_cuda_error_string(rc).decode())

@@ -25,12 +25,10 @@ launches and plain runs of each.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Any, Dict, Tuple
-
 import torch
 
-THREADS = 256
+from spartan_tpu_torch.backend.kernels import build
+
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 counts = {"ell_launches": 0, "ell_plain_runs": 0, "csr_launches": 0,
@@ -94,7 +92,7 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
     raise TypeError(f"spmv_ell needs int32 cols, not {cols.dtype}")
   _check_float("vals", vals)
   _check_float("x", x)
-  _one_device(cols, vals, x)
+  build.one_device(cols, vals, x)
   if x.device.type != "cuda":
     counts["ell_plain_runs"] += 1
     return spmv_ell_plain(cols, vals, x)
@@ -104,8 +102,8 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
   cols_c, vals_c, x_c = (t.contiguous() for t in (cols, vals.float(),
                                                   x.float()))
   y = torch.empty(n, dtype=torch.float32, device=x.device)
-  _launch("spmv_ell", x.device, cols_c.data_ptr(), vals_c.data_ptr(),
-          x_c.data_ptr(), y.data_ptr(), n, k, group_size(k))
+  build.launch("spmv_ell", x.device, cols_c.data_ptr(), vals_c.data_ptr(),
+               x_c.data_ptr(), y.data_ptr(), n, k, group_size(k))
   counts["ell_launches"] += 1
   return y.to(vals.dtype)
 
@@ -126,7 +124,7 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
                     f"{indptr.dtype} and {indices.dtype}")
   _check_float("data", data)
   _check_float("x", x)
-  _one_device(indptr, indices, data, x)
+  build.one_device(indptr, indices, data, x)
   if x.device.type != "cuda":
     counts["csr_plain_runs"] += 1
     return spmv_csr_plain(indptr, indices, data, x)
@@ -136,51 +134,9 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
   indptr_c, indices_c, data_c, x_c = (
       t.contiguous() for t in (indptr, indices, data.float(), x.float()))
   y = torch.empty(n, dtype=torch.float32, device=x.device)
-  _launch("spmv_csr", x.device, indptr_c.data_ptr(), indices_c.data_ptr(),
-          data_c.data_ptr(), x_c.data_ptr(), y.data_ptr(), n,
-          group_size(indices.shape[0] / n))
+  build.launch("spmv_csr", x.device, indptr_c.data_ptr(),
+               indices_c.data_ptr(), data_c.data_ptr(), x_c.data_ptr(),
+               y.data_ptr(), n, group_size(indices.shape[0] / n))
   counts["csr_launches"] += 1
   return y.to(x.dtype)
 
-
-def _one_device(*tensors: torch.Tensor) -> None:
-  """Raise unless every operand lies on one device (checked before the
-  route is chosen by that device)."""
-  devices = {t.device for t in tensors}
-  if len(devices) != 1:
-    raise ValueError(f"SpMV operands must share one device, got "
-                     f"{sorted(map(str, devices))}")
-
-
-_ARGTYPES = {
-    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    "spmv_ell": [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
-                                         ctypes.c_int, ctypes.c_void_p],
-    "spmv_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                         ctypes.c_void_p],
-}
-# name -> (bound C function, its library), filled at the first launch
-_bound: Dict[str, Tuple[Any, ctypes.CDLL]] = {}
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-  """Launch ``spartan_<name>`` on ``device``'s current stream; raises if the
-  launch fails.  The library is built and bound at the first call only."""
-  if name not in _bound:
-    from spartan_tpu_torch.backend.kernels import build
-    lib = build.load(name)
-    fn = getattr(lib, f"spartan_{name}")
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    lib.spartan_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.spartan_cuda_error_string.restype = ctypes.c_char_p
-    _bound[name] = (fn, lib)
-  fn, lib = _bound[name]
-  if device.index == torch.cuda.current_device():
-    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-  else:
-    with torch.cuda.device(device):
-      rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-  if rc != 0:
-    raise RuntimeError(f"{name} kernel launch failed: "
-                       + lib.spartan_cuda_error_string(rc).decode())

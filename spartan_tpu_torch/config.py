@@ -183,25 +183,30 @@ FLAGS.add(StrFlag("dot_precision", "default",
 # Sparse routing.  The names, defaults and thresholds are the reference's
 # (measured on a TPU v5e, to be measured again on the H100); the force
 # flags keep the reference's names and route to the CUDA counterparts of
-# the one-hot (K3a: ELL kernel) and windowed (K3b: CSR kernel) TPU kernels.
+# the one-hot (K3a: ELL kernel), windowed (K3b: CSR kernel) and windowed
+# SpMM (K5a: CSR SpMM kernel) TPU kernels.
 FLAGS.add(BoolFlag("sparse_auto_bsr", True,
                    "on a CUDA device, detect block structure in a sparse "
-                   "matrix and route its SpMV to the block-ELL einsum"))
+                   "matrix and route its SpMV/SpMM to the block-ELL einsum"))
 FLAGS.add(FloatFlag("sparse_bsr_max_expansion", 16.0,
                     "max stored elements per nonzero that the block-ELL "
-                    "repack may pay; above it SpMV stays on the ELL/CSR "
+                    "repack may pay; above it SpMV/SpMM stay on the ELL/CSR "
                     "kernels"))
 FLAGS.add(BoolFlag("sparse_force_windowed", False,
                    "route SpMV through the CSR kernel (K3b) whatever the "
                    "size or device; on the CPU it runs its plain version "
                    "— testing/debug"))
 FLAGS.add(BoolFlag("sparse_dense_route", True,
-                   "let SpMV densify moderately dense sparse matrices on "
-                   "a CUDA device and multiply with torch.matmul (see "
-                   "sparse_dense_min_density_spmv/max_bytes)"))
+                   "let SpMV/SpMM densify moderately dense sparse matrices "
+                   "on a CUDA device and multiply with torch.matmul (see "
+                   "sparse_dense_min_density[_spmv]/max_bytes)"))
+FLAGS.add(BoolFlag("sparse_force_winmm", False,
+                   "route spmm/SpMMExpr through the CSR SpMM kernel (K5a) "
+                   "whatever the device; on the CPU it runs its plain "
+                   "version — testing/debug"))
 FLAGS.add(FloatFlag("sparse_dense_min_density", 2e-3,
-                    "min nnz/(n*m) for the densified SpMM route; SpMM is "
-                    "not ported yet, so nothing reads it"))
+                    "min nnz/(n*m) for the densified SpMM route; below it "
+                    "SpMM takes the CSR kernel (K5a) or the ELL gather"))
 FLAGS.add(IntFlag("sparse_dense_max_bytes", 2 << 30,
                   "max float32 bytes (4*n*m) the densified route may "
                   "materialize on the device; larger matrices stay sparse"))
@@ -209,8 +214,8 @@ FLAGS.add(FloatFlag("sparse_dense_min_density_spmv", 8e-3,
                     "min nnz/(n*m) for the densified SpMV route; below it "
                     "SpMV takes the ELL/CSR kernels"))
 FLAGS.add(BoolFlag("sparse_force_dense", False,
-                   "route SpMV through the densified torch.matmul whatever "
-                   "the device or density — testing/debug"))
+                   "route SpMV/SpMM through the densified torch.matmul "
+                   "whatever the device or density — testing/debug"))
 FLAGS.add(BoolFlag("sparse_force_onehot", False,
                    "route SpMV through the ELL kernel (K3a) whatever the "
                    "size or device; on the CPU it runs its plain version "

@@ -162,6 +162,7 @@ def semantic_flags_fingerprint() -> Tuple:
   """Flags that change emitted computations — part of every cache key."""
   return (FLAGS.float64_reductions, FLAGS.opt_affine_reduce,
           FLAGS.dot_precision, FLAGS.use_kernels, FLAGS.sparse_force_onehot,
+          FLAGS.sparse_force_windowed, FLAGS.sparse_force_winmm,
           FLAGS.sparse_dense_route, FLAGS.sparse_force_dense)
 
 

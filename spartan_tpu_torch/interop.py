@@ -20,16 +20,9 @@ import numpy as np
 import torch
 
 from spartan_tpu_torch.backend.sparse import (BlockSparseArray, SparseArray,
-                                              _from_host)
-from spartan_tpu_torch.core.array import from_numpy, to_torch_dtype
+                                              _upload)
+from spartan_tpu_torch.core.array import from_numpy
 from spartan_tpu_torch.core.mesh import get_mesh, make_mesh
-
-
-def _tensor(buf: Any, device: torch.device) -> torch.Tensor:
-  host = np.asarray(buf)
-  if host.dtype.name == "bfloat16":  # ml_dtypes, which torch cannot read
-    return _from_host(host.astype(np.float32), torch.bfloat16, device)
-  return _from_host(host, to_torch_dtype(host.dtype), device)
 
 
 def from_reference(value: Any,
@@ -43,12 +36,12 @@ def from_reference(value: Any,
   if isinstance(value, (list, tuple)):
     return type(value)(from_reference(v, mesh.device) for v in value)
   if hasattr(value, "block_cols"):
-    return BlockSparseArray(_tensor(value.block_cols, mesh.device),
-                            _tensor(value.block_vals, mesh.device),
+    return BlockSparseArray(_upload(value.block_cols, mesh.device),
+                            _upload(value.block_vals, mesh.device),
                             value.shape, value.bs, value.nnz_blocks)
   if hasattr(value, "cols") and hasattr(value, "nnz"):
-    out = SparseArray(_tensor(value.cols, mesh.device),
-                      _tensor(value.vals, mesh.device), value.shape,
+    out = SparseArray(_upload(value.cols, mesh.device),
+                      _upload(value.vals, mesh.device), value.shape,
                       value.nnz)
     out.fmt = getattr(value, "fmt", "csr")
     return out

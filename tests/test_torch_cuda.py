@@ -1,7 +1,7 @@
 """Card-only tests of the port: kernels K1 (csrc/fused_reduce.cu), K3a
-(csrc/spmv_ell.cu) and K3b (csrc/spmv_csr.cu) against their plain torch
-versions on the same CUDA tensors, and the expression layer's and
-PageRank's kernel paths.  Run on a machine with an NVIDIA GPU:
+(csrc/spmv_ell.cu), K3b (csrc/spmv_csr.cu) and K5a (csrc/spmm_csr.cu)
+against their plain torch versions on the same CUDA tensors, and the
+expression layer's, PageRank's and ALS's kernel paths.  Run on a machine with an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -237,3 +237,100 @@ def test_pagerank_fit_sparse_on_card(device):
   for _ in range(20):
     r = 0.85 * (M @ r) + 0.15 / 512
   assert np.abs(got - r).max() <= 1e-5 * r.max()
+
+
+# -- SpMM kernel K5a (spmm_csr) -------------------------------------------------
+# Tolerance: per entry, 2·len(row)·2^-24·Σ_p |data_p · B[indices_p, c]|: both
+# sides sum the same rounded float32 products in another order.
+
+from spartan_tpu_torch.backend.kernels import spmm as K5  # noqa: E402
+
+
+def _spmm_tolerance(indptr, indices, data, B):
+  lengths = (indptr[1:] - indptr[:-1]).double()
+  sum_abs = K5.spmm_csr_plain(indptr, indices, data.abs(), B.float().abs())
+  return 2.0 * lengths[:, None] * 2.0 ** -24 * sum_abs.double()
+
+
+@pytest.mark.parametrize("bdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16, torch.float64], ids=str)
+@pytest.mark.parametrize("k", [1, 3, 64, 130, 512])
+@pytest.mark.parametrize("kind", MATRICES)
+def test_spmm_kernel_matches_plain(device, kind, k, bdtype):
+  S = sps.from_scipy(_matrix(kind))
+  indptr, indices, data = S.to_csr()
+  gen = torch.Generator(device=device).manual_seed(k)
+  B = torch.randn(S.shape[1], k, generator=gen, device=device).to(bdtype)
+  before = dict(K5.counts)
+  got = K5.spmm_csr(indptr, indices, data, B)
+  torch.cuda.synchronize()
+  assert K5.counts["launches"] == before["launches"] + 1
+  assert K5.counts["plain_runs"] == before["plain_runs"]
+  want = K5.spmm_csr_plain(indptr, indices, data, B)
+  assert got.dtype == want.dtype == torch.promote_types(torch.float32, bdtype)
+  assert got.shape == (S.shape[0], k) and got.device == B.device
+  diff = (got.double() - want.double()).abs()
+  assert bool((diff <= _spmm_tolerance(indptr, indices, data, B)).all())
+  assert torch.equal(got, K5.spmm_csr(indptr, indices, data, B))
+
+
+def test_spmm_kernel_reads_a_transposed_view(device):
+  S = sps.from_scipy(_matrix("random"))
+  indptr, indices, data = S.to_csr()
+  Bt = torch.randn(64, S.shape[1], device=device)
+  got = K5.spmm_csr(indptr, indices, data, Bt.t())
+  want = K5.spmm_csr_plain(indptr, indices, data, Bt.t().contiguous())
+  diff = (got.double() - want.double()).abs()
+  assert bool((diff <= _spmm_tolerance(indptr, indices, data,
+                                       Bt.t().contiguous())).all())
+
+
+def test_spmm_wrapper_refuses_what_the_kernel_does_not_take(device):
+  S = sps.from_scipy(_matrix("tiny"))
+  indptr, indices, data = S.to_csr()
+  B = torch.randn(S.shape[1], 4, device=device)
+  with pytest.raises(ValueError, match="k <= 512"):
+    K5.spmm_csr(indptr, indices, data, torch.randn(S.shape[1], 513,
+                                                   device=device))
+  with pytest.raises(TypeError, match="float B"):
+    K5.spmm_csr(indptr, indices, data, B.long())
+  with pytest.raises(ValueError, match="one device"):
+    K5.spmm_csr(indptr, indices, data, B.cpu())
+
+
+def test_spmm_expr_and_spmm_launch_the_kernel_on_card(device):
+  import scipy.sparse as ss
+  A = ss.random(3000, 2000, density=0.01, random_state=2, format="csr",
+                dtype=np.float32)
+  S = sps.from_scipy(A)
+  B = np.random.default_rng(4).standard_normal((2000, 48))
+  e = sps.spmm_expr(S, sp.from_numpy(B))
+  assert e.fmt == "winmm"
+  before = dict(K5.counts)
+  got = e.glom()
+  eager = sps.spmm(S, B)
+  assert K5.counts["launches"] == before["launches"] + 2
+  assert K5.counts["plain_runs"] == before["plain_runs"]
+  want = A.astype(np.float64) @ B
+  assert got.dtype == np.float64
+  assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+  np.testing.assert_array_equal(eager.cpu().numpy(), got)
+
+
+def test_als_fit_on_card_matches_float64(device):
+  import scipy.sparse as ss
+  from spartan_tpu_torch.examples import als
+  R = ss.random(600, 400, density=0.05, random_state=5, format="csr")
+  R.data = np.round(R.data * 9 + 1) / 2
+  before = K5.counts["launches"]
+  U, V = als.fit(sps.from_scipy(R, dtype=np.float32), k=8, iterations=3)
+  assert K5.counts["launches"] == before + 6
+  rng = np.random.default_rng(0)
+  U64, V64 = rng.standard_normal((600, 8)) * 0.1, rng.standard_normal(
+      (400, 8)) * 0.1
+  R32 = R.astype(np.float32).astype(np.float64)
+  for _ in range(3):
+    U64 = np.linalg.solve(V64.T @ V64 + 0.1 * np.eye(8), (R32 @ V64).T).T
+    V64 = np.linalg.solve(U64.T @ U64 + 0.1 * np.eye(8), (R32.T @ U64).T).T
+  assert np.abs(U - U64).max() <= 1e-4 * np.abs(U64).max()
+  assert np.abs(V - V64).max() <= 1e-4 * np.abs(V64).max()

@@ -215,11 +215,12 @@ def test_initialize_refuses_missing_cuda(monkeypatch):
 
 
 def test_sparse_dot_names_the_later_slice():
-  """SpMV is ported; a sparse x dense-matrix product names the SpMM kernel
-  still to come, and a scipy matrix must be converted first."""
+  """The sparse x dense-matrix product, the slice after SpMV, is an SpMM
+  expr now; a scipy matrix must be converted first."""
   import scipy.sparse as ss
   S = sp.sparse.from_scipy(ss.eye(4, format="csr"))
-  with pytest.raises(NotImplementedError, match="K5a"):
-    sp.dot(S, sp.from_numpy(np.ones((4, 2))))
+  e = sp.dot(S, sp.from_numpy(np.arange(8.0).reshape(4, 2)))
+  assert isinstance(e, sp.sparse.SpMMExpr)
+  np.testing.assert_array_equal(e.glom(), np.arange(8.0).reshape(4, 2))
   with pytest.raises(TypeError, match="from_scipy"):
     sp.dot(ss.eye(4, format="csr"), sp.from_numpy(np.ones(4)))

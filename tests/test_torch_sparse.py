@@ -1,13 +1,15 @@
 """The port's sparse arrays against the reference's (``spartan_tpu.backend.
-sparse``) on the same seeded scipy matrices: construction, conversions,
-block structure and the block route, the densified route, the ``sp.dot``
-dispatch and the fmt each SpMV expr takes.
+sparse``) on the same seeded scipy matrices: construction, conversions
+(``to_scipy``, ``transpose``, ``canonicalize`` on the device), block
+structure and the block route, the densified route, the ``sp.dot``
+dispatch, the fmt each SpMV expr takes, the scipy-style elementwise
+surface, ``merge_csr`` and ``save_sparse``/``load_sparse``.
 
 Tolerances: layouts (ELL ``cols``/``vals``, block-ELL buffers, dense
-forms) are compared exactly; float64 products at rtol 1e-10 (sums in
-another order); float32 products at 1e-5 of max|y| (float32 sums in
-another order; the reference's TPU-shaped kernels split x into bf16
-halves, about 3e-6 relative).
+forms, elementwise results) are compared exactly; float64 sums and
+products at rtol 1e-10 (sums in another order); float32 products at 1e-5
+of max|y| (float32 sums in another order; the reference's TPU-shaped
+kernels split x into bf16 halves, about 3e-6 relative).
 """
 
 import jax
@@ -268,12 +270,13 @@ def test_dot_dispatch_matches_reference(dtype):
 
 
 def test_dot_refuses_what_is_not_ported():
+  """What stays refused now that matrices take SpMM: dense @ block-ELL,
+  sparse @ sparse and an unknown precision."""
   S = sps.from_scipy(matrix("blocks"))
   B = sps.from_scipy_bsr(matrix("blocks"), bs=16)
-  with pytest.raises(NotImplementedError, match="K5a"):
-    sp.dot(S, sp.from_numpy(np.ones((64, 3))))
-  with pytest.raises(NotImplementedError, match="K5a"):
-    sp.dot(sp.from_numpy(np.ones((3, 64))), S)
+  assert isinstance(sp.dot(S, sp.from_numpy(np.ones((64, 3)))),
+                    sps.SpMMExpr)
+  assert sp.dot(sp.from_numpy(np.ones((3, 64))), S).shape == (3, 64)
   with pytest.raises(TypeError, match="BlockSparseArray"):
     sp.dot(sp.from_numpy(np.ones(64)), B)
   with pytest.raises(TypeError, match="sparse @ sparse"):
@@ -315,3 +318,226 @@ def test_shape_inference_reaches_no_kernel(flags, fmt_flag):
   e = sps.spmv_expr(S, sp.ones((45,), dtype=np.float32) * 2)
   assert (e.shape, e.dtype) == ((60,), torch.float32)
   assert KS.counts == before
+
+
+# -- conversions on the device: empty rows, explicit zeros, duplicates ----------------
+
+def with_explicit_zeros():
+  """Empty rows and stored zeros (kept by from_scipy, dropped by
+  to_scipy in both packages)."""
+  A = matrix("empty_rows")
+  A.data[::5] = 0.0
+  assert A.nnz > np.count_nonzero(A.data)
+  return A
+
+
+@pytest.mark.parametrize("kind", ["empty_rows", "explicit_zeros", "duplicates"])
+def test_device_conversions_match_reference(kind):
+  if kind == "duplicates":  # ELLs side by side: repeated coordinates
+    A = matrix("skewed")
+    R = ref_sps.from_scipy(A) + ref_sps.from_scipy(A * 3)
+    S = sps.from_scipy(A) + sps.from_scipy(A * 3)
+  else:
+    A = matrix("empty_rows") if kind == "empty_rows" else with_explicit_zeros()
+    R, S = ref_sps.from_scipy(A), sps.from_scipy(A)
+  want, got = R.to_scipy(), S.to_scipy()
+  for name in ("indptr", "indices", "data"):
+    np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+  assert got.shape == want.shape and got.has_canonical_format
+  for mine, theirs in ((S.T, R.T), (S.canonicalize(), R.canonicalize())):
+    np.testing.assert_array_equal(host(mine.cols), np.asarray(theirs.cols))
+    np.testing.assert_array_equal(host(mine.vals), np.asarray(theirs.vals))
+    assert (mine.shape, mine.nnz) == (theirs.shape, theirs.nnz)
+  assert S.T.T is S and S.T.cols.device == S.cols.device
+
+
+def test_cancelled_duplicates_stay_stored_as_scipy_keeps_them():
+  A = matrix("random")
+  R = ref_sps.from_scipy(A) + (-ref_sps.from_scipy(A))
+  S = sps.from_scipy(A) + (-sps.from_scipy(A))
+  assert S.canonicalize().nnz == R.canonicalize().nnz == A.nnz
+  got, want = S.to_scipy(), R.to_scipy()
+  assert got.nnz == want.nnz == A.nnz and not got.data.any()
+  np.testing.assert_array_equal(got.indices, want.indices)
+
+
+# -- the scipy-style elementwise surface ----------------------------------------------
+
+def operands(A):
+  """Dense operands of A's shape, a row, a column and their NaN/Inf
+  variants (non-finite values where the ELL pads read: column 0)."""
+  n, m = A.shape
+  rng = np.random.default_rng(10)
+  full = rng.standard_normal((n, m))
+  bad = full.copy()
+  bad[:, 0] = np.inf
+  bad[::2, 0] = np.nan
+  row = rng.standard_normal(m)
+  bad_row = row.copy()
+  bad_row[0] = np.inf
+  return {"full": full, "row": row[None, :], "vec": row,
+          "col": rng.standard_normal((n, 1)), "bad": bad,
+          "bad_row": bad_row}
+
+
+SURFACE = {
+    "sum": lambda S, T, d: S.sum(),
+    "sum0": lambda S, T, d: S.sum(0),
+    "sum1": lambda S, T, d: S.sum(1),
+    "sum-1": lambda S, T, d: S.sum(-1),
+    "mean": lambda S, T, d: S.mean(),
+    "mean0": lambda S, T, d: S.mean(0),
+    "mean1": lambda S, T, d: S.mean(1),
+    "getnnz": lambda S, T, d: S.getnnz(),
+    "getnnz0": lambda S, T, d: S.getnnz(0),
+    "count_nonzero1": lambda S, T, d: S.count_nonzero(1),
+    "diagonal": lambda S, T, d: S.diagonal(),
+    "diagonal2": lambda S, T, d: S.diagonal(2),
+    "diagonal-3": lambda S, T, d: S.diagonal(-3),
+    "diagonal_outside": lambda S, T, d: S.diagonal(1000),
+    "mul_scalar": lambda S, T, d: S * 2.5,
+    "rmul_scalar": lambda S, T, d: 2.5 * S,
+    "multiply_dense": lambda S, T, d: S.multiply(d["full"]),
+    "multiply_row": lambda S, T, d: S.multiply(d["row"]),
+    "multiply_vec": lambda S, T, d: S.multiply(d["vec"]),
+    "multiply_col": lambda S, T, d: S.multiply(d["col"]),
+    "multiply_sparse": lambda S, T, d: S.multiply(T),
+    "multiply_nan_inf": lambda S, T, d: S.multiply(d["bad"]),
+    "multiply_inf_row": lambda S, T, d: S.multiply(d["bad_row"]),
+    "mul_inf": lambda S, T, d: S * np.inf,
+    "div": lambda S, T, d: S / 4.0,
+    "div_by_zero": lambda S, T, d: S / 0.0,
+    "power2": lambda S, T, d: S.power(2),
+    "power_half": lambda S, T, d: abs(S).power(0.5),
+    "sqrt": lambda S, T, d: abs(S).sqrt(),
+    "sqrt_negative": lambda S, T, d: S.sqrt(),
+    "abs": lambda S, T, d: abs(S),
+    "neg": lambda S, T, d: -S,
+    "astype": lambda S, T, d: S.astype(np.float32),
+    "add_sparse": lambda S, T, d: S + T,
+    "add_zero": lambda S, T, d: S + 0,
+    "add_dense": lambda S, T, d: S + d["full"],
+    "add_nan_inf": lambda S, T, d: S + d["bad"],
+    "radd_dense": lambda S, T, d: d["full"] + S,
+    "sub_sparse": lambda S, T, d: S - T,
+    "sub_zero": lambda S, T, d: S - 0,
+    "sub_dense": lambda S, T, d: S - d["full"],
+    "rsub_dense": lambda S, T, d: d["full"] - S,
+}
+
+
+def same(got, want):
+  """Sparse results: the layout exactly, values within rtol 1e-15 (sqrt and
+  fractional powers differ by an ulp between XLA and torch); dense ones at
+  rtol 1e-10 (sums in another order); NaN where the reference has NaN."""
+  if isinstance(want, ref_sps.SparseArray):
+    assert isinstance(got, sps.SparseArray)
+    assert (got.shape, got.nnz) == (want.shape, want.nnz)
+    np.testing.assert_array_equal(host(got.cols), np.asarray(want.cols))
+    w = np.asarray(want.vals)
+    np.testing.assert_allclose(host(got.vals), w, rtol=1e-15, atol=0,
+                               equal_nan=True)
+    assert host(got.vals).dtype == w.dtype
+    return
+  g = host(got) if isinstance(got, torch.Tensor) else np.asarray(got)
+  w = np.asarray(want)
+  assert g.shape == w.shape and g.dtype == w.dtype
+  np.testing.assert_allclose(g, w, rtol=1e-10, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", ["random", "empty_rows", "skewed"])
+@pytest.mark.parametrize("op", sorted(SURFACE))
+def test_surface_matches_reference(op, kind):
+  A = matrix(kind)
+  other = ss.random(*A.shape, density=0.1, random_state=11, format="csr")
+  d = operands(A)
+  want = SURFACE[op](ref_sps.from_scipy(A), ref_sps.from_scipy(other), d)
+  got = SURFACE[op](sps.from_scipy(A), sps.from_scipy(other), d)
+  same(got, want)
+  if isinstance(got, sps.SparseArray):  # the 0-pad invariant holds
+    pads = host(got.vals) == 0
+    assert (host(got.cols)[pads] == 0).all() or op.startswith(("add", "sub"))
+    assert np.isfinite(host(got.vals)[~np.isnan(host(got.vals))]).all() or (
+        op in ("mul_inf", "div_by_zero", "multiply_nan_inf",
+               "multiply_inf_row"))
+
+
+def test_surface_refuses_as_the_reference_does():
+  A = matrix("random")
+  S = sps.from_scipy(A)
+  with pytest.raises(ValueError, match="axis"):
+    S.sum(2)
+  with pytest.raises(ValueError, match="axis"):
+    S.getnnz(5)
+  with pytest.raises(ValueError, match="p > 0"):
+    S.power(0)
+  with pytest.raises(TypeError, match="scalars"):
+    S / np.ones(A.shape)
+  with pytest.raises(NotImplementedError, match="densify"):
+    S + 1.0
+  with pytest.raises(ValueError, match="shape mismatch"):
+    S + sps.from_scipy(matrix("skewed"))
+  with pytest.raises(ValueError, match="shape mismatch"):
+    S + np.ones((3, 3))
+  with pytest.raises(ValueError, match="inconsistent shapes"):
+    S.multiply(np.ones((3, 3)))
+
+
+# -- merge_csr and save/load ------------------------------------------------------------
+
+def test_merge_csr_matches_reference():
+  a, b = matrix("random"), ss.random(60, 45, density=0.2, random_state=12,
+                                     format="csr")
+  got, want = sps.merge_csr(a, b), ref_sps.merge_csr(a, b)
+  assert got.format == "csr" and got.shape == want.shape
+  np.testing.assert_allclose(got.toarray(), want.toarray(), rtol=1e-15)
+  np.testing.assert_array_equal(got.toarray(), (a + b).toarray())
+  with pytest.raises(ValueError, match="shape mismatch"):
+    sps.merge_csr(a, matrix("skewed"))
+
+
+def _same_ell(got, want):
+  np.testing.assert_array_equal(host(got.cols), np.asarray(want.cols))
+  np.testing.assert_array_equal(host(got.vals), np.asarray(want.vals))
+  assert (got.shape, got.nnz) == (tuple(want.shape), want.nnz)
+
+
+def test_reference_save_loads_in_the_port(tmp_path):
+  """A directory the reference saved, with its block-ELL repack and its
+  windowed TPU pack, loads in the port (the pack is ignored)."""
+  A = matrix("blocks")
+  R = ref_sps.from_scipy(A)
+  assert R.auto_route(16) is not None
+  R.to_windowed()
+  ref_sps.save_sparse(R, str(tmp_path / "a"))
+  assert (tmp_path / "a" / "windowed.npz").exists()
+  S = sps.load_sparse(str(tmp_path / "a"))
+  _same_ell(S, R)
+  bs, blocks = S._bsr_cache
+  assert bs == 16 and blocks.nnz_blocks == R._bsr_cache[1].nnz_blocks
+  np.testing.assert_array_equal(blocks.todense(), R._bsr_cache[1].todense())
+  assert S.cols.device == sp.get_mesh().device
+  ref_sps.save_sparse(R._bsr_cache[1], str(tmp_path / "b"))
+  B = sps.load_sparse(str(tmp_path / "b"))
+  assert isinstance(B, sps.BlockSparseArray)
+  np.testing.assert_array_equal(B.todense(), A.toarray())
+
+
+def test_port_save_round_trips_and_loads_in_the_reference(tmp_path):
+  A = matrix("blocks")
+  S = sps.from_scipy(A)
+  assert S.auto_route(16) is not None
+  sps.save_sparse(S, str(tmp_path / "a"))
+  assert not (tmp_path / "a" / "windowed.npz").exists()
+  back = sps.load_sparse(str(tmp_path / "a"))
+  np.testing.assert_array_equal(host(back.cols), host(S.cols))
+  np.testing.assert_array_equal(host(back.vals), host(S.vals))
+  assert (back.shape, back.nnz, back.dtype) == (S.shape, S.nnz, S.dtype)
+  np.testing.assert_array_equal(back._bsr_cache[1].todense(), A.toarray())
+  theirs = ref_sps.load_sparse(str(tmp_path / "a"))
+  _same_ell(back, theirs)
+  np.testing.assert_array_equal(theirs._bsr_cache[1].todense(), A.toarray())
+  sps.save_sparse(back._bsr_cache[1], str(tmp_path / "b"))
+  blocks = sps.load_sparse(str(tmp_path / "b"))
+  assert isinstance(blocks, sps.BlockSparseArray) and blocks.bs == 16
+  np.testing.assert_array_equal(blocks.todense(), A.toarray())

@@ -3,12 +3,14 @@
     python3 chip_smoke.py
 
 Drives the port's main paths once through its user entry points, at the
-sizes of the reference's benchmark configs 1-3, of PageRank at full width
-and of ALS at the shape of MovieLens 20M, and raises on any failure:
+sizes of the reference's benchmark configs 1-3, of PageRank at full width,
+of ALS at the shape of MovieLens 20M and of heat and Jacobi-Poisson sweeps
+on a 16384^2 grid, and raises on any failure:
 
   0. identify the card (nvidia-smi name and power limit, torch and CUDA);
   1. build the kernels (csrc/fused_reduce.cu, spmv_ell.cu, spmv_csr.cu,
-     spmm_csr.cu) from source, one nvcc per file, all started together;
+     spmm_csr.cu, stencil3x3.cu, stencil3x3_padded.cu) from source, one
+     nvcc per file, all started together;
   2. K1 against its plain torch version on the card, over five chains,
      four shapes and two accumulators, and timed at 16384^2 float32 beside
      its plain version and torch.sum;
@@ -36,11 +38,22 @@ and of ALS at the shape of MovieLens 20M, and raises on any failure:
      version and cuSPARSE (torch.sparse_csr_tensor @ B);
   8. ALS through als.fit(R, k=64, iterations=5) on that matrix, against a
      float64 scipy ALS from the same initial factors, with the RMSE over the
-     stored ratings, ms per iteration and a profile of one iteration.
+     stored ratings, ms per iteration and a profile of one iteration;
+  9. the 3x3 stencil kernels K4 (stencil3x3) and K6a (stencil3x3_padded)
+     against their plain versions on six shapes, two coefficient sets,
+     float32 (bit for bit), bfloat16 and float16, K6a with and without its
+     add field over 1-3 steps, then timed at 16384^2 float32 beside their
+     plain versions and cuDNN (F.conv2d, TF32 off);
+ 10. heat.simulate_padded and poisson.solve_jacobi, 200 sweeps each on a
+     16384^2 float32 grid, against float64 iterations on the card; the
+     expression path heat.simulate at 4096^2 float64 against
+     simulate_numpy; convnet.forward and predict on MNIST's test-set shape
+     against a float64 numpy forward.
 
 The count of each kernel's launches is set to 0 just before the path that
-runs it (phases 3-4 for K1, phase 6 for K3a/K3b, phase 8 for K5a) and read
-just after.  The
+runs it (phases 3-4 for K1, phase 6 for K3a/K3b, phase 8 for K5a, phase 10
+for K6a) and read just after.  K4 has no caller in the package: its count
+is the launches of phase 9's checks.  The
 last two lines are a JSON object describing each kernel (its launches on
 its path, its worst disagreement with the plain version, its time, the
 plain version's, one library call's, and the card's bound for the same
@@ -59,6 +72,7 @@ import time
 import numpy as np
 import scipy.sparse as ss
 import torch
+import torch.nn.functional as F
 
 import spartan_tpu_torch as sp
 from spartan_tpu_torch.backend import sparse
@@ -66,13 +80,16 @@ from spartan_tpu_torch.backend.kernels import build
 from spartan_tpu_torch.backend.kernels import fused_reduce as K
 from spartan_tpu_torch.backend.kernels import spmm as K5
 from spartan_tpu_torch.backend.kernels import spmv as KS
-from spartan_tpu_torch.examples import als, linear_reg, pagerank
+from spartan_tpu_torch.backend.kernels import stencil as K6
+from spartan_tpu_torch.examples import (als, convnet, heat, linear_reg,
+                                        pagerank, poisson)
 from spartan_tpu_torch.expr.local import FnCallExpr, LocalConst, LocalInput
 from spartan_tpu_torch.expr.map import UFUNCS
 from spartan_tpu_torch.util import Timer
 
 DEVICE = "cuda"
-KERNELS = ("fused_reduce", "spmv_ell", "spmv_csr", "spmm_csr")
+KERNELS = ("fused_reduce", "spmv_ell", "spmv_csr", "spmm_csr", "stencil3x3",
+           "stencil3x3_padded")
 KERNEL_SHAPES = [((16384, 16384), torch.float32), ((8192, 8192), torch.bfloat16),
                  ((10_000_019,), torch.float32), ((13, 20), torch.float32)]
 TIMED_SHAPE = (16384, 16384)
@@ -93,6 +110,21 @@ ML_MIN_USER, ML_MAX_USER, ML_TOP_MOVIE = 20, 9_254, 67_310
 ML_RATING_WEIGHTS = (1.2, 3.4, 1.4, 7.2, 4.4, 21.4, 11.0, 27.8, 7.7, 14.5)
 ALS_K, ALS_ITERS, ALS_REG = 64, 5, 0.1
 SPMM_KS = (1, 3, 64, 130, 512)
+# 3x3 stencils: check shapes, coefficient sets, and the full grid (config
+# 1's 16384^2) swept by heat (alpha 0.1) and weighted Jacobi
+STENCIL_SHAPES = ((1, 1), (3, 5), (13, 20), (64, 256), (1000, 1001),
+                  (4097, 130))
+LAPLACIAN = (0.0, 1.0, 0.0, 1.0, -4.0, 1.0, 0.0, 1.0, 0.0)
+NINE = (0.05, 0.1, 0.02, 0.1, 0.4, -0.1, 0.3, 0.1, 0.03)
+HEAT_ALPHA = 0.1
+HEAT = (0.0, HEAT_ALPHA, 0.0, HEAT_ALPHA, 1.0 - 4.0 * HEAT_ALPHA, HEAT_ALPHA,
+        0.0, HEAT_ALPHA, 0.0)
+JACOBI = (0.0, 0.25, 0.0, 0.25, 0.0, 0.25, 0.0, 0.25, 0.0)
+GRID_N, SWEEPS, CHUNK = 16384, 200, 8
+EXPR_N, EXPR_STEPS = 4096, 50
+# MNIST's test set: 10,000 images of 1 x 28 x 28; the numpy oracle takes
+# the first CONV_CHECK
+MNIST_SHAPE, CONV_CHECK = (10_000, 1, 28, 28), 256
 TIMING_REPS = 7
 SPIN_CYCLES = 20_000_000  # about 10 ms of an H100 SM clock
 # H100 SXM: HBM rate and the float32 rate outside the tensor cores
@@ -849,6 +881,337 @@ def phase_als(R, S) -> int:
   return launches
 
 
+# -- stencils, heat, Jacobi-Poisson, convnet -----------------------------------
+
+# unit roundoff of the kernels' types (2^-p, p the significand's bits)
+UNIT = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8,
+        torch.float16: 2.0 ** -11}
+
+
+def stencil_tol(dtype, coeffs, steps, x_max, add_max=0.0) -> float:
+  """0 in float32: kernel and plain version round the same ops in the same
+  order.  In bfloat16/float16 the bound of two roundings apart per op: per
+  step 2·(taps + 1)·u of the largest Σ|c·x| + |add| it reaches, grown by
+  the gain Σ|c| of each later step."""
+  if dtype == torch.float32:
+    return 0.0
+  gain = sum(abs(c) for c in coeffs)
+  taps = sum(c != 0.0 for c in coeffs)
+  scale, worst = x_max, 0.0
+  for _ in range(steps):
+    scale = gain * scale + add_max
+    worst = max(worst, scale)
+  return (2 * (taps + 1) * UNIT[dtype] * steps * worst
+          * max(gain, 1.0) ** (steps - 1))
+
+
+def ring(xp: torch.Tensor) -> torch.Tensor:
+  """The pad ring of a padded array, flattened."""
+  mask = torch.ones(xp.shape, dtype=torch.bool, device=xp.device)
+  mask[K6.PAD_R:-K6.PAD_R, K6.PAD_C:-K6.PAD_C] = False
+  return xp[mask]
+
+
+def phase_stencil_kernels(device, card: str):
+  """K4 and K6a against their plain versions on the card, then timed at
+  16384^2 float32 beside their plain versions and cuDNN."""
+  gen = torch.Generator(device=device).manual_seed(17)
+  worst = {"stencil3x3": 0.0, "stencil3x3_padded": 0.0}
+  n_cases = {"stencil3x3": 0, "stencil3x3_padded": 0}
+  for shape in STENCIL_SHAPES:
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+      bitwise = {"stencil3x3": True, "stencil3x3_padded": True}
+      ratio = {"stencil3x3": 0.0, "stencil3x3_padded": 0.0}
+      for coeffs in (LAPLACIAN, NINE):
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        g = torch.randn(shape, generator=gen, device=device).to(dtype)
+        x_max = float(x.abs().max())
+        cases = [("stencil3x3", K6.stencil3x3(x, coeffs),
+                  K6.stencil3x3_plain(x, coeffs),
+                  stencil_tol(dtype, coeffs, 1, x_max))]
+        xp, gp = K6.to_padded(x), K6.to_padded(g)
+        for add in (None, gp):
+          add_max = float(g.abs().max()) if add is not None else 0.0
+          for steps in (1, 2, 3):
+            # a NaN ring on buf shows the kernel never writes it; after
+            # one step buf holds the result, so its ring must stay NaN
+            buf = torch.full_like(xp, float("nan")) if steps == 1 else (
+                torch.zeros_like(xp))
+            got, _ = K6.stencil3x3_padded(xp.clone(), buf, coeffs, steps,
+                                          add)
+            want, _ = K6.stencil3x3_padded_plain(
+                xp.clone(), buf.clone(), coeffs, steps, add)
+            check(bool(ring(got).isnan().all()) if steps == 1 else
+                  not bool(ring(got).any()),
+                  f"K6a wrote the ring of its output ({shape}, {steps})")
+            cases.append(("stencil3x3_padded", K6.from_padded(got),
+                          K6.from_padded(want),
+                          stencil_tol(dtype, coeffs, steps, x_max, add_max)))
+        for name, got, want, tol in cases:
+          torch.cuda.synchronize()
+          diff = (got.double() - want.double()).abs()
+          err = float(diff.max())
+          check(got.dtype == dtype and got.shape == want.shape
+                and bool(torch.isfinite(got).all()) and err <= tol,
+                f"{name} disagrees with its plain version on {shape} "
+                f"{dtype}: max|diff| {err:.3g} > {tol:.3g}")
+          worst[name] = max(worst[name], err)
+          bitwise[name] = bitwise[name] and bool(torch.equal(got, want))
+          ratio[name] = max(ratio[name], err / tol if tol else 0.0)
+          n_cases[name] += 1
+      for name in ("stencil3x3", "stencil3x3_padded"):
+        rule = ("bit for bit" if dtype == torch.float32 else
+                f"worst share of the bound 2(taps+1)u per step {ratio[name]:.3g}")
+        print(f"  {name:17s} {str(shape):13s} {str(dtype)[6:]:8s} laplacian "
+              f"and nine taps{', add and no add, steps 1-3' if 'padded' in name else ''}: "
+              f"equal to the plain version {rule}; bitwise equal: "
+              f"{bitwise[name]}")
+      check(dtype != torch.float32 or all(bitwise.values()),
+            f"a stencil kernel is not bit-equal to its plain version in "
+            f"float32 on {shape}")
+  launches = dict(K6.counts)
+  print(f"  cases: {n_cases}; counts {launches}")
+  check(launches["k4_launches"] == n_cases["stencil3x3"]
+        and launches["k6a_launches"] == 2 * 2 * 6 * len(STENCIL_SHAPES) * 3
+        and launches["plain_runs"] == launches["routed_plain"] == 0,
+        f"unexpected stencil counts {launches}")
+  x64 = torch.randn(13, 20, device=device, dtype=torch.float64)
+  K6.stencil3x3(x64, NINE)
+  check(K6.counts["routed_plain"] == 1 and K6.counts["k4_launches"]
+        == launches["k4_launches"], "float64 did not take the plain route")
+
+  # time at 16384^2 float32: the heat and Jacobi coefficients (K6a's main
+  # path), the Laplacian for K4; cuDNN's F.conv2d with TF32 off as the
+  # library call (plus the add for K6a's add form)
+  torch.backends.cudnn.allow_tf32 = False
+  n = GRID_N
+  x = torch.rand((n, n), generator=gen, device=device)
+  g = torch.randn((n, n), generator=gen, device=device)
+  xp, gp, buf = K6.to_padded(x), K6.to_padded(g), torch.zeros(
+      K6.padded_shape(n, n), device=device)
+  x4, g4 = x[None, None], g[None, None]
+
+  def weights(coeffs):
+    return torch.tensor(coeffs, device=device).view(1, 1, 3, 3)
+
+  w_lap, w_heat, w_jac = weights(LAPLACIAN), weights(HEAT), weights(JACOBI)
+  timed = {
+      "stencil3x3": ("Laplacian", 2, {
+          "plain": lambda: K6.stencil3x3_plain(x, LAPLACIAN),
+          "kernel": lambda: K6.stencil3x3(x, LAPLACIAN),
+          "cuDNN": lambda: F.conv2d(x4, w_lap, padding=1)}),
+      "padded": ("heat", 2, {
+          "plain": lambda: K6.stencil3x3_padded_plain(xp, buf, HEAT),
+          "kernel": lambda: K6.stencil3x3_padded(xp, buf, HEAT),
+          "cuDNN": lambda: F.conv2d(x4, w_heat, padding=1)}),
+      "padded add": ("Jacobi", 3, {
+          "plain": lambda: K6.stencil3x3_padded_plain(xp, buf, JACOBI,
+                                                      add=gp),
+          "kernel": lambda: K6.stencil3x3_padded(xp, buf, JACOBI, add=gp),
+          "cuDNN": lambda: F.conv2d(x4, w_jac, padding=1).add_(g4)}),
+  }
+  rows = {}
+  for label, (cname, fields, fns) in timed.items():
+    t = time_in_turns(fns)
+    coeffs = {"Laplacian": LAPLACIAN, "heat": HEAT, "Jacobi": JACOBI}[cname]
+    nbytes = fields * n * n * 4
+    flops = 2 * sum(c != 0.0 for c in coeffs) * n * n
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"  {label} ({cname} taps) at {n}^2 float32: kernel "
+          f"{t['kernel']:.4f} ms ({nbytes / t['kernel'] / 1e6:.1f} GB/s), "
+          f"plain {t['plain']:.4f} ms, cuDNN conv2d"
+          f"{' + add' if fields == 3 else ''} {t['cuDNN']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e9:.3f} GB) (median of "
+          f"{TIMING_REPS}, queued ahead of the device: "
+          f"{all(t[f'{v} ahead'] for v in ('kernel', 'plain', 'cuDNN'))}, "
+          f"CUDA events, in turns); host issue per call: kernel "
+          f"{t['kernel host']:.4f} ms; on {card}")
+    rows[label] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                   "library_ms": t["cuDNN"], "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+  k4 = dict(rows["stencil3x3"], max_abs_err=worst["stencil3x3"],
+            launches=launches["k4_launches"])
+  # K6a's row: one heat sweep plus one Jacobi sweep, its two forms on the
+  # path
+  k6a = {key: rows["padded"][key] + rows["padded add"][key]
+         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                     "flops")}
+  k6a.update(bound_by=bound(k6a["bytes"], k6a["flops"])[1],
+             max_abs_err=worst["stencil3x3_padded"])
+  return k4, k6a
+
+
+def heat_oracle(u0: torch.Tensor, iters: int, alpha: float):
+  """simulate_numpy's iteration in float64 torch on the card."""
+  u = u0.double()
+  for _ in range(iters):
+    up = F.pad(u, (1, 1, 1, 1))
+    u = u + alpha * (up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2]
+                     + up[1:-1, 2:] - 4.0 * u)
+  return u
+
+
+def jacobi_oracle(f: torch.Tensor, iters: int, h: float = 1.0):
+  """solve_jacobi_numpy's iteration in float64 torch on the card; returns
+  u and the sum over sweeps of max|u| + max|h^2 f / 4|."""
+  f = f.double()
+  u = torch.zeros_like(f)
+  g_max = float((h * h / 4.0) * f.abs().max())
+  scale = 0.0
+  for _ in range(iters):
+    up = F.pad(u, (1, 1, 1, 1))
+    u = (up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2] + up[1:-1, 2:]
+         ) / 4.0 - (h * h / 4.0) * f
+    scale += float(u.abs().max()) + g_max
+  return u, scale
+
+
+def conv_numpy(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+  """'SAME' 3x3 stride-1 cross-correlation, NCHW by OIHW, in float64."""
+  _, _, h, wd = x.shape
+  xp = np.pad(x, ((0, 0), (0, 0), (1, 1), (1, 1)))
+  return sum(np.einsum("nchw,oc->nohw", xp[:, :, di:di + h, dj:dj + wd],
+                       w[:, :, di, dj])
+             for di in range(3) for dj in range(3))
+
+
+def convnet_numpy(images: np.ndarray, params) -> np.ndarray:
+  def pool(v):
+    n, c, h, w = v.shape
+    return v.reshape(n, c, h // 2, 2, w // 2, 2).max(axis=(3, 5))
+  h1 = pool(np.maximum(conv_numpy(images, params["w1"]), 0.0))
+  h2 = pool(np.maximum(conv_numpy(h1, params["w2"]), 0.0))
+  return h2.reshape(len(h2), -1) @ params["wd"] + params["bd"]
+
+
+def padded_sweeps(label, run, oracle, device):
+  """Run the entry point ``run`` (returns numpy) and hold it against
+  ``oracle`` (returns the float64 field and the tolerance)."""
+  before = K6.counts["k6a_launches"]
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  held = torch.cuda.memory_allocated()
+  with Timer() as t_run:
+    got = run()
+  peak = torch.cuda.max_memory_allocated() - held
+  launches = K6.counts["k6a_launches"] - before
+  with Timer() as t_oracle:
+    want, tol = oracle()
+  got_t = torch.from_numpy(got).to(device)
+  err = float((got_t.double() - want).abs().max())
+  n = GRID_N
+  print(f"  {label} {n}^2 float32, {SWEEPS} sweeps: K6a launches {launches}; "
+        f"max|u - u64| {err:.4g} (tolerance {tol:.4g}); entry point wall "
+        f"{t_run.elapsed:.3f} s ({t_run.elapsed / SWEEPS * 1e3:.4f} ms a "
+        f"sweep with set-up and the result's copy to the host, host clock, "
+        f"synced); peak device memory {peak / 1e9:.2f} GB above the "
+        f"{held / 1e9:.2f} GB held before; float64 oracle on the card "
+        f"{t_oracle.elapsed:.2f} s")
+  check(got.shape == (n, n) and got.dtype == np.float32
+        and bool(torch.isfinite(got_t).all()), f"{label}: bad field")
+  check(launches == SWEEPS, f"{label}: K6a launched {launches} times, "
+        f"expected {SWEEPS}")
+  check(err <= tol, f"{label} disagrees with its float64 oracle")
+  del got_t, want
+
+
+def sweep_profile(label, coeffs, fields, state, add, card: str):
+  """Device time and idle share of one chunk of CHUNK sweeps through the
+  wrapper, under torch.profiler."""
+  xp = K6.to_padded(state)
+  buf = torch.zeros_like(xp)
+  K6.stencil3x3_padded(xp, buf, coeffs, CHUNK, add)  # warm
+  by_name, busy, wall = device_share(
+      lambda: K6.stencil3x3_padded(xp, buf, coeffs, CHUNK, add))
+  kernel_ms = sum(ms for name, ms in by_name.items()
+                  if "stencil3x3" in name) / CHUNK
+  check(kernel_ms > 0, f"{label}: the profile shows no K6a device time "
+        f"({sorted(by_name)})")
+  nbytes = fields * GRID_N * GRID_N * 4
+  print(f"  {label}: one chunk of {CHUNK} sweeps under torch.profiler: wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+        f"{1 - busy / wall:.3f}); K6a {kernel_ms:.4f} ms a sweep, "
+        f"{nbytes / kernel_ms / 1e6:.1f} GB/s effective "
+        f"({fields} x n^2 x 4 bytes); on {card}")
+
+
+def phase_stencil_path(device, card: str) -> int:
+  """heat.simulate_padded and poisson.solve_jacobi at 16384^2 float32,
+  heat.simulate at 4096^2 float64, convnet at MNIST's test-set shape;
+  returns K6a's launches on the padded path."""
+  gen = torch.Generator(device=device).manual_seed(23)
+  n = GRID_N
+  u0 = torch.rand((n, n), generator=gen, device=device)
+  f = torch.randn((n, n), generator=gen, device=device)
+  K6.reset_counts()  # count the padded path's launches only
+  # heat: gain 1 (non-negative coefficients summing to 1 for alpha <=
+  # 0.25), so max|u| never exceeds max|u0| and each sweep adds at most
+  # 2(taps + 1) roundings of 2^-24 max|u0| (the float32 coefficients'
+  # own rounding among them)
+  padded_sweeps(
+      "heat.simulate_padded",
+      lambda: heat.simulate_padded(u0, iters=SWEEPS, alpha=HEAT_ALPHA),
+      lambda: (heat_oracle(u0, SWEEPS, HEAT_ALPHA),
+               SWEEPS * 2 * 6 * 2.0 ** -24 * float(u0.abs().max())),
+      device)
+
+  # Jacobi: gain 1, so the sweeps' roundings add up: per sweep 2(taps + 1)
+  # 2^-24 of max|u| + max|h^2 f/4| (0.25 and the field -f/4 are exact)
+  def jacobi():
+    u, scale = jacobi_oracle(f, SWEEPS)
+    return u, 2 * 5 * 2.0 ** -24 * scale
+
+  padded_sweeps("poisson.solve_jacobi",
+                lambda: poisson.solve_jacobi(f, iters=SWEEPS), jacobi, device)
+  launches = K6.counts["k6a_launches"]
+  check(launches >= 2 * SWEEPS and K6.counts["plain_runs"] == 0
+        and K6.counts["routed_plain"] == 0,
+        f"the padded path launched K6a {launches} times (counts {K6.counts})")
+  sweep_profile("heat", HEAT, 2, u0, None, card)
+  sweep_profile("Jacobi", JACOBI, 3, torch.zeros_like(f),
+                K6.to_padded(-0.25 * f), card)
+  del u0, f
+
+  # the expression path: make_fori over StencilExpr and ReshapeExpr
+  rng = np.random.default_rng(29)
+  v0 = rng.random((EXPR_N, EXPR_N))
+  torch.cuda.synchronize()
+  with Timer() as t_expr:
+    got = heat.simulate(v0, iters=EXPR_STEPS, alpha=HEAT_ALPHA).glom()
+  with Timer() as t_np:
+    want = heat.simulate_numpy(v0, iters=EXPR_STEPS, alpha=HEAT_ALPHA)
+  err = float(np.abs(got - want).max())
+  print(f"  heat.simulate {EXPR_N}^2 float64, {EXPR_STEPS} steps: max|diff| "
+        f"vs simulate_numpy {err:.3g} (tolerance 1e-10 max|u|); "
+        f"{t_expr.elapsed:.2f} s with the copies (host clock), numpy "
+        f"{t_np.elapsed:.2f} s")
+  check(got.dtype == np.float64 and got.shape == (EXPR_N, EXPR_N)
+        and err <= 1e-10 * np.abs(want).max(),
+        "heat.simulate disagrees with simulate_numpy")
+
+  # convnet's forward pass on MNIST's test-set shape (synthetic images)
+  images = rng.random(MNIST_SHAPE)
+  params = convnet.init_params()
+  torch.cuda.synchronize()
+  with Timer() as t_fwd:
+    logits = convnet.forward(sp.from_numpy(images), params).glom()
+  pred = convnet.predict(sp.from_numpy(images), params).glom()
+  want = convnet_numpy(images[:CONV_CHECK], params)
+  err = float(np.abs(logits[:CONV_CHECK] - want).max())
+  print(f"  convnet.forward {MNIST_SHAPE} float64: {t_fwd.elapsed:.3f} s "
+        f"with the copies (host clock); max|logits - numpy| on the first "
+        f"{CONV_CHECK} {err:.3g} (tolerance 1e-10 max|logits|); predict "
+        f"equals argmax(forward) on all {MNIST_SHAPE[0]}")
+  check(logits.shape == (MNIST_SHAPE[0], 10) and logits.dtype == np.float64
+        and bool(np.isfinite(logits).all())
+        and err <= 1e-10 * np.abs(want).max(),
+        "convnet.forward disagrees with the numpy forward")
+  check(np.array_equal(pred, logits.argmax(axis=1))
+        and np.array_equal(pred[:CONV_CHECK], want.argmax(axis=1)),
+        "convnet.predict disagrees with argmax(forward)")
+  return launches
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -920,6 +1283,16 @@ def main() -> None:
   print("phase 8: ALS through als.fit at full width")
   k5["launches"] = phase_als(R, S)
   done(8)
+  del R, S
+
+  K6.reset_counts()  # K4's launches: phase 9's checks (no package caller)
+  print("phase 9: K4 and K6a against their plain versions on the card")
+  k4, k6a = phase_stencil_kernels(device, card)
+  done(9)
+  print("phase 10: heat and Jacobi-Poisson sweeps at 16384^2, heat.simulate, "
+        "convnet")
+  k6a["launches"] = phase_stencil_path(device, card)
+  done(10)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",
@@ -929,7 +1302,11 @@ def main() -> None:
           ("spmv_csr", "spmv_csr.cu",
            "spartan_tpu/backend/kernels/spmv_pallas.py:657", k3["spmv_csr"]),
           ("spmm_csr", "spmm_csr.cu",
-           "spartan_tpu/backend/kernels/spmm_pallas.py:232", k5)]
+           "spartan_tpu/backend/kernels/spmm_pallas.py:232", k5),
+          ("stencil3x3", "stencil3x3.cu",
+           "spartan_tpu/backend/kernels/stencil_pallas.py:73", k4),
+          ("stencil3x3_padded", "stencil3x3_padded.cu",
+           "spartan_tpu/backend/kernels/stencil_pallas.py:298", k6a)]
   print(json.dumps({"kernels": [
       {"name": name, "route": "cuda",
        "source": f"spartan_tpu_torch/csrc/{source}", "replaces": replaces,

@@ -131,6 +131,12 @@ ARGTYPES = {
                                          ctypes.c_int],
     "spmv_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int],
     "spmm_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int],
+    "stencil3x3": [ctypes.c_void_p] * 2 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int],
+    "stencil3x3_padded": [ctypes.c_void_p] * 3 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int],
 }
 # name -> (bound C function, its library), filled at the first launch
 _bound: Dict[str, Tuple[Any, ctypes.CDLL]] = {}

@@ -388,6 +388,20 @@ class Expr:
       axes = tuple(axes[0])
     return B.transpose(self, axes or None)
 
+  def reshape(self, *shape) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+      shape = tuple(shape[0])
+    return B.reshape(self, shape)
+
+  def ravel(self) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.ravel(self)
+
+  def flatten(self) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.ravel(self)
+
   def sum(self, axis=None, keepdims=False) -> "Expr":
     from spartan_tpu_torch.expr import builtins as B
     return B.sum(self, axis=axis, keepdims=keepdims)

@@ -25,7 +25,9 @@ from spartan_tpu_torch.expr.base import Expr, Val, lazify
 from spartan_tpu_torch.expr.map import map, map1, map2
 from spartan_tpu_torch.expr.ndarray import (CreationExpr, _next_seed,
                                             set_random_seed)
-from spartan_tpu_torch.expr.reshape import TransposeExpr
+from spartan_tpu_torch.expr.reshape import (RavelExpr, ReshapeExpr,
+                                            TransposeExpr)
+from spartan_tpu_torch.expr.stencil import avgpool, maxpool, stencil
 
 _DEFAULT_FLOAT = np.float64
 
@@ -162,10 +164,22 @@ def transpose(v, axes: Sequence[int] = None) -> Expr:
   return TransposeExpr(lazify(v), axes)
 
 
+def reshape(v, shape) -> Expr:
+  return ReshapeExpr(lazify(v), _tuplify(shape))
+
+
+def ravel(v) -> Expr:
+  return RavelExpr(lazify(v))
+
+
+flatten = ravel
+
+
 __all__ = [
     "zeros", "ones", "full", "arange", "rand", "randn", "from_numpy",
     "set_random_seed", "negative", "abs", "absolute", "square", "sqrt",
     "exp", "log", "add", "subtract", "multiply", "divide", "true_divide",
     "maximum", "minimum", "astype", "sum", "mean", "max", "min", "argmax",
-    "argmin", "dot", "transpose",
+    "argmin", "dot", "transpose", "reshape", "ravel", "flatten", "stencil",
+    "maxpool", "avgpool",
 ]

@@ -334,3 +334,142 @@ def test_als_fit_on_card_matches_float64(device):
     V64 = np.linalg.solve(U64.T @ U64 + 0.1 * np.eye(8), (R32.T @ U64).T).T
   assert np.abs(U - U64).max() <= 1e-4 * np.abs(U64).max()
   assert np.abs(V - V64).max() <= 1e-4 * np.abs(V64).max()
+
+
+# -- 3x3 stencil kernels K4 (stencil3x3) and K6a (stencil3x3_padded) -----------
+# float32: equal to the plain version bit for bit (the same IEEE-rounded ops
+# in the same order).  bfloat16/float16: per step 2·(taps + 1)·u of the
+# largest Σ|c·x| + |add| the steps reach, grown by the gain Σ|c| of each
+# later step (u = 2^-8, 2^-11).
+
+from spartan_tpu_torch.backend.kernels import stencil as K6  # noqa: E402
+
+STENCIL_SHAPES = [(1, 1), (3, 5), (13, 20), (64, 256), (1000, 1001),
+                  (4097, 130)]
+STENCIL_COEFFS = {"laplacian": (0.0, 1.0, 0.0, 1.0, -4.0, 1.0, 0.0, 1.0, 0.0),
+                  "nine": (0.05, 0.1, 0.02, 0.1, 0.4, -0.1, 0.3, 0.1, 0.03)}
+LOW_UNIT = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+
+
+def _stencil_tol(dtype, coeffs, steps, x_max, add_max=0.0):
+  if dtype == torch.float32:
+    return 0.0
+  gain = sum(abs(c) for c in coeffs)
+  taps = sum(c != 0.0 for c in coeffs)
+  scale, worst = x_max, 0.0
+  for _ in range(steps):
+    scale = gain * scale + add_max
+    worst = max(worst, scale)
+  return (2 * (taps + 1) * LOW_UNIT[dtype] * steps * worst
+          * max(gain, 1.0) ** (steps - 1))
+
+
+def _assert_stencil_close(got, want, tol):
+  assert got.dtype == want.dtype and got.shape == want.shape
+  if tol == 0.0:
+    assert torch.equal(got, want)
+  else:
+    assert float((got.double() - want.double()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("coeffs", sorted(STENCIL_COEFFS))
+@pytest.mark.parametrize("shape", STENCIL_SHAPES, ids=str)
+def test_stencil3x3_kernel_matches_plain(device, shape, coeffs, dtype):
+  cs = STENCIL_COEFFS[coeffs]
+  gen = torch.Generator(device=device).manual_seed(shape[0] + shape[1])
+  x = torch.randn(shape, generator=gen, device=device).to(dtype)
+  before = dict(K6.counts)
+  got = K6.stencil3x3(x, cs)
+  torch.cuda.synchronize()
+  assert K6.counts == dict(before, k4_launches=before["k4_launches"] + 1)
+  _assert_stencil_close(got, K6.stencil3x3_plain(x, cs),
+                        _stencil_tol(dtype, cs, 1, float(x.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("with_add", [False, True], ids=["no_add", "add"])
+@pytest.mark.parametrize("coeffs", sorted(STENCIL_COEFFS))
+@pytest.mark.parametrize("shape", STENCIL_SHAPES, ids=str)
+def test_stencil3x3_padded_kernel_matches_plain(device, shape, coeffs,
+                                                with_add, dtype):
+  cs = STENCIL_COEFFS[coeffs]
+  gen = torch.Generator(device=device).manual_seed(shape[0] * shape[1])
+  x = torch.randn(shape, generator=gen, device=device).to(dtype)
+  g = torch.randn(shape, generator=gen, device=device).to(dtype)
+  xp = K6.to_padded(x)
+  add = K6.to_padded(g) if with_add else None
+  for steps in (1, 2, 3):
+    before = K6.counts["k6a_launches"]
+    got, other = K6.stencil3x3_padded(xp.clone(), torch.zeros_like(xp), cs,
+                                      steps, add)
+    torch.cuda.synchronize()
+    assert K6.counts["k6a_launches"] == before + steps
+    want, want_other = K6.stencil3x3_padded_plain(
+        xp.clone(), torch.zeros_like(xp), cs, steps, add)
+    tol = _stencil_tol(dtype, cs, steps, float(x.abs().max()),
+                       float(g.abs().max()) if with_add else 0.0)
+    _assert_stencil_close(got, want, tol)
+    if steps > 1:
+      _assert_stencil_close(other, want_other, tol)
+
+
+def test_stencil3x3_padded_kernel_leaves_the_ring_of_buf(device):
+  x = torch.randn(100, 300, device=device)
+  xp = K6.to_padded(x)
+  buf = torch.full_like(xp, float("nan"))
+  new, old = K6.stencil3x3_padded(xp, buf, STENCIL_COEFFS["nine"])
+  assert new is buf and old is xp
+  inner = K6.from_padded(new)
+  torch.testing.assert_close(inner, K6.stencil3x3(x, STENCIL_COEFFS["nine"]),
+                             rtol=0, atol=0)
+  inner.zero_()
+  assert bool(new.isnan().sum() == new.numel() - x.numel())
+
+
+def test_stencil_kernels_are_deterministic_and_route_float64_plain(device):
+  x = torch.randn(513, 1025, device=device)
+  cs = STENCIL_COEFFS["laplacian"]
+  assert torch.equal(K6.stencil3x3(x, cs), K6.stencil3x3(x, cs))
+  before = dict(K6.counts)
+  got = K6.stencil3x3(x.double(), cs)
+  xp = K6.to_padded(x.double())
+  new, _ = K6.stencil3x3_padded(xp, torch.zeros_like(xp), cs, 2)
+  assert K6.counts == dict(before, routed_plain=before["routed_plain"] + 2)
+  assert got.dtype == new.dtype == torch.float64
+  torch.testing.assert_close(got, K6.stencil3x3_plain(x.double(), cs),
+                             rtol=0, atol=0)
+
+
+def test_stencil_wrappers_refuse_operand_mixes(device):
+  xp = K6.to_padded(torch.randn(20, 30, device=device))
+  with pytest.raises(ValueError, match="one device"):
+    K6.stencil3x3_padded(xp, torch.zeros_like(xp).cpu(),
+                         STENCIL_COEFFS["nine"])
+  with pytest.raises(ValueError, match="one device"):
+    K6.stencil3x3_padded(xp, torch.zeros_like(xp), STENCIL_COEFFS["nine"],
+                         add=xp.cpu())
+  with pytest.raises(ValueError, match="contiguous"):
+    wide = torch.zeros(xp.shape[0], 2 * xp.shape[1], device=device)
+    K6.stencil3x3_padded(xp, wide[:, ::2], STENCIL_COEFFS["nine"])
+  with pytest.raises(ValueError, match="distinct"):
+    K6.stencil3x3_padded(xp, xp, STENCIL_COEFFS["nine"])
+
+
+def test_heat_and_jacobi_launch_the_padded_kernel_on_card(device):
+  from spartan_tpu_torch.examples import heat, poisson
+  rng = np.random.default_rng(9)
+  u0 = rng.random((200, 300)).astype(np.float32)
+  before = K6.counts["k6a_launches"]
+  got = heat.simulate_padded(u0, iters=30, alpha=0.2, unroll=7)
+  f = rng.standard_normal((200, 300)).astype(np.float32)
+  u = poisson.solve_jacobi(f, iters=20)
+  assert K6.counts["k6a_launches"] == before + 50
+  # float32 sweeps against float64: (taps + 1)·2^-24·max|u| a sweep, gain 1
+  assert np.abs(got - heat.simulate_numpy(u0, 30, 0.2)).max() <= (
+      30 * 12 * 2.0 ** -24)
+  want = poisson.solve_jacobi_numpy(f, iters=20)
+  assert np.abs(u - want).max() <= 20 * 10 * 2.0 ** -24 * (
+      np.abs(want).max() + 0.25 * np.abs(f).max())

@@ -3,14 +3,15 @@
     python3 chip_smoke.py
 
 Drives the port's main paths once through its user entry points, at the
-sizes of the reference's benchmark configs 1-3, of PageRank at full width,
-of ALS at the shape of MovieLens 20M and of heat and Jacobi-Poisson sweeps
-on a 16384^2 grid, and raises on any failure:
+sizes of the reference's benchmark configs 1-5 (config 2 also at its
+published 32768^2), of PageRank at full width, of ALS at the shape of
+MovieLens 20M and of heat and Jacobi-Poisson sweeps on a 16384^2 grid, and
+raises on any failure:
 
   0. identify the card (nvidia-smi name and power limit, torch and CUDA);
   1. build the kernels (csrc/fused_reduce.cu, spmv_ell.cu, spmv_csr.cu,
-     spmm_csr.cu, stencil3x3.cu, stencil3x3_padded.cu) from source, one
-     nvcc per file, all started together;
+     spmm_csr.cu, stencil3x3.cu, stencil3x3_padded.cu, matmul.cu,
+     spmv_chunked.cu) from source, one nvcc per file, all started together;
   2. K1 against its plain torch version on the card, over five chains,
      four shapes and two accumulators, and timed at 16384^2 float32 beside
      its plain version and torch.sum;
@@ -48,12 +49,27 @@ on a 16384^2 grid, and raises on any failure:
      16384^2 float32 grid, against float64 iterations on the card; the
      expression path heat.simulate at 4096^2 float64 against
      simulate_numpy; convnet.forward and predict on MNIST's test-set shape
-     against a float64 numpy forward.
+     against a float64 numpy forward;
+ 11. the matrix-product kernel K2 (matmul) against its plain version on
+     four shapes, three dtypes, with the ReLU epilogue fused and without,
+     and one epilogue outside the op table; then matmul.matmul at config
+     2's published 32768^2 float32 against torch.matmul (TF32 off) and at
+     bench.py's 8192^2 bfloat16, each timed beside matmul_plain and cuBLAS;
+ 12. the unique-rows SpMV kernel K3c (spmv_chunked) against its plain
+     version on eight edge cases (bit for bit on repeat), timed on phase
+     5's urand 2^22 graph and phase 7's ML-20M R.T (both held, not rebuilt)
+     beside its plain version, K3b and cuSPARSE; make_spmv_windowed over a
+     classic and a unique pack of each, by launch counts;
+ 13. k-means (config 4: n = 2^19, d = k = 64 float32, both centroid
+     updates, make_fori and fit_fused) against a float64 NumPy Lloyd, and
+     logistic_reg.fit_fused at n = 2^20, d = 64 float64 against a NumPy
+     loop.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4 for K1, phase 6 for K3a/K3b, phase 8 for K5a, phase 10
-for K6a) and read just after.  K4 has no caller in the package: its count
-is the launches of phase 9's checks.  The
+for K6a, phase 11's full-size matmul calls for K2, phase 12's
+make_spmv_windowed calls for K3c) and read just after.  K4 has no caller
+in the package: its count is the launches of phase 9's checks.  The
 last two lines are a JSON object describing each kernel (its launches on
 its path, its worst disagreement with the plain version, its time, the
 plain version's, one library call's, and the card's bound for the same
@@ -63,6 +79,7 @@ CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -78,18 +95,20 @@ import spartan_tpu_torch as sp
 from spartan_tpu_torch.backend import sparse
 from spartan_tpu_torch.backend.kernels import build
 from spartan_tpu_torch.backend.kernels import fused_reduce as K
+from spartan_tpu_torch.backend.kernels import matmul as K2
 from spartan_tpu_torch.backend.kernels import spmm as K5
 from spartan_tpu_torch.backend.kernels import spmv as KS
 from spartan_tpu_torch.backend.kernels import stencil as K6
-from spartan_tpu_torch.examples import (als, convnet, heat, linear_reg,
-                                        pagerank, poisson)
+from spartan_tpu_torch.examples import (als, convnet, heat, kmeans,
+                                        linear_reg, logistic_reg, pagerank,
+                                        poisson)
 from spartan_tpu_torch.expr.local import FnCallExpr, LocalConst, LocalInput
 from spartan_tpu_torch.expr.map import UFUNCS
 from spartan_tpu_torch.util import Timer
 
 DEVICE = "cuda"
 KERNELS = ("fused_reduce", "spmv_ell", "spmv_csr", "spmm_csr", "stencil3x3",
-           "stencil3x3_padded")
+           "stencil3x3_padded", "matmul", "spmv_chunked")
 KERNEL_SHAPES = [((16384, 16384), torch.float32), ((8192, 8192), torch.bfloat16),
                  ((10_000_019,), torch.float32), ((13, 20), torch.float32)]
 TIMED_SHAPE = (16384, 16384)
@@ -125,11 +144,20 @@ EXPR_N, EXPR_STEPS = 4096, 50
 # MNIST's test set: 10,000 images of 1 x 28 x 28; the numpy oracle takes
 # the first CONV_CHECK
 MNIST_SHAPE, CONV_CHECK = (10_000, 1, 28, 28), 256
+# K2: (M, K, N) check shapes; config 2's published 32768^2 float32
+# (BASELINE.json configs[1]); bench.py's own config-2 run, 8192^2 bfloat16
+MATMUL_SHAPES = ((1, 1, 1), (17, 33, 65), (1000, 1001, 999), (64, 256, 128))
+CFG2_N, BENCH_MM_N, CFG2_REPS = 32768, 8192, 3
+# k-means at bench.py's config-4 shape; logistic regression at config 3's
+KM_N, KM_D, KM_K, KM_ITERS = 1 << 19, 64, 64, 10
+LOGREG_STEPS, LOGREG_ALPHA = 50, 1.0
 TIMING_REPS = 7
 SPIN_CYCLES = 20_000_000  # about 10 ms of an H100 SM clock
-# H100 SXM: HBM rate and the float32 rate outside the tensor cores
+# H100 SXM: HBM rate, the float32 rate outside the tensor cores and the
+# dense bfloat16/float16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -148,9 +176,10 @@ def card_line() -> str:
   return out.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
-  """(least ms for this work on an H100 SXM, which of the two bounds it)."""
-  t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
+  """(least ms for this work on an H100 SXM, which of the two bounds it);
+  ``peak`` is the rate of the operations' type."""
+  t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
   return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
@@ -208,16 +237,17 @@ def event_ms(fn, inner: int = 1):
   return marks[1].elapsed_time(marks[2]) / inner, host / inner, ahead
 
 
-def time_in_turns(fns, inner: int = 1):
-  """Median device ms of each of ``fns`` (name → callable), timed in
-  turns; under ``name + ' host'`` the median host ms to issue one call, and
-  under ``name + ' ahead'`` whether every sample was queued ahead."""
+def time_in_turns(fns, inner: int = 1, reps: int = TIMING_REPS):
+  """Median device ms of each of ``fns`` (name → callable) over ``reps``
+  samples, timed in turns; under ``name + ' host'`` the median host ms to
+  issue one call, and under ``name + ' ahead'`` whether every sample was
+  queued ahead."""
   for fn in fns.values():
     fn()
   samples = {name: [] for name in fns}
   hosts = {name: [] for name in fns}
   aheads = {name: True for name in fns}
-  for _ in range(TIMING_REPS):
+  for _ in range(reps):
     for name, fn in fns.items():
       dev, host, ahead = event_ms(fn, inner)
       samples[name].append(dev)
@@ -1212,6 +1242,513 @@ def phase_stencil_path(device, card: str) -> int:
   return launches
 
 
+# -- the matrix product K2 -------------------------------------------------------
+
+OUT_UNIT = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
+            torch.float16: 2.0 ** -11}
+
+
+def relu(acc):
+  return torch.clamp_min(acc, 0.0)
+
+
+# Two float32 sums of the same n random-signed terms t in another order:
+# the rounding errors add like a random walk, so they differ by about
+# 0.8·sqrt(n)·2^-24·sqrt(Σt²) (one standard deviation) for sequential sums.
+# STAT_C is that bound's multiple, about three times the largest share read
+# over the 2^30 entries of the 32768^2 product (PERF.md §6).  Up to
+# STAT_C/2 + 1 terms it is no looser than the worst case.
+STAT_C = 16.0
+
+
+def sum_bound(terms, abs_sum, sq_sum, worst):
+  """The smaller of the worst case worst·n·2^-24·Σ|t| and the random-walk
+  bound STAT_C·sqrt(n)·2^-24·sqrt(Σt²)."""
+  return torch.minimum(worst * terms * 2.0 ** -24 * abs_sum,
+                       STAT_C * terms ** 0.5 * 2.0 ** -24 * sq_sum.sqrt())
+
+
+def matmul_tol(x, y, want, absprod=None, sqprod=None):
+  """Both sides sum the same K exact products in float32 in another order:
+  worst case d <= 2·K·2^-24·(|x| @ |y|), doubled because tensor cores may
+  truncate inside their adds, or the random-walk bound on x² @ y²,
+  whichever is smaller; a 16-bit output rounds each side once more,
+  2u·(|want| + d) on top."""
+  xf, yf = x.float(), y.float()
+  if absprod is None:
+    absprod = xf.abs() @ yf.abs()
+  if sqprod is None:
+    sqprod = xf.square() @ yf.square()
+  d = sum_bound(x.shape[1], absprod, sqprod, 4.0)
+  return d + 2.0 * OUT_UNIT[x.dtype] * (want.float().abs() + d)
+
+
+def phase_matmul_kernel(device):
+  """K2 against matmul_plain on the card: four shapes, three dtypes, with
+  and without the ReLU epilogue (fused), and one epilogue outside the op
+  table (unfused); returns the worst |kernel - plain|."""
+  gen = torch.Generator(device=device).manual_seed(41)
+  worst, cases = 0.0, 0
+  for m, k, n in MATMUL_SHAPES:
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+      x = torch.randn(m, k, generator=gen, device=device).to(dtype)
+      y = torch.randn(k, n, generator=gen, device=device).to(dtype)
+      for label, epilogue in (("none", None), ("relu", relu)):
+        before = dict(K2.counts)
+        got = K2.matmul(x, y, epilogue=epilogue)
+        again = K2.matmul(x, y, epilogue=epilogue)
+        want = K2.matmul_plain(x, y, epilogue)
+        torch.cuda.synchronize()
+        check(K2.counts == dict(before, launches=before["launches"] + 2),
+              f"K2 counts {K2.counts} after {before}: the {label} epilogue "
+              "did not fuse into two launches")
+        diff = (got.float() - want.float()).abs()
+        tol = matmul_tol(x, y, want)
+        share = float((diff / tol.clamp_min(1e-30)).max())
+        err = float(diff.max())
+        worst = max(worst, err)
+        cases += 1
+        same = bool(torch.equal(got, again))
+        print(f"  K2 {m}x{k}x{n} {str(dtype)[6:]:8s} epilogue {label}: "
+              f"max|kernel-plain| {err:.3g}, worst share of the bound "
+              f"{share:.3g}; repeat bitwise equal: {same}")
+        check(got.dtype == dtype and got.shape == (m, n)
+              and bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
+              f"K2 disagrees with its plain version: {m}x{k}x{n} {dtype} "
+              f"{label}")
+        check(same, f"K2 is not deterministic: {m}x{k}x{n} {dtype} {label}")
+  x = torch.randn(300, 500, generator=gen, device=device)
+  y = torch.randn(500, 200, generator=gen, device=device)
+  before = dict(K2.counts)
+  got = K2.matmul(x, y, epilogue=torch.tanh)
+  want = K2.matmul_plain(x, y, torch.tanh)
+  torch.cuda.synchronize()
+  check(K2.counts == dict(before, launches=before["launches"] + 1,
+                          epilogue_unfused=before["epilogue_unfused"] + 1),
+        f"the tanh epilogue was not run unfused after one launch ({K2.counts})")
+  err = float((got - want).abs().max())
+  check(bool(((got - want).abs() <= matmul_tol(x, y, want)).all()),
+        "K2 with an unfused epilogue disagrees with its plain version")
+  worst = max(worst, err)
+  print(f"  K2 300x500x200 float32 epilogue tanh (outside the op table, run "
+        f"in torch on the kernel's float32 product): max|kernel-plain| "
+        f"{err:.3g}; {cases + 1} cases, counts {K2.counts}")
+  return worst
+
+
+def check_product(x, y, got, want, label: str, block: int = 4096):
+  """Holds a full-size K2 product against its reference, ``block`` rows at
+  a time, and shows the check's power: the first block without one of the
+  kernel's K tiles (8 wide in float32, 32 in 16-bit) must fail it.
+  Returns max|got - want|, the worst share of the bound, the tile and the
+  share of that block's entries the check rejects without it."""
+  n, dtype = x.shape[1], x.dtype
+  ya, y2 = y.float().abs(), y.float().square()
+  err, share = 0.0, 0.0
+  tile, caught = 8 if dtype == torch.float32 else 32, 0.0
+  for lo in range(0, x.shape[0], block):
+    xb = x[lo:lo + block].float()
+    tol = matmul_tol(x[lo:lo + block], y, want[lo:lo + block],
+                     xb.abs() @ ya, xb.square() @ y2)
+    d = (got[lo:lo + block].float() - want[lo:lo + block].float()).abs()
+    check(bool((d <= tol).all()) and bool(torch.isfinite(got[lo:lo + block])
+                                          .all()),
+          f"K2 disagrees with {label}: worst share of the bound "
+          f"{float((d / tol.clamp_min(1e-30)).max()):.4g}")
+    err = max(err, float(d.max()))
+    share = max(share, float((d / tol.clamp_min(1e-30)).max()))
+    if lo == 0:
+      k0 = n // 2 // tile * tile
+      bad = (got[:block].float() - xb[:, k0:k0 + tile]
+             @ y[k0:k0 + tile].float()).to(dtype).float()
+      caught = float(((bad - want[:block].float()).abs() > tol).float()
+                     .mean())
+      check(caught > 0.5, f"K2's check against {label} passes a product "
+            f"that lost one K tile")
+      del bad
+    del xb, d, tol
+  return err, share, tile, caught
+
+
+def phase_matmul_path(device, card: str):
+  """matmul.matmul at config 2's published 32768^2 float32 against
+  torch.matmul (TF32 off), and at bench.py's 8192^2 bfloat16 against
+  matmul_plain; each timed beside matmul_plain and cuBLAS.  Returns the
+  32768^2 row of the kernels line."""
+  check(not torch.backends.cuda.matmul.allow_tf32,
+        "TF32 is on: the float32 yardstick would not be full float32")
+  gen = torch.Generator(device=device).manual_seed(43)
+  rows = {}
+  block = 4096
+  for n, dtype, peak, reps in ((CFG2_N, torch.float32, F32_FLOPS, CFG2_REPS),
+                               (BENCH_MM_N, torch.bfloat16, BF16_FLOPS,
+                                TIMING_REPS)):
+    x = torch.randn(n, n, generator=gen, device=device).to(dtype)
+    y = torch.randn(n, n, generator=gen, device=device).to(dtype)
+    torch.cuda.synchronize()
+    with Timer() as t_call:
+      got = K2.matmul(x, y)
+      torch.cuda.synchronize()
+    ref_name = "torch.matmul" if dtype == torch.float32 else "matmul_plain"
+    want = torch.matmul(x, y) if dtype == torch.float32 else K2.matmul_plain(
+        x, y)
+    err, share, tile, caught = check_product(
+        x, y, got, want, f"{ref_name} at {n}^2 {dtype}", block)
+    del want, got
+    t = time_in_turns({"plain": lambda: K2.matmul_plain(x, y),
+                       "kernel": lambda: K2.matmul(x, y),
+                       "cuBLAS": lambda: torch.matmul(x, y)}, reps=reps)
+    flops = 2.0 * n ** 3
+    nbytes = 3.0 * n * n * x.element_size()
+    bound_ms, bound_by = bound(nbytes, flops, peak)
+    print(f"  K2 {n}^2 {str(dtype)[6:]}: one call {t_call.elapsed:.3f} s "
+          f"(host clock, first at this shape); max|kernel - {ref_name}| "
+          f"{err:.4g}, worst share of the bound {share:.3g} (a result "
+          f"without one {tile}-wide K tile fails it at {100 * caught:.1f}% "
+          f"of the first {block} rows' entries); kernel "
+          f"{t['kernel']:.4f} ms ({flops / t['kernel'] / 1e9:.1f} TFLOP/s), "
+          f"matmul_plain {t['plain']:.4f} ms, cuBLAS torch.matmul "
+          f"{t['cuBLAS']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+          f"(median of {reps}, CUDA events, in turns; queued ahead: "
+          f"{all(t[f'{v} ahead'] for v in ('kernel', 'plain', 'cuBLAS'))}) "
+          f"on {card}")
+    rows[(n, dtype)] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                        "library_ms": t["cuBLAS"], "bound_ms": bound_ms,
+                        "bound_by": bound_by, "max_abs_err": err}
+    del x, y
+    torch.cuda.empty_cache()
+  return rows
+
+
+# -- the unique-rows SpMV K3c and make_spmv_windowed ---------------------------
+
+def chunk_cases():
+  """K3c's edge cases: no nonzero, fewer than one chunk, chunk boundaries
+  on row boundaries, empty rows at both ends, rows longer than 10 chunks,
+  runs of empty rows inside chunks, tests/test_kernels.py's heavy-duplicate
+  row and its duplicate-summed random matrix."""
+  rng = np.random.default_rng(13)
+  cases = [("nnz 0", ss.csr_matrix((50, 40), dtype=np.float32)),
+           ("below one chunk", ss.random(40, 50, density=0.15, random_state=1,
+                                         format="csr", dtype=np.float32))]
+  lengths = np.array([512, 512, 1024, 256, 768, 1024, 3])
+  indptr = np.concatenate([[0], np.cumsum(lengths)])
+  cases.append(("rows on chunk boundaries", ss.csr_matrix(
+      (rng.standard_normal(indptr[-1]).astype(np.float32),
+       rng.integers(0, 3000, indptr[-1]).astype(np.int32), indptr),
+      shape=(len(lengths), 3000))))
+  ends = ss.random(300, 700, density=0.05, random_state=2, format="lil",
+                   dtype=np.float32)
+  ends[:100, :] = 0
+  ends[200:, :] = 0
+  cases.append(("empty rows at both ends", ends.tocsr()))
+  long_rows = ss.random(64, 20000, density=0.001, random_state=3, format="lil",
+                        dtype=np.float32)
+  for row, count in ((7, 12_000), (8, 15_000)):
+    long_rows[row, rng.choice(20000, count, replace=False)] = (
+        rng.standard_normal(count).astype(np.float32))
+  cases.append(("rows of 12000 and 15000", long_rows.tocsr()))
+  cases.append(("empty-row runs in chunks", ss.random(
+      200_000, 500, density=2e-5, random_state=4, format="csr",
+      dtype=np.float32)))
+  dup = ss.lil_matrix((1100, 1100), dtype=np.float32)
+  dup[5, 0:200] = rng.standard_normal(200)
+  dup[5, 1024:1060] = rng.standard_normal(36)
+  cases.append(("heavy duplicates", dup.tocsr()))
+  n, m = 3000, 2500
+  r, c = rng.integers(0, n, n * 9), rng.integers(0, m, n * 9)
+  A = ss.coo_matrix((rng.standard_normal(n * 9).astype(np.float32), (r, c)),
+                    shape=(n, m)).tocsr()
+  A.sum_duplicates()
+  cases.append(("random, duplicates summed", A))
+  return cases
+
+
+def row_tol(packed, x, want):
+  """Per row the smaller of 2·len·2^-24·Σ|a·x| (float32 sums of the same
+  products in another order) and the random-walk bound on Σ(a·x)², plus
+  one rounding to x's dtype on each side."""
+  lengths = (packed.indptr[1:] - packed.indptr[:-1]).float()
+  csr = packed.indptr, packed.indices
+  sum_abs = KS.spmv_csr_plain(*csr, packed.data.abs(), x.float().abs())
+  sum_sq = KS.spmv_csr_plain(*csr, packed.data.square(), x.float().square())
+  return (sum_bound(lengths, sum_abs, sum_sq, 2.0)
+          + 2.0 * OUT_UNIT[x.dtype] * want.float().abs())
+
+
+def drop_chunk_head(packed, x, got, want, tol):
+  """The check's power on K3c: ``got`` less one chunk's head, the products
+  of the chunk's first row that the chunk carries into that row, for the
+  longest row where it crosses a chunk boundary, else for the middle
+  chunk.  Returns the row, the products dropped, |error| and the row's
+  bound."""
+  r = int((packed.indptr[1:] - packed.indptr[:-1]).argmax())
+  s, e = int(packed.indptr[r]), int(packed.indptr[r + 1])
+  j = s // KS.CHUNK + 1
+  if j * KS.CHUNK >= e:
+    j = packed.chunk_row.shape[0] // 2
+    r = int(packed.chunk_row[j])
+    e = int(packed.indptr[r + 1])
+  lo, hi = j * KS.CHUNK, min(e, (j + 1) * KS.CHUNK)
+  head = float((packed.data[lo:hi].double()
+                * x[packed.indices[lo:hi].long()].double()).sum())
+  return r, hi - lo, abs(float(got[r]) - head - float(want[r])), float(tol[r])
+
+
+def check_spmv_full(packed, x, label: str):
+  """K3c on a full-size pack against its plain version and itself (bit for
+  bit), and the check's power: the result without one chunk's head must
+  fail it.  Returns max|kernel - plain| and the worst share of the per-row
+  bound."""
+  args = (packed.indptr, packed.indices, packed.data, packed.chunk_row, x)
+  got, want = KS.spmv_chunked(*args), KS.spmv_chunked_plain(*args)
+  again = KS.spmv_chunked(*args)
+  diff = (got - want).abs()
+  tol = row_tol(packed, x, want)
+  share = float((diff / tol.clamp_min(1e-30)).max())
+  check(bool((diff <= tol).all()), f"K3c disagrees with its plain version "
+        f"on {label}: worst share of the per-row bound {share:.4g}")
+  check(bool(torch.equal(got, again)), f"K3c is not deterministic on {label}")
+  row, dropped, bad_err, row_bound = drop_chunk_head(packed, x, got, want, tol)
+  print(f"  K3c on {label}: a result without the {dropped} products of "
+        f"row {row} at the head of a chunk is off by {bad_err:.4g} against "
+        f"the row's bound {row_bound:.4g}")
+  check(bad_err > row_bound, f"K3c's check on {label} passes a result that "
+        f"lost a chunk's head")
+  return float(diff.max()), share
+
+
+def phase_spmv_chunked(device, card: str, big, R):
+  """K3c against its plain version on its edge cases (three x dtypes, bit
+  for bit on repeat), then timed on the urand 2^22 graph and ML-20M's R.T
+  beside its plain version, K3b and cuSPARSE; returns the R.T row."""
+  gen = torch.Generator(device=device).manual_seed(47)
+  worst = 0.0
+  for label, A in chunk_cases():
+    packed = KS.pack_windowed_unique(A)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+      x = torch.randn(A.shape[1], generator=gen, device=device).to(dtype)
+      args = (packed.indptr, packed.indices, packed.data, packed.chunk_row, x)
+      got, again = KS.spmv_chunked(*args), KS.spmv_chunked(*args)
+      want = KS.spmv_chunked_plain(*args)
+      torch.cuda.synchronize()
+      diff = (got.float() - want.float()).abs()
+      tol = row_tol(packed, x, want)
+      err = float(diff.max()) if diff.numel() else 0.0
+      share = float((diff / tol.clamp_min(1e-30)).max()) if diff.numel() else 0.0
+      same = bool(torch.equal(got, again))
+      worst = max(worst, err)
+      if dtype == torch.float32 or share > 0.5:
+        print(f"  K3c {label:26s} {A.shape[0]}x{A.shape[1]} nnz={A.nnz} "
+              f"chunks={packed.chunk_row.shape[0]} {str(dtype)[6:]}: "
+              f"max|kernel-plain| {err:.3g}, worst share of the per-row bound "
+              f"{share:.3g}; repeat bitwise equal: {same}")
+      check(got.dtype == dtype and got.shape == (A.shape[0],)
+            and bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
+            f"K3c disagrees with its plain version on {label} {dtype}")
+      check(same, f"K3c is not deterministic on {label} {dtype}")
+  print("  (bfloat16 and float16 lines are printed where a share passes 0.5)")
+
+  timings = {}
+  for label, A in (("urand 2^22", big), ("ML-20M R.T", R.T)):
+    with Timer() as t_pack:
+      packed = KS.pack_windowed_unique(A)
+      torch.cuda.synchronize()
+    n, m = packed.shape
+    nnz, nchunks = packed.nnz, packed.chunk_row.shape[0]
+    x = torch.randn(m, generator=gen, device=device)
+    args = (packed.indptr, packed.indices, packed.data, packed.chunk_row, x)
+    err, share = check_spmv_full(packed, x, label)
+    worst = max(worst, err)
+    lib = torch.sparse_csr_tensor(packed.indptr.int(), packed.indices,
+                                  packed.data, size=(n, m),
+                                  check_invariants=False)
+    csr = (packed.indptr, packed.indices, packed.data)
+    t = time_in_turns({"plain": lambda: KS.spmv_chunked_plain(*args),
+                       "kernel": lambda: KS.spmv_chunked(*args),
+                       "K3b": lambda: KS.spmv_csr(*csr, x),
+                       "cuSPARSE": lambda: lib @ x}, 20)
+    nbytes = nnz * 8 + (n + 1) * 8 + (m + n) * 4 + nchunks * 8
+    bound_ms, bound_by = bound(nbytes, 2 * nnz)
+    longest = int((packed.indptr[1:] - packed.indptr[:-1]).max())
+    print(f"  K3c time on {label} (n={n}, m={m}, nnz={nnz}, longest row "
+          f"{longest}, {nchunks} chunks; unique pack built in "
+          f"{t_pack.elapsed:.2f} s): kernel {t['kernel']:.4f} ms "
+          f"({nnz / t['kernel'] / 1e6:.2f} Gnnz/s, "
+          f"{nbytes / t['kernel'] / 1e6:.1f} GB/s), plain {t['plain']:.4f} "
+          f"ms, K3b spmv_csr {t['K3b']:.4f} ms, cuSPARSE "
+          f"{t['cuSPARSE']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{nbytes / 1e6:.1f} MB); max|kernel-plain| {err:.3g}, "
+          f"worst share of the per-row bound {share:.3g}, repeat bitwise "
+          f"equal (median of {TIMING_REPS} x 20 calls queued ahead of the "
+          f"device, CUDA events, in turns; queued ahead: "
+          f"{all(t[f'{v} ahead'] for v in ('kernel', 'plain', 'K3b', 'cuSPARSE'))}"
+          f"; host issue per call: kernel {t['kernel host']:.4f} ms) on {card}")
+    timings[label] = {"ms": t["kernel"], "plain_ms": t["plain"],
+                      "library_ms": t["cuSPARSE"], "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+    del packed, x, args, lib, csr
+  return dict(timings["ML-20M R.T"], max_abs_err=worst)
+
+
+def phase_windowed_entry_point(device, big, R) -> int:
+  """make_spmv_windowed over a classic and a unique pack of each matrix:
+  each call moves its own kernel's count only, the two routes agree, and a
+  float64 x raises.  Returns K3c's launches in this path."""
+  gen = torch.Generator(device=device).manual_seed(53)
+  for label, A in (("urand 2^22", big), ("ML-20M R.T", R.T)):
+    x = torch.randn(A.shape[1], generator=gen, device=device)
+    ys = {}
+    for kind, pack, key in (("classic", KS.pack_windowed, "csr_launches"),
+                            ("unique", KS.pack_windowed_unique,
+                             "chunked_launches")):
+      fn = KS.make_spmv_windowed(pack(A))
+      before = dict(KS.counts)
+      ys[kind] = fn(x)
+      torch.cuda.synchronize()
+      check(KS.counts == dict(before, **{key: before[key] + 1}),
+            f"make_spmv_windowed on the {kind} pack of {label}: counts "
+            f"{KS.counts} after {before}")
+      try:
+        fn(x.double())
+        raised = False
+      except NotImplementedError:
+        raised = True
+      check(raised, f"make_spmv_windowed({kind}) took a float64 x")
+      del fn
+    packed = KS.pack_windowed(A)
+    tol = row_tol(packed, x, ys["classic"])
+    diff = (ys["unique"] - ys["classic"]).abs()
+    check(bool((diff <= tol).all()), f"the unique and classic routes "
+          f"disagree on {label}")
+    print(f"  make_spmv_windowed {label}: the classic pack launched K3b once, "
+          f"the unique pack K3c once; max|unique - classic| "
+          f"{float(diff.max()):.3g} (per-row bound); a float64 x raised "
+          f"NotImplementedError on both")
+    del packed, ys, x, diff, tol
+  return KS.counts["chunked_launches"]
+
+
+# -- k-means (config 4) and logistic regression (config 3) ---------------------
+
+def numpy_lloyd(P, c, k: int, iters: int):
+  """float64 Lloyd iterations from centers ``c``: labels by argmin of
+  ||c||^2 - 2 p.c (ties to the first), centers by one-hot sums."""
+  for _ in range(iters):
+    labels = np.argmin((c * c).sum(1) - 2.0 * (P @ c.T), axis=1)
+    onehot = (labels[:, None] == np.arange(k)[None, :]).astype(np.float64)
+    c = (onehot.T @ P) / np.maximum(onehot.sum(0), 1.0)[:, None]
+  return c, labels, onehot
+
+
+def phase_kmeans_logreg(device, card: str):
+  """kmeans.fit (one-hot matmul update), the shuffle scatter-add update and
+  fit_fused at n = 2^19, d = k = 64 float32 against a float64 NumPy Lloyd
+  from the same centers; logistic_reg.fit_fused at n = 2^20, d = 64
+  float64 against a NumPy loop."""
+  pts, true_c = kmeans.make_data(n=KM_N, d=KM_D, k=KM_K)
+  P_host = pts.glom().astype(np.float32)
+  del pts
+  P = sp.from_numpy(P_host)
+  # start next to the true centers: one center a blob, so the labels are
+  # decided by wide margins
+  c0 = true_c + 0.5 * np.random.default_rng(31).standard_normal(true_c.shape)
+  P64 = P_host.astype(np.float64)
+  with Timer() as t_np:
+    c64, lab64, onehot = numpy_lloyd(P64, c0, KM_K, KM_ITERS)
+  # a center is a sum of its m points' exact values over m: a float64 sum
+  # in another order lies within 2 (m-1) 2^-53 sum|p| of the oracle's, a
+  # float32 sum within (m-1) 2^-24 sum|p|; over m, plus one rounding of
+  # the quotient (per center and coordinate)
+  sum_abs = onehot.T @ np.abs(P64)
+  tol64 = 2.0 ** -52 * (sum_abs + np.abs(c64))
+  tol32 = 2.0 ** -24 * (sum_abs + np.abs(c64))
+  del onehot
+  results = {}
+  torch.cuda.synchronize()
+  with Timer() as t_fit:
+    c_fit, lab_fit = kmeans.fit(P, KM_K, KM_ITERS, centers=sp.from_numpy(c0))
+    results["fit (one-hot matmul)"] = (c_fit.glom(), lab_fit.glom(), tol64)
+  with Timer() as t_scatter:
+    c = sp.from_numpy(c0)
+    for _ in range(KM_ITERS):
+      lab = kmeans.assign_labels(P, c)
+      c = sp.Val(kmeans.update_centers(P, lab, KM_K, use_matmul=False)
+                 .evaluate())
+    results["shuffle scatter-add"] = (c.glom(), lab.glom(), tol32)
+  for label, (cg, lg, tol) in results.items():
+    err = np.abs(cg - c64)
+    print(f"  k-means {label}, n={KM_N} d={KM_D} k={KM_K} float32 points, "
+          f"{KM_ITERS} iterations: labels equal to the float64 Lloyd's: "
+          f"{bool(np.array_equal(lg, lab64))}; max|c - c64| {err.max():.3g}, "
+          f"worst share of the bound {(err / tol).max():.3g}")
+    check(cg.shape == (KM_K, KM_D) and bool(np.isfinite(cg).all()),
+          f"k-means {label}: bad centers")
+    check(np.array_equal(lg, lab64), f"k-means {label}: labels differ from "
+          "the float64 Lloyd's")
+    check(bool((err <= tol).all()), f"k-means {label}: centers outside the "
+          "bound")
+  again = kmeans.update_centers(P, lab, KM_K, use_matmul=False).glom()
+  same = bool(np.array_equal(again, results["shuffle scatter-add"][0]))
+  print(f"  shuffle scatter-add update repeated: bitwise equal {same}")
+  check(same, "the shuffle scatter-add update changed on repeat")
+  print(f"  k-means wall: fit {t_fit.elapsed:.3f} s, scatter loop "
+        f"{t_scatter.elapsed:.3f} s (host clock, synced, first calls "
+        f"included); NumPy float64 Lloyd {t_np.elapsed:.2f} s")
+
+  run = sp.make_fori(
+      lambda c_: kmeans.update_centers(P, kmeans.assign_labels(P, c_), KM_K),
+      sp.from_numpy(c0))
+  c_fori = run(KM_ITERS).glom()
+  check(np.allclose(c_fori, results["fit (one-hot matmul)"][0], rtol=1e-12,
+                    atol=0), "make_fori's k-means differs from fit")
+  torch.cuda.synchronize()
+  with Timer() as t_fori:
+    run(KM_ITERS).data.sum().item()
+  c_fused = kmeans.fit_fused(P, KM_K, KM_ITERS, centers=c0)
+  check(isinstance(c_fused, sp.SpartanArray), "fit_fused did not return a "
+        "SpartanArray")
+  err = np.abs(c_fused.glom() - c64)
+  check(c_fused.dtype == torch.float32 and bool((err <= tol32).all()),
+        "fit_fused's centers are outside the float32 bound")
+  torch.cuda.synchronize()
+  with Timer() as t_fused:
+    kmeans.fit_fused(P, KM_K, KM_ITERS, centers=c0).data.sum().item()
+  print(f"  k-means steady ms/step (host clock, synced): make_fori(update "
+        f"o assign) {t_fori.elapsed / KM_ITERS * 1e3:.3f} (equal to fit at "
+        f"rtol 1e-12), fit_fused {t_fused.elapsed / KM_ITERS * 1e3:.3f} "
+        f"(float32 throughout; max|c - c64| {err.max():.3g}, worst share of "
+        f"the float32 bound {(err / tol32).max():.3g}) on {card}")
+  del P, run
+
+  X, y, _ = logistic_reg.make_data(n=LINREG_N, d=LINREG_D)
+  X_host, y_host = X.glom(), y.glom()
+  torch.cuda.synchronize()
+  with Timer() as t_fit:
+    w = logistic_reg.fit_fused(X, y, LOGREG_STEPS, LOGREG_ALPHA).glom()
+  w_np = np.zeros(LINREG_D)
+  for _ in range(LOGREG_STEPS):
+    pred = 1.0 / (1.0 + np.exp(-(X_host @ w_np)))
+    w_np = w_np - LOGREG_ALPHA * (X_host.T @ (pred - y_host) * (1.0 / LINREG_N))
+  err = np.abs(w - w_np).max() / np.abs(w_np).max()
+  acc = float((np.asarray(logistic_reg.predict(X, w).glom())
+               == (y_host > 0.5)).mean())
+  run = sp.make_fori(
+      lambda w_: logistic_reg.gradient_step(X, y, w_, LOGREG_ALPHA),
+      sp.zeros((LINREG_D,)))
+  run(2).data.sum().item()
+  torch.cuda.synchronize()
+  with Timer() as t_steady:
+    run(LOGREG_STEPS).data.sum().item()
+  print(f"  logistic_reg.fit_fused n={LINREG_N} d={LINREG_D} float64, "
+        f"{LOGREG_STEPS} steps: max rel err vs NumPy {err:.3g} (rtol 1e-10); "
+        f"training accuracy {acc:.4f}; {t_fit.elapsed:.3f} s with the first "
+        f"step's set-up, steady {t_steady.elapsed / LOGREG_STEPS * 1e3:.3f} "
+        f"ms/step (host clock, synced) on {card}")
+  check(w.shape == (LINREG_D,) and w.dtype == np.float64 and err <= 1e-10,
+        "logistic regression disagrees with the NumPy loop")
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -1268,7 +1805,7 @@ def main() -> None:
   k3["spmv_ell"]["launches"] = KS.counts["ell_launches"]
   k3["spmv_csr"]["launches"] = KS.counts["csr_launches"]
   done(6)
-  del big, small, cfg5
+  del small, cfg5  # big (host scipy) stays for phase 12
 
   print("phase 7: K5a against its plain version on the card; ratings of "
         "MovieLens 20M's shape")
@@ -1283,7 +1820,17 @@ def main() -> None:
   print("phase 8: ALS through als.fit at full width")
   k5["launches"] = phase_als(R, S)
   done(8)
-  del R, S
+  # the ratings' device arrays (ELL 25 GB, CSR, transposes) go with S; R
+  # (host scipy) stays for phase 12.  Read what is left before and after a
+  # collection of cyclic garbage, so that a cycle holding them shows.
+  held = torch.cuda.memory_allocated()
+  del S
+  dropped = torch.cuda.memory_allocated()
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"  device memory allocated: {held / 1e9:.2f} GB with the ratings, "
+        f"{dropped / 1e9:.2f} GB once they are dropped, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after gc.collect()")
 
   K6.reset_counts()  # K4's launches: phase 9's checks (no package caller)
   print("phase 9: K4 and K6a against their plain versions on the card")
@@ -1293,6 +1840,36 @@ def main() -> None:
         "convnet")
   k6a["launches"] = phase_stencil_path(device, card)
   done(10)
+
+  print(f"  device memory allocated before phase 11: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+  print("phase 11: K2 against its plain version; matmul at 32768^2 float32 "
+        "and 8192^2 bfloat16")
+  worst_k2 = phase_matmul_kernel(device)
+  K2.reset_counts()  # count the entry point's launches at full size only
+  k2 = phase_matmul_path(device, card)
+  k2_row = dict(k2[(CFG2_N, torch.float32)],
+                max_abs_err=max(worst_k2, *(r["max_abs_err"]
+                                            for r in k2.values())),
+                launches=K2.counts["launches"])
+  check(k2_row["launches"] >= 2 and K2.counts["plain_runs"] == 0,
+        f"the matmul path did not launch K2 ({K2.counts})")
+  done(11)
+
+  print("phase 12: K3c against its plain version, timed on the urand 2^22 "
+        "graph and ML-20M's R.T (held since phases 5 and 7); "
+        "make_spmv_windowed on both packs")
+  k3c = phase_spmv_chunked(device, card, big, R)
+  KS.reset_counts()  # count the windowed entry point's launches only
+  k3c["launches"] = phase_windowed_entry_point(device, big, R)
+  check(k3c["launches"] >= 2 and KS.counts["chunked_plain_runs"] == 0,
+        f"make_spmv_windowed did not launch K3c ({KS.counts})")
+  done(12)
+  del big, R
+
+  print("phase 13: k-means (config 4) and logistic regression (config 3)")
+  phase_kmeans_logreg(device, card)
+  done(13)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",
@@ -1306,7 +1883,11 @@ def main() -> None:
           ("stencil3x3", "stencil3x3.cu",
            "spartan_tpu/backend/kernels/stencil_pallas.py:73", k4),
           ("stencil3x3_padded", "stencil3x3_padded.cu",
-           "spartan_tpu/backend/kernels/stencil_pallas.py:298", k6a)]
+           "spartan_tpu/backend/kernels/stencil_pallas.py:298", k6a),
+          ("matmul", "matmul.cu",
+           "spartan_tpu/backend/kernels/matmul.py:55", k2_row),
+          ("spmv_chunked", "spmv_chunked.cu",
+           "spartan_tpu/backend/kernels/spmv_pallas.py:742", k3c)]
   print(json.dumps({"kernels": [
       {"name": name, "route": "cuda",
        "source": f"spartan_tpu_torch/csrc/{source}", "replaces": replaces,

@@ -118,6 +118,7 @@ def _strip_leaf_values(root: Expr, leaves: List[Val]):
     return out
 
   stripped = go(root)
+  del go  # break go's cycle through its own cell (see _make_runner)
   return stripped, [stubs[l.expr_id] for l in leaves]
 
 
@@ -138,7 +139,12 @@ def _make_runner(root: Expr, leaf_index: Dict[int, int],
       env[e.expr_id] = v
       return v
 
-    return emit(root)
+    out = emit(root)
+    # emit reaches itself through its closure cell; clearing the cell
+    # breaks that cycle, which would otherwise keep args (the region's
+    # leaf tensors) alive until the cyclic garbage collector runs
+    del emit
+    return out
 
   return run
 

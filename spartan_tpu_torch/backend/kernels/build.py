@@ -137,6 +137,10 @@ ARGTYPES = {
     "stencil3x3_padded": [ctypes.c_void_p] * 3 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int],
+    "matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "spmv_chunked": [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64,
+                                             ctypes.c_int],
 }
 # name -> (bound C function, its library), filled at the first launch
 _bound: Dict[str, Tuple[Any, ctypes.CDLL]] = {}

@@ -35,6 +35,7 @@ no fallback.
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -102,7 +103,7 @@ class SparseArray:
   """A 2-D sparse matrix in padded-ELL device layout."""
 
   __slots__ = ("cols", "vals", "shape", "nnz", "fmt", "_bsr_cache",
-               "_csr_cache", "_t_cache", "_dense_cache")
+               "_csr_cache", "_t_cache", "_dense_cache", "__weakref__")
 
   # numpy must defer binary ops to our reflected operators (otherwise
   # ``dense + sparse`` broadcasts elementwise); scipy.sparse sets the same
@@ -119,7 +120,7 @@ class SparseArray:
     self.fmt = "csr"
     self._bsr_cache = None    # (bs, BlockSparseArray | None), auto_route
     self._csr_cache = None    # (indptr, indices, data), to_csr
-    self._t_cache = None      # memoized transpose
+    self._t_cache = None      # memoized transpose (weak in a transpose)
     self._dense_cache = None  # memoized float32 densified form
 
   @property
@@ -252,13 +253,19 @@ class SparseArray:
   def transpose(self) -> "SparseArray":
     """Transpose on the device, O(nnz): the nonzeros stably sorted by
     (column, row) fill the transposed ELL, with no host round trip;
-    memoized, so ``S.T.T is S``."""
-    if self._t_cache is None:
-      t = _ell(*self._canonical(transpose=True),
-               (self.shape[1], self.shape[0]))
-      t._t_cache = self
-      self._t_cache = t
-    return self._t_cache
+    memoized, so ``S.T.T is S``.  The transpose holds ``S`` by a weak
+    reference: a strong one would make the pair a cycle that only the
+    cyclic garbage collector frees, keeping both arrays' device memory
+    after the caller drops them."""
+    cached = self._t_cache
+    if isinstance(cached, weakref.ref):
+      cached = cached()
+    if cached is None:
+      cached = _ell(*self._canonical(transpose=True),
+                    (self.shape[1], self.shape[0]))
+      cached._t_cache = weakref.ref(self)
+      self._t_cache = cached
+    return cached
 
   @property
   def T(self) -> "SparseArray":

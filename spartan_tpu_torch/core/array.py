@@ -32,6 +32,35 @@ _NP_TO_TORCH = {
 _TORCH_TO_NP = {t: n for n, t in _NP_TO_TORCH.items()}
 
 
+# reducer registry (reference ``core/array.py:32``): NumPy ufuncs, torch
+# functions and names, as shuffle's combiners, to scatter ops
+_REDUCERS = {
+    None: "set",
+    "set": "set",
+    np.add: "add", torch.add: "add", "add": "add", "sum": "add",
+    np.multiply: "mul", torch.mul: "mul", "mul": "mul",
+    np.maximum: "max", torch.maximum: "max", "max": "max",
+    np.minimum: "min", torch.minimum: "min", "min": "min",
+}
+
+
+def canonical_reducer(reducer) -> str:
+  """The scatter op (``set``, ``add``, ``mul``, ``max``, ``min``) of a
+  reducer given as a NumPy ufunc, a torch function, a name, or a callable
+  whose ``__name__`` is a name of the table."""
+  try:
+    if reducer in _REDUCERS:
+      return _REDUCERS[reducer]
+  except TypeError:
+    pass
+  if callable(reducer):
+    name = getattr(reducer, "__name__", "")
+    if name in _REDUCERS:
+      return _REDUCERS[name]
+  raise ValueError(f"unsupported reducer {reducer!r}; expected one of "
+                   "None/np.add/np.multiply/np.maximum/np.minimum")
+
+
 def to_torch_dtype(dtype) -> torch.dtype:
   """Exact numpy → torch dtype mapping (torch dtypes pass through)."""
   if isinstance(dtype, torch.dtype):

@@ -1,1 +1,2 @@
-"""Example workloads ported so far: ``linear_reg``."""
+"""Example workloads ported so far: ``linear_reg``, ``logistic_reg``,
+``kmeans``, ``pagerank``, ``als``, ``heat``, ``poisson``, ``convnet``."""

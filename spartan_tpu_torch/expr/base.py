@@ -449,6 +449,12 @@ class Expr:
   def __rmul__(self, o): return self._binop(o, "multiply", True)
   def __truediv__(self, o): return self._binop(o, "true_divide")
   def __rtruediv__(self, o): return self._binop(o, "true_divide", True)
+  def __lt__(self, o): return self._binop(o, "less")
+  def __le__(self, o): return self._binop(o, "less_equal")
+  def __gt__(self, o): return self._binop(o, "greater")
+  def __ge__(self, o): return self._binop(o, "greater_equal")
+  # __eq__/__ne__ wait (ROADMAP Queue 1): the port's bookkeeping may still
+  # compare exprs with == (membership tests, dict keys)
   def __neg__(self): return self._unop("negative")
   def __abs__(self): return self._unop("absolute")
   def __pos__(self): return self

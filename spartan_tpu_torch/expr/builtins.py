@@ -27,6 +27,7 @@ from spartan_tpu_torch.expr.ndarray import (CreationExpr, _next_seed,
                                             set_random_seed)
 from spartan_tpu_torch.expr.reshape import (RavelExpr, ReshapeExpr,
                                             TransposeExpr)
+from spartan_tpu_torch.expr.shuffle import shuffle
 from spartan_tpu_torch.expr.stencil import avgpool, maxpool, stencil
 
 _DEFAULT_FLOAT = np.float64
@@ -116,6 +117,10 @@ divide = _binary("true_divide")
 true_divide = divide
 maximum = _binary("maximum")
 minimum = _binary("minimum")
+less = _binary("less")
+less_equal = _binary("less_equal")
+greater = _binary("greater")
+greater_equal = _binary("greater_equal")
 
 
 def _astype_fn(x, dtype):
@@ -175,11 +180,26 @@ def ravel(v) -> Expr:
 flatten = ravel
 
 
+def _expand_dims_fn(x, axis):
+  axes = (axis,) if isinstance(axis, int) else tuple(axis)
+  ndim = x.ndim + len(axes)
+  for a in sorted(a % ndim for a in axes):
+    x = x.unsqueeze(a)
+  return x
+
+
+def expand_dims(v, axis) -> Expr:
+  """NumPy's ``expand_dims``: new unit axes at ``axis`` (an int or a
+  tuple) of the result."""
+  return map([lazify(v)], _expand_dims_fn, fn_kw={"axis": axis})
+
+
 __all__ = [
     "zeros", "ones", "full", "arange", "rand", "randn", "from_numpy",
     "set_random_seed", "negative", "abs", "absolute", "square", "sqrt",
     "exp", "log", "add", "subtract", "multiply", "divide", "true_divide",
-    "maximum", "minimum", "astype", "sum", "mean", "max", "min", "argmax",
-    "argmin", "dot", "transpose", "reshape", "ravel", "flatten", "stencil",
-    "maxpool", "avgpool",
+    "maximum", "minimum", "less", "less_equal", "greater", "greater_equal",
+    "astype", "sum", "mean", "max", "min", "argmax", "argmin", "dot",
+    "transpose", "reshape", "ravel", "flatten", "expand_dims", "stencil",
+    "maxpool", "avgpool", "shuffle",
 ]

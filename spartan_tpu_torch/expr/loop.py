@@ -123,7 +123,9 @@ def _compile_carry_body(body_out_exprs, syms, device):
       env[e.expr_id] = v
       return v
 
-    return tuple(as_device_tensor(emit(r), device) for r in roots_s)
+    out = tuple(as_device_tensor(emit(r), device) for r in roots_s)
+    del emit  # break emit's cycle through its own cell (see evaluator)
+    return out
 
   return step, const_leaves
 

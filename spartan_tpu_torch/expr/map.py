@@ -150,6 +150,22 @@ def minimum(x, y):
   return _py.min(x, y)
 
 
+def less(x, y):
+  return x < y
+
+
+def less_equal(x, y):
+  return x <= y
+
+
+def greater(x, y):
+  return x > y
+
+
+def greater_equal(x, y):
+  return x >= y
+
+
 def negative(x):
   return -x
 
@@ -174,8 +190,11 @@ def log(x):
   return torch.log(_inexact(x))
 
 
+# the comparisons give bool and are outside the fused-reduce kernel's op
+# table (backend/kernels/fused_reduce.OPS), so its translator refuses them
 BINARY = {f.__name__: f for f in (add, subtract, multiply, true_divide,
-                                  maximum, minimum)}
+                                  maximum, minimum, less, less_equal,
+                                  greater, greater_equal)}
 UNARY = {f.__name__: f for f in (negative, absolute, square, sqrt, exp, log)}
 
 # what map kernels actually hold: binary ops wrapped for NumPy promotion

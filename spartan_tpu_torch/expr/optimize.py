@@ -61,7 +61,9 @@ def rewrite_bottom_up(root: Expr, fn: Callable[[Expr], Expr]) -> Expr:
     memo[e.expr_id] = out
     return out
 
-  return go(root)
+  out = go(root)
+  del go  # go reaches itself through its cell: break the cycle (evaluator)
+  return out
 
 
 def count_refs(root: Expr) -> Dict[int, int]:
@@ -95,7 +97,9 @@ class CollapsedCachedExprs:
       memo[e.expr_id] = out
       return out
 
-    return go(root)
+    out = go(root)
+    del go  # break go's cycle through its own cell (see the evaluator)
+    return out
 
 
 class MapMapFusion:

@@ -1,14 +1,17 @@
-"""Card-only tests of the port: kernels K1 (csrc/fused_reduce.cu), K3a
-(csrc/spmv_ell.cu), K3b (csrc/spmv_csr.cu) and K5a (csrc/spmm_csr.cu)
-against their plain torch versions on the same CUDA tensors, and the
-expression layer's, PageRank's and ALS's kernel paths.  Run on a machine with an NVIDIA GPU:
+"""Card-only tests of the port: kernels K1 (csrc/fused_reduce.cu), K2
+(csrc/matmul.cu), K3a (csrc/spmv_ell.cu), K3b (csrc/spmv_csr.cu), K3c
+(csrc/spmv_chunked.cu), K5a (csrc/spmm_csr.cu), K4 and K6a
+(csrc/stencil3x3*.cu) against their plain torch versions on the same CUDA
+tensors; the expression layer's, PageRank's, ALS's, the stencil examples'
+and make_spmv_windowed's kernel paths; shuffle, k-means and logistic
+regression on the card.  Run on a machine with an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: rtol 1e-9 with a float64 accumulator for chains of
-IEEE-rounded ops (only the summation order differs), 1e-6 for chains with
-exp/log (the CUDA and torch implementations differ by an ulp), 1e-5 with a
-float32 accumulator.
+Tolerances (K1's here; each later section states its own): rtol 1e-9
+with a float64 accumulator for chains of IEEE-rounded ops (only the
+summation order differs), 1e-6 for chains with exp/log (the CUDA and torch
+implementations differ by an ulp), 1e-5 with a float32 accumulator.
 """
 
 import numpy as np
@@ -473,3 +476,295 @@ def test_heat_and_jacobi_launch_the_padded_kernel_on_card(device):
   want = poisson.solve_jacobi_numpy(f, iters=20)
   assert np.abs(u - want).max() <= 20 * 10 * 2.0 ** -24 * (
       np.abs(want).max() + 0.25 * np.abs(f).max())
+
+
+# -- matrix product K2 (matmul) -------------------------------------------------
+# Tolerance: both sides sum the same K exact products in float32 in another
+# order, so the float32 results differ by d <= 2·K·2^-24·(|x| @ |y|);
+# tensor cores may truncate inside their adds, so the bound is doubled.  On
+# these random-signed inputs the rounding errors add like a random walk, and
+# d <= STAT_C·sqrt(K)·2^-24·sqrt(x² @ y²) holds too (chip_smoke.py's
+# constant, about three times the largest share it reads at 32768^2); d is
+# the smaller of the two.  A 16-bit output rounds each side once more:
+# 2u·(|plain| + d) on top (u = 2^-8, 2^-11).
+
+from spartan_tpu_torch.backend.kernels import matmul as K2  # noqa: E402
+
+MATMUL_SHAPES = [(1, 1, 1), (17, 33, 65), (1000, 1001, 999), (64, 256, 128),
+                 (130, 0, 70)]
+OUT_UNIT = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
+            torch.float16: 2.0 ** -11}
+
+
+def _relu(acc):
+  return torch.clamp_min(acc, 0.0)
+
+
+STAT_C = 16.0
+
+
+def _sum_bound(terms, abs_sum, sq_sum, worst):
+  """The smaller of the worst case worst·n·2^-24·Σ|t| and the random-walk
+  bound STAT_C·sqrt(n)·2^-24·sqrt(Σt²) for two float32 sums of n terms."""
+  return torch.minimum(worst * terms * 2.0 ** -24 * abs_sum,
+                       STAT_C * terms ** 0.5 * 2.0 ** -24 * sq_sum.sqrt())
+
+
+def _matmul_tol(x, y, want):
+  xf, yf = x.float(), y.float()
+  d = _sum_bound(x.shape[1], xf.abs() @ yf.abs(), xf.square() @ yf.square(),
+                 4.0)
+  return d + 2.0 * OUT_UNIT[x.dtype] * (want.float().abs() + d)
+
+
+@pytest.mark.parametrize("epilogue", [None, _relu], ids=["none", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("mkn", MATMUL_SHAPES, ids=str)
+def test_matmul_kernel_matches_plain(device, mkn, dtype, epilogue):
+  m, k, n = mkn
+  gen = torch.Generator(device=device).manual_seed(m + k + n)
+  x = torch.randn(m, k, generator=gen, device=device).to(dtype)
+  y = torch.randn(k, n, generator=gen, device=device).to(dtype)
+  before = dict(K2.counts)
+  got = K2.matmul(x, y, epilogue=epilogue)
+  torch.cuda.synchronize()
+  assert K2.counts == dict(before, launches=before["launches"] + 1)
+  want = K2.matmul_plain(x, y, epilogue)
+  assert got.dtype == want.dtype == dtype and got.shape == (m, n)
+  diff = (got.float() - want.float()).abs()
+  assert bool((diff <= _matmul_tol(x, y, want)).all())
+  assert torch.equal(got, K2.matmul(x, y, epilogue=epilogue))
+
+
+def test_matmul_unfused_epilogue_and_plain_routes(device):
+  x = torch.randn(70, 90, device=device)
+  y = torch.randn(90, 50, device=device)
+  before = dict(K2.counts)
+  got = K2.matmul(x, y, epilogue=torch.tanh)
+  assert K2.counts == dict(before, launches=before["launches"] + 1,
+                           epilogue_unfused=before["epilogue_unfused"] + 1)
+  want = K2.matmul_plain(x, y, torch.tanh)
+  assert bool(((got - want).abs() <= _matmul_tol(x, y, want)).all())
+  # dtypes off the kernel's list run on it in float32, as matmul_plain does
+  for a, b in ((x.double(), y.double()), (x.half(), y), (x, y.bfloat16())):
+    got = K2.matmul(a, b, epilogue=_relu)
+    want = K2.matmul_plain(a, b, _relu)
+    assert got.dtype == want.dtype == a.dtype
+    tol = _matmul_tol(a.float(), b.float(), want.float())
+    if a.dtype == torch.float16:  # the float32 result rounds to float16
+      tol = tol + 2.0 * OUT_UNIT[a.dtype] * (want.float().abs() + tol)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+  assert K2.counts == dict(before, launches=before["launches"] + 4,
+                           epilogue_unfused=before["epilogue_unfused"] + 1)
+
+
+def test_matmul_reads_views_and_block_sizes_are_ignored(device):
+  x = torch.randn(300, 200, device=device)[:, 7:150]
+  y = torch.randn(160, 90, device=device).t()[:, :143].t()
+  got = K2.matmul(x, y, bm=8, bn=128, bk=128)
+  want = K2.matmul_plain(x.contiguous(), y.contiguous())
+  assert bool(((got - want).abs() <= _matmul_tol(x, y, want)).all())
+
+
+# -- unique-rows SpMV K3c (spmv_chunked) and make_spmv_windowed -----------------
+# Tolerance per row: the smaller of 2·len(row)·2^-24·Σ|a·x| (float32 sums
+# of the same products in another order) and the random-walk bound
+# STAT_C·sqrt(len)·2^-24·sqrt(Σ(a·x)²), plus one rounding to x's dtype.
+
+
+def _chunk_matrix(kind):
+  import scipy.sparse as ss
+  rng = np.random.default_rng(11)
+  if kind == "nnz0":
+    return ss.csr_matrix((50, 40), dtype=np.float32)
+  if kind == "below_one_chunk":
+    return ss.random(40, 50, density=0.15, random_state=1, format="csr",
+                     dtype=np.float32)
+  if kind == "row_on_chunk_boundary":
+    lengths = np.array([512, 512, 1024, 256, 768, 1024, 3])
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    indices = rng.integers(0, 3000, indptr[-1]).astype(np.int32)
+    data = rng.standard_normal(indptr[-1]).astype(np.float32)
+    return ss.csr_matrix((data, indices, indptr), shape=(len(lengths), 3000))
+  if kind == "empty_rows_at_both_ends":
+    A = ss.random(300, 700, density=0.05, random_state=2, format="lil",
+                  dtype=np.float32)
+    A[:100, :] = 0
+    A[200:, :] = 0
+    return A.tocsr()
+  if kind == "row_longer_than_10_chunks":
+    A = ss.random(64, 20000, density=0.001, random_state=3, format="lil",
+                  dtype=np.float32)
+    A[7, rng.choice(20000, 12_000, replace=False)] = rng.standard_normal(
+        12_000).astype(np.float32)
+    A[8, rng.choice(20000, 15_000, replace=False)] = rng.standard_normal(
+        15_000).astype(np.float32)
+    return A.tocsr()
+  if kind == "empty_row_runs_inside_chunks":
+    return ss.random(200_000, 500, density=2e-5, random_state=4, format="csr",
+                     dtype=np.float32)
+  if kind == "heavy_duplicates":
+    B = ss.lil_matrix((1100, 1100), dtype=np.float32)
+    B[5, 0:200] = rng.standard_normal(200)
+    B[5, 1024:1060] = rng.standard_normal(36)
+    return B.tocsr()
+  n, m = 3000, 2500  # tests/test_kernels.py's unique-pack matrix
+  r, c = rng.integers(0, n, n * 9), rng.integers(0, m, n * 9)
+  v = rng.standard_normal(n * 9).astype(np.float32)
+  A = ss.coo_matrix((v, (r, c)), shape=(n, m)).tocsr()
+  A.sum_duplicates()
+  return A
+
+
+CHUNK_MATRICES = ["nnz0", "below_one_chunk", "row_on_chunk_boundary",
+                  "empty_rows_at_both_ends", "row_longer_than_10_chunks",
+                  "empty_row_runs_inside_chunks", "heavy_duplicates",
+                  "random_duplicates_summed"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("kind", CHUNK_MATRICES)
+def test_spmv_chunked_matches_plain_and_repeats_bit_for_bit(device, kind,
+                                                            dtype):
+  A = _chunk_matrix(kind)
+  packed = KS.pack_windowed_unique(A)
+  assert packed.indptr.device == device
+  gen = torch.Generator(device=device).manual_seed(3)
+  x = torch.randn(A.shape[1], generator=gen, device=device).to(dtype)
+  args = (packed.indptr, packed.indices, packed.data, packed.chunk_row, x)
+  before = dict(KS.counts)
+  got = KS.spmv_chunked(*args)
+  again = KS.spmv_chunked(*args)
+  torch.cuda.synchronize()
+  launched = 0 if A.nnz == 0 else 2
+  assert KS.counts == dict(
+      before, chunked_launches=before["chunked_launches"] + launched)
+  want = KS.spmv_chunked_plain(*args)
+  assert got.dtype == want.dtype == dtype and got.shape == (A.shape[0],)
+  assert torch.equal(got, again)
+  lengths = (packed.indptr[1:] - packed.indptr[:-1]).float()
+  csr = packed.indptr, packed.indices
+  sum_abs = KS.spmv_csr_plain(*csr, packed.data.abs(), x.float().abs())
+  sum_sq = KS.spmv_csr_plain(*csr, packed.data.square(), x.float().square())
+  tol = (_sum_bound(lengths, sum_abs, sum_sq, 2.0)
+         + OUT_UNIT[dtype] * want.float().abs())
+  assert bool(((got.float() - want.float()).abs() <= tol).all())
+  if kind == "empty_rows_at_both_ends":
+    assert not bool(got[:100].any()) and not bool(got[200:].any())
+
+
+@pytest.mark.parametrize("kind", ["random_duplicates_summed",
+                                  "row_longer_than_10_chunks"])
+def test_make_spmv_windowed_routes_by_pack(device, kind):
+  A = _chunk_matrix(kind)
+  x = torch.randn(A.shape[1], device=device)
+  x64 = x.double().cpu().numpy()
+  want = A.astype(np.float64) @ x64
+  # a float32 sum of len(row) products against float64: len·2^-24·Σ|a·x|
+  tol = A.getnnz(1) * 2.0 ** -24 * (abs(A).astype(np.float64) @ np.abs(x64))
+  for pack, key in ((KS.pack_windowed, "csr_launches"),
+                    (KS.pack_windowed_unique, "chunked_launches")):
+    fn = KS.make_spmv_windowed(pack(A))
+    before = dict(KS.counts)
+    got = fn(x)
+    assert KS.counts == dict(before, **{key: before[key] + 1})
+    assert got.dtype == torch.float32
+    assert bool((np.abs(got.double().cpu().numpy() - want) <= tol).all())
+    with pytest.raises(NotImplementedError):
+      fn(x.double())
+
+
+def test_spmv_chunked_from_a_sparse_array(device):
+  S = sps.from_scipy(_matrix("long_row"))
+  x = torch.randn(S.shape[1], device=device)
+  got = KS.make_spmv_windowed(KS.pack_windowed_unique(S))(x)
+  want = KS.spmv_csr_plain(*S.to_csr(), x)
+  assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# -- shuffle, k-means and logistic regression on the card -----------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=str)
+def test_shuffle_scatter_add_repeats_bit_for_bit(device, dtype):
+  """2^20 values into 16 bins: index_put_(accumulate=True) sorts the
+  indices and sums each bin in a fixed order on the card."""
+  rng = np.random.default_rng(12)
+  vals = rng.standard_normal(1 << 20).astype(dtype)
+  bins = rng.integers(0, 16, 1 << 20)
+  sv, sb = sp.from_numpy(vals), sp.from_numpy(bins)
+
+  def once():
+    return sp.shuffle([sv, sb], lambda v, b, c: ((b,), v), target_shape=(16,),
+                      reducer=np.add).glom()
+
+  first = once()
+  assert all(np.array_equal(first, once()) for _ in range(3))
+  want = np.zeros(16)
+  np.add.at(want, bins, vals.astype(np.float64))
+  # a sum of a bin's m random-signed terms in any order: its rounding errors
+  # add like a random walk, about sqrt(m)·u·sqrt(Σv²) a bin; 16 times that
+  # (the worst case (m - 1)·u·Σ|v| is about 3,000 times looser here).  In float32
+  # that is 0.06 a bin, so one dropped value (|v| about 1) fails, and the
+  # bins' sums, about sqrt(m) = 256 in size, are far from zero.
+  count = np.bincount(bins, minlength=16)
+  sum_sq = np.bincount(bins, vals.astype(np.float64) ** 2, 16)
+  unit = 2.0 ** -24 if dtype == np.float32 else 2.0 ** -53
+  tol = 16.0 * np.sqrt(count) * unit * np.sqrt(sum_sq)
+  assert bool((np.abs(first - want) <= tol).all())
+  assert bool((np.abs(want) > 1e3 * tol).any())
+  assert bool((np.abs(first) > 1e3 * tol).any())
+
+
+@pytest.mark.parametrize("reducer, init", [(np.maximum, -np.inf),
+                                           (np.minimum, np.inf),
+                                           (np.multiply, 1.0), (None, 0.0)],
+                         ids=["max", "min", "mul", "set"])
+def test_shuffle_reducers_on_card(device, reducer, init):
+  rng = np.random.default_rng(13)
+  vals = rng.uniform(0.5, 1.5, 4096)
+  idx = rng.permutation(4096)[:1000] if reducer is None else (
+      rng.integers(0, 64, 4096))
+  vals = vals[:len(idx)]
+  got = sp.shuffle([sp.from_numpy(vals), sp.from_numpy(idx)],
+                   lambda v, i, c: ((i,), v),
+                   target_shape=(4096 if reducer is None else 64,),
+                   reducer=reducer, init=init).glom()
+  want = np.full(got.shape, init)
+  if reducer is None:
+    want[idx] = vals
+  else:
+    reducer.at(want, idx, vals)
+  np.testing.assert_allclose(got, want, rtol=1e-13)
+
+
+def test_kmeans_and_logistic_regression_on_card(device):
+  from spartan_tpu_torch.examples import kmeans, logistic_reg
+  pts, true_c = kmeans.make_data(n=8192, d=8, k=6, seed=3)
+  c0 = true_c + 0.3
+  P = pts.glom()
+  c = c0.copy()
+  for _ in range(5):
+    lab = np.argmin((c * c).sum(1) - 2.0 * (P @ c.T), axis=1)
+    onehot = (lab[:, None] == np.arange(6)).astype(np.float64)
+    c = (onehot.T @ P) / np.maximum(onehot.sum(0), 1.0)[:, None]
+  for use_matmul in (True, False):
+    cc = sp.from_numpy(c0)
+    for _ in range(5):
+      labels = kmeans.assign_labels(pts, cc)
+      cc = sp.Val(kmeans.update_centers(pts, labels, 6, use_matmul=use_matmul)
+                  .evaluate())
+    np.testing.assert_array_equal(labels.glom(), lab)
+    np.testing.assert_allclose(cc.glom(), c, rtol=1e-10)
+  fused = kmeans.fit_fused(pts, 6, 5, centers=c0)
+  assert fused.device.type == "cuda"
+  np.testing.assert_allclose(fused.glom(), c, rtol=1e-10)
+  X, y, _ = logistic_reg.make_data(4096, 8, seed=2)
+  Xh, yh = X.glom(), y.glom()
+  w = np.zeros(8)
+  for _ in range(20):
+    w = w - (Xh.T @ (1.0 / (1.0 + np.exp(-(Xh @ w))) - yh)) / 4096
+  np.testing.assert_allclose(logistic_reg.fit_fused(X, y, 20).glom(), w,
+                             rtol=1e-10)

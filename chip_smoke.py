@@ -5,13 +5,16 @@
 Drives the port's main paths once through its user entry points, at the
 sizes of the reference's benchmark configs 1-5 (config 2 also at its
 published 32768^2), of PageRank at full width, of ALS at the shape of
-MovieLens 20M and of heat and Jacobi-Poisson sweeps on a 16384^2 grid, and
+MovieLens 20M and of heat and Jacobi-Poisson sweeps on a 16384^2 grid, the
+last three also on meshes of 2, 4 and 8 logical shards of the card, and
 raises on any failure:
 
   0. identify the card (nvidia-smi name and power limit, torch and CUDA);
   1. build the kernels (csrc/fused_reduce.cu, spmv_ell.cu, spmv_csr.cu,
      spmm_csr.cu, stencil3x3.cu, stencil3x3_padded.cu, matmul.cu,
      spmv_chunked.cu) from source, one nvcc per file, all started together;
+     the sharded kernels are these kernels launched once a shard, K6b the
+     halo-row instantiation in stencil3x3_padded.cu;
   2. K1 against its plain torch version on the card, over five chains,
      four shapes and two accumulators, and timed at 16384^2 float32 beside
      its plain version and torch.sum;
@@ -63,12 +66,23 @@ raises on any failure:
  13. k-means (config 4: n = 2^19, d = k = 64 float32, both centroid
      updates, make_fori and fit_fused) against a float64 NumPy Lloyd, and
      logistic_reg.fit_fused at n = 2^20, d = 64 float64 against a NumPy
-     loop.
+     loop;
+ 14. on meshes of p = 2, 4 and 8 shards of the card: pagerank.fit_sparse
+     on phase 6's two urand graphs (K3d at 2^22, K3a sharded at 32768)
+     against phase 6's float64 ranks, als.fit on the ratings of phase 7
+     (K5b) against phase 8's float64 factors, 200 heat sweeps at 16384^2
+     through stencil3x3_padded_sharded (K6b) bit for bit against phase
+     10's K6a field and 20 Jacobi sweeps with the add field against a
+     float64 oracle; each sharded entry point bit for bit against its
+     unsharded kernel and against its plain version at the unsharded
+     kernel's bound; each timed at full shape beside the unsharded
+     kernel, its plain version and cuSPARSE or cuDNN.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4 for K1, phase 6 for K3a/K3b, phase 8 for K5a, phase 10
 for K6a, phase 11's full-size matmul calls for K2, phase 12's
-make_spmv_windowed calls for K3c) and read just after.  K4 has no caller
+make_spmv_windowed calls for K3c, phase 14's path at each p for the
+sharded kernels, summed over the three meshes) and read just after.  K4 has no caller
 in the package: its count is the launches of phase 9's checks.  The
 last two lines are a JSON object describing each kernel (its launches on
 its path, its worst disagreement with the plain version, its time, the
@@ -545,7 +559,8 @@ def scipy_pagerank(A) -> np.ndarray:
 def pagerank_case(label: str, A, want_fmt: str, kernel_count,
                   stochastic: bool = True):
   """fit_sparse(from_scipy(A)) against scipy in float64; returns the
-  steady make_fori ms/step.  ``kernel_count`` is the counts key that must
+  SparseArray and the float64 ranks (phase 14 runs them again on sharded
+  meshes).  ``kernel_count`` is the counts key that must
   rise by at least PR_ITERS, or None for the block route (no kernel).  A
   ``stochastic`` matrix (no dangling column) keeps the ranks' sum at 1."""
   n = A.shape[0]
@@ -593,13 +608,18 @@ def pagerank_case(label: str, A, want_fmt: str, kernel_count,
   ms = t_steady.elapsed / PR_ITERS * 1e3
   print(f"  make_fori steady {ms:.4f} ms/step, {S.nnz / ms / 1e6:.3f} "
         "Gnnz/s (host clock, synced)")
-  return ms
+  return S, want
 
 
 def phase_pagerank(big, small, cfg5):
-  pagerank_case("urand 2^22", big, "win", "csr_launches")
-  pagerank_case("urand 32768", small, "ell", "ell_launches")
+  """The three PageRank cases; returns the two urand graphs' SparseArrays
+  and float64 ranks, by label."""
+  held = {"urand 2^22": pagerank_case("urand 2^22", big, "win",
+                                      "csr_launches"),
+          "urand 32768": pagerank_case("urand 32768", small, "ell",
+                                       "ell_launches")}
   pagerank_case("config-5 blocks", cfg5, "bsr", None, stochastic=False)
+  return held
 
 # -- SpMM and ALS ---------------------------------------------------------------
 
@@ -854,9 +874,10 @@ def device_share(fn):
   return by_name, sum(by_name.values()), t_wall.elapsed * 1e3
 
 
-def phase_als(R, S) -> int:
+def phase_als(R, S):
   """als.fit at full width against a float64 scipy ALS; returns K5a's
-  launches in that fit."""
+  launches in that fit, and the factors, the float64 factors and the
+  tolerance that phase 14 holds sharded ALS to."""
   torch.cuda.synchronize()
   with Timer() as t_fit:
     U, V = als.fit(S, k=ALS_K, iterations=ALS_ITERS, reg=ALS_REG, seed=0)
@@ -908,7 +929,7 @@ def phase_als(R, S) -> int:
         f"torch.profiler: wall {wall:.1f} ms, device busy {busy:.2f} ms "
         f"(idle share {1 - busy / wall:.3f}); by kernel (ms): "
         + ", ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
-  return launches
+  return launches, (U, V, U64, V64, tol)
 
 
 # -- stencils, heat, Jacobi-Poisson, convnet -----------------------------------
@@ -1143,6 +1164,7 @@ def padded_sweeps(label, run, oracle, device):
         f"expected {SWEEPS}")
   check(err <= tol, f"{label} disagrees with its float64 oracle")
   del got_t, want
+  return got
 
 
 def sweep_profile(label, coeffs, fields, state, add, card: str):
@@ -1165,10 +1187,11 @@ def sweep_profile(label, coeffs, fields, state, add, card: str):
         f"({fields} x n^2 x 4 bytes); on {card}")
 
 
-def phase_stencil_path(device, card: str) -> int:
+def phase_stencil_path(device, card: str):
   """heat.simulate_padded and poisson.solve_jacobi at 16384^2 float32,
   heat.simulate at 4096^2 float64, convnet at MNIST's test-set shape;
-  returns K6a's launches on the padded path."""
+  returns K6a's launches on the padded path, and the heat sweeps' initial
+  field (on the card) and result (numpy) for phase 14."""
   gen = torch.Generator(device=device).manual_seed(23)
   n = GRID_N
   u0 = torch.rand((n, n), generator=gen, device=device)
@@ -1178,7 +1201,7 @@ def phase_stencil_path(device, card: str) -> int:
   # 0.25), so max|u| never exceeds max|u0| and each sweep adds at most
   # 2(taps + 1) roundings of 2^-24 max|u0| (the float32 coefficients'
   # own rounding among them)
-  padded_sweeps(
+  heat_result = padded_sweeps(
       "heat.simulate_padded",
       lambda: heat.simulate_padded(u0, iters=SWEEPS, alpha=HEAT_ALPHA),
       lambda: (heat_oracle(u0, SWEEPS, HEAT_ALPHA),
@@ -1200,7 +1223,7 @@ def phase_stencil_path(device, card: str) -> int:
   sweep_profile("heat", HEAT, 2, u0, None, card)
   sweep_profile("Jacobi", JACOBI, 3, torch.zeros_like(f),
                 K6.to_padded(-0.25 * f), card)
-  del u0, f
+  del f
 
   # the expression path: make_fori over StencilExpr and ReshapeExpr
   rng = np.random.default_rng(29)
@@ -1239,7 +1262,7 @@ def phase_stencil_path(device, card: str) -> int:
   check(np.array_equal(pred, logits.argmax(axis=1))
         and np.array_equal(pred[:CONV_CHECK], want.argmax(axis=1)),
         "convnet.predict disagrees with argmax(forward)")
-  return launches
+  return launches, (u0, heat_result)
 
 
 # -- the matrix product K2 -------------------------------------------------------
@@ -1464,14 +1487,14 @@ def chunk_cases():
   return cases
 
 
-def row_tol(packed, x, want):
-  """Per row the smaller of 2·len·2^-24·Σ|a·x| (float32 sums of the same
-  products in another order) and the random-walk bound on Σ(a·x)², plus
-  one rounding to x's dtype on each side."""
-  lengths = (packed.indptr[1:] - packed.indptr[:-1]).float()
-  csr = packed.indptr, packed.indices
-  sum_abs = KS.spmv_csr_plain(*csr, packed.data.abs(), x.float().abs())
-  sum_sq = KS.spmv_csr_plain(*csr, packed.data.square(), x.float().square())
+def row_tol(indptr, indices, data, x, want):
+  """Per row of a CSR matrix the smaller of 2·len·2^-24·Σ|a·x| (float32
+  sums of the same products in another order) and the random-walk bound on
+  Σ(a·x)², plus one rounding to x's dtype on each side."""
+  lengths = (indptr[1:] - indptr[:-1]).float()
+  sum_abs = KS.spmv_csr_plain(indptr, indices, data.abs(), x.float().abs())
+  sum_sq = KS.spmv_csr_plain(indptr, indices, data.square(),
+                             x.float().square())
   return (sum_bound(lengths, sum_abs, sum_sq, 2.0)
           + 2.0 * OUT_UNIT[x.dtype] * want.float().abs())
 
@@ -1504,7 +1527,7 @@ def check_spmv_full(packed, x, label: str):
   got, want = KS.spmv_chunked(*args), KS.spmv_chunked_plain(*args)
   again = KS.spmv_chunked(*args)
   diff = (got - want).abs()
-  tol = row_tol(packed, x, want)
+  tol = row_tol(packed.indptr, packed.indices, packed.data, x, want)
   share = float((diff / tol.clamp_min(1e-30)).max())
   check(bool((diff <= tol).all()), f"K3c disagrees with its plain version "
         f"on {label}: worst share of the per-row bound {share:.4g}")
@@ -1533,7 +1556,7 @@ def phase_spmv_chunked(device, card: str, big, R):
       want = KS.spmv_chunked_plain(*args)
       torch.cuda.synchronize()
       diff = (got.float() - want.float()).abs()
-      tol = row_tol(packed, x, want)
+      tol = row_tol(packed.indptr, packed.indices, packed.data, x, want)
       err = float(diff.max()) if diff.numel() else 0.0
       share = float((diff / tol.clamp_min(1e-30)).max()) if diff.numel() else 0.0
       same = bool(torch.equal(got, again))
@@ -1617,7 +1640,8 @@ def phase_windowed_entry_point(device, big, R) -> int:
       check(raised, f"make_spmv_windowed({kind}) took a float64 x")
       del fn
     packed = KS.pack_windowed(A)
-    tol = row_tol(packed, x, ys["classic"])
+    tol = row_tol(packed.indptr, packed.indices, packed.data, x,
+                  ys["classic"])
     diff = (ys["unique"] - ys["classic"]).abs()
     check(bool((diff <= tol).all()), f"the unique and classic routes "
           f"disagree on {label}")
@@ -1749,6 +1773,327 @@ def phase_kmeans_logreg(device, card: str):
         "logistic regression disagrees with the NumPy loop")
 
 
+# -- the sharded kernels on a mesh of p shards of the card ----------------------
+
+SHARD_COUNTS = (2, 4, 8)
+ADD_SWEEPS = 20  # the sharded Jacobi call with its add field
+SHARDED = ("sharded_onehot_spmv", "sharded_windowed_spmv",
+           "sharded_windowed_spmm", "stencil3x3_padded_sharded")
+
+
+def nonempty(packed) -> int:
+  return sum(packed.rows(d)[1] > packed.rows(d)[0]
+             for d in range(packed.n_shards))
+
+
+def sharded_path(p, mesh, graphs, S, u0, f):
+  """The main path on a mesh of p shards, with every count at 0 just before
+  and read just after: PageRank on both urand graphs, ALS, 200 heat sweeps
+  and one Jacobi call with its add field through the sharded stencil.
+  Returns the results and each sharded kernel's launches."""
+  big_S, _ = graphs["urand 2^22"]
+  small_S, _ = graphs["urand 32768"]
+  torch.cuda.synchronize()
+  for counts in (KS, K5, K6):
+    counts.reset_counts()
+  with Timer() as t_path:
+    out = {"r_big": pagerank.fit_sparse(big_S, PR_ITERS, DAMPING),
+           "r_small": pagerank.fit_sparse(small_S, PR_ITERS, DAMPING)}
+    out["U"], out["V"] = als.fit(S, k=ALS_K, iterations=ALS_ITERS,
+                                 reg=ALS_REG, seed=0)
+    out["heat"] = K6.stencil3x3_padded_sharded(u0, HEAT, SWEEPS, mesh)
+    out["jacobi"] = K6.stencil3x3_padded_sharded(
+        torch.zeros_like(f), JACOBI, ADD_SWEEPS, mesh, add=-0.25 * f)
+    torch.cuda.synchronize()
+  launches = {"sharded_onehot_spmv": KS.counts["sharded_ell_launches"],
+              "sharded_windowed_spmv": KS.counts["sharded_csr_launches"],
+              "sharded_windowed_spmm": K5.counts["sharded_launches"],
+              "stencil3x3_padded_sharded": K6.counts["k6b_launches"]}
+  want = {"sharded_onehot_spmv": p * PR_ITERS,
+          "sharded_windowed_spmv": nonempty(big_S.to_windowed_sharded(p))
+          * PR_ITERS,
+          "sharded_windowed_spmm": ALS_ITERS * (
+              nonempty(S.to_windowed_spmm_sharded(p))
+              + nonempty(S.T.to_windowed_spmm_sharded(p))),
+          "stencil3x3_padded_sharded": p * (SWEEPS + ADD_SWEEPS)}
+  others = {**{k: v for k, v in KS.counts.items()
+               if not k.startswith("sharded_") or "plain" in k},
+            "K5 launches": K5.counts["launches"],
+            "K5 plain_runs": K5.counts["plain_runs"],
+            "K5 sharded_plain_runs": K5.counts["sharded_plain_runs"],
+            **{k: v for k, v in K6.counts.items() if k != "k6b_launches"}}
+  print(f"  p = {p}: path wall {t_path.elapsed:.2f} s; launches {launches} "
+        f"(a shard: " + ", ".join(f"{k} {v / p:g}" for k, v in
+                                  launches.items())
+        + f"); other kernels and plain runs {others}")
+  check(launches == want, f"p = {p}: sharded launches {launches}, expected "
+        f"{want}")
+  check(not any(others.values()), f"p = {p}: an unsharded kernel or a plain "
+        f"version ran on the sharded path ({others})")
+  return out, launches
+
+
+def check_sharded_results(p, out, graphs, als_ref, heat_t, f):
+  """The path's results against phase 6's and phase 8's float64 oracles,
+  phase 10's K6a field (bit for bit) and a float64 Jacobi oracle."""
+  for key, label in (("r_big", "urand 2^22"), ("r_small", "urand 32768")):
+    want = graphs[label][1]
+    err = float(np.abs(out[key].astype(np.float64) - want).max())
+    print(f"  p = {p}: PageRank {label}: max|r - r64| {err:.3g} (<= 1e-5 "
+          f"max r64 = {1e-5 * want.max():.3g})")
+    check(out[key].shape == want.shape and err <= 1e-5 * want.max(),
+          f"p = {p}: sharded PageRank on {label} disagrees with scipy")
+  U8, V8, U64, V64, tol = als_ref
+  U, V = out["U"], out["V"]
+  err_u = np.abs(U - U64).max() / np.abs(U64).max()
+  err_v = np.abs(V - V64).max() / np.abs(V64).max()
+  same = bool(np.array_equal(U, U8) and np.array_equal(V, V8))
+  print(f"  p = {p}: ALS max rel err vs float64 scipy ALS U {err_u:.3g}, V "
+        f"{err_v:.3g} (tolerance {tol:.3g}); factors bit-equal to phase "
+        f"8's: {same}")
+  check(bool(np.isfinite(U).all() and np.isfinite(V).all())
+        and max(err_u, err_v) <= tol, f"p = {p}: sharded ALS disagrees")
+  same_heat = bool(torch.equal(out["heat"], heat_t))
+  print(f"  p = {p}: {SWEEPS} heat sweeps at {GRID_N}^2 float32 bit-equal "
+        f"to phase 10's K6a result: {same_heat}")
+  check(same_heat, f"p = {p}: the sharded heat sweeps differ from K6a's")
+  u, scale = jacobi_oracle(f, ADD_SWEEPS)
+  tol = 2 * 5 * 2.0 ** -24 * scale
+  err = float((out["jacobi"].double() - u).abs().max())
+  print(f"  p = {p}: {ADD_SWEEPS} Jacobi sweeps with the add field: max|u - "
+        f"u64| {err:.4g} (tolerance {tol:.4g})")
+  check(err <= tol, f"p = {p}: the sharded Jacobi sweeps disagree")
+  del u
+
+
+def held_to(p, name, got, want, tol):
+  """|got - want| against the per-entry bound ``tol``; returns the worst
+  |got - want| and its worst share of the bound."""
+  diff = (got.double() - want.double()).abs()
+  share = float((diff / tol.double().clamp_min(1e-300)).max())
+  check(bool((diff <= tol.double()).all()), f"p = {p}: {name} disagrees with "
+        f"its plain version: worst share of the bound {share:.4g}")
+  return float(diff.max()), share
+
+
+def bit_checks(p, mesh, graphs, S, device, gen):
+  """One call of each sharded entry point against its unsharded kernel
+  (bit for bit) and against its plain version on the same inputs, at the
+  bound the unsharded kernel's full-size check uses (row_tol for the
+  SpMVs, spmm_tolerance for the SpMM); returns the worst |kernel - plain|
+  of each."""
+  big_S, _ = graphs["urand 2^22"]
+  small_S, _ = graphs["urand 32768"]
+  worst, shares = {}, {}
+  x = torch.randn(small_S.shape[1], generator=gen, device=device)
+  cols, vals = small_S.cols, small_S.vals
+  got = KS.sharded_onehot_spmv(cols, vals, x, mesh)
+  check(torch.equal(got, KS.spmv_ell(cols, vals, x)),
+        f"p = {p}: sharded_onehot_spmv differs from K3a")
+  want = KS.spmv_ell_plain(cols, vals, x)
+  worst["sharded_onehot_spmv"], shares["sharded_onehot_spmv"] = held_to(
+      p, "sharded_onehot_spmv", got, want,
+      row_tol(*small_S.to_csr(), x, want))
+  x = torch.randn(big_S.shape[1], generator=gen, device=device)
+  got = KS.sharded_windowed_spmv_traced(big_S.to_windowed_sharded(p), x,
+                                        mesh)
+  check(torch.equal(got, KS.spmv_csr(*big_S.to_csr(), x)),
+        f"p = {p}: sharded_windowed_spmv_traced differs from K3b")
+  want = KS.spmv_csr_plain(*big_S.to_csr(), x)
+  worst["sharded_windowed_spmv"], shares["sharded_windowed_spmv"] = held_to(
+      p, "sharded_windowed_spmv_traced", got, want,
+      row_tol(*big_S.to_csr(), x, want))
+  worst["sharded_windowed_spmm"] = shares["sharded_windowed_spmm"] = 0.0
+  for label, A, m in (("R @ V", S, ML_MOVIES), ("R.T @ U", S.T, ML_USERS)):
+    B = torch.randn(m, ALS_K, generator=gen, device=device)
+    got = K5.sharded_windowed_spmm_traced(A.to_windowed_spmm_sharded(p), B,
+                                          mesh)
+    check(torch.equal(got, K5.spmm_csr(*A.to_csr(), B)),
+          f"p = {p}: sharded_windowed_spmm_traced differs from K5a on "
+          f"{label}")
+    err, share = held_to(p, f"sharded_windowed_spmm_traced on {label}", got,
+                         K5.spmm_csr_plain(*A.to_csr(), B),
+                         spmm_tolerance(*A.to_csr(), B))
+    worst["sharded_windowed_spmm"] = max(worst["sharded_windowed_spmm"], err)
+    shares["sharded_windowed_spmm"] = max(shares["sharded_windowed_spmm"],
+                                          share)
+    del got, B
+  torch.cuda.synchronize()
+  print(f"  p = {p}: one call of each sharded SpMV/SpMM entry point "
+        f"bit-equal to its unsharded kernel; max|kernel - plain| {worst}, "
+        f"worst share of the per-entry bound {shares}")
+  return worst
+
+
+def time_sharded(p, mesh, graphs, S, device, gen, card):
+  """Each sharded kernel at the main path's full shape, in turns beside
+  the unsharded kernel, the plain version and one library call over the
+  whole operand.  The bound counts each input read once and the output
+  written once, as the unsharded kernels' bounds do; beside it is printed
+  the bound with x (or B, or the halo rows) read once a shard."""
+  big_S, _ = graphs["urand 2^22"]
+  small_S, _ = graphs["urand 32768"]
+  rows = {}
+
+  def report(name, label, t, nbytes, flops, lib, replica_bytes, extra=None):
+    bound_ms, bound_by = bound(nbytes, flops)
+    replica_ms = bound(nbytes + replica_bytes, flops)[0]
+    print(f"  p = {p}: {name} on {label}: kernel {t['kernel']:.4f} ms, "
+          f"unsharded {t['unsharded']:.4f} ms, plain {t['plain']:.4f} ms, "
+          f"{lib} {t['library']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes / 1e6:.1f} MB, each input read once; "
+          f"{replica_ms:.4f} ms with the operand each shard reads again, "
+          f"+{replica_bytes / 1e6:.2f} MB) (median of {TIMING_REPS}, "
+          f"queued ahead: "
+          f"{all(t[f'{v} ahead'] for v in ('kernel', 'unsharded', 'plain', 'library'))}"
+          f", CUDA events, in turns; host issue per call: kernel "
+          f"{t['kernel host']:.4f} ms) on {card}")
+    rows[name] = dict({"ms": t["kernel"], "plain_ms": t["plain"],
+                       "library_ms": t["library"], "bound_ms": bound_ms,
+                       "bound_by": bound_by, "unsharded_ms": t["unsharded"]},
+                      **(extra or {}))
+
+  # K3a sharded at n = 32768
+  n, m = small_S.shape
+  cols, vals = small_S.cols, small_S.vals
+  x = torch.randn(m, generator=gen, device=device)
+  indptr, indices, data = small_S.to_csr()
+  lib = torch.sparse_csr_tensor(indptr.int(), indices, data, size=(n, m),
+                                check_invariants=False)
+  t = time_in_turns({
+      "plain": lambda: KS.spmv_ell_plain(cols, vals, x),
+      "kernel": lambda: KS.sharded_onehot_spmv(cols, vals, x, mesh),
+      "unsharded": lambda: KS.spmv_ell(cols, vals, x),
+      # about 256 launches a sample: more fill the launch queue, and the
+      # host then waits on the device
+      "library": lambda: lib @ x}, 256 // p)
+  k = small_S.max_nnz_per_row
+  report("sharded_onehot_spmv", f"urand 32768 (k={k})", t,
+         n * k * 8 + m * 4 + n * 4, 2 * n * k, "cuSPARSE", (p - 1) * m * 4)
+  # K3d on urand 2^22
+  n, m = big_S.shape
+  packed = big_S.to_windowed_sharded(p)
+  indptr, indices, data = big_S.to_csr()
+  x = torch.randn(m, generator=gen, device=device)
+  lib = torch.sparse_csr_tensor(indptr.int(), indices, data, size=(n, m),
+                                check_invariants=False)
+  t = time_in_turns({
+      "plain": lambda: KS.spmv_csr_plain(indptr, indices, data, x),
+      "kernel": lambda: KS.sharded_windowed_spmv_traced(packed, x, mesh),
+      "unsharded": lambda: KS.spmv_csr(indptr, indices, data, x),
+      "library": lambda: lib @ x}, 20)
+  report("sharded_windowed_spmv", f"urand 2^22 (nnz={big_S.nnz})", t,
+         big_S.nnz * 8 + (n + p) * 8 + m * 4 + n * 4, 2 * big_S.nnz,
+         "cuSPARSE", (p - 1) * m * 4)
+  # K5b: ALS's two products, summed
+  total = {key: 0.0 for key in ("kernel", "unsharded", "plain", "library")}
+  total.update({f"{key} {what}": (0.0 if what == "host" else True)
+                for key in list(total) for what in ("host", "ahead")})
+  nbytes = flops = replicas = 0
+  for A, m in ((S, ML_MOVIES), (S.T, ML_USERS)):
+    packed = A.to_windowed_spmm_sharded(p)
+    csr = A.to_csr()
+    B = torch.randn(m, ALS_K, generator=gen, device=device)
+    lib = torch.sparse_csr_tensor(csr[0].int(), csr[1], csr[2], size=A.shape,
+                                  check_invariants=False)
+    t = time_in_turns({
+        "plain": lambda: K5.spmm_csr_plain(*csr, B),
+        "kernel": lambda: K5.sharded_windowed_spmm_traced(packed, B, mesh),
+        "unsharded": lambda: K5.spmm_csr(*csr, B),
+        "library": lambda: lib @ B}, 3)
+    for key in ("kernel", "unsharded", "plain", "library"):
+      total[key] += t[key]
+      total[f"{key} host"] += t[f"{key} host"]
+      total[f"{key} ahead"] = total[f"{key} ahead"] and t[f"{key} ahead"]
+    nbytes += A.nnz * 8 + (A.shape[0] + p) * 8 + m * ALS_K * 4 + (
+        A.shape[0] * ALS_K * 4)
+    flops += 2 * A.nnz * ALS_K
+    replicas += (p - 1) * m * ALS_K * 4
+    del lib, B
+  report("sharded_windowed_spmm", f"ML-20M R @ V + R.T @ U (k={ALS_K})",
+         total, nbytes, flops, "cuSPARSE", replicas)
+  # K6b: one sweep at 16384^2 float32 (the halo exchange and p launches)
+  n = GRID_N
+  u = torch.rand((n, n), generator=gen, device=device)
+  bands, bufs, fields = K6._padded_bands(u, p, None)
+  xp = K6.to_padded(u)
+  buf = torch.zeros_like(xp)
+  K6._sharded_sweep(bands, bufs, HEAT, fields)
+  one, _ = K6.stencil3x3_padded(xp, buf, HEAT)
+  plain, _ = K6.stencil3x3_padded_plain(xp, torch.zeros_like(xp), HEAT)
+  sharded = torch.cat([K6.from_padded(b) for b in bands])
+  check(torch.equal(sharded, K6.from_padded(one)),
+        f"p = {p}: one sharded sweep differs from K6a's")
+  err = float((sharded - K6.from_padded(plain)).abs().max())
+  check(err == 0.0, f"p = {p}: one sharded sweep differs from its plain "
+        f"version by {err:.4g} (float32 is bit for bit)")
+  del one, plain, sharded
+  w = torch.tensor(HEAT, device=device).view(1, 1, 3, 3)
+  u4 = u[None, None]
+  t = time_in_turns({
+      "plain": lambda: K6.stencil3x3_padded_plain(xp, buf, HEAT),
+      "kernel": lambda: K6._sharded_sweep(bands, bufs, HEAT, fields),
+      "unsharded": lambda: K6.stencil3x3_padded(xp, buf, HEAT),
+      "library": lambda: F.conv2d(u4, w, padding=1)})
+  report("stencil3x3_padded_sharded", f"{n}^2 float32, one heat sweep", t,
+         8 * n * n, 2 * 5 * n * n, "cuDNN conv2d",
+         4 * n * (2 * (p - 1) + 2 * p), {"max_abs_err": err})
+  del bands, bufs, xp, buf, u
+  return rows
+
+
+def phase_sharded(device, card: str, graphs, R, als_ref, heat_ref):
+  """The sharded kernels K3a sharded, K3d, K5b and K6b on meshes of 2, 4 and
+  8 shards of the card: the main path through its entry points (PageRank,
+  ALS, heat and Jacobi sweeps) against the earlier phases' oracles and
+  results, each sharded entry point bit for bit against its unsharded
+  kernel, then timed.  Returns each kernel's row (p = 8's times, launches
+  summed over the three meshes)."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  gen = torch.Generator(device=device).manual_seed(59)
+  u0, heat_result = heat_ref
+  heat_t = torch.from_numpy(heat_result).to(device)
+  f = torch.randn((GRID_N, GRID_N), generator=gen, device=device)
+  with Timer() as t_ingest:
+    S = sparse.from_scipy(R, dtype=np.float32)
+    S.T.to_csr()
+    torch.cuda.synchronize()
+  print(f"  the ratings again through sparse.from_scipy and the transpose: "
+        f"{t_ingest.elapsed:.2f} s")
+  launches = {name: 0 for name in SHARDED}
+  worst = {name: 0.0 for name in SHARDED}
+  rows = {}
+  for p in SHARD_COUNTS:
+    mesh = sp.make_mesh(device, shape=(p,))
+    with sp.with_mesh(mesh):
+      out, path = sharded_path(p, mesh, graphs, S, u0, f)
+      check_sharded_results(p, out, graphs, als_ref, heat_t, f)
+      del out
+      for name in SHARDED:
+        launches[name] += path[name]
+      for name, err in bit_checks(p, mesh, graphs, S, device, gen).items():
+        worst[name] = max(worst[name], err)
+      rows = time_sharded(p, mesh, graphs, S, device, gen, card)
+      worst["stencil3x3_padded_sharded"] = max(
+          worst["stencil3x3_padded_sharded"],
+          rows["stencil3x3_padded_sharded"].pop("max_abs_err"))
+      try:
+        K6.stencil3x3_padded_sharded(u0[:GRID_N - 1], HEAT, 1, mesh)
+        raised = False
+      except ValueError:
+        raised = True
+      check(raised, f"p = {p}: a ragged band did not raise")
+  del S, heat_t, f
+  print(f"  a field of {GRID_N - 1} rows raised ValueError at every p; "
+        f"peak device memory in phase 14 "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+  for name in SHARDED:
+    rows[name].update(launches=launches[name], max_abs_err=worst[name])
+  return rows
+
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -1801,11 +2146,10 @@ def main() -> None:
 
   KS.reset_counts()  # count the PageRank path's launches only
   print("phase 6: PageRank through pagerank.fit_sparse at full width")
-  phase_pagerank(big, small, cfg5)
+  graphs = phase_pagerank(big, small, cfg5)  # held for phase 14
   k3["spmv_ell"]["launches"] = KS.counts["ell_launches"]
   k3["spmv_csr"]["launches"] = KS.counts["csr_launches"]
   done(6)
-  del small, cfg5  # big (host scipy) stays for phase 12
 
   print("phase 7: K5a against its plain version on the card; ratings of "
         "MovieLens 20M's shape")
@@ -1818,7 +2162,7 @@ def main() -> None:
 
   K5.reset_counts()  # count the ALS path's launches only
   print("phase 8: ALS through als.fit at full width")
-  k5["launches"] = phase_als(R, S)
+  k5["launches"], als_ref = phase_als(R, S)  # factors held for phase 14
   done(8)
   # the ratings' device arrays (ELL 25 GB, CSR, transposes) go with S; R
   # (host scipy) stays for phase 12.  Read what is left before and after a
@@ -1838,7 +2182,7 @@ def main() -> None:
   done(9)
   print("phase 10: heat and Jacobi-Poisson sweeps at 16384^2, heat.simulate, "
         "convnet")
-  k6a["launches"] = phase_stencil_path(device, card)
+  k6a["launches"], heat_ref = phase_stencil_path(device, card)
   done(10)
 
   print(f"  device memory allocated before phase 11: "
@@ -1865,11 +2209,16 @@ def main() -> None:
   check(k3c["launches"] >= 2 and KS.counts["chunked_plain_runs"] == 0,
         f"make_spmv_windowed did not launch K3c ({KS.counts})")
   done(12)
-  del big, R
 
   print("phase 13: k-means (config 4) and logistic regression (config 3)")
   phase_kmeans_logreg(device, card)
   done(13)
+
+  print("phase 14: the sharded kernels on meshes of 2, 4 and 8 shards of the "
+        "card: PageRank, ALS and stencil sweeps against phases 6, 8 and 10")
+  sharded = phase_sharded(device, card, graphs, R, als_ref, heat_ref)
+  del big, small, cfg5, R, graphs, als_ref, heat_ref
+  done(14)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",
@@ -1887,7 +2236,19 @@ def main() -> None:
           ("matmul", "matmul.cu",
            "spartan_tpu/backend/kernels/matmul.py:55", k2_row),
           ("spmv_chunked", "spmv_chunked.cu",
-           "spartan_tpu/backend/kernels/spmv_pallas.py:742", k3c)]
+           "spartan_tpu/backend/kernels/spmv_pallas.py:742", k3c),
+          ("sharded_onehot_spmv", "spmv_ell.cu",
+           "spartan_tpu/backend/kernels/spmv_pallas.py:136",
+           sharded["sharded_onehot_spmv"]),
+          ("sharded_windowed_spmv", "spmv_csr.cu",
+           "spartan_tpu/backend/kernels/spmv_pallas.py:888",
+           sharded["sharded_windowed_spmv"]),
+          ("sharded_windowed_spmm", "spmm_csr.cu",
+           "spartan_tpu/backend/kernels/spmm_pallas.py:383",
+           sharded["sharded_windowed_spmm"]),
+          ("stencil3x3_padded_sharded", "stencil3x3_padded.cu",
+           "spartan_tpu/backend/kernels/stencil_pallas.py:387",
+           sharded["stencil3x3_padded_sharded"])]
   print(json.dumps({"kernels": [
       {"name": name, "route": "cuda",
        "source": f"spartan_tpu_torch/csrc/{source}", "replaces": replaces,

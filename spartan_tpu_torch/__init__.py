@@ -35,8 +35,9 @@ def initialize(argv: Optional[List[str]] = None, mesh: Optional[Mesh] = None
                ) -> None:
   """Parse flags and install the default mesh.
 
-  The mesh is one device, ``FLAGS.device`` (default ``cuda``); if that
-  device is absent this raises instead of carrying on elsewhere.  TF32 is
+  The mesh is ``FLAGS.device`` (default ``cuda``) cut into the logical
+  shards ``FLAGS.mesh_shape`` asks for (default one); if that device is
+  absent this raises instead of carrying on elsewhere.  TF32 is
   switched off for matmuls and convolutions, so float32 math is full
   float32 on the card.
   """

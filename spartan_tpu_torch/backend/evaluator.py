@@ -23,7 +23,7 @@ import torch
 
 from spartan_tpu_torch.config import FLAGS
 from spartan_tpu_torch.core.array import SpartanArray
-from spartan_tpu_torch.core.mesh import get_mesh
+from spartan_tpu_torch.core.mesh import Mesh, get_mesh
 from spartan_tpu_torch.core.tiling import Tiling
 from spartan_tpu_torch.expr import optimize as opt_mod
 from spartan_tpu_torch.expr.base import (Aval, EmitCtx, Expr, ListExpr, Val,
@@ -51,9 +51,12 @@ def _opt_flags_fingerprint() -> tuple:
           FLAGS.opt_auto_tiling, FLAGS.max_fused_kernel_ops)
 
 
-def flags_key(device: torch.device) -> tuple:
-  return (semantic_flags_fingerprint(), FLAGS.use_kernels, str(device),
-          _opt_flags_fingerprint())
+def flags_key(mesh: Mesh) -> tuple:
+  """What a cached runner depends on besides the DAG's structure: the
+  flags, the device, and the mesh's shape (a sparse node's sharded route
+  reads the number of shards when it runs)."""
+  return (semantic_flags_fingerprint(), FLAGS.use_kernels, str(mesh.device),
+          tuple(mesh.shape.items()), _opt_flags_fingerprint())
 
 
 def _collect_leaves(root: Expr) -> List[Val]:
@@ -209,7 +212,7 @@ def evaluate(expr: Expr):
   if sys.getrecursionlimit() < depth_budget:
     sys.setrecursionlimit(min(depth_budget, 1_000_000))
   stats["evals"] += 1
-  fkey = flags_key(mesh.device)
+  fkey = flags_key(mesh)
   kind = "list" if isinstance(expr, ListExpr) else "one"
 
   # fast lane: skip the optimizer for a structure seen before.  Only valid

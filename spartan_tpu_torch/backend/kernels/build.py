@@ -134,7 +134,7 @@ ARGTYPES = {
     "stencil3x3": [ctypes.c_void_p] * 2 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int],
-    "stencil3x3_padded": [ctypes.c_void_p] * 3 + [
+    "stencil3x3_padded": [ctypes.c_void_p] * 5 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int],
     "matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [

@@ -14,6 +14,16 @@ float64 ``B`` is cast to float32, and the result is returned as
 ``promote(data.dtype, B.dtype)`` (``spmm_pallas.py:270-273``), so a float64
 ``B`` gives a float64 result of float32 arithmetic.
 
+:func:`sharded_windowed_spmm_traced` replaces the function of that name
+(K5b, K5a inside ``shard_map`` with B replicated): K5a once a shard of the
+mesh on the shard's CSR band of a :class:`ShardedWindowedSpMM`
+(:func:`pack_windowed_spmm_sharded`, rows ``[d·rows_per, (d+1)·rows_per)``,
+``rows_per = rbmm_per_of(n, p)·128``), each launch writing its rows of one
+``Y``.  K5a sums each row in a fixed order whatever the other rows, so the
+sharded product equals the unsharded one bit for bit.  Not carried over:
+the reference's 128-column slices for ``k > 128`` (the TPU's lane width;
+K5a takes k ≤ 512 in one launch) and its fill gate.
+
 Routing is by the tensors' device only: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain version.  ``counts`` holds the
 launches and plain runs.
@@ -24,6 +34,8 @@ from __future__ import annotations
 import torch
 
 from spartan_tpu_torch.backend.kernels import build
+from spartan_tpu_torch.backend.kernels.spmv import (ShardedCSR,
+                                                    unshard_windowed)
 
 MAX_K = 512
 # Nonzeros per pass of the plain version: its products take chunk·k·4
@@ -32,7 +44,12 @@ PLAIN_CHUNK = 1 << 22
 _DATA_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 _B_FLOATS = _DATA_FLOATS + (torch.float64,)
 
-counts = {"launches": 0, "plain_runs": 0}
+# output rows a block of the reference's SpMM pack: a shard of the sharded
+# pack owns a whole number of these
+_RB = 128
+
+counts = {"launches": 0, "plain_runs": 0, "sharded_launches": 0,
+          "sharded_plain_runs": 0}
 
 
 def reset_counts() -> None:
@@ -90,7 +107,83 @@ def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
   indptr_c, indices_c, data_c, B_c = (
       t.contiguous() for t in (indptr, indices, data.float(), B.float()))
   Y = torch.empty((n, k), dtype=torch.float32, device=B.device)
-  build.launch("spmm_csr", B.device, indptr_c.data_ptr(), indices_c.data_ptr(),
-               data_c.data_ptr(), B_c.data_ptr(), Y.data_ptr(), n, k)
+  _into(indptr_c, indices_c, data_c, B_c, Y)
   counts["launches"] += 1
   return Y.to(out_dtype)
+
+
+def _into(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
+          B: torch.Tensor, Y: torch.Tensor) -> None:
+  """Launch K5a over contiguous CSR operands and float32 data and B (m,
+  k), writing the contiguous float32 rows ``Y`` (n, k)."""
+  build.launch("spmm_csr", B.device, indptr.data_ptr(), indices.data_ptr(),
+               data.data_ptr(), B.data_ptr(), Y.data_ptr(),
+               indptr.shape[0] - 1, B.shape[1])
+
+
+# -- the row-sharded form ---------------------------------------------------------
+
+class ShardedWindowedSpMM(ShardedCSR):
+  """:func:`pack_windowed_spmm_sharded`'s pack: row bands of
+  ``rbmm_per_of(n, p)·128`` rows (named after the reference's pack,
+  ``spmm_pallas.py:300``)."""
+
+  __slots__ = ()
+  block_rows = _RB
+
+
+def rbmm_per_of(n: int, n_shards: int) -> int:
+  """Row blocks of ``_RB`` rows a shard (the reference's ``rbmm_per_of``)."""
+  return ShardedWindowedSpMM.rows_per_of(n, n_shards) // _RB
+
+
+def pack_windowed_spmm_sharded(sp_csr, n_shards: int) -> ShardedWindowedSpMM:
+  """Row-shard the SpMM pack (reference ``spmm_pallas.py:331``): shard d
+  owns rows ``[d·rows_per, (d+1)·rows_per)``, ``rows_per =
+  rbmm_per_of(n, n_shards)·128``, as CSR bands over the matrix's device
+  CSR form."""
+  return ShardedWindowedSpMM.pack(sp_csr, n_shards)
+
+
+def sharded_windowed_spmm_traced(packed: ShardedWindowedSpMM, B: torch.Tensor,
+                                 mesh) -> torch.Tensor:
+  """``Y = A @ B`` over a sharded pack on a mesh of as many shards: one K5a
+  launch a non-empty shard, each writing its rows of one float32 ``Y``; B
+  is read by every shard.  Returns Y (n, k) as ``promote(data.dtype,
+  B.dtype)``.  CUDA tensors launch K5a, CPU tensors run
+  :func:`spmm_csr_plain` a band."""
+  if packed.n_shards != mesh.size:
+    raise ValueError(f"the pack has {packed.n_shards} shards, the mesh "
+                     f"{mesh.size}")
+  if B.dim() != 2 or B.shape[0] != packed.shape[1]:
+    raise ValueError(f"B has shape {tuple(B.shape)}; the packed matrix has "
+                     f"shape {packed.shape}")
+  data_dtype = packed.bands[0][2].dtype
+  if (data_dtype not in _DATA_FLOATS or B.dtype not in _B_FLOATS
+      or B.shape[1] > MAX_K):
+    raise TypeError(f"sharded_windowed_spmm_traced reads float data and a "
+                    f"float B of at most {MAX_K} columns, not {data_dtype} "
+                    f"and {B.dtype} {tuple(B.shape)}")
+  build.one_device(B, *packed.tensors())
+  n, k = packed.shape[0], B.shape[1]
+  out_dtype = torch.promote_types(data_dtype, B.dtype)
+  Y = torch.empty((n, k), dtype=torch.float32, device=B.device)
+  on_card = B.device.type == "cuda"
+  Bf = B.float().contiguous()
+  for d, (indptr, indices, data) in enumerate(packed.bands):
+    r0, r1 = packed.rows(d)
+    if r1 == r0:
+      continue
+    if not on_card:
+      Y[r0:r1] = spmm_csr_plain(indptr, indices, data, Bf)
+      counts["sharded_plain_runs"] += 1
+    elif k:
+      indptr, indices, data = (t.contiguous() for t in (indptr, indices,
+                                                        data.float()))
+      _into(indptr, indices, data, Bf, Y[r0:r1])
+      counts["sharded_launches"] += 1
+  return Y.to(out_dtype)
+
+
+# the reference's name for the same flattening (spmm_pallas.py:442)
+unshard_windowed_spmm = unshard_windowed

@@ -21,6 +21,25 @@ plain torch versions.
 :func:`pack_windowed` pack K3b, as the reference chooses on ``packed.inv``
 (``spmv_pallas.py:784-806``).
 
+The row-sharded forms run the same kernels once a shard of the mesh, each
+launch on its shard's row band and writing that band's slice of one ``y``,
+with ``x`` one tensor that every shard reads (the reference's
+``shard_map`` bodies, ``x`` replicated):
+
+* :func:`sharded_onehot_spmv` replaces ``sharded_onehot_spmv`` (K3a
+  sharded): K3a on each of p near-equal row bands of the ELL, shard d
+  owning rows ``[min(d·ceil(n/p), n), min((d+1)·ceil(n/p), n))``.  The
+  reference pads the rows to a multiple of ``8·p``, its strip height on
+  the TPU; K3a takes any row count, so nothing is padded.
+* :func:`sharded_windowed_spmv_traced` replaces the function of that name
+  (K3d): K3b on each shard's CSR band of a :class:`ShardedWindowedELL`
+  (:func:`pack_windowed_sharded`; shard d owns the reference's rows
+  ``[d·rows_per, (d+1)·rows_per)``, ``rows_per = rb_per_of(n, p)·1024``).
+  Every band takes the whole matrix's lane group, so each row is summed
+  in the same order as unsharded K3b sums it and the result is the same
+  bit for bit.  The reference's launch chunking (``_MAX_PREFETCH_STEPS``)
+  is a TPU scalar-memory limit and has no counterpart.
+
 Both compute in float32, as the TPU kernels do: bfloat16 and float16
 operands are cast to float32 here and the result is cast back (to
 ``vals.dtype`` for the ELL form, to ``x.dtype`` for the CSR form, as the
@@ -51,7 +70,12 @@ CHUNK = 1024
 
 counts = {"ell_launches": 0, "ell_plain_runs": 0, "csr_launches": 0,
           "csr_plain_runs": 0, "chunked_launches": 0,
-          "chunked_plain_runs": 0}
+          "chunked_plain_runs": 0, "sharded_ell_launches": 0,
+          "sharded_ell_plain_runs": 0, "sharded_csr_launches": 0,
+          "sharded_csr_plain_runs": 0}
+# rows of the x/y window of the reference's windowed packs: a shard of the
+# sharded windowed pack owns a whole number of these row blocks
+_WIN = 1024
 
 
 def reset_counts() -> None:
@@ -121,17 +145,27 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
   cols_c, vals_c, x_c = (t.contiguous() for t in (cols, vals.float(),
                                                   x.float()))
   y = torch.empty(n, dtype=torch.float32, device=x.device)
-  build.launch("spmv_ell", x.device, cols_c.data_ptr(), vals_c.data_ptr(),
-               x_c.data_ptr(), y.data_ptr(), n, k, group_size(k))
+  _ell_into(cols_c, vals_c, x_c, y)
   counts["ell_launches"] += 1
   return y.to(vals.dtype)
 
 
+def _ell_into(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+              y: torch.Tensor) -> None:
+  """Launch K3a over contiguous int32 ``cols``, float32 ``vals`` (n, k)
+  and ``x``, writing float32 ``y`` (n,)."""
+  n, k = cols.shape
+  build.launch("spmv_ell", x.device, cols.data_ptr(), vals.data_ptr(),
+               x.data_ptr(), y.data_ptr(), n, k, group_size(k))
+
+
 def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor, group: Optional[int] = None) -> torch.Tensor:
   """``y = A @ x`` over CSR; indptr (n+1,) int64, indices (nnz,) int32, data
   (nnz,), x (m,) → y (n,) of ``x.dtype``.  CUDA tensors launch K3b, CPU
-  tensors run :func:`spmv_csr_plain`."""
+  tensors run :func:`spmv_csr_plain`.  ``group`` (lanes a row, which fixes
+  the order of each row's sum) defaults to :func:`group_size` of the mean
+  row length."""
   if (indptr.dim() != 1 or indptr.shape[0] < 1 or indices.dim() != 1
       or data.shape != indices.shape or x.dim() != 1):
     raise ValueError(f"spmv_csr needs indptr (n+1,), indices/data (nnz,) and "
@@ -153,11 +187,19 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
   indptr_c, indices_c, data_c, x_c = (
       t.contiguous() for t in (indptr, indices, data.float(), x.float()))
   y = torch.empty(n, dtype=torch.float32, device=x.device)
-  build.launch("spmv_csr", x.device, indptr_c.data_ptr(),
-               indices_c.data_ptr(), data_c.data_ptr(), x_c.data_ptr(),
-               y.data_ptr(), n, group_size(indices.shape[0] / n))
+  _csr_into(indptr_c, indices_c, data_c, x_c, y,
+            group or group_size(indices.shape[0] / n))
   counts["csr_launches"] += 1
   return y.to(x.dtype)
+
+
+def _csr_into(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
+              x: torch.Tensor, y: torch.Tensor, group: int) -> None:
+  """Launch K3b over contiguous CSR operands, float32 data and x, writing
+  float32 ``y`` (n,) with ``group`` lanes a row."""
+  build.launch("spmv_csr", x.device, indptr.data_ptr(), indices.data_ptr(),
+               data.data_ptr(), x.data_ptr(), y.data_ptr(),
+               indptr.shape[0] - 1, group)
 
 
 def chunk_rows(indptr: torch.Tensor) -> torch.Tensor:
@@ -305,3 +347,193 @@ def make_spmv_windowed(packed: WindowedELL, use_bf16: bool = False):
     return spmv_csr(packed.indptr, packed.indices, packed.data, x)
 
   return spmv_windowed
+
+
+# -- the row-sharded forms --------------------------------------------------------
+
+def sharded_onehot_spmv(cols: torch.Tensor, vals: torch.Tensor,
+                        x: torch.Tensor, mesh) -> torch.Tensor:
+  """``y = A @ x`` over padded ELL with the rows owner-computed per shard:
+  shard d owns rows ``[min(d·ceil(n/p), n), min((d+1)·ceil(n/p), n))``
+  and one K3a launch a non-empty band writes its slice of one float32
+  ``y``; x is read by every shard.  Returns ``y`` in ``vals.dtype``.  CUDA
+  tensors launch K3a once a non-empty band, CPU tensors run
+  :func:`spmv_ell_plain` a band."""
+  if cols.dim() != 2 or vals.shape != cols.shape or x.dim() != 1:
+    raise ValueError(f"sharded_onehot_spmv needs cols/vals (n, k) and x (m,), "
+                     f"got {tuple(cols.shape)}, {tuple(vals.shape)}, "
+                     f"{tuple(x.shape)}")
+  if cols.dtype != torch.int32:
+    raise TypeError(f"sharded_onehot_spmv needs int32 cols, not {cols.dtype}")
+  _check_float("vals", vals)
+  _check_float("x", x)
+  build.one_device(cols, vals, x)
+  n, k = cols.shape
+  out_dtype = vals.dtype
+  if n == 0 or k == 0:
+    return torch.zeros(n, dtype=out_dtype, device=x.device)
+  y = torch.empty(n, dtype=torch.float32, device=x.device)
+  on_card = x.device.type == "cuda"
+  if on_card:
+    cols, vals, x = (t.contiguous() for t in (cols, vals.float(), x.float()))
+  band = -(-n // mesh.size)
+  for lo in range(0, n, band):
+    rows = slice(lo, min(lo + band, n))
+    if on_card:
+      _ell_into(cols[rows], vals[rows], x, y[rows])
+      counts["sharded_ell_launches"] += 1
+    else:
+      y[rows] = spmv_ell_plain(cols[rows], vals[rows], x)
+      counts["sharded_ell_plain_runs"] += 1
+  return y.to(out_dtype)
+
+
+def rb_per_of(n: int, n_shards: int) -> int:
+  """Row blocks of ``_WIN`` rows a shard (the reference's ``rb_per_of``)."""
+  return ShardedWindowedELL.rows_per_of(n, n_shards) // _WIN
+
+
+class ShardedCSR:
+  """A matrix cut into row bands, one a shard (the port's form of the
+  reference's sharded windowed packs).  Shard d owns rows
+  ``[min(d·rows_per, n), min((d+1)·rows_per, n))``, ``rows_per =
+  block_rows·ceil(ceil(n / block_rows) / n_shards)``: whole row blocks of
+  the reference's pack.  Its band is ``(indptr, indices, data)``, where
+  ``indices`` and ``data`` are views of the matrix's device CSR form and
+  ``indptr`` is the band's own, rebased to 0.  Shards past the last row
+  hold empty bands."""
+
+  __slots__ = ("bands", "shape", "n_shards", "rows_per", "nnz")
+  block_rows = 1
+
+  def __init__(self, bands, shape: Tuple[int, int]):
+    self.bands = [tuple(b) for b in bands]
+    self.shape = (int(shape[0]), int(shape[1]))
+    self.n_shards = len(self.bands)
+    self.rows_per = self.rows_per_of(self.shape[0], self.n_shards)
+    self.nnz = sum(int(b[1].shape[0]) for b in self.bands)
+
+  @classmethod
+  def rows_per_of(cls, n: int, n_shards: int) -> int:
+    n_blocks = max(-(-n // cls.block_rows), 1)
+    return -(-n_blocks // n_shards) * cls.block_rows
+
+  @classmethod
+  def pack(cls, sp_csr, n_shards: int):
+    """The bands of a ``SparseArray`` (over its memoized CSR form) or of a
+    scipy matrix (uploaded to the mesh's device)."""
+    indptr, indices, data, shape = _device_csr(sp_csr)
+    return cls(row_bands(indptr, indices, data, shape[0], n_shards,
+                         cls.rows_per_of(shape[0], n_shards)), shape)
+
+  @classmethod
+  def from_tensors(cls, tensors, shape, n_shards: int):
+    """Rebuild a pack from :meth:`tensors` (an expression's operands)."""
+    it = iter(tensors)
+    bands = list(zip(it, it, it))
+    if len(bands) != n_shards:
+      raise ValueError(f"{len(bands)} bands for {n_shards} shards")
+    return cls(bands, shape)
+
+  def rows(self, d: int) -> Tuple[int, int]:
+    n = self.shape[0]
+    r0 = min(d * self.rows_per, n)
+    return r0, min(r0 + self.rows_per, n)
+
+  @property
+  def group(self) -> int:
+    """The whole matrix's lane group, the one unsharded K3b takes."""
+    return group_size(self.nnz / self.shape[0]) if self.shape[0] else 1
+
+  def tensors(self) -> list:
+    """The bands' tensors, shard by shard, as a flat list."""
+    return [t for band in self.bands for t in band]
+
+  def __repr__(self):
+    return (f"{type(self).__name__}(shape={self.shape}, nnz={self.nnz}, "
+            f"n_shards={self.n_shards}, rows_per={self.rows_per})")
+
+
+class ShardedWindowedELL(ShardedCSR):
+  """:func:`pack_windowed_sharded`'s pack: row bands of
+  ``rb_per_of(n, p)·1024`` rows (named after the reference's pack,
+  ``spmv_pallas.py:819``)."""
+
+  __slots__ = ()
+  block_rows = _WIN
+
+
+def row_bands(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
+              n: int, n_shards: int, rows_per: int):
+  """Each shard's CSR band of the rows ``[d·rows_per, (d+1)·rows_per)``
+  (clipped to n): views of ``indices``/``data`` and a rebased ``indptr``.
+  One copy of the p + 1 band boundaries to the host."""
+  starts = [min(d * rows_per, n) for d in range(n_shards + 1)]
+  offsets = indptr[torch.tensor(starts, device=indptr.device)].tolist()
+  bands = []
+  for d in range(n_shards):
+    r0, r1 = starts[d], starts[d + 1]
+    lo, hi = offsets[d], offsets[d + 1]
+    bands.append((indptr[r0:r1 + 1] - lo, indices[lo:hi], data[lo:hi]))
+  return bands
+
+
+def pack_windowed_sharded(sp_csr, n_shards: int) -> ShardedWindowedELL:
+  """Row-shard the windowed pack (reference ``spmv_pallas.py:844``): shard
+  d owns rows ``[d·rows_per, (d+1)·rows_per)``, ``rows_per =
+  rb_per_of(n, n_shards)·1024``, as CSR bands over the matrix's device CSR
+  form (a ``SparseArray``'s memoized one, or a scipy matrix's upload)."""
+  return ShardedWindowedELL.pack(sp_csr, n_shards)
+
+
+def sharded_windowed_spmv_traced(packed: ShardedWindowedELL, x: torch.Tensor,
+                                 mesh) -> torch.Tensor:
+  """``y = A @ x`` over a sharded pack on a mesh of as many shards: one K3b
+  launch a non-empty shard, each writing its rows of one float32 ``y``
+  with the whole matrix's lane group; x is read by every shard.  Returns
+  y (n,) in ``x.dtype``.  CUDA tensors launch K3b, CPU tensors run
+  :func:`spmv_csr_plain` a band."""
+  if packed.n_shards != mesh.size:
+    raise ValueError(f"the pack has {packed.n_shards} shards, the mesh "
+                     f"{mesh.size}")
+  if x.dim() != 1 or x.shape[0] != packed.shape[1]:
+    raise ValueError(f"x has shape {tuple(x.shape)}; the packed matrix has "
+                     f"shape {packed.shape}")
+  _check_float("x", x)
+  _check_float("data", packed.bands[0][2])
+  build.one_device(x, *packed.tensors())
+  n = packed.shape[0]
+  y = torch.empty(n, dtype=torch.float32, device=x.device)
+  on_card = x.device.type == "cuda"
+  xf = x.float().contiguous()
+  group = packed.group
+  for d, (indptr, indices, data) in enumerate(packed.bands):
+    r0, r1 = packed.rows(d)
+    if r1 == r0:
+      continue
+    if not on_card:
+      y[r0:r1] = spmv_csr_plain(indptr, indices, data, xf)
+      counts["sharded_csr_plain_runs"] += 1
+      continue
+    indptr, indices, data = (t.contiguous() for t in (indptr, indices,
+                                                      data.float()))
+    _csr_into(indptr, indices, data, xf, y[r0:r1], group)
+    counts["sharded_csr_launches"] += 1
+  return y.to(x.dtype)
+
+
+def unshard_windowed(packed: ShardedCSR):
+  """``(indptr, indices, data, n_pad)``: the bands flattened back into one
+  CSR form of ``n_pad = n_shards·rows_per`` rows (rows past n empty), for
+  a node built under another mesh size (reference
+  ``spmv_pallas.py:967``)."""
+  indptrs, offset = [], 0
+  for d, (indptr, indices, _) in enumerate(packed.bands):
+    indptrs.append((indptr if d == 0 else indptr[1:]) + offset)
+    offset += int(indices.shape[0])
+  indptr = torch.cat(indptrs)
+  n_pad = packed.n_shards * packed.rows_per
+  tail = indptr.new_full((n_pad + 1 - indptr.shape[0],), offset)
+  indices = torch.cat([b[1] for b in packed.bands])
+  data = torch.cat([b[2] for b in packed.bands])
+  return torch.cat([indptr, tail]), indices, data, n_pad

@@ -26,7 +26,18 @@ entry point and the lazy node share: ``_route`` for SpMV (``spmv``,
 the kernels: for SpMV the ELL kernel for vectors up to ``ONEHOT_MAX_M``
 entries and the CSR kernel beyond, for SpMM the CSR SpMM kernel for up to
 512 columns; float64 matrices on the plain gather.  "On the accelerator"
-means the tensors lie on a CUDA device.  The thresholds are the reference's
+means the tensors lie on a CUDA device.
+
+On a mesh of p > 1 shards (``core/mesh.py``) the kernel routes are
+owner-computed, as the reference's are: the CSR kernel routes become
+``"winsh"`` (K3d, :meth:`SparseArray.to_windowed_sharded`) and
+``"winmmsh"`` (K5b, :meth:`SparseArray.to_windowed_spmm_sharded`), one
+launch a shard on its row band, and the ELL kernel route launches K3a
+once on each of p near-equal row bands of the ELL (``sharded_onehot_spmv``;
+nothing is padded or copied).  A node built for another number of shards
+than the mesh has when it runs flattens its bands back and runs the
+unsharded kernel.  The block and densified routes stay unsharded: they run
+no hand kernel and give the same result.  The thresholds are the reference's
 (measured on a TPU v5e) and wait to be re-measured on the H100.  A CUDA
 tensor that reaches a kernel route launches the kernel or raises: there is
 no fallback.
@@ -103,7 +114,8 @@ class SparseArray:
   """A 2-D sparse matrix in padded-ELL device layout."""
 
   __slots__ = ("cols", "vals", "shape", "nnz", "fmt", "_bsr_cache",
-               "_csr_cache", "_t_cache", "_dense_cache", "__weakref__")
+               "_csr_cache", "_t_cache", "_dense_cache", "_winsh_cache",
+               "_winmmsh_cache", "__weakref__")
 
   # numpy must defer binary ops to our reflected operators (otherwise
   # ``dense + sparse`` broadcasts elementwise); scipy.sparse sets the same
@@ -122,6 +134,8 @@ class SparseArray:
     self._csr_cache = None    # (indptr, indices, data), to_csr
     self._t_cache = None      # memoized transpose (weak in a transpose)
     self._dense_cache = None  # memoized float32 densified form
+    self._winsh_cache = None    # (n_shards, ShardedWindowedELL)
+    self._winmmsh_cache = None  # (n_shards, ShardedWindowedSpMM)
 
   @property
   def dtype(self) -> torch.dtype:
@@ -237,6 +251,25 @@ class SparseArray:
       self._csr_cache = (_indptr(rows, self.shape[0]), cols.contiguous(),
                          vals.float().contiguous())
     return self._csr_cache
+
+  def to_windowed_sharded(self, n_shards: int) -> "K.ShardedWindowedELL":
+    """The row-sharded pack of the CSR SpMV kernel (K3d), memoized per
+    shard count: shard d's CSR band of rows ``[d·rows_per,
+    (d+1)·rows_per)``, ``rows_per = rb_per_of(n, n_shards)·1024``, over
+    views of :meth:`to_csr`."""
+    if self._winsh_cache is None or self._winsh_cache[0] != n_shards:
+      self._winsh_cache = (n_shards, K.pack_windowed_sharded(self, n_shards))
+    return self._winsh_cache[1]
+
+  def to_windowed_spmm_sharded(self, n_shards: int
+                               ) -> "K5.ShardedWindowedSpMM":
+    """The row-sharded pack of the CSR SpMM kernel (K5b), memoized per
+    shard count: bands of ``rbmm_per_of(n, n_shards)·128`` rows over views
+    of :meth:`to_csr`.  The reference's fill gate has no counterpart."""
+    if self._winmmsh_cache is None or self._winmmsh_cache[0] != n_shards:
+      self._winmmsh_cache = (n_shards,
+                             K5.pack_windowed_spmm_sharded(self, n_shards))
+    return self._winmmsh_cache[1]
 
   def to_densified(self) -> torch.Tensor:
     """Memoized float32 dense form, built on the array's device with one
@@ -742,6 +775,12 @@ def _kernels_on(on_accel: bool, use_kernels: Optional[bool] = None,
   return (FLAGS.use_kernels and on_accel) or forced
 
 
+def _n_shards(fmt: str) -> int:
+  """The shards a route's pack holds: the mesh's for the sharded kernel
+  routes, else 0."""
+  return get_mesh().size if fmt in ("winsh", "winmmsh") else 0
+
+
 def _operands(fmt: str, A) -> list:
   """The device tensors that route ``fmt`` reads."""
   if fmt == "bsr":
@@ -750,6 +789,10 @@ def _operands(fmt: str, A) -> list:
     return [A.to_densified()]
   if fmt in ("win", "winmm"):
     return list(A.to_csr())
+  if fmt == "winsh":
+    return A.to_windowed_sharded(get_mesh().size).tensors()
+  if fmt == "winmmsh":
+    return A.to_windowed_spmm_sharded(get_mesh().size).tensors()
   return [A.cols, A.vals]
 
 
@@ -773,10 +816,11 @@ def _route(A, x_dtype: torch.dtype, on_accel: bool,
   ``(fmt, matrix)``.  In the reference's order: block structure
   (``"bsr"``, on the accelerator), the densified route (``"dense"``), the
   CSR kernel past ``ONEHOT_MAX_M`` columns or under
-  ``--sparse_force_windowed`` (``"win"``), else the ELL form (``"ell"``,
-  K3a or the plain gather, decided by :func:`_spmv_apply`).  float64
-  operands and ``exact`` precision stay off the kernels;
-  ``use_kernels=False`` also skips the block and dense routes."""
+  ``--sparse_force_windowed`` (``"win"``, ``"winsh"`` on a mesh of more
+  than one shard), else the ELL form (``"ell"``, K3a, sharded or not, or
+  the plain gather, decided by :func:`_spmv_apply`).  float64 operands and
+  ``exact`` precision stay off the kernels; ``use_kernels=False`` also
+  skips the block and dense routes."""
   allowed = use_kernels is not False
   if allowed and on_accel and isinstance(A, SparseArray):
     A = A.auto_route() or A
@@ -790,7 +834,7 @@ def _route(A, x_dtype: torch.dtype, on_accel: bool,
            and not FLAGS.sparse_force_windowed)
   if (_kernels_on(on_accel, use_kernels) and not exact and not small
       and torch.float64 not in (A.dtype, x_dtype)):
-    return "win", A
+    return ("winsh" if get_mesh().size > 1 else "win"), A
   return "ell", A
 
 
@@ -802,9 +846,13 @@ def _spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
 
 
 def _spmv_apply(fmt: str, mat, x: torch.Tensor, dt: torch.dtype,
-                n_rows: int, pad_m: int, kernels: bool) -> torch.Tensor:
+                n_rows: int, pad_m: int, kernels: bool,
+                n_shards: int = 0) -> torch.Tensor:
   """``y = A @ x`` in ``dt`` over ``_operands(fmt, A)``; ``kernels`` says
-  whether the ``"win"`` and ``"ell"`` routes may launch K3b/K3a."""
+  whether the ``"win"``, ``"winsh"`` and ``"ell"`` routes may launch
+  K3b/K3d/K3a.  ``n_shards`` is the shards of a ``"winsh"`` pack; on a
+  mesh of another size its bands are flattened back and the unsharded
+  kernel runs, with the whole matrix's lane group."""
   if fmt == "dense":
     return torch.matmul(mat[0], x.float())[:n_rows].to(dt)
   if fmt == "bsr":
@@ -814,9 +862,22 @@ def _spmv_apply(fmt: str, mat, x: torch.Tensor, dt: torch.dtype,
   if fmt == "win":
     spmv_fn = K.spmv_csr if kernels else K.spmv_csr_plain
     return spmv_fn(*mat, x.float()).to(dt)
+  mesh = get_mesh()
+  if fmt == "winsh":
+    packed = K.ShardedWindowedELL.from_tensors(mat, (n_rows, pad_m), n_shards)
+    if kernels and mesh.size == n_shards:
+      return K.sharded_windowed_spmv_traced(packed, x.float(), mesh).to(dt)
+    indptr, indices, data, _ = K.unshard_windowed(packed)
+    if kernels:
+      y = K.spmv_csr(indptr, indices, data, x.float(), group=packed.group)
+    else:
+      y = K.spmv_csr_plain(indptr, indices, data, x.float())
+    return y[:n_rows].to(dt)
   cols, vals = mat
   if (kernels and dt in _KERNEL_FLOATS
       and (x.shape[0] <= ONEHOT_MAX_M or FLAGS.sparse_force_onehot)):
+    if mesh.size > 1:
+      return K.sharded_onehot_spmv(cols, vals.to(dt), x.to(dt), mesh)
     return K.spmv_ell(cols, vals.to(dt), x.to(dt))[:n_rows]
   return _spmv_ell(cols, vals.to(dt), x.to(dt))[:n_rows]
 
@@ -836,7 +897,7 @@ def spmv(A, x, use_kernels: Optional[bool] = None) -> torch.Tensor:
   fmt, B = _route(A, xj.dtype, on_accel, use_kernels)
   return _spmv_apply(fmt, _operands(fmt, B), xj,
                      result_type(A.dtype, xj.dtype), A.shape[0], B.shape[1],
-                     _kernels_on(on_accel, use_kernels))
+                     _kernels_on(on_accel, use_kernels), _n_shards(fmt))
 
 
 class SpMVExpr(Expr):
@@ -845,7 +906,8 @@ class SpMVExpr(Expr):
 
   Construction picks the route with :func:`_route` and records it in
   ``fmt`` (a cache-key param): ``"bsr"``, ``"dense"``, ``"win"`` (the CSR
-  kernel) or ``"ell"``."""
+  kernel), ``"winsh"`` (the CSR kernel a shard, ``n_shards`` of them) or
+  ``"ell"``."""
 
   _members = ("inputs",)
   _params = ("n_rows", "fmt", "bs", "pad_m", "n_shards", "precision",
@@ -861,7 +923,8 @@ class SpMVExpr(Expr):
     super().__init__(inputs=[Val(t) for t in _operands(fmt, B)] + [xl],
                      n_rows=A.shape[0], fmt=fmt,
                      bs=B.bs if fmt == "bsr" else 0, pad_m=B.shape[1],
-                     n_shards=0, precision=precision, src_dtype=A.dtype)
+                     n_shards=_n_shards(fmt), precision=precision,
+                     src_dtype=A.dtype)
 
   def _emit(self, ctx: EmitCtx, deps):
     *mat, x = deps
@@ -872,7 +935,7 @@ class SpMVExpr(Expr):
                and _resolve_precision(self.precision) is None
                and _kernels_on(x.device.type == "cuda"))
     return _spmv_apply(self.fmt, mat, x, dt, self.n_rows, self.pad_m,
-                       kernels)
+                       kernels, self.n_shards)
 
 
 def spmv_expr(A, x) -> SpMVExpr:
@@ -890,8 +953,8 @@ def _spmm_route(A, b_dtype: torch.dtype, k: int, on_accel: bool,
   on the accelerator), the densified route (``"dense"``, not for a float64
   B), the CSR kernel K5a (``"winmm"``: kernels on, not ``exact``, a float B
   of ``k <= 512`` columns, A not float64; a float64 B is cast to float32, as
-  the reference's ``SpMMExpr`` does), else the plain gather over the ELL
-  (``"ell"``).  ``use_kernels=False`` also skips the block and dense
+  the reference's ``SpMMExpr`` does; ``"winmmsh"`` on a mesh of more than
+  one shard), else the plain gather over the ELL (``"ell"``).  ``use_kernels=False`` also skips the block and dense
   routes.  The reference's fill gate on its TPU pack has no counterpart:
   the CSR kernel has no pack to pad."""
   allowed = use_kernels is not False
@@ -904,14 +967,17 @@ def _spmm_route(A, b_dtype: torch.dtype, k: int, on_accel: bool,
   if (_kernels_on(on_accel, use_kernels, spmm=True) and not exact
       and b_dtype.is_floating_point and k <= K5.MAX_K
       and A.dtype != torch.float64):
-    return "winmm", A
+    return ("winmmsh" if get_mesh().size > 1 else "winmm"), A
   return "ell", A
 
 
 def _spmm_apply(fmt: str, mat, B: torch.Tensor, dt: torch.dtype,
-                n_rows: int, pad_m: int, kernels: bool) -> torch.Tensor:
+                n_rows: int, pad_m: int, kernels: bool,
+                n_shards: int = 0) -> torch.Tensor:
   """``Y = A @ B`` in ``dt`` over ``_operands(fmt, A)``; ``kernels`` says
-  whether the ``"winmm"`` route launches K5a or runs its plain version."""
+  whether the ``"winmm"``/``"winmmsh"`` routes launch K5a/K5b or run the
+  plain version.  A ``"winmmsh"`` pack of ``n_shards`` on a mesh of another
+  size is flattened back and takes the unsharded kernel."""
   if fmt == "dense":
     return torch.matmul(mat[0], B.float())[:n_rows].to(dt)
   if fmt == "bsr":
@@ -921,6 +987,14 @@ def _spmm_apply(fmt: str, mat, B: torch.Tensor, dt: torch.dtype,
   if fmt == "winmm":
     spmm_fn = K5.spmm_csr if kernels else K5.spmm_csr_plain
     return spmm_fn(*mat, B).to(dt)
+  if fmt == "winmmsh":
+    packed = K5.ShardedWindowedSpMM.from_tensors(mat, (n_rows, pad_m),
+                                                 n_shards)
+    mesh = get_mesh()
+    if kernels and mesh.size == n_shards:
+      return K5.sharded_windowed_spmm_traced(packed, B, mesh).to(dt)
+    spmm_fn = K5.spmm_csr if kernels else K5.spmm_csr_plain
+    return spmm_fn(*K5.unshard_windowed_spmm(packed)[:3], B)[:n_rows].to(dt)
   cols, vals = mat
   gathered = B.to(dt).index_select(0, cols.reshape(-1)).reshape(
       *cols.shape, B.shape[1])
@@ -940,7 +1014,8 @@ def spmm(A, B, use_kernels: Optional[bool] = None) -> torch.Tensor:
   fmt, M = _spmm_route(A, Bj.dtype, Bj.shape[1], on_accel, use_kernels)
   return _spmm_apply(fmt, _operands(fmt, M), Bj,
                      result_type(A.dtype, Bj.dtype), A.shape[0], M.shape[1],
-                     _kernels_on(on_accel, use_kernels, spmm=True))
+                     _kernels_on(on_accel, use_kernels, spmm=True),
+                     _n_shards(fmt))
 
 
 class SpMMExpr(Expr):
@@ -949,7 +1024,8 @@ class SpMMExpr(Expr):
 
   Construction picks the route with :func:`_spmm_route` and records it in
   ``fmt`` (a cache-key param): ``"bsr"``, ``"dense"``, ``"winmm"`` (the CSR
-  SpMM kernel) or ``"ell"``.  Under ``EmitCtx(differentiable=True)`` the
+  SpMM kernel), ``"winmmsh"`` (the same a shard, ``n_shards`` of them) or
+  ``"ell"``.  Under ``EmitCtx(differentiable=True)`` the
   kernel route runs its plain version."""
 
   _members = ("inputs",)
@@ -968,7 +1044,8 @@ class SpMMExpr(Expr):
     super().__init__(inputs=[Val(t) for t in _operands(fmt, M)] + [Bl],
                      n_rows=A.shape[0], fmt=fmt,
                      bs=M.bs if fmt == "bsr" else 0, pad_m=M.shape[1],
-                     n_shards=0, precision=precision, src_dtype=A.dtype)
+                     n_shards=_n_shards(fmt), precision=precision,
+                     src_dtype=A.dtype)
 
   def _emit(self, ctx: EmitCtx, deps):
     *mat, B = deps
@@ -979,7 +1056,7 @@ class SpMMExpr(Expr):
                and _resolve_precision(self.precision) is None
                and _kernels_on(B.device.type == "cuda", spmm=True))
     return _spmm_apply(self.fmt, mat, B, dt, self.n_rows, self.pad_m,
-                       kernels)
+                       kernels, self.n_shards)
 
 
 def spmm_expr(A, B) -> SpMMExpr:

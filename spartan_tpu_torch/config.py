@@ -156,7 +156,7 @@ FLAGS.add(BoolFlag("opt_reduce_fusion", True, "fuse map into reduce kernels"))
 FLAGS.add(BoolFlag("opt_collapse_cached", True,
                    "collapse already-evaluated sub-DAGs into leaves"))
 FLAGS.add(BoolFlag("opt_auto_tiling", True,
-                   "tiling pass (a no-op on the single-device mesh)"))
+                   "tiling pass (a no-op: dense arrays stay whole tensors)"))
 FLAGS.add(BoolFlag("opt_affine_reduce", True,
                    "strength-reduce sum(a*x+b) to a*sum(x)+b*n — linear "
                    "reductions run at pure-sum memory speed"))
@@ -170,6 +170,9 @@ FLAGS.add(IntFlag("log_level", 20, "python logging level (10=debug)"))
 FLAGS.add(StrFlag("device", "cuda",
                   "torch device of the mesh ('cuda', 'cuda:1', 'cpu'); "
                   "initialize() raises when the device is absent"))
+FLAGS.add(StrFlag("mesh_shape", "",
+                  "shape of the default mesh, e.g. '2x4': that many logical "
+                  "shards of the one device; empty means one shard"))
 FLAGS.add(BoolFlag("use_kernels", True,
                    "route hot ops through the hand-written CUDA kernels "
                    "(CPU tensors take the kernels' plain torch versions)"))

@@ -1,9 +1,13 @@
 """Tiling metadata (port of ``spartan_tpu/core/tiling.py``).
 
 In the reference a :class:`Tiling` pairs a mesh with a ``PartitionSpec``
-and derives the logical tile grid from the sharding.  On the port's
-single-device mesh every array is one tile: a tiling is the mesh plus an
-empty spec, and its one extent covers the whole array.
+and derives the logical tile grid from the sharding.  The port keeps dense
+arrays whole on the mesh's device, replicated across its logical shards:
+a tiling is the mesh plus an empty spec, and its one extent covers the
+whole array.  The sharded sparse and stencil routes cut their own row
+bands (``backend/sparse.py``, ``backend/kernels/stencil.py``).  The
+reference's ``choose_spec`` and per-tile extents come with per-shard
+storage of dense arrays, which reads them.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ class Tiling:
 
   def __init__(self, mesh: Mesh):
     self.mesh = mesh
-    self.spec = ()  # unsharded: the port's meshes hold one device
+    self.spec = ()  # replicated: every shard reads the whole tensor
 
   def extents(self, array_shape: Sequence[int]) -> List[TileExtent]:
     """Logical tile rectangles: one, covering the array."""
@@ -34,7 +38,7 @@ class Tiling:
     return hash(self.mesh)
 
   def __repr__(self):
-    return f"Tiling(mesh={self.mesh}, spec={self.spec})"
+    return f"Tiling(mesh={self.mesh.shape}, spec={self.spec})"
 
 
 def auto_tiling(shape: Sequence[int],

@@ -1,6 +1,7 @@
 // 3x3 zero-boundary stencil over a 2-D tile, shared by stencil3x3.cu (K4,
-// unpadded storage) and stencil3x3_padded.cu (K6a, padded storage), for
-// Hopper (sm_90a).
+// unpadded storage) and stencil3x3_padded.cu (K6a, padded storage, and K6b,
+// the same with halo rows from the neighbouring shards), for Hopper
+// (sm_90a).
 //
 //   out[i, j] = (add[i, j] or 0) + sum_{k : tap k applied} c[k] * x[i + di - 1, j + dj - 1]
 //
@@ -29,7 +30,19 @@
 // apart so that each warp writes whole 32-wide rows.  Loads outside
 // [lo_r, hi_r) x [lo_c, hi_c) read as zero: K4 passes the array's own
 // bounds (the zero boundary), K6a the padded array's (its zero ring is the
-// boundary).  Outputs past the n x m interior are not written, so K6a
+// boundary).
+//
+// Halo rows (HAS_HALO, K6b, the row-band sharded form of K6a): row -1 of
+// the interior is read from `top` and row n from `bot`, one row each of
+// the padded width, instead of the ring.  They are the neighbouring
+// shards' edge rows (zero at the global edge), so a band's taps are the
+// same values in the same order as the whole field's under K6a, and the
+// sharded sweep equals the unsharded one bit for bit.  The reference
+// carries (8, C) halo blocks (stencil_pallas.py:281-293) because 8 rows
+// is the TPU's sublane tile; one row is all a 3x3 stencil reads.  The
+// reference adds the halo taps after the other taps (:219-233); here they
+// enter the sum at their place in the tap order.  HAS_HALO = false is
+// K4's and K6a's code, unchanged.  Outputs past the n x m interior are not written, so K6a
 // leaves its output's ring untouched.  ST_RPT = 8 gives a 32 x 64 tile:
 // with one output a thread (a 32 x 8 tile, as first written) too few loads
 // were in flight and the kernel ran at 30 % of its byte bound on an NVIDIA
@@ -81,13 +94,14 @@ __device__ __forceinline__ __half st_from_float<__half>(float v) {
 // [lo_r, hi_r) x [lo_c, hi_c) read as zero.  out and add: origin of the
 // n x m interior, row stride out_stride.  One block per 32 x ST_H tile,
 // tiles_x tiles across.
-template <typename T, bool HAS_ADD>
+template <typename T, bool HAS_ADD, bool HAS_HALO>
 __global__ void __launch_bounds__(ST_TX * ST_TY)
 stencil3x3_tile_kernel(const T* __restrict__ x, int64_t x_stride,
                        int64_t lo_r, int64_t hi_r, int64_t lo_c, int64_t hi_c,
                        const T* __restrict__ add, T* __restrict__ out,
                        int64_t out_stride, int64_t n, int64_t m,
-                       int64_t tiles_x, StencilCoeffs c) {
+                       int64_t tiles_x, StencilCoeffs c,
+                       const T* __restrict__ top, const T* __restrict__ bot) {
   __shared__ float tile[ST_H + 2][ST_TX + 2];
   const int64_t i0 = ((int64_t)blockIdx.x / tiles_x) * ST_H;
   const int64_t j0 = ((int64_t)blockIdx.x % tiles_x) * ST_TX;
@@ -106,9 +120,16 @@ stencil3x3_tile_kernel(const T* __restrict__ x, int64_t x_stride,
     for (int t = 0; t < 2; ++t) {
       const int q = tx + t * ST_TX;
       const int64_t gj = j0 - 1 + q;
-      v[s][t] = (row_in && q < ST_TX + 2 && gj >= lo_c && gj < hi_c)
-                    ? st_to_float(x[gi * x_stride + gj])
-                    : 0.0f;
+      if constexpr (HAS_HALO) {
+        const T* row = gi == -1 ? top : (gi == n ? bot : x + gi * x_stride);
+        v[s][t] = (row_in && q < ST_TX + 2 && gj >= lo_c && gj < hi_c)
+                      ? st_to_float(row[gj])
+                      : 0.0f;
+      } else {
+        v[s][t] = (row_in && q < ST_TX + 2 && gj >= lo_c && gj < hi_c)
+                      ? st_to_float(x[gi * x_stride + gj])
+                      : 0.0f;
+      }
     }
   }
   T acc[ST_RPT];
@@ -149,18 +170,20 @@ stencil3x3_tile_kernel(const T* __restrict__ x, int64_t x_stride,
   }
 }
 
-template <typename T, bool HAS_ADD>
+// top and bot: the halo rows' column origins (HAS_HALO only, else unread).
+template <typename T, bool HAS_ADD, bool HAS_HALO = false>
 static int st_launch(const T* x, int64_t x_stride, int64_t lo_r, int64_t hi_r,
                      int64_t lo_c, int64_t hi_c, const T* add, T* out,
                      int64_t out_stride, int64_t n, int64_t m,
-                     const StencilCoeffs& c, cudaStream_t stream) {
+                     const StencilCoeffs& c, cudaStream_t stream,
+                     const T* top = nullptr, const T* bot = nullptr) {
   const int64_t tiles_x = (m + ST_TX - 1) / ST_TX;
   const int64_t tiles = tiles_x * ((n + ST_H - 1) / ST_H);
   if (tiles < 1 || tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  stencil3x3_tile_kernel<T, HAS_ADD>
+  stencil3x3_tile_kernel<T, HAS_ADD, HAS_HALO>
       <<<(unsigned)tiles, dim3(ST_TX, ST_TY), 0, stream>>>(
           x, x_stride, lo_r, hi_r, lo_c, hi_c, add, out, out_stride, n, m,
-          tiles_x, c);
+          tiles_x, c, top, bot);
   return (int)cudaGetLastError();
 }
 

@@ -7,6 +7,14 @@ of ``_acc_type`` is reached by casting the operands first: under
 ``float64_reductions`` float32 operands are contracted in float64.  TF32 is
 off (``initialize`` sets it), so every ``dot_precision`` runs full float32
 on the card, where the reference's 'default' meant bf16 passes on the TPU.
+
+torch has no integer matmul on CUDA and no bool matmul anywhere.  Integer
+contractions on the card and bool contractions on any device take an
+exact route chosen before the contraction (:func:`_exact_route`, counted
+in ``counts["exact_int_route"]``): int64 products summed over K in chunks,
+wrapping as NumPy's int64 does, then cast to NumPy's result type (a sum
+that is nonzero for bool).  Integer contractions on the CPU stay on
+``torch.matmul``, which is exact there.
 """
 
 from __future__ import annotations
@@ -20,6 +28,70 @@ from spartan_tpu_torch.core.array import dtype_kind
 from spartan_tpu_torch.expr.base import EmitCtx, Expr, lazify
 
 _PRECISIONS = (None, "default", "high", "highest")
+# int64 elements of one chunk of broadcast products on the exact route
+_EXACT_CHUNK = 1 << 24
+
+counts = {"exact_int_route": 0}
+
+
+def reset_counts() -> None:
+  for k in counts:
+    counts[k] = 0
+
+
+def _exact_route(acc: torch.dtype, device: torch.device) -> bool:
+  """Does a contraction in ``acc`` on ``device`` take the exact integer
+  route?  Counted when it does."""
+  take = (not acc.is_floating_point and not acc.is_complex
+          and (device.type == "cuda" or acc == torch.bool))
+  if take:
+    counts["exact_int_route"] += 1
+  return take
+
+
+def _exact_matmul(a: torch.Tensor, b: torch.Tensor,
+                  out: torch.dtype) -> torch.Tensor:
+  """``torch.matmul(a, b)`` for integer or bool operands, exactly: int64
+  broadcast products summed over K, ``_EXACT_CHUNK`` products at a time,
+  cast to ``out`` (nonzero for bool)."""
+  a, b = a.to(torch.int64), b.to(torch.int64)
+  vec_a, vec_b = a.ndim == 1, b.ndim == 1
+  if vec_a:
+    a = a[None]
+  if vec_b:
+    b = b[:, None]
+  batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+  n, k, m = a.shape[-2], a.shape[-1], b.shape[-1]
+  y = torch.zeros((*batch, n, m), dtype=torch.int64, device=a.device)
+  per = max(1, _EXACT_CHUNK // max(1, y.numel()))
+  for lo in range(0, k, per):
+    hi = min(k, lo + per)
+    y += (a[..., :, lo:hi, None] * b[..., None, lo:hi, :]).sum(-2)
+  if vec_a:
+    y = y.squeeze(-2)
+  if vec_b:
+    y = y.squeeze(-1)
+  return y != 0 if out == torch.bool else y.to(out)
+
+
+def _exact_tensordot(a: torch.Tensor, b: torch.Tensor, dims,
+                     out: torch.dtype) -> torch.Tensor:
+  """``torch.tensordot(a, b, dims)`` through :func:`_exact_matmul`."""
+  if isinstance(dims, int):
+    da, db = list(range(a.ndim - dims, a.ndim)), list(range(dims))
+  else:
+    da, db = ([d] if isinstance(d, int) else list(d) for d in dims)
+  da = [d % a.ndim for d in da]
+  db = [d % b.ndim for d in db]
+  free_a = [d for d in range(a.ndim) if d not in da]
+  free_b = [d for d in range(b.ndim) if d not in db]
+  k = 1
+  for d in da:
+    k *= a.shape[d]
+  a2 = a.permute(free_a + da).reshape(-1, k)
+  b2 = b.permute(db + free_b).reshape(k, -1)
+  y = _exact_matmul(a2, b2, out)
+  return y.reshape([a.shape[d] for d in free_a] + [b.shape[d] for d in free_b])
 
 
 def _acc_type(a_dtype: torch.dtype, b_dtype: torch.dtype) -> torch.dtype:
@@ -54,6 +126,8 @@ class DotExpr(Expr):
     acc = _acc_type(_dtype(a), _dtype(b))
     a, b = _as_tensor(a, acc, ctx.device), _as_tensor(b, acc, ctx.device)
     if a.ndim >= 1 and b.ndim >= 1:
+      if not ctx.abstract and _exact_route(acc, a.device):
+        return _exact_matmul(a, b, acc)
       return torch.matmul(a, b)
     return a * b
 
@@ -87,8 +161,10 @@ class TensorDotExpr(Expr):
   def _emit(self, ctx: EmitCtx, deps: List[Any]):
     a, b = deps
     acc = _acc_type(_dtype(a), _dtype(b))
-    return torch.tensordot(_as_tensor(a, acc, ctx.device),
-                           _as_tensor(b, acc, ctx.device), dims=self.axes)
+    a, b = _as_tensor(a, acc, ctx.device), _as_tensor(b, acc, ctx.device)
+    if not ctx.abstract and _exact_route(acc, a.device):
+      return _exact_tensordot(a, b, self.axes, acc)
+    return torch.tensordot(a, b, dims=self.axes)
 
 
 def _dtype(v) -> torch.dtype:

@@ -76,7 +76,7 @@ def _runner_key(roots, init_arrs):
   memo: dict = {}
   sigs = tuple(r.signature(memo) for r in roots)
   avals = tuple((a.shape, str(a.dtype)) for a in init_arrs)
-  return ("fori", sigs, avals, flags_key(get_mesh().device))
+  return ("fori", sigs, avals, flags_key(get_mesh()))
 
 
 def _collect_carry_consts(body_out_exprs, syms):

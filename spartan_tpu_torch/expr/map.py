@@ -81,6 +81,8 @@ def _numpy_promoting(fn: Callable) -> Callable:
       kind = dtype_kind(t.dtype)
       if kind in "biu" and (isinstance(s, float) or int_div):
         t = t.to(torch.float64)  # weak float against ints → default float
+      elif kind == "b" and isinstance(s, int) and not isinstance(s, bool):
+        t = t.to(torch.int64)  # weak int against bool → default int
       x, y = (t, s) if xt else (s, t)
     return fn(x, y)
 
@@ -171,6 +173,8 @@ def negative(x):
 
 
 def absolute(x):
+  if isinstance(x, torch.Tensor) and x.dtype == torch.bool:
+    return x  # NumPy: abs of bool is bool, unchanged
   return _py.abs(x)
 
 

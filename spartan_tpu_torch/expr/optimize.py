@@ -205,7 +205,8 @@ class ConstFoldCreations:
 
 
 class AutoTiling:
-  """Tiling pass: one tile per array on the single-device mesh."""
+  """Tiling pass: a no-op.  Dense arrays stay whole tensors on the device,
+  replicated over the mesh's logical shards."""
 
   def run(self, root: Expr) -> Expr:
     return root

@@ -166,6 +166,8 @@ class ReduceExpr(Expr):
       return torch.amin(x, dim=dims if dims is not None else (),
                         keepdim=keepdims)
     fn = torch.argmax if op == "argmax" else torch.argmin
+    if x.dtype == torch.bool:
+      x = x.to(torch.uint8)  # torch has no argmax of bool; NumPy's order
     if self.axis is None:
       out = fn(x.reshape(-1))
       return out.reshape((1,) * x.ndim) if keepdims else out

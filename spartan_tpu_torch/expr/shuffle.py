@@ -6,7 +6,10 @@ input, broadcast to its shape.  The values are scattered into a zeroed,
 filled (``init``) or given (``target``, left untouched) array with the
 reducer, on flattened indices.  Indices follow NumPy's advanced indexing:
 index arrays broadcast together, fewer arrays than the target's axes index
-its leading axes, negative entries count from the end.
+its leading axes, negative entries count from the end.  Updates out of
+range on any axis are dropped before the scatter, for every reducer, as
+JAX's scatter drops them (on the card an index out of range would stop
+the scatter with a device-side assert).
 
 The float ``add`` and ``mul`` are deterministic on the CPU and the card:
 the updates are sorted stably by target position and each position's run
@@ -44,27 +47,34 @@ def _coords(x: torch.Tensor):
 def _flat_index(base: torch.Tensor, indices, values: torch.Tensor):
   """(flat int64 index, values) with one entry per scattered element:
   the index arrays broadcast, trailing axes of ``base`` spanned, negative
-  indices wrapped, values broadcast to match."""
+  indices wrapped, values broadcast to match.  An update whose index falls
+  outside ``[0, size)`` on any axis after the wrap is dropped, as JAX's
+  scatter drops it (the check is per axis: a flat index in range can
+  still come from an index out of range on one axis)."""
   idx = torch.broadcast_tensors(*[torch.as_tensor(i, device=base.device)
                                   for i in indices])
   lead = idx[0].shape
   trailing = base.shape[len(idx):]
   shape = tuple(lead) + tuple(trailing)
   flat = torch.zeros(shape, dtype=torch.int64, device=base.device)
+  inside = torch.ones(tuple(lead), dtype=torch.bool, device=base.device)
   stride = 1
   for axis in reversed(range(base.ndim)):
     size = base.shape[axis]
     if axis < len(idx):
       i = idx[axis].long()
-      i = torch.where(i < 0, i + size, i).reshape(
-          tuple(lead) + (1,) * len(trailing))
+      i = torch.where(i < 0, i + size, i)
+      inside = inside & (i >= 0) & (i < size)
+      i = i.reshape(tuple(lead) + (1,) * len(trailing))
     else:
       t = axis - len(idx)
       i = torch.arange(size, device=base.device).reshape(
           (1,) * (len(lead) + t) + (size,) + (1,) * (len(trailing) - t - 1))
     flat = flat + i * stride
     stride *= size
-  return flat.reshape(-1), values.expand(shape).reshape(-1)
+  keep = inside.reshape(tuple(lead) + (1,) * len(trailing)).expand(
+      shape).reshape(-1)
+  return flat.reshape(-1)[keep], values.expand(shape).reshape(-1)[keep]
 
 
 class ShuffleExpr(Expr):

@@ -1,10 +1,12 @@
 """Card-only tests of the port: kernels K1 (csrc/fused_reduce.cu), K2
 (csrc/matmul.cu), K3a (csrc/spmv_ell.cu), K3b (csrc/spmv_csr.cu), K3c
-(csrc/spmv_chunked.cu), K5a (csrc/spmm_csr.cu), K4 and K6a
+(csrc/spmv_chunked.cu), K5a (csrc/spmm_csr.cu), K4, K6a and K6b
 (csrc/stencil3x3*.cu) against their plain torch versions on the same CUDA
-tensors; the expression layer's, PageRank's, ALS's, the stencil examples'
-and make_spmv_windowed's kernel paths; shuffle, k-means and logistic
-regression on the card.  Run on a machine with an NVIDIA GPU:
+tensors; the sharded entry points (K3a sharded, K3d, K5b, K6b) against
+their unsharded kernels; the expression layer's, PageRank's, ALS's, the
+stencil examples' and make_spmv_windowed's kernel paths; shuffle, integer
+dot, k-means and logistic regression on the card.  Run on a machine with
+an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -768,3 +770,183 @@ def test_kmeans_and_logistic_regression_on_card(device):
     w = w - (Xh.T @ (1.0 / (1.0 + np.exp(-(Xh @ w))) - yh)) / 4096
   np.testing.assert_allclose(logistic_reg.fit_fused(X, y, 20).glom(), w,
                              rtol=1e-10)
+
+
+# -- the sharded kernels: K3a sharded, K3d, K5b and K6b --------------------------
+# Tolerance: each sharded entry point equals its unsharded kernel bit for
+# bit (a row, or a stencil output, is the same sum in the same order
+# whichever band holds it); K6b equals its plain version bit for bit in
+# float32, as K6a does.
+
+from spartan_tpu_torch.backend.kernels import spmm as K5S  # noqa: E402
+from spartan_tpu_torch.backend.kernels import stencil as K6S  # noqa: E402
+
+
+@pytest.mark.parametrize("with_add", [False, True], ids=["no_add", "add"])
+@pytest.mark.parametrize("coeffs", sorted(STENCIL_COEFFS))
+@pytest.mark.parametrize("shape", STENCIL_SHAPES, ids=str)
+def test_k6b_halo_rows_match_plain(device, shape, coeffs, with_add):
+  gen = torch.Generator(device=device).manual_seed(31)
+  n, m = shape
+  cs = STENCIL_COEFFS[coeffs]
+  xp = K6S.to_padded(torch.randn(shape, generator=gen, device=device))
+  add = (K6S.to_padded(torch.randn(shape, generator=gen, device=device))
+         if with_add else None)
+  top, bot = (torch.randn(m + 2 * K6S.PAD_C, generator=gen, device=device)
+              for _ in range(2))
+  buf = torch.full_like(xp, float("nan"))
+  before = dict(K6S.counts)
+  got, _ = K6S.stencil3x3_padded(xp, buf, cs, 1, add, top, bot)
+  torch.cuda.synchronize()
+  assert K6S.counts["k6b_launches"] == before["k6b_launches"] + 1
+  assert K6S.counts["k6a_launches"] == before["k6a_launches"]
+  want, _ = K6S.stencil3x3_padded_plain(xp, torch.zeros_like(xp), cs, 1, add,
+                                        top, bot)
+  assert torch.equal(K6S.from_padded(got), K6S.from_padded(want))
+  ring = got.clone()
+  ring[K6S.PAD_R:-K6S.PAD_R, K6S.PAD_C:-K6S.PAD_C] = float("nan")
+  assert bool(ring.isnan().all())  # the ring of buf is never written
+
+
+@pytest.mark.parametrize("p", [3, 8])
+def test_sharded_stencil_equals_k6a(device, p):
+  gen = torch.Generator(device=device).manual_seed(37)
+  x = torch.randn((240, 300), generator=gen, device=device)
+  g = torch.randn(x.shape, generator=gen, device=device)
+  for add in (None, g):
+    whole = K6S.stencil3x3_padded_sharded(
+        x, STENCIL_COEFFS["nine"], 5, sp.make_mesh(shape=(1,)), add)
+    before = dict(K6S.counts)
+    got = K6S.stencil3x3_padded_sharded(x, STENCIL_COEFFS["nine"], 5,
+                                        sp.make_mesh(shape=(p,)), add)
+    torch.cuda.synchronize()
+    assert K6S.counts["k6b_launches"] == before["k6b_launches"] + 5 * p
+    assert K6S.counts["plain_runs"] == before["plain_runs"]
+    assert torch.equal(got, whole)
+  with pytest.raises(ValueError, match="n %"):
+    K6S.stencil3x3_padded_sharded(x[:-1], STENCIL_COEFFS["nine"], 1,
+                                  sp.make_mesh(shape=(p,)))
+
+
+@pytest.mark.parametrize("p", [3, 8])
+def test_sharded_spmv_kernels_equal_unsharded(device, p):
+  import scipy.sparse as ss
+  gen = torch.Generator(device=device).manual_seed(41)
+  mesh = sp.make_mesh(shape=(p,))
+  for kind in MATRICES + ["tall"]:
+    A = (ss.random(20000, 3000, density=0.002, random_state=9, format="csr",
+                   dtype=np.float32) if kind == "tall" else _matrix(kind))
+    S = sps.from_scipy(A)
+    x = torch.randn(A.shape[1], generator=gen, device=device)
+    before = dict(KS.counts)
+    got = KS.sharded_onehot_spmv(S.cols, S.vals, x, mesh)
+    torch.cuda.synchronize()
+    n = A.shape[0]
+    bands = -(-n // -(-n // p))  # non-empty bands of ceil(n/p) rows
+    assert KS.counts["sharded_ell_launches"] == (
+        before["sharded_ell_launches"] + bands)
+    assert torch.equal(got, KS.spmv_ell(S.cols, S.vals, x))
+    packed = S.to_windowed_sharded(p)
+    full = sum(packed.rows(d)[1] > packed.rows(d)[0] for d in range(p))
+    before = dict(KS.counts)
+    got = KS.sharded_windowed_spmv_traced(packed, x, mesh)
+    torch.cuda.synchronize()
+    assert KS.counts["sharded_csr_launches"] == (
+        before["sharded_csr_launches"] + full)
+    assert KS.counts["sharded_csr_plain_runs"] == before[
+        "sharded_csr_plain_runs"]
+    assert torch.equal(got, KS.spmv_csr(*S.to_csr(), x))
+
+
+@pytest.mark.parametrize("p", [3, 8])
+def test_sharded_spmm_kernel_equals_unsharded(device, p):
+  import scipy.sparse as ss
+  gen = torch.Generator(device=device).manual_seed(43)
+  mesh = sp.make_mesh(shape=(p,))
+  for kind in MATRICES + ["tall"]:
+    A = (ss.random(5000, 3000, density=0.003, random_state=9, format="csr",
+                   dtype=np.float32) if kind == "tall" else _matrix(kind))
+    S = sps.from_scipy(A)
+    packed = S.to_windowed_spmm_sharded(p)
+    full = sum(packed.rows(d)[1] > packed.rows(d)[0] for d in range(p))
+    for k in (1, 64, 130):
+      B = torch.randn(A.shape[1], k, generator=gen, device=device)
+      before = dict(K5S.counts)
+      got = K5S.sharded_windowed_spmm_traced(packed, B, mesh)
+      torch.cuda.synchronize()
+      assert K5S.counts["sharded_launches"] == (
+          before["sharded_launches"] + full)
+      assert torch.equal(got, K5S.spmm_csr(*S.to_csr(), B))
+
+
+def test_sharded_routes_launch_once_a_shard_on_card(device):
+  import scipy.sparse as ss
+  A = ss.random(40000, 40000, density=2e-4, random_state=12, format="csr",
+                dtype=np.float32)
+  S = sps.from_scipy(A)
+  x = np.random.default_rng(3).standard_normal(40000).astype(np.float32)
+  want = KS.spmv_csr(*S.to_csr(), torch.from_numpy(x).to(device))
+  with sp.with_mesh(sp.make_mesh(shape=(8,))):
+    e = sps.spmv_expr(S, sp.from_numpy(x))
+    assert e.fmt == "winsh" and e.n_shards == 8
+    KS.reset_counts()
+    got = e.glom()
+    torch.cuda.synchronize()
+    # 40 blocks of 1024 rows, 5 a shard: 8 shards, none empty
+    assert KS.counts["sharded_csr_launches"] == 8
+    assert KS.counts["csr_launches"] == KS.counts["csr_plain_runs"] == 0
+  np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+# -- faults found against the reference: integer dot, shuffle's drop ------------
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=str)
+def test_integer_dot_and_tensordot_on_card(device, dtype):
+  """torch has no integer matmul on CUDA: the exact route gives NumPy's
+  result, wrapping included, and is counted."""
+  from spartan_tpu_torch.expr import dot as D
+  rng = np.random.default_rng(11)
+  hi = 1 << 20 if dtype == np.int32 else 1 << 40
+  a = rng.integers(-hi, hi, (37, 129)).astype(dtype)
+  b = rng.integers(-hi, hi, (129, 23)).astype(dtype)
+  D.reset_counts()
+  got = sp.dot(sp.from_numpy(a), sp.from_numpy(b)).glom()
+  assert got.dtype == dtype
+  np.testing.assert_array_equal(got, a @ b)
+  got_v = sp.dot(sp.from_numpy(a), sp.from_numpy(b[:, 0])).glom()
+  np.testing.assert_array_equal(got_v, a @ b[:, 0])
+  c = rng.integers(-9, 9, (4, 5, 6)).astype(dtype)
+  d = rng.integers(-9, 9, (6, 5, 3)).astype(dtype)
+  got_t = D.tensordot(sp.from_numpy(c), sp.from_numpy(d),
+                      ([1, 2], [1, 0])).glom()
+  np.testing.assert_array_equal(got_t, np.tensordot(c, d, ([1, 2], [1, 0])))
+  assert D.counts["exact_int_route"] == 3
+
+
+def test_shuffle_drops_out_of_range_updates_on_card(device):
+  """An index out of range is dropped before the scatter; the CUDA context
+  stays usable (a device-side assert would poison it)."""
+  vals = np.array([1.0, 2.0, np.nan, 4.0, 5.0, -1.0])
+  idx = np.array([0, 1, 1, 2, 7, -1])
+  for reducer, want in ((np.add, [1.0, np.nan, 4.0, 0.0, -1.0]),
+                        (np.maximum, [1.0, np.nan, 4.0, 0.0, 0.0]),
+                        (np.minimum, [0.0, np.nan, 0.0, 0.0, -1.0]),
+                        (np.multiply, [0.0, np.nan, 0.0, 0.0, -0.0])):
+    got = sp.shuffle([sp.from_numpy(vals), sp.from_numpy(idx)],
+                     lambda v, i, c: ((i,), v), target_shape=(5,),
+                     reducer=reducer).glom()
+    np.testing.assert_array_equal(got, want)
+  got = sp.shuffle([sp.from_numpy(vals), sp.from_numpy(
+      np.array([0, 1, 3, 2, 7, -6]))], lambda v, i, c: ((i,), v),
+      target_shape=(5,), reducer=None).glom()
+  np.testing.assert_array_equal(got, [1.0, 2.0, 4.0, np.nan, 0.0])
+  got2 = sp.shuffle([sp.from_numpy(np.arange(1.0, 6.0))],
+                    lambda v, c: ((torch.tensor([0, 0, 1, 2, 2],
+                                                device=v.device),
+                                   torch.tensor([5, 1, -1, -9, 3],
+                                                device=v.device)), v),
+                    target_shape=(3, 4), reducer=np.add).glom()
+  np.testing.assert_array_equal(got2, [[0, 2, 0, 0], [0, 0, 0, 3],
+                                       [0, 0, 0, 5]])
+  torch.cuda.synchronize()
+  assert float((torch.ones(1000, device=device) * 2).sum()) == 2000.0

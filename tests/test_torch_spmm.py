@@ -170,8 +170,7 @@ def test_wrapper_runs_its_plain_version_on_cpu(dtype):
       (30, 5))).to(dtype)
   before = dict(K5.counts)
   got = K5.spmm_csr(*csr, B)
-  assert K5.counts == {"launches": before["launches"],
-                       "plain_runs": before["plain_runs"] + 1}
+  assert K5.counts == dict(before, plain_runs=before["plain_runs"] + 1)
   assert got.dtype == torch.promote_types(torch.float32, dtype)
   torch.testing.assert_close(got, K5.spmm_csr_plain(*csr, B), rtol=0,
                              atol=0)

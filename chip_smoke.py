@@ -37,9 +37,14 @@ raises on any failure:
      near the dataset's), drawn on the card from a seed and ingested through
      sparse.from_scipy(R, dtype=np.float32); the SpMM kernel K5a (spmm_csr)
      against its plain version on small odd shapes, k in {1, 3, 64, 130,
-     512}, bfloat16/float16/float64 and non-contiguous B, and both ALS
-     products at k = 64, then those two products timed beside the plain
-     version and cuSPARSE (torch.sparse_csr_tensor @ B);
+     512}, bfloat16/float16/float64 and non-contiguous B, on a skewed
+     matrix whose rows split into the kernel's segments (0 to 70,000
+     entries, k in {1, 3, 4, 31, 64, 130, 512}), and both ALS products at
+     k = 64, with the check's power on the 70,000-entry row (without its
+     partials after the first 32, or without one segment, the result must
+     fail it), then those two products timed beside the plain version and
+     cuSPARSE (torch.sparse_csr_tensor @ B), with their segment counts and
+     gathered bytes;
   8. ALS through als.fit(R, k=64, iterations=5) on that matrix, against a
      float64 scipy ALS from the same initial factors, with the RMSE over the
      stored ratings, ms per iteration and a profile of one iteration;
@@ -74,9 +79,10 @@ raises on any failure:
      through stencil3x3_padded_sharded (K6b) bit for bit against phase
      10's K6a field and 20 Jacobi sweeps with the add field against a
      float64 oracle; each sharded entry point bit for bit against its
-     unsharded kernel and against its plain version at the unsharded
-     kernel's bound; each timed at full shape beside the unsharded
-     kernel, its plain version and cuSPARSE or cuDNN.
+     unsharded kernel (K5b also on phase 7's skewed matrix) and against
+     its plain version at the unsharded kernel's bound; each timed at
+     full shape beside the unsharded kernel, its plain version and
+     cuSPARSE or cuDNN.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4 for K1, phase 6 for K3a/K3b, phase 8 for K5a, phase 10
@@ -143,6 +149,13 @@ ML_MIN_USER, ML_MAX_USER, ML_TOP_MOVIE = 20, 9_254, 67_310
 ML_RATING_WEIGHTS = (1.2, 3.4, 1.4, 7.2, 4.4, 21.4, 11.0, 27.8, 7.7, 14.5)
 ALS_K, ALS_ITERS, ALS_REG = 64, 5, 0.1
 SPMM_KS = (1, 3, 64, 130, 512)
+# K5a's long-row checks: k, and the rows of a skewed 2000 x 90,000 matrix
+# (short rows of 0-40 entries besides): 0, 1, SEG-1, SEG, SEG+1, 2·SEG and
+# 7·SEG+3 entries and one of 70,000, each in its own row band at p = 8
+SKEW_KS = (1, 3, 4, 31, 64, 130, 512)
+SKEW_N, SKEW_M = 2000, 90_000
+SKEW_ROWS = {5: 0, 140: 1, 300: K5.SEG - 1, 520: K5.SEG, 700: K5.SEG + 1,
+             1030: 2 * K5.SEG, 1290: 7 * K5.SEG + 3, 1500: 70_000}
 # 3x3 stencils: check shapes, coefficient sets, and the full grid (config
 # 1's 16384^2) swept by heat (alpha 0.1) and weighted Jacobi
 STENCIL_SHAPES = ((1, 1), (3, 5), (13, 20), (64, 256), (1000, 1001),
@@ -703,12 +716,65 @@ def movielens_shaped(device, seed: int = 0):
                        shape=(ML_USERS, ML_MOVIES))
 
 
+def skewed_csr():
+  """The float32 scipy CSR matrix of SKEW_ROWS, seeded."""
+  rng = np.random.default_rng(47)
+  lengths = rng.integers(0, 41, SKEW_N)
+  for row, length in SKEW_ROWS.items():
+    lengths[row] = length
+  cols = np.concatenate([np.sort(rng.choice(SKEW_M, length, replace=False))
+                         for length in lengths]).astype(np.int32)
+  indptr = np.concatenate([[0], np.cumsum(lengths)])
+  data = rng.standard_normal(indptr[-1]).astype(np.float32)
+  return ss.csr_matrix((data, cols, indptr), shape=(SKEW_N, SKEW_M))
+
+
+# Two float32 sums of the same n random-signed terms t in another order:
+# the rounding errors add like a random walk, so they differ by about
+# 0.8·sqrt(n)·2^-24·sqrt(Σt²) (one standard deviation) for sequential sums.
+# STAT_C is that bound's multiple, about three times the largest share read
+# over the 2^30 entries of the 32768^2 product (PERF.md §6).  Up to
+# STAT_C/2 + 1 terms it is no looser than the worst case.
+STAT_C = 16.0
+
+
+def sum_bound(terms, abs_sum, sq_sum, worst):
+  """The smaller of the worst case worst·n·2^-24·Σ|t| and the random-walk
+  bound STAT_C·sqrt(n)·2^-24·sqrt(Σt²)."""
+  return torch.minimum(worst * terms * 2.0 ** -24 * abs_sum,
+                       STAT_C * terms ** 0.5 * 2.0 ** -24 * sq_sum.sqrt())
+
+
 def spmm_tolerance(indptr, indices, data, B):
-  """Per entry 2·len(row)·2^-24·Σ|a_p·b_p,c|: both sides sum the same
-  rounded float32 products, in another order."""
-  lengths = (indptr[1:] - indptr[:-1]).double()
-  sum_abs = K5.spmm_csr_plain(indptr, indices, data.abs(), B.float().abs())
-  return 2.0 * lengths[:, None] * 2.0 ** -24 * sum_abs.double()
+  """Per entry the smaller of 2·len(row)·2^-24·Σ|a_p·b_p,c| (both sides
+  sum the same rounded float32 products, in another order) and the
+  random-walk bound on Σ(a_p·b_p,c)² (sum_bound)."""
+  lengths = (indptr[1:] - indptr[:-1]).double()[:, None]
+  Bf = B.float()
+  sum_abs = K5.spmm_csr_plain(indptr, indices, data.abs(), Bf.abs())
+  sum_sq = K5.spmm_csr_plain(indptr, indices, data.square(), Bf.square())
+  return sum_bound(lengths, sum_abs.double(), sum_sq.double(), 2.0)
+
+
+def drop_partials(csr, B, got, want, tol):
+  """The check's power on K5a's split rows: for the longest row, ``got``
+  without that row's partial rows after the first 32 (one step of pass 2
+  at k = 64: a pass 2 that stopped there), and ``got`` without its last
+  segment.  Returns the row, its segments and each mutant's worst share
+  of the row's bound (above 1: the check rejects it)."""
+  indptr, indices, data = csr
+  r = int((indptr[1:] - indptr[:-1]).argmax())
+  s, e = int(indptr[r]), int(indptr[r + 1])
+  segs = -(-(e - s) // K5.SEG)
+
+  def without(lo, hi):
+    part = (data[lo:hi].double()[:, None]
+            * B.double()[indices[lo:hi].long()]).sum(0)
+    bad = got[r].double() - part
+    return float(((bad - want[r].double()).abs() / tol[r]).max())
+
+  return (r, segs, without(min(e, s + 33 * K5.SEG), e),
+          without(s + (segs - 1) * K5.SEG, e))
 
 
 def spmm_check(label, csr, B):
@@ -724,7 +790,7 @@ def spmm_check(label, csr, B):
   ratio = float((diff / tol.clamp_min(1e-300)).max()) if diff.numel() else 0.0
   same = bool(torch.equal(got, again))
   print(f"  spmm_csr {label}: max|kernel-plain| {err:.3g}, worst share of "
-        f"the per-entry bound 2 len 2^-24 sum|a b| {ratio:.3g}; repeat "
+        f"the per-entry bound (spmm_tolerance) {ratio:.3g}; repeat "
         f"bitwise equal: {same}")
   check(got.dtype == torch.promote_types(torch.float32, B.dtype)
         and bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
@@ -779,8 +845,33 @@ def phase_spmm_kernel(device, card: str, S):
     Bt = torch.randn(64, m, generator=gen, device=device)
     worst = max(worst, spmm_check(f"{label} k=64 B a transposed view", csr,
                                   Bt.t()))
+  # rows split into segments of K5.SEG: every k, every type of B
+  csr = sparse.from_scipy(skewed_csr()).to_csr()
+  label = f"skewed {SKEW_N}x{SKEW_M} (rows of {sorted(SKEW_ROWS.values())})"
+  for k in SKEW_KS:
+    B = torch.randn(SKEW_M, k, generator=gen, device=device)
+    worst = max(worst, spmm_check(f"{label} k={k}", csr, B))
+  for dtype in (torch.bfloat16, torch.float16, torch.float64):
+    worst = max(worst, spmm_check(f"{label} k=64 {str(dtype)[6:]} B", csr,
+                                  B[:, :64].to(dtype)))
+  Bt = torch.randn(64, SKEW_M, generator=gen, device=device)
+  worst = max(worst, spmm_check(f"{label} k=64 B a transposed view", csr,
+                                Bt.t()))
+  B = torch.randn(SKEW_M, ALS_K, generator=gen, device=device)
+  got, want = K5.spmm_csr(*csr, B), K5.spmm_csr_plain(*csr, B)
+  row, segs, share_tail, share_seg = drop_partials(
+      csr, B, got, want, spmm_tolerance(*csr, B))
+  print(f"  spmm_csr check's power on {label} k={ALS_K}: row {row} "
+        f"({segs} segments) without its partials after the first 32 is "
+        f"off by {share_tail:.4g}x its bound, without its last segment by "
+        f"{share_seg:.4g}x")
+  check(segs > 33 and min(share_tail, share_seg) > 1.0,
+        f"spmm_csr's check on {label} passes a result that lost partial "
+        f"rows")
+  del B, Bt, csr, got, want
   products = (("R @ V", S, ML_MOVIES), ("R.T @ U", S.T, ML_USERS))
   total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+  per_product = {}
   bytes_all = flops_all = 0.0
   for label, A, m in products:
     csr = A.to_csr()
@@ -795,10 +886,17 @@ def phase_spmm_kernel(device, card: str, S):
     nbytes = nnz * 8 + (n + 1) * 8 + (m + n) * ALS_K * 4
     flops = 2 * nnz * ALS_K
     bound_ms, bound_by = bound(nbytes, flops)
+    segments = int(K5.segment_table(csr[0])[-1])
+    gathered = nnz * ALS_K * 4  # a row of B a nonzero, from L2
     print(f"  spmm_csr time on ML-20M {label} (n={n}, nnz={nnz}, longest row "
-          f"{A.max_nnz_per_row}, k={ALS_K}): kernel {t['kernel']:.4f} ms "
+          f"{A.max_nnz_per_row}, {segments} segments of at most {K5.SEG} "
+          f"(grid {K5.grid_segments(n, nnz)} warps), gathered rows of B "
+          f"{gathered / 1e9:.3f} GB, k={ALS_K}): kernel {t['kernel']:.4f} ms "
           f"({nnz / t['kernel'] / 1e6:.2f} Gnnz/s, "
-          f"{flops / t['kernel'] / 1e6:.1f} GFLOP/s), plain "
+          f"{flops / t['kernel'] / 1e6:.1f} GFLOP/s, gathers "
+          f"{gathered / t['kernel'] / 1e9:.1f} TB/s; "
+          f"{t['kernel'] / t['cuSPARSE']:.3f}x cuSPARSE, its work table "
+          f"built in the call), plain "
           f"{t['plain']:.4f} ms, cuSPARSE {t['cuSPARSE']:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB, "
           f"{flops / 1e9:.2f} GFLOP) (median of {TIMING_REPS} x 3 calls "
@@ -807,6 +905,7 @@ def phase_spmm_kernel(device, card: str, S):
           f"; host issue per call: kernel {t['kernel host']:.4f} ms, plain "
           f"{t['plain host']:.4f} ms, cuSPARSE {t['cuSPARSE host']:.4f} ms; "
           f"on {card}")
+    per_product[label] = t["kernel"]
     for key, name in (("ms", "kernel"), ("plain_ms", "plain"),
                       ("library_ms", "cuSPARSE")):
       total[key] += t[name]
@@ -817,9 +916,12 @@ def phase_spmm_kernel(device, card: str, S):
   # the row reports one ALS iteration's two products
   _, total["bound_by"] = bound(bytes_all, flops_all)
   total["max_abs_err"] = worst
-  print(f"  spmm_csr both products: kernel {total['ms']:.4f} ms, plain "
+  print(f"  spmm_csr both products: kernel {total['ms']:.4f} ms "
+        f"({total['ms'] / total['library_ms']:.3f}x cuSPARSE), plain "
         f"{total['plain_ms']:.4f} ms, cuSPARSE {total['library_ms']:.4f} ms, "
-        f"bound {total['bound_ms']:.4f} ms; worst |kernel-plain| {worst:.3g}")
+        f"bound {total['bound_ms']:.4f} ms; worst |kernel-plain| {worst:.3g}"
+        f"; R.T @ U over R @ V (the same nonzeros) "
+        f"{per_product['R.T @ U'] / per_product['R @ V']:.3f}x")
   return total
 
 
@@ -1273,22 +1375,6 @@ OUT_UNIT = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
 
 def relu(acc):
   return torch.clamp_min(acc, 0.0)
-
-
-# Two float32 sums of the same n random-signed terms t in another order:
-# the rounding errors add like a random walk, so they differ by about
-# 0.8·sqrt(n)·2^-24·sqrt(Σt²) (one standard deviation) for sequential sums.
-# STAT_C is that bound's multiple, about three times the largest share read
-# over the 2^30 entries of the 32768^2 product (PERF.md §6).  Up to
-# STAT_C/2 + 1 terms it is no looser than the worst case.
-STAT_C = 16.0
-
-
-def sum_bound(terms, abs_sum, sq_sum, worst):
-  """The smaller of the worst case worst·n·2^-24·Σ|t| and the random-walk
-  bound STAT_C·sqrt(n)·2^-24·sqrt(Σt²)."""
-  return torch.minimum(worst * terms * 2.0 ** -24 * abs_sum,
-                       STAT_C * terms ** 0.5 * 2.0 ** -24 * sq_sum.sqrt())
 
 
 def matmul_tol(x, y, want, absprod=None, sqprod=None):
@@ -1918,9 +2004,21 @@ def bit_checks(p, mesh, graphs, S, device, gen):
     shares["sharded_windowed_spmm"] = max(shares["sharded_windowed_spmm"],
                                           share)
     del got, B
+  # the long rows of SKEW_ROWS, one in each band at p = 8
+  skewed = sparse.from_scipy(skewed_csr())
+  for k in (3, ALS_K, 512):
+    B = torch.randn(SKEW_M, k, generator=gen, device=device)
+    check(torch.equal(
+        K5.sharded_windowed_spmm_traced(skewed.to_windowed_spmm_sharded(p), B,
+                                        mesh),
+        K5.spmm_csr(*skewed.to_csr(), B)),
+        f"p = {p}: sharded_windowed_spmm_traced differs from K5a on the "
+        f"skewed matrix at k = {k}")
+  del skewed, B
   torch.cuda.synchronize()
   print(f"  p = {p}: one call of each sharded SpMV/SpMM entry point "
-        f"bit-equal to its unsharded kernel; max|kernel - plain| {worst}, "
+        f"bit-equal to its unsharded kernel (the SpMM also on the skewed "
+        f"matrix at k = 3, {ALS_K}, 512); max|kernel - plain| {worst}, "
         f"worst share of the per-entry bound {shares}")
   return worst
 
@@ -1939,7 +2037,8 @@ def time_sharded(p, mesh, graphs, S, device, gen, card):
     bound_ms, bound_by = bound(nbytes, flops)
     replica_ms = bound(nbytes + replica_bytes, flops)[0]
     print(f"  p = {p}: {name} on {label}: kernel {t['kernel']:.4f} ms, "
-          f"unsharded {t['unsharded']:.4f} ms, plain {t['plain']:.4f} ms, "
+          f"unsharded {t['unsharded']:.4f} ms ("
+          f"{t['kernel'] / t['unsharded']:.3f}x), plain {t['plain']:.4f} ms, "
           f"{lib} {t['library']:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}, {nbytes / 1e6:.1f} MB, each input read once; "
           f"{replica_ms:.4f} ms with the operand each shard reads again, "

@@ -130,7 +130,8 @@ ARGTYPES = {
     "spmv_ell": [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
                                          ctypes.c_int],
     "spmv_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int],
-    "spmm_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int],
+    "spmm_csr": [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int, ctypes.c_int],
     "stencil3x3": [ctypes.c_void_p] * 2 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int],

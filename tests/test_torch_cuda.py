@@ -245,16 +245,32 @@ def test_pagerank_fit_sparse_on_card(device):
 
 
 # -- SpMM kernel K5a (spmm_csr) -------------------------------------------------
-# Tolerance: per entry, 2·len(row)·2^-24·Σ_p |data_p · B[indices_p, c]|: both
-# sides sum the same rounded float32 products in another order.
+# Tolerance: both sides sum the same rounded float32 products in another
+# order, so per entry they differ by at most 2·len(row)·2^-24·Σ_p |data_p ·
+# B[indices_p, c]|.  On these random-signed products the rounding errors add
+# like a random walk, and STAT_C·sqrt(len)·2^-24·sqrt(Σ_p (data_p ·
+# B[indices_p, c])²) holds too (chip_smoke.py's sum_bound, whose constant is
+# about three times the largest share it reads on K2 at 32768^2); the
+# tolerance is the smaller of the two.
 
 from spartan_tpu_torch.backend.kernels import spmm as K5  # noqa: E402
 
+STAT_C = 16.0
+
+
+def _sum_bound(terms, abs_sum, sq_sum, worst):
+  """The smaller of the worst case worst·n·2^-24·Σ|t| and the random-walk
+  bound STAT_C·sqrt(n)·2^-24·sqrt(Σt²) for two float32 sums of n terms."""
+  return torch.minimum(worst * terms * 2.0 ** -24 * abs_sum,
+                       STAT_C * terms ** 0.5 * 2.0 ** -24 * sq_sum.sqrt())
+
 
 def _spmm_tolerance(indptr, indices, data, B):
-  lengths = (indptr[1:] - indptr[:-1]).double()
-  sum_abs = K5.spmm_csr_plain(indptr, indices, data.abs(), B.float().abs())
-  return 2.0 * lengths[:, None] * 2.0 ** -24 * sum_abs.double()
+  lengths = (indptr[1:] - indptr[:-1]).double()[:, None]
+  Bf = B.float()
+  sum_abs = K5.spmm_csr_plain(indptr, indices, data.abs(), Bf.abs())
+  sum_sq = K5.spmm_csr_plain(indptr, indices, data.square(), Bf.square())
+  return _sum_bound(lengths, sum_abs.double(), sum_sq.double(), 2.0)
 
 
 @pytest.mark.parametrize("bdtype", [torch.float32, torch.bfloat16,
@@ -320,6 +336,105 @@ def test_spmm_expr_and_spmm_launch_the_kernel_on_card(device):
   assert got.dtype == np.float64
   assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
   np.testing.assert_array_equal(eager.cpu().numpy(), got)
+
+
+# K5a cuts rows into segments of SEG nonzeros: rows of 0, 1, SEG-1, SEG,
+# SEG+1, 2·SEG and 7·SEG+3 nonzeros and one of 70,000 among short rows, set
+# in different row bands of a mesh of 2, 4 or 8 shards (bands of 128·j rows).
+SKEW_ROWS = {5: 0, 140: 1, 300: K5.SEG - 1, 520: K5.SEG, 700: K5.SEG + 1,
+             1030: 2 * K5.SEG, 1290: 7 * K5.SEG + 3, 1500: 70_000}
+
+
+def _skewed_csr(device):
+  import scipy.sparse as ss
+  rng = np.random.default_rng(47)
+  n, m = 2000, 90_000
+  lengths = rng.integers(0, 41, n)
+  for row, length in SKEW_ROWS.items():
+    lengths[row] = length
+  cols = np.concatenate([np.sort(rng.choice(m, length, replace=False))
+                         for length in lengths]).astype(np.int32)
+  indptr = np.concatenate([[0], np.cumsum(lengths)])
+  data = rng.standard_normal(indptr[-1]).astype(np.float32)
+  return sps.from_scipy(ss.csr_matrix((data, cols, indptr), shape=(n, m)))
+
+
+def _check_skewed(S, B):
+  indptr, indices, data = S.to_csr()
+  before = dict(K5.counts)
+  got = K5.spmm_csr(indptr, indices, data, B)
+  torch.cuda.synchronize()
+  assert K5.counts["launches"] == before["launches"] + 1
+  assert K5.counts["plain_runs"] == before["plain_runs"]
+  want = K5.spmm_csr_plain(indptr, indices, data, B)
+  assert got.dtype == want.dtype and got.shape == want.shape
+  diff = (got.double() - want.double()).abs()
+  assert bool((diff <= _spmm_tolerance(indptr, indices, data, B)).all())
+  assert torch.equal(got, K5.spmm_csr(indptr, indices, data, B))
+  return got
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 31, 64, 130, 512])
+def test_spmm_kernel_splits_long_rows(device, k):
+  S = _skewed_csr(device)
+  gen = torch.Generator(device=device).manual_seed(53 + k)
+  _check_skewed(S, torch.randn(S.shape[1], k, generator=gen, device=device))
+
+
+@pytest.mark.parametrize("dropped", ["after_32_partials", "last_segment"])
+def test_spmm_tolerance_rejects_a_row_missing_segments(device, dropped):
+  # the 70,000-entry row without its partial rows after the first 32 (one
+  # step of pass 2 at k = 64), or without its last segment, fails the check
+  S = _skewed_csr(device)
+  indptr, indices, data = S.to_csr()
+  gen = torch.Generator(device=device).manual_seed(67)
+  B = torch.randn(S.shape[1], 64, generator=gen, device=device)
+  got = _check_skewed(S, B)
+  r, s, e = 1500, int(indptr[1500]), int(indptr[1501])
+  assert e - s == 70_000
+  lo = (s + 33 * K5.SEG if dropped == "after_32_partials"
+        else s + (e - s - 1) // K5.SEG * K5.SEG)
+  bad = got.double().clone()
+  bad[r] -= (data[lo:e].double()[:, None]
+             * B.double()[indices[lo:e].long()]).sum(0)
+  diff = (bad - K5.spmm_csr_plain(indptr, indices, data, B).double()).abs()
+  assert not bool((diff <= _spmm_tolerance(indptr, indices, data, B)).all())
+
+
+@pytest.mark.parametrize("form", ["bfloat16", "float16", "float64",
+                                  "transposed", "unaligned"])
+def test_spmm_kernel_splits_long_rows_for_each_b(device, form):
+  S = _skewed_csr(device)
+  gen = torch.Generator(device=device).manual_seed(59)
+  B = torch.randn(S.shape[1], 64, generator=gen, device=device)
+  if form == "transposed":
+    got = _check_skewed(S, B.t().contiguous().t())
+  elif form == "unaligned":  # a view 4 bytes into its storage
+    flat = torch.cat([torch.zeros(1, device=device), B.flatten()])
+    got = _check_skewed(S, flat[1:].view(B.shape))
+  else:
+    got = _check_skewed(S, B.to(getattr(torch, form)))
+  if form in ("transposed", "unaligned"):
+    # the order of the sums follows k alone, not B's layout
+    assert torch.equal(got, K5.spmm_csr(*S.to_csr(), B))
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_sharded_spmm_equals_unsharded_on_long_rows(device, p):
+  S = _skewed_csr(device)
+  mesh = sp.make_mesh(shape=(p,))
+  packed = S.to_windowed_spmm_sharded(p)
+  full = sum(packed.rows(d)[1] > packed.rows(d)[0] for d in range(p))
+  assert full == p
+  gen = torch.Generator(device=device).manual_seed(61)
+  for k in (3, 64, 512):
+    B = torch.randn(S.shape[1], k, generator=gen, device=device)
+    before = dict(K5.counts)
+    got = K5.sharded_windowed_spmm_traced(packed, B, mesh)
+    torch.cuda.synchronize()
+    assert K5.counts["sharded_launches"] == before["sharded_launches"] + p
+    assert K5.counts["sharded_plain_runs"] == before["sharded_plain_runs"]
+    assert torch.equal(got, K5.spmm_csr(*S.to_csr(), B))
 
 
 def test_als_fit_on_card_matches_float64(device):
@@ -500,16 +615,6 @@ OUT_UNIT = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
 
 def _relu(acc):
   return torch.clamp_min(acc, 0.0)
-
-
-STAT_C = 16.0
-
-
-def _sum_bound(terms, abs_sum, sq_sum, worst):
-  """The smaller of the worst case worst·n·2^-24·Σ|t| and the random-walk
-  bound STAT_C·sqrt(n)·2^-24·sqrt(Σt²) for two float32 sums of n terms."""
-  return torch.minimum(worst * terms * 2.0 ** -24 * abs_sum,
-                       STAT_C * terms ** 0.5 * 2.0 ** -24 * sq_sum.sqrt())
 
 
 def _matmul_tol(x, y, want):

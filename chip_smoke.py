@@ -16,8 +16,11 @@ raises on any failure:
      the sharded kernels are these kernels launched once a shard, K6b the
      halo-row instantiation in stencil3x3_padded.cu;
   2. K1 against its plain torch version on the card, over five chains,
-     four shapes and two accumulators, and timed at 16384^2 float32 beside
-     its plain version and torch.sum;
+     four shapes, each also as the flattened x[1:] (a base off 16-byte
+     alignment), and two accumulators, bit-equal on repeat, with ptxas's
+     report of each of its kernels (0-byte stack frame, no spill); then
+     each chain timed at 16384^2 float32 beside the plain version and
+     torch.sum;
   3. the fused map+reduce (affine and kernel paths) and a 4096^2 dot,
      against float64 NumPy oracles;
   4. linear-regression training at n = 2^20, d = 64, float64, against a
@@ -59,10 +62,13 @@ raises on any failure:
      simulate_numpy; convnet.forward and predict on MNIST's test-set shape
      against a float64 numpy forward;
  11. the matrix-product kernel K2 (matmul) against its plain version on
-     four shapes, three dtypes, with the ReLU epilogue fused and without,
-     and one epilogue outside the op table; then matmul.matmul at config
-     2's published 32768^2 float32 against torch.matmul (TF32 off) and at
-     bench.py's 8192^2 bfloat16, each timed beside matmul_plain and cuBLAS;
+     seven shapes (the 16-bit kernel's full tile, ragged last tiles, K off
+     its 64-deep stages, operands it pads), three dtypes, with the ReLU
+     epilogue fused and without, and one epilogue outside the op table,
+     with ptxas's report of the 16-bit kernel; then matmul.matmul at
+     config 2's published 32768^2 float32 against torch.matmul (TF32 off)
+     and at bench.py's 8192^2 bfloat16, each timed beside matmul_plain and
+     cuBLAS;
  12. the unique-rows SpMV kernel K3c (spmv_chunked) against its plain
      version on eight edge cases (bit for bit on repeat), timed on phase
      5's urand 2^22 graph and phase 7's ML-20M R.T (both held, not rebuilt)
@@ -173,7 +179,10 @@ EXPR_N, EXPR_STEPS = 4096, 50
 MNIST_SHAPE, CONV_CHECK = (10_000, 1, 28, 28), 256
 # K2: (M, K, N) check shapes; config 2's published 32768^2 float32
 # (BASELINE.json configs[1]); bench.py's own config-2 run, 8192^2 bfloat16
-MATMUL_SHAPES = ((1, 1, 1), (17, 33, 65), (1000, 1001, 999), (64, 256, 128))
+# the last three: a full 128 x 256 tile of the 16-bit kernel, ragged last
+# tiles in M and N with K = 4·64 - 1, and K = 3·64 - 1 with N % 8 != 0
+MATMUL_SHAPES = ((1, 1, 1), (17, 33, 65), (1000, 1001, 999), (64, 256, 128),
+                 (128, 64, 256), (257, 255, 250), (300, 191, 520))
 CFG2_N, BENCH_MM_N, CFG2_REPS = 32768, 8192, 3
 # k-means at bench.py's config-4 shape; logistic regression at config 3's
 KM_N, KM_D, KM_K, KM_ITERS = 1 << 19, 64, 64, 10
@@ -287,57 +296,105 @@ def time_in_turns(fns, inner: int = 1, reps: int = TIMING_REPS):
   return out
 
 
+def ptxas_report(source: str, entry: str):
+  """ptxas's report of each kernel of ``source`` whose mangled name holds
+  ``entry``: (mangled name, registers, stack frame bytes, spill store
+  bytes, spill load bytes), from the build log."""
+  rows, name, frame = [], None, None
+  for line in build.build_log(source).splitlines():
+    if "Function properties for" in line:
+      name = line.split("Function properties for", 1)[1].strip()
+    elif name and "stack frame" in line:
+      frame = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+    elif name and "Used" in line and "registers" in line and frame:
+      regs = int(line.split("Used", 1)[1].split()[0])
+      if entry in name:
+        rows.append((name, regs, *frame[:3]))
+      name, frame = None, None
+  return rows
+
+
+def check_ptxas(source: str, entry: str, label: str) -> None:
+  """Prints ptxas's line for each kernel ``entry`` of ``source`` and holds
+  each to a 0-byte stack frame and no spill."""
+  rows = ptxas_report(source, entry)
+  check(rows, f"no ptxas report of {entry} in {source}'s build log")
+  for name, regs, frame, stores, loads in rows:
+    print(f"  ptxas {label} {name[-48:]}: {regs} registers, {frame} bytes "
+          f"stack frame, {stores} bytes spill stores, {loads} bytes spill "
+          f"loads")
+    check(frame == 0 and stores == 0 and loads == 0,
+          f"{label} {name} has a stack frame or spills")
+
+
 def phase_kernel_vs_plain(device, card: str):
   """K1 against fused_sum_plain on the same card tensors."""
+  check_ptxas("fused_reduce", "fused_sum_partials", "K1")
   worst_abs = 0.0
   gen = torch.Generator(device=device).manual_seed(1234)
   launches0 = K.counts["launches"]
   n_cases = 0
   for shape, dtype in KERNEL_SHAPES:
-    x = (torch.rand(shape, generator=gen, device=device) * 3 - 1).to(dtype)
+    whole = (torch.rand(shape, generator=gen, device=device) * 3 - 1).to(dtype)
     s = torch.tensor(0.7, dtype=torch.float32, device=device)
-    for name, (chain, transcendental, has_scalar) in CHAINS.items():
-      scalars = [s] if has_scalar else []
-      program = K.plan(chain, 0, dtype, dict(enumerate(scalars, start=1)))
-      check(program is not None, f"chain {name} did not translate")
-      for acc in (torch.float32, torch.float64):
-        got = K.fused_sum(x, program, scalars, acc).item()
-        want = K.fused_sum_plain(x, program, scalars, acc).item()
-        tol = tolerance(transcendental, acc)
-        err = rel_err(got, want)
-        worst_abs = max(worst_abs, abs(got - want))
-        print(f"  K1 {name:14s} {str(tuple(shape)):16s} {str(dtype)[6:]:8s} "
-              f"acc={str(acc)[6:]:7s} kernel={got:.17g} plain={want:.17g} "
-              f"rel_err={err:.3g} (rtol {tol:g})")
-        check(np.isfinite(got) and err <= tol,
-              f"K1 disagrees with its plain version: {name} {shape} {dtype} "
-              f"{acc}: {got} vs {want}")
-        n_cases += 1
-    del x
+    # the tensor, and its flattened x[1:]: a base off 16-byte alignment
+    for view, x in (("", whole), (" [1:]", whole.reshape(-1)[1:])):
+      for name, (chain, transcendental, has_scalar) in CHAINS.items():
+        scalars = [s] if has_scalar else []
+        program = K.plan(chain, 0, dtype, dict(enumerate(scalars, start=1)))
+        check(program is not None, f"chain {name} did not translate")
+        for acc in (torch.float32, torch.float64):
+          got = K.fused_sum(x, program, scalars, acc).item()
+          again = K.fused_sum(x, program, scalars, acc).item()
+          want = K.fused_sum_plain(x, program, scalars, acc).item()
+          tol = tolerance(transcendental, acc)
+          err = rel_err(got, want)
+          worst_abs = max(worst_abs, abs(got - want))
+          print(f"  K1 {name:14s} {str(tuple(shape)) + view:21s} "
+                f"{str(dtype)[6:]:8s} acc={str(acc)[6:]:7s} kernel={got:.17g} "
+                f"plain={want:.17g} rel_err={err:.3g} (rtol {tol:g}); "
+                f"repeat bitwise equal: {got == again}")
+          check(np.isfinite(got) and err <= tol,
+                f"K1 disagrees with its plain version: {name} {shape}{view} "
+                f"{dtype} {acc}: {got} vs {want}")
+          check(got == again, f"K1 is not deterministic: {name} {shape}{view}")
+          n_cases += 2
+    del x, whole
   torch.cuda.synchronize()
   check(K.counts["launches"] == launches0 + n_cases,
         f"launches rose by {K.counts['launches'] - launches0}, expected "
         f"{n_cases}")
   # time at the main path's shape: abs(1+2v) over 16384^2 float32, float64
-  # accumulation; kernel and plain in turns, with the identity program and
-  # torch.sum(dtype=float64), the library call for that program
+  # accumulation; kernel and plain in turns, with every chain of CHAINS (the
+  # identity program among them) and torch.sum(dtype=float64), the library
+  # call for that program
   x = torch.randn(TIMED_SHAPE, generator=gen, device=device)
+  s = torch.tensor(0.7, dtype=torch.float32, device=device)
   program = K.plan(CHAINS["abs(1+2v)"][0], 0, torch.float32, {})
-  identity = K.plan(None, 0, torch.float32, {})
-  t = time_in_turns({
-      "plain": lambda: K.fused_sum_plain(x, program, [], torch.float64),
-      "kernel": lambda: K.fused_sum(x, program, [], torch.float64),
-      "identity": lambda: K.fused_sum(x, identity, [], torch.float64),
-      "torch.sum": lambda: torch.sum(x, dtype=torch.float64)})
+  fns = {"plain": lambda: K.fused_sum_plain(x, program, [], torch.float64)}
+  programs = {}
+  for name, (chain, _, has_scalar) in CHAINS.items():
+    scalars = [s] if has_scalar else []
+    programs[name] = K.plan(chain, 0, torch.float32,
+                            dict(enumerate(scalars, start=1)))
+    fns[name] = (lambda p=programs[name], sc=scalars:
+                 K.fused_sum(x, p, sc, torch.float64))
+  fns["torch.sum"] = lambda: torch.sum(x, dtype=torch.float64)
+  t = time_in_turns(fns)
+  t["kernel"] = t["abs(1+2v)"]
   nbytes = x.numel() * x.element_size()
   bound_ms, bound_by = bound(nbytes + 8, x.numel() * len(program.instrs))
   print(f"  K1 time at {TIMED_SHAPE} float32, abs(1+2v), float64 acc: "
         f"kernel {t['kernel']:.4f} ms ({nbytes / t['kernel'] / 1e6:.1f} GB/s), "
-        f"plain {t['plain']:.4f} ms; identity program: kernel "
-        f"{t['identity']:.4f} ms, torch.sum(dtype=float64) "
+        f"plain {t['plain']:.4f} ms, torch.sum(dtype=float64) "
         f"{t['torch.sum']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}) "
         f"(median of {TIMING_REPS}, queued ahead of the device, CUDA events, "
         f"in turns) on {card}")
+  for name, p in programs.items():
+    print(f"  K1 chain {name:14s} {t[name]:.4f} ms: {len(p.instrs)} "
+          f"instructions, {1 + max(d for _, _, d, _, _ in p.instrs)} "
+          f"register(s), {'float' if p.float_regs else 'double'} registers "
+          f"on {card}")
   return {"max_abs_err": worst_abs, "ms": t["kernel"], "plain_ms": t["plain"],
           "library_ms": t["torch.sum"], "bound_ms": bound_ms,
           "bound_by": bound_by}
@@ -1396,6 +1453,10 @@ def phase_matmul_kernel(device):
   """K2 against matmul_plain on the card: four shapes, three dtypes, with
   and without the ReLU epilogue (fused), and one epilogue outside the op
   table (unfused); returns the worst |kernel - plain|."""
+  check_ptxas("matmul", "hopper_gemm", "K2")
+  print(f"  K2 16-bit kernel: {K2.TILE_M} x {K2.TILE_N} output tiles, "
+        f"{K2.TILE_K}-deep stages, a ring of {K2.STAGES}; "
+        f"float32: {K2.SGEMM_TILE_K}-deep tiles")
   gen = torch.Generator(device=device).manual_seed(41)
   worst, cases = 0.0, 0
   for m, k, n in MATMUL_SHAPES:
@@ -1408,9 +1469,14 @@ def phase_matmul_kernel(device):
         again = K2.matmul(x, y, epilogue=epilogue)
         want = K2.matmul_plain(x, y, epilogue)
         torch.cuda.synchronize()
-        check(K2.counts == dict(before, launches=before["launches"] + 2),
+        # a 16-bit operand whose rows are not a multiple of 16 bytes is
+        # padded first, once a call
+        padded = 2 * (dtype != torch.float32) * ((k % 8 != 0) + (n % 8 != 0))
+        check(K2.counts == dict(before, launches=before["launches"] + 2,
+                                padded_operands=before["padded_operands"]
+                                + padded),
               f"K2 counts {K2.counts} after {before}: the {label} epilogue "
-              "did not fuse into two launches")
+              f"did not fuse into two launches with {padded} padded operands")
         diff = (got.float() - want.float()).abs()
         tol = matmul_tol(x, y, want)
         share = float((diff / tol.clamp_min(1e-30)).max())
@@ -1448,13 +1514,15 @@ def phase_matmul_kernel(device):
 def check_product(x, y, got, want, label: str, block: int = 4096):
   """Holds a full-size K2 product against its reference, ``block`` rows at
   a time, and shows the check's power: the first block without one of the
-  kernel's K tiles (8 wide in float32, 32 in 16-bit) must fail it.
+  kernel's K tiles (SGEMM_TILE_K wide in float32, TILE_K in 16-bit) must
+  fail it.
   Returns max|got - want|, the worst share of the bound, the tile and the
   share of that block's entries the check rejects without it."""
   n, dtype = x.shape[1], x.dtype
   ya, y2 = y.float().abs(), y.float().square()
   err, share = 0.0, 0.0
-  tile, caught = 8 if dtype == torch.float32 else 32, 0.0
+  tile = K2.SGEMM_TILE_K if dtype == torch.float32 else K2.TILE_K
+  caught = 0.0
   for lo in range(0, x.shape[0], block):
     xb = x[lo:lo + block].float()
     tol = matmul_tol(x[lo:lo + block], y, want[lo:lo + block],
@@ -1504,9 +1572,10 @@ def phase_matmul_path(device, card: str):
     err, share, tile, caught = check_product(
         x, y, got, want, f"{ref_name} at {n}^2 {dtype}", block)
     del want, got
-    t = time_in_turns({"plain": lambda: K2.matmul_plain(x, y),
-                       "kernel": lambda: K2.matmul(x, y),
-                       "cuBLAS": lambda: torch.matmul(x, y)}, reps=reps)
+    fns = {"plain": lambda: K2.matmul_plain(x, y),
+           "kernel": lambda: K2.matmul(x, y),
+           "cuBLAS": lambda: torch.matmul(x, y)}
+    t = time_in_turns(fns, reps=reps)
     flops = 2.0 * n ** 3
     nbytes = 3.0 * n * n * x.element_size()
     bound_ms, bound_by = bound(nbytes, flops, peak)
@@ -1521,6 +1590,10 @@ def phase_matmul_path(device, card: str):
           f"(median of {reps}, CUDA events, in turns; queued ahead: "
           f"{all(t[f'{v} ahead'] for v in ('kernel', 'plain', 'cuBLAS'))}) "
           f"on {card}")
+    print(f"  K2 {n}^2 {str(dtype)[6:]}: "
+          f"{100 * flops / (t['kernel'] * 1e-3) / peak:.1f} % of "
+          f"{peak / 1e12:.0f} TFLOP/s; kernel / cuBLAS "
+          f"{t['kernel'] / t['cuBLAS']:.3f} on {card}")
     rows[(n, dtype)] = {"ms": t["kernel"], "plain_ms": t["plain"],
                         "library_ms": t["cuBLAS"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "max_abs_err": err}

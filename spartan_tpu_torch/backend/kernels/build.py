@@ -138,8 +138,9 @@ ARGTYPES = {
     "stencil3x3_padded": [ctypes.c_void_p] * 5 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int],
-    "matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "matmul": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+               ctypes.c_int64, ctypes.c_void_p] + [ctypes.c_int64] * 3 + [
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "spmv_chunked": [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64,
                                              ctypes.c_int],
 }

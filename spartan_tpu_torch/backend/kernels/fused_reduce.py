@@ -9,21 +9,36 @@ The chain reaches the GPU as an *op program*: :func:`plan` translates the
 ``LocalExpr`` tree into a flat list of instructions over a fixed op table
 (add, subtract, multiply, true_divide, negative, absolute, square, sqrt,
 exp, log, maximum, minimum), keyed on the ufunc names that ``map2``'s
-wrappers keep (and on the callable being the port's own ufunc).  Each instruction carries an opcode, the dtype it computes in (the
-dtype the plain torch evaluation of that node has), a destination register
-and source registers or slots.  Leaves are the big operand's element
+wrappers keep (and on the callable being the port's own ufunc).  Each
+instruction carries an opcode, the dtype it computes in (the dtype the
+plain torch evaluation of that node has), a destination register and
+source registers or slots.  Leaves are the big operand's element
 (``LOADX``), a 0-d device tensor (``LOADS``, read from a float64 vector)
 and an immediate (``LOADI``: a weak Python scalar or a ``LocalConst``).
+
+The translation is in SSA form (one register an instruction).
+:func:`fold_scalars` folds each immediate and device scalar into the
+instructions that read it (a negative operand), and :func:`allocate` maps
+the rest onto ``N_REGS`` registers by liveness, reusing a register once its
+value is dead, so that the kernel keeps its register file, sized to the
+program, in machine registers.  A program whose instructions all compute in
+float32, bfloat16 or float16 runs in ``float`` registers
+(``Program.float_regs``); one with a float64 instruction in ``double``.
+The C entry point picks that variant, and the grid, from the program.
+
 A chain outside the table — another op, an integer or complex dtype, more
-than ``MAX_INSTR`` instructions — is refused up front by :func:`plan` and
-counted in ``counts["routed_plain"]``; the reduction then takes its plain
-path.  Nothing is decided by catching an exception.
+than ``MAX_INSTR`` instructions, ``MAX_IMM`` immediates or
+``MAX_DEV_SCALARS`` device scalars, more than ``N_REGS`` values live at
+once —
+is refused up front by :func:`plan` and counted in
+``counts["routed_plain"]``; the reduction then takes its plain path.
+Nothing is decided by catching an exception.
 
 :func:`fused_sum` routes by the tensor's device: a CUDA tensor launches
 ``csrc/fused_reduce.cu`` (or raises), a CPU tensor runs
 :func:`fused_sum_plain`, which evaluates the same program with torch ops.
 The kernel is bound by the bytes of one read of ``x``; the source note in
-the ``.cu`` file says how its two-pass design answers that.
+the ``.cu`` file says how its design answers that.
 """
 
 from __future__ import annotations
@@ -40,16 +55,23 @@ from spartan_tpu_torch.expr.map import UFUNCS
 
 MAX_INSTR = 64
 MAX_IMM = 16
+MAX_DEV_SCALARS = 16
+N_REGS = 8  # SP_NREG in csrc/op_program.cuh
 THREADS = 256
-BLOCKS_PER_SM = 8
+# room for the kernel's partial sums, in blocks an SM: at least the grid
+# that csrc/fused_reduce.cu picks (twice the blocks its launch bounds fit,
+# 4 or 6 an SM)
+PARTIALS_PER_SM = 8
 
 LOADX, LOADS, LOADI = 0, 1, 2
+_FIRST_OP = 3  # opcodes from here on compute; below, they load
 OPS = {"add": 3, "subtract": 4, "multiply": 5, "true_divide": 6,
        "negative": 7, "absolute": 8, "square": 9, "sqrt": 10, "exp": 11,
        "log": 12, "maximum": 13, "minimum": 14}
 _ARITY = {name: (2 if name in ("add", "subtract", "multiply", "true_divide",
                                "maximum", "minimum") else 1)
           for name in OPS}
+_BINARY_OPS = {code: _ARITY[name] == 2 for name, code in OPS.items()}
 DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
                torch.float16: 3}
 _CODE_DTYPES = {c: d for d, c in DTYPE_CODES.items()}
@@ -63,7 +85,7 @@ def reset_counts() -> None:
 
 
 class _ProgramStruct(ctypes.Structure):
-  """Mirror of ``struct Program`` in ``csrc/fused_reduce.cu``."""
+  """Mirror of ``struct Program`` in ``csrc/op_program.cuh``."""
   _fields_ = [("n", ctypes.c_int32), ("out", ctypes.c_int32),
               ("op", ctypes.c_int8 * MAX_INSTR),
               ("dt", ctypes.c_int8 * MAX_INSTR),
@@ -76,7 +98,9 @@ class _ProgramStruct(ctypes.Structure):
 class Program:
   """A fused chain as a flat op program.
 
-  ``instrs`` holds ``(opcode, dtype_code, dst, a, b)``; ``imm_sources``
+  ``instrs`` holds ``(opcode, dtype_code, dst, a, b)``: a load's ``a`` is
+  its slot, a compute instruction's ``a``/``b`` a register or, negative, a
+  folded scalar (:func:`scalar_operand`); ``imm_sources``
   says where each immediate comes from (``("scalar", k)``: the k-th scalar
   operand, a weak Python number; ``("const", v)``); ``dev_scalars`` lists
   the scalar operands read from device memory, in slot order; ``dtype`` is
@@ -90,6 +114,15 @@ class Program:
     self.imm_sources: List[Tuple[str, Any]] = imm_sources
     self.dev_scalars: List[int] = dev_scalars
     self.dtype: torch.dtype = dtype
+
+  @property
+  def float_regs(self) -> bool:
+    """True when no instruction computes in float64: the kernel then keeps
+    its registers in ``float`` (immediates and device scalars rounded to
+    float once, at their load), which gives the bits of ``double``
+    registers, since every value such a program computes is a float."""
+    return all(dt != DTYPE_CODES[torch.float64]
+               for op, dt, _, _, _ in self.instrs if op >= _FIRST_OP)
 
   def immediates(self, scalars: Sequence[Any]) -> List[float]:
     return [float(scalars[v]) if kind == "scalar" else float(v)
@@ -153,6 +186,8 @@ def _translate(local_op: Optional[LocalExpr], main_slot: int,
           reg = emit(LOADI, 0, len(imm_sources))
           imm_sources.append(("scalar", k))
         else:
+          if len(dev_scalars) >= MAX_DEV_SCALARS:
+            return None
           reg = emit(LOADS, 0, len(dev_scalars))
           dev_scalars.append(k)
       else:
@@ -196,22 +231,93 @@ def _translate(local_op: Optional[LocalExpr], main_slot: int,
                  Aval.of(root.meta).dtype)
 
 
+def _sources(op: int, a: int, b: int) -> Tuple[int, ...]:
+  """The registers an instruction reads (a load reads a slot, and a
+  negative operand names a scalar: neither is a register)."""
+  if op < _FIRST_OP:
+    return ()
+  return tuple(r for r in ((a, b) if _BINARY_OPS[op] else (a,)) if r >= 0)
+
+
+def scalar_operand(op: int, slot: int) -> int:
+  """The operand code of a folded load: ``-1 - k`` names immediate k,
+  ``-1 - MAX_IMM - k`` device scalar k (``SP_SCAL`` in op_program.cuh)."""
+  return -1 - slot if op == LOADI else -1 - MAX_IMM - slot
+
+
+def fold_scalars(program: Program) -> Program:
+  """``program`` without the LOADI/LOADS instructions whose value feeds
+  only compute instructions: their readers name the scalar directly
+  (:func:`scalar_operand`), which the kernel reads as one value for all
+  elements, so it takes no register and no instruction of its own."""
+  loads = {dst: scalar_operand(op, a) for op, _, dst, a, _ in program.instrs
+           if op in (LOADI, LOADS) and dst != program.out}
+  instrs = []
+  for op, dt, dst, a, b in program.instrs:
+    if dst in loads:
+      continue
+    if op >= _FIRST_OP:
+      a = loads.get(a, a)
+      b = loads.get(b, b) if _BINARY_OPS[op] else 0
+    instrs.append((op, dt, dst, a, b))
+  return Program(instrs, program.out, program.imm_sources,
+                 program.dev_scalars, program.dtype)
+
+
+def allocate(program: Program, n_regs: int = N_REGS) -> Optional[Program]:
+  """``program`` with its registers mapped onto ``n_regs`` by liveness, or
+  None when more than ``n_regs`` values are live at once.
+
+  A value's register is freed after the instruction that reads it last (the
+  output stays live to the end; a value no one reads is freed at once), and
+  an instruction takes the lowest free register, which may be one its own
+  operands just freed: the kernel reads the operands before it writes."""
+  last: Dict[int, int] = {}
+  for k, (op, _, _, a, b) in enumerate(program.instrs):
+    for src in _sources(op, a, b):
+      last[src] = k
+  last[program.out] = len(program.instrs)
+  free = list(range(n_regs))
+  phys: Dict[int, int] = {}
+  instrs: List[Tuple[int, int, int, int, int]] = []
+  for k, (op, dt, dst, a, b) in enumerate(program.instrs):
+    srcs = _sources(op, a, b)
+    binary = op >= _FIRST_OP and _BINARY_OPS[op]
+    pa = phys[a] if op >= _FIRST_OP and a >= 0 else a
+    pb = (phys[b] if b >= 0 else b) if binary else 0
+    for src in set(srcs):
+      if last[src] == k:
+        free.append(phys[src])
+    if not free:
+      return None
+    reg = min(free)
+    free.remove(reg)
+    phys[dst] = reg
+    if dst not in last:  # never read
+      free.append(reg)
+    instrs.append((op, dt, reg, pa, pb))
+  return Program(instrs, phys[program.out], program.imm_sources,
+                 program.dev_scalars, program.dtype)
+
+
 _plans: Dict[Tuple, Optional[Program]] = {}
 
 
 def plan(local_op: Optional[LocalExpr], main_slot: int,
          main_dtype: torch.dtype, scalars: Dict[int, Any]) -> Optional[Program]:
   """Translate ``local_op`` for a main operand in ``main_slot`` and 0-d
-  ``scalars`` (slot → value: a tensor, or a weak Python scalar).  Returns
-  None — counted in ``counts["routed_plain"]`` — when the chain cannot be
-  expressed; the caller then takes its plain path."""
+  ``scalars`` (slot → value: a tensor, or a weak Python scalar), with its
+  registers allocated.  Returns None — counted in
+  ``counts["routed_plain"]`` — when the chain cannot be expressed; the
+  caller then takes its plain path."""
   avals = {k: Aval.of(v) for k, v in scalars.items()}
   key = (local_op.signature() if local_op is not None else None, main_slot,
          main_dtype, tuple((k, avals[k].key) for k in sorted(avals)))
   if key not in _plans:
     if len(_plans) > 1024:
       _plans.clear()
-    _plans[key] = _translate(local_op, main_slot, main_dtype, avals)
+    ssa = _translate(local_op, main_slot, main_dtype, avals)
+    _plans[key] = None if ssa is None else allocate(fold_scalars(ssa))
   program = _plans[key]
   if program is None:
     counts["routed_plain"] += 1
@@ -232,24 +338,34 @@ def evaluate_program(program: Program, x: torch.Tensor,
                      scalars: Sequence[Any]) -> torch.Tensor:
   """The program's elementwise value over ``x``, with torch ops: every
   instruction casts its operands to its dtype and computes there, exactly
-  as the kernel does."""
+  as the kernel does.  Reads SSA, folded and allocated programs alike."""
   imm = program.immediates(scalars)
-  regs: List[torch.Tensor] = []
-  for op, dt, _, a, b in program.instrs:
+
+  def scalar(op: int, slot: int) -> torch.Tensor:
+    if op == LOADS:
+      return scalars[program.dev_scalars[slot]].reshape(()).to(torch.float64)
+    return torch.tensor(imm[slot], dtype=torch.float64, device=x.device)
+
+  def operand(code: int) -> torch.Tensor:
+    if code >= 0:
+      return regs[code]
+    slot = -1 - code
+    return (scalar(LOADI, slot) if slot < MAX_IMM
+            else scalar(LOADS, slot - MAX_IMM))
+
+  regs: Dict[int, torch.Tensor] = {}
+  for op, dt, dst, a, b in program.instrs:
     if op == LOADX:
       v = x
-    elif op == LOADS:
-      v = scalars[program.dev_scalars[a]].reshape(()).to(torch.float64)
-    elif op == LOADI:
-      v = torch.tensor(imm[a], dtype=torch.float64, device=x.device)
+    elif op in (LOADS, LOADI):
+      v = scalar(op, a)
     else:
       dtype = _CODE_DTYPES[dt]
-      args = [regs[a].to(dtype)]
-      if op in (OPS["add"], OPS["subtract"], OPS["multiply"],
-                OPS["true_divide"], OPS["maximum"], OPS["minimum"]):
-        args.append(regs[b].to(dtype))
+      args = [operand(a).to(dtype)]
+      if _BINARY_OPS[op]:
+        args.append(operand(b).to(dtype))
       v = _TORCH_OPS[op](*args)
-    regs.append(v)
+    regs[dst] = v
   return regs[program.out]
 
 
@@ -310,8 +426,8 @@ def _launch(x: torch.Tensor, program: Program, scalars: Sequence[Any],
   lib = _library()
   n = x.numel()
   sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-  blocks = max(1, min(-(-n // THREADS), sms * BLOCKS_PER_SM))
-  partials = torch.empty(blocks, dtype=acc_dtype, device=x.device)
+  room = max(1, min(-(-n // (THREADS * 8)), sms * PARTIALS_PER_SM))
+  partials = torch.empty(room, dtype=acc_dtype, device=x.device)
   out = torch.empty((), dtype=acc_dtype, device=x.device)
   dscal = (torch.stack([v.reshape(()).to(torch.float64) for v in dev_vals])
            if dev_vals else None)
@@ -321,7 +437,7 @@ def _launch(x: torch.Tensor, program: Program, scalars: Sequence[Any],
     rc = lib.spartan_fused_sum(
         x.data_ptr(), _IN_CODES[x.dtype], n, ctypes.addressof(prog),
         dscal.data_ptr() if dscal is not None else None,
-        partials.data_ptr(), blocks, out.data_ptr(), _ACC_CODES[acc_dtype],
+        partials.data_ptr(), room, out.data_ptr(), _ACC_CODES[acc_dtype],
         stream)
   if rc != 0:
     raise RuntimeError("fused_sum kernel launch failed: "

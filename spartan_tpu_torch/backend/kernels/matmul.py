@@ -4,8 +4,11 @@
 (K2, the blocked Pallas MXU kernel): ``epilogue(x @ y)`` for x (M, K) and
 y (K, N) with a float32 accumulator, the epilogue applied to the float32
 result and the output in ``x.dtype`` (``matmul.py:36-41,78``).  Kernel:
-``csrc/matmul.cu`` (FFMA for float32, tensor-core ``mma.sync`` for
-bfloat16 and float16; any M, N, K).
+``csrc/matmul.cu``: for bfloat16 and float16 a persistent, warp-specialised
+kernel of ``TILE_M`` x ``TILE_N`` output tiles and ``TILE_K``-deep stages,
+its operands brought by TMA into a ring in shared memory and multiplied by
+``wgmma``; for float32 register-blocked FFMA with ``SGEMM_TILE_K``-deep
+tiles.  Any M, N, K.
 
 The reference traces its epilogue callable into the kernel's last K step.
 A CUDA kernel cannot take a callable, so :func:`plan_epilogue` traces it
@@ -18,9 +21,14 @@ then writes the float32 product and the callable runs on it in torch
 before the cast.
 
 Routing: a CPU tensor runs :func:`matmul_plain`; a CUDA tensor launches
-the kernel.  When x and y do not share a dtype in {float32, bfloat16,
-float16}, both are cast to float32 first and the kernel's float32 result is
-cast to ``x.dtype``, the same function :func:`matmul_plain` computes.
+the kernel.  TMA describes a 16-bit operand only with a 16-byte aligned
+base and a row stride of a multiple of 16 bytes: an operand without both
+(:func:`tma_unfit`) is copied first into a zero-padded, aligned buffer
+(:func:`pad_operand`, counted in ``counts["padded_operands"]``), which the
+kernel reads with the operand's own extents.  When x and y do not share a
+dtype in {float32, bfloat16, float16}, both are cast to float32 first and
+the kernel's float32 result is cast to ``x.dtype``, the same function
+:func:`matmul_plain` computes.
 ``bm``/``bn``/``bk`` are the reference's
 VMEM block sizes, accepted for API parity and ignored: the CUDA kernel
 picks its own tiles and takes every shape through predicated edges.
@@ -39,13 +47,22 @@ import torch.nn.functional as F
 
 from spartan_tpu_torch.backend.kernels import build
 from spartan_tpu_torch.backend.kernels.fused_reduce import (
-    DTYPE_CODES, LOADI, LOADX, MAX_IMM, MAX_INSTR, OPS, Program)
+    DTYPE_CODES, LOADI, LOADX, MAX_IMM, MAX_INSTR, OPS, Program, allocate,
+    fold_scalars)
 from spartan_tpu_torch.expr.base import fn_key
 
 _IN_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 _F32 = DTYPE_CODES[torch.float32]
 
-counts = {"launches": 0, "plain_runs": 0, "epilogue_unfused": 0}
+# The 16-bit kernel's output tile (TILE_M x TILE_N), the K depth of a
+# stage and the stages of its ring, and the float32 kernel's K depth;
+# csrc/matmul.cu's H_BM, H_BN, H_BK, kStages and F_BK.
+TILE_M, TILE_N, TILE_K, STAGES = 128, 256, 64, 4
+SGEMM_TILE_K = 8
+_SGEMM_MAX_ROWS = 65535 * 128  # the float32 kernel's grid: one block a tile
+
+counts = {"launches": 0, "plain_runs": 0, "epilogue_unfused": 0,
+          "padded_operands": 0}
 
 
 def reset_counts() -> None:
@@ -182,16 +199,46 @@ def _global_numbers(fn: Callable) -> Tuple:
 
 
 def plan_epilogue(epilogue: Callable) -> Optional[Program]:
-  """The op program of ``epilogue`` (cached by the callable's structure
-  and the numbers it reads from its globals), or None when it is outside
-  K1's op table."""
+  """The op program of ``epilogue`` with its registers allocated (cached
+  by the callable's structure and the numbers it reads from its globals),
+  or None when it is outside K1's op table or needs more than ``N_REGS``
+  live values."""
   key = (fn_key(epilogue), _global_numbers(epilogue))
   if key not in _plans:
     if len(_plans) > 1024:
       _plans.clear()
     graph = _trace(epilogue)
-    _plans[key] = None if graph is None else _translate(graph)
+    ssa = None if graph is None else _translate(graph)
+    _plans[key] = None if ssa is None else allocate(fold_scalars(ssa))
   return _plans[key]
+
+
+# -- operands TMA cannot describe -------------------------------------------------
+
+def tma_unfit(t: torch.Tensor) -> bool:
+  """True when TMA cannot read the contiguous 2-D 16-bit ``t`` in place: a
+  base that is not 16-byte aligned, or rows whose length is not a
+  multiple of 16 bytes."""
+  return t.data_ptr() % 16 != 0 or (t.shape[1] * t.element_size()) % 16 != 0
+
+
+def pad_operand(t: torch.Tensor) -> torch.Tensor:
+  """``t`` copied into a fresh zero-filled buffer whose rows are rounded up
+  to a multiple of 16 bytes; ``t`` is its ``[:, :t.shape[1]]``.  The kernel
+  reads only that part, so the product is unchanged."""
+  per16 = 16 // t.element_size()
+  cols = -(-t.shape[1] // per16) * per16
+  out = torch.zeros((t.shape[0], cols), dtype=t.dtype, device=t.device)
+  out[:, :t.shape[1]] = t
+  return out
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+  """``t``, or its padded copy (counted) where TMA cannot read it."""
+  if not tma_unfit(t):
+    return t
+  counts["padded_operands"] += 1
+  return pad_operand(t)
 
 
 # -- the wrapper ----------------------------------------------------------------
@@ -217,18 +264,20 @@ def matmul(x: torch.Tensor, y: torch.Tensor, bm: int = 512, bn: int = 512,
   fused = epilogue is None or program is not None
   if not fused:
     counts["epilogue_unfused"] += 1
-  m, n = x.shape[0], y.shape[1]
+  m, k, n = x.shape[0], x.shape[1], y.shape[1]
   out = torch.empty((m, n), dtype=x.dtype if fused else torch.float32,
                     device=x.device)
   if m and n:
-    if -(-m // 128) > 65535:
-      raise ValueError(f"matmul's kernel takes at most {65535 * 128} rows, "
-                       f"not {m}")
+    if x.dtype == torch.float32 and m > _SGEMM_MAX_ROWS:
+      raise ValueError(f"matmul's float32 kernel takes at most "
+                       f"{_SGEMM_MAX_ROWS} rows, not {m}")
     x_c, y_c = x.contiguous(), y.contiguous()
+    if x.dtype != torch.float32 and k:
+      x_c, y_c = _tma_ready(x_c), _tma_ready(y_c)
     prog = program.host_struct(()) if program is not None else None
-    build.launch("matmul", x.device, x_c.data_ptr(), y_c.data_ptr(),
-                 out.data_ptr(), m, n, x.shape[1], _IN_CODES[x.dtype],
-                 _IN_CODES[out.dtype],
+    build.launch("matmul", x.device, x_c.data_ptr(), x_c.shape[1],
+                 y_c.data_ptr(), y_c.shape[1], out.data_ptr(), m, n, k,
+                 _IN_CODES[x.dtype], _IN_CODES[out.dtype],
                  ctypes.addressof(prog) if prog is not None else None)
     counts["launches"] += 1
   if not fused:

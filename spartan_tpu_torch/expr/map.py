@@ -83,6 +83,11 @@ def _numpy_promoting(fn: Callable) -> Callable:
         t = t.to(torch.float64)  # weak float against ints → default float
       elif kind == "b" and isinstance(s, int) and not isinstance(s, bool):
         t = t.to(torch.int64)  # weak int against bool → default int
+      elif t.dtype in _HALF and isinstance(s, (int, float)) and not (
+          isinstance(s, bool)):
+        # a weak scalar takes the 16-bit tensor's dtype, as in JAX: torch
+        # would compute with it unrounded, in float32
+        s = float(torch.tensor(s, dtype=t.dtype))
       x, y = (t, s) if xt else (s, t)
     return fn(x, y)
 
@@ -92,6 +97,7 @@ def _numpy_promoting(fn: Callable) -> Callable:
 
 
 _PROMOTING_CACHE: Dict[Callable, Callable] = {}
+_HALF = (torch.bfloat16, torch.float16)
 
 
 def map2(a, b, fn: Callable) -> MapExpr:
@@ -129,6 +135,11 @@ def multiply(x, y):
 
 
 def true_divide(x, y):
+  if (isinstance(x, (int, float)) and isinstance(y, torch.Tensor)
+      and y.is_floating_point()):
+    # torch divides a real Python scalar by a float tensor as a reciprocal
+    # and a product, off by an ulp; a 0-d tensor divides IEEE-rounded
+    x = torch.tensor(x, dtype=y.dtype, device=y.device)
   return x / y
 
 

@@ -84,6 +84,33 @@ def test_kernel_matches_plain(device, chain, shape, dtype, acc):
                              rtol=_rtol(transcendental, acc))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097])
+def test_kernel_takes_ragged_tails_and_misaligned_views(device, n, dtype):
+  """Lengths that end inside a 16-byte load, and x[1:] of a flattened
+  tensor (a base 2 or 4 bytes past an aligned one): the elements outside
+  the aligned body go through the same program one at a time."""
+  gen = torch.Generator(device=device).manual_seed(n)
+  base = (torch.rand(n + 1, generator=gen, device=device) * 3 - 1).to(dtype)
+  for name in ("abs_one_plus_2v", "runtime_scalar"):
+    local_op, transcendental, has_scalar = CHAINS[name]
+    scalars = ([torch.tensor(0.7, dtype=torch.float64, device=device)]
+               if has_scalar else [])
+    program = K.plan(local_op, 0, dtype, dict(enumerate(scalars, start=1)))
+    for x in (base[:n], base.reshape(-1)[1:]):
+      for acc in (torch.float32, torch.float64):
+        before = K.counts["launches"]
+        got = K.fused_sum(x, program, scalars, acc)
+        again = K.fused_sum(x, program, scalars, acc)
+        torch.cuda.synchronize()
+        assert K.counts["launches"] == before + 2
+        want = K.fused_sum_plain(x, program, scalars, acc)
+        np.testing.assert_allclose(got.item(), want.item(),
+                                   rtol=_rtol(transcendental, acc))
+        assert got.item() == again.item()
+
+
 def test_kernel_is_deterministic(device):
   x = torch.randn(4_000_037, device=device)
   program = K.plan(CHAINS["abs_one_plus_2v"][0], 0, torch.float32, {})
@@ -608,7 +635,11 @@ def test_heat_and_jacobi_launch_the_padded_kernel_on_card(device):
 from spartan_tpu_torch.backend.kernels import matmul as K2  # noqa: E402
 
 MATMUL_SHAPES = [(1, 1, 1), (17, 33, 65), (1000, 1001, 999), (64, 256, 128),
-                 (130, 0, 70)]
+                 (130, 0, 70),
+                 # a full 128 x 256 tile of the 16-bit kernel; ragged last
+                 # tiles in M and in N; K of 64·s ± 1 (its stage depth)
+                 (128, 64, 256), (129, 128, 257), (300, 191, 520),
+                 (256, 193, 512), (257, 255, 250)]
 OUT_UNIT = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
             torch.float16: 2.0 ** -11}
 
@@ -636,7 +667,10 @@ def test_matmul_kernel_matches_plain(device, mkn, dtype, epilogue):
   before = dict(K2.counts)
   got = K2.matmul(x, y, epilogue=epilogue)
   torch.cuda.synchronize()
-  assert K2.counts == dict(before, launches=before["launches"] + 1)
+  # a 16-bit operand whose rows are not a multiple of 16 bytes is padded
+  padded = (dtype != torch.float32 and k > 0) * ((k % 8 != 0) + (n % 8 != 0))
+  assert K2.counts == dict(before, launches=before["launches"] + 1,
+                           padded_operands=before["padded_operands"] + padded)
   want = K2.matmul_plain(x, y, epilogue)
   assert got.dtype == want.dtype == dtype and got.shape == (m, n)
   diff = (got.float() - want.float()).abs()
@@ -672,6 +706,32 @@ def test_matmul_reads_views_and_block_sizes_are_ignored(device):
   got = K2.matmul(x, y, bm=8, bn=128, bk=128)
   want = K2.matmul_plain(x.contiguous(), y.contiguous())
   assert bool(((got - want).abs() <= _matmul_tol(x, y, want)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_matmul_pads_what_tma_cannot_read(device, dtype):
+  """A misaligned base or a row of a length not a multiple of 16 bytes is
+  copied into an aligned, zero-padded buffer first (counted once an
+  operand); the product is the one of the operands as they are."""
+  gen = torch.Generator(device=device).manual_seed(11)
+  flat = torch.randn(300 * 136 + 8, generator=gen, device=device).to(dtype)
+  y = torch.randn(136, 264, generator=gen, device=device).to(dtype)
+  cases = ((flat[:300 * 136].view(300, 136), y, 0),       # TMA reads both
+           (flat[1:1 + 300 * 136].view(300, 136), y, 1),  # x 2 bytes off
+           (flat[:300 * 136].view(300, 136), y[:, :263], 1),  # N = 263
+           (flat[:300 * 135].view(300, 135), y[:135, :259], 2))
+  for x, yy, padded in cases:
+    before = dict(K2.counts)
+    got = K2.matmul(x, yy, epilogue=_relu)
+    again = K2.matmul(x, yy, epilogue=_relu)
+    torch.cuda.synchronize()
+    assert K2.counts == dict(before, launches=before["launches"] + 2,
+                             padded_operands=before["padded_operands"]
+                             + 2 * padded)
+    want = K2.matmul_plain(x, yy, _relu)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _matmul_tol(x, yy, want)).all())
+    assert torch.equal(got, again)
 
 
 # -- unique-rows SpMV K3c (spmv_chunked) and make_spmv_windowed -----------------

@@ -179,3 +179,44 @@ def test_exact_tensordot_equals_numpy():
     got = D._exact_tensordot(torch.as_tensor(a), torch.as_tensor(b), axes,
                              torch.int64).numpy()
     np.testing.assert_array_equal(got, np.tensordot(a, b, axes))
+
+
+@pytest.mark.parametrize("scalar", [0.7, 1.0 / 3.0, 1e-3, 3])
+@pytest.mark.parametrize("name", ["add", "subtract", "multiply",
+                                  "true_divide", "maximum", "minimum"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_weak_scalar_ops_round_like_the_reference(dtype, name, scalar):
+  """Two faults of the eager path, where K1's op program was right:
+  ``b * 0.7`` on a bfloat16 or float16 array rounds 0.7 to that dtype
+  first, as JAX's weak typing does (torch multiplied by 0.7 in float32: 7
+  of these 77 bfloat16 products differed in the last bit); and ``0.7 / b``
+  divides IEEE-rounded (torch took a reciprocal and a product: an ulp off
+  in 26 % of float32 quotients).  The eager path, K1's op program and the
+  reference now agree bit for bit."""
+  host = np.linspace(-2.0, 3.0, 77).astype(np.float32)
+  jx = jnp.asarray(host).astype(dtype)
+  tx = sp.from_numpy(host).astype(getattr(torch, dtype))
+  jfn, tfn = getattr(jnp, name), getattr(sp, name)
+  for args_j, args_t in (((jx, scalar), (tx, scalar)),
+                         ((scalar, jx), (scalar, tx))):
+    want = np.asarray(jfn(*args_j).astype(jnp.float32))
+    got = tfn(*args_t).astype(torch.float32).glom()
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
+@pytest.mark.parametrize("scalar", [1 + 2j, -0.5j])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_complex_scalar_divides_a_real_array(dtype, scalar):
+  """A complex Python scalar over a real array, and the array over it, give
+  a complex result as in the reference: the IEEE-rounded scalar / tensor
+  division takes only a real scalar.  Tolerance: 4 ulp of the complex
+  dtype (the two complex divisions may round differently)."""
+  host = np.linspace(0.25, 3.0, 41).astype(dtype)
+  jx, tx = jnp.asarray(host), sp.from_numpy(host)
+  for args_j, args_t in (((scalar, jx), (scalar, tx)),
+                         ((jx, scalar), (tx, scalar))):
+    want = np.asarray(jnp.true_divide(*args_j))
+    got = np.asarray(sp.true_divide(*args_t).glom())
+    assert got.dtype == want.dtype and np.iscomplexobj(got)
+    eps = np.finfo(want.dtype).eps
+    np.testing.assert_allclose(got, want, rtol=4 * eps, atol=0)

@@ -151,3 +151,63 @@ def test_matmul_wrapper_checks_shapes_and_runs_plain_on_cpu():
   assert got.dtype == torch.float64
   want = torch.tanh(ta @ tb).double()
   torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# -- operands TMA cannot describe ------------------------------------------------
+# The 16-bit kernel reads its operands through TMA, which needs a 16-byte
+# aligned base and a row stride of a multiple of 16 bytes.  Others are
+# copied into a zero-padded, aligned buffer, which the kernel reads with the
+# operand's own extents.  Exact: the kernel's view of a padded buffer is
+# the operand itself, and in float64 (where these bfloat16 products and
+# their sums are exact) the zero-padded product equals the unpadded one.
+
+PAD_SIZES = [1, 7, 9, 1001]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tma_unfit_predicate(dtype):
+  for cols, unfit in ((1, True), (7, True), (8, False), (9, True),
+                      (1001, True), (1024, False)):
+    t = torch.zeros((3, cols), dtype=dtype)
+    assert K2.tma_unfit(t) == unfit, cols
+  flat = torch.zeros(3 * 64 + 8, dtype=dtype)
+  assert not K2.tma_unfit(flat[:3 * 64].view(3, 64))
+  assert K2.tma_unfit(flat[1:1 + 3 * 64].view(3, 64))  # 2 bytes off
+  assert not K2.tma_unfit(flat[8:8 + 3 * 64].view(3, 64))
+
+
+def _padded_case(k, n, seed, misaligned=False):
+  rng = np.random.default_rng(seed)
+  x = torch.from_numpy(rng.standard_normal((5, k)).astype(
+      np.float32)).bfloat16()
+  y = torch.from_numpy(rng.standard_normal((k, n)).astype(
+      np.float32)).bfloat16()
+  if misaligned:  # the same values at a base 2 bytes past an aligned one
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype)
+    flat[1:] = x.reshape(-1)
+    x = flat[1:].view(x.shape)
+  return x, y
+
+
+@pytest.mark.parametrize("n", PAD_SIZES)
+@pytest.mark.parametrize("k", PAD_SIZES + ["misaligned"])
+def test_padded_operands_give_the_unpadded_product(k, n):
+  misaligned = k == "misaligned"
+  x, y = _padded_case(64 if misaligned else k, n, 7 + n, misaligned)
+  k = x.shape[1]
+  assert K2.tma_unfit(x) and K2.tma_unfit(y) == (n % 8 != 0)
+  xp, yp = K2.pad_operand(x), K2.pad_operand(y)
+  for t, p in ((x, xp), (y, yp)):
+    assert not K2.tma_unfit(p) and p.shape[0] == t.shape[0]
+    assert p.shape[1] % 8 == 0 and p.shape[1] - t.shape[1] < 8
+    assert torch.equal(p[:, :t.shape[1]], t)
+    assert not p[:, t.shape[1]:].any()
+  # what the kernel reads: the padded buffers with the operands' extents
+  assert torch.equal(K2.matmul_plain(xp[:, :k], yp[:, :n]),
+                     K2.matmul_plain(x, y))
+  # zeros add exact zeros: the whole zero-padded product, in float64
+  ypk = torch.zeros((xp.shape[1], yp.shape[1]), dtype=y.dtype)
+  ypk[:k] = yp
+  full = xp.double() @ ypk.double()
+  assert torch.equal(full[:, :n], x.double() @ y.double())
+  assert not full[:, n:].any()

@@ -533,6 +533,7 @@ def spmv_cases(big, small):
 def phase_spmv_kernels(device, card: str, big, small):
   """K3a/K3b against their plain versions on the card, then timed beside
   the plain versions and cuSPARSE."""
+  check_ptxas("spmv_ell", "spmv_ell", "K3a")
   gen = torch.Generator(device=device).manual_seed(99)
   worst = {"spmv_ell": 0.0, "spmv_csr": 0.0}
   for label, A in spmv_cases(big, small):
@@ -1014,23 +1015,33 @@ def stored_rmse(S, U, V) -> float:
   return (sse / S.nnz) ** 0.5
 
 
-def device_share(fn):
+def device_share(fn, tries: int = 3):
   """(device-busy ms by kernel name, summed device ms, wall ms) of one call
   of ``fn`` under torch.profiler (device events only: kernels and
-  copies)."""
+  copies).  The profiled window reaches 20 ms past the timed call on either
+  side, since the profiler drops device events it places outside its window;
+  a profile that still holds no device event is taken again, ``tries``
+  times in all, and after that the summed device ms is None (not
+  measured)."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    with Timer() as t_wall:
-      fn()
-      torch.cuda.synchronize()
-  by_name = {}
-  for ev in prof.key_averages():
-    if ev.device_type == DeviceType.CUDA:
-      by_name[ev.key] = ev.self_device_time_total / 1e3
-  return by_name, sum(by_name.values()), t_wall.elapsed * 1e3
+  for _ in range(tries):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      time.sleep(0.02)
+      with Timer() as t_wall:
+        fn()
+        torch.cuda.synchronize()
+      time.sleep(0.02)
+    by_name = {}
+    for ev in prof.key_averages():
+      if ev.device_type == DeviceType.CUDA:
+        by_name[ev.key] = ev.self_device_time_total / 1e3
+    if by_name:
+      return by_name, sum(by_name.values()), t_wall.elapsed * 1e3
+  print(f"  torch.profiler recorded no device event in {tries} profiles")
+  return {}, None, t_wall.elapsed * 1e3
 
 
 def phase_als(R, S):
@@ -1083,10 +1094,11 @@ def phase_als(R, S):
   by_name, busy, wall = device_share(
       lambda: als.fit(S, k=ALS_K, iterations=1, reg=ALS_REG, seed=0))
   top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+  share = ("device busy not measured" if busy is None else
+           f"device busy {busy:.2f} ms (idle share {1 - busy / wall:.3f})")
   print(f"  als.fit steady {t_steady.elapsed / ALS_ITERS * 1e3:.1f} "
         f"ms/iteration (host clock, synced); one iteration under "
-        f"torch.profiler: wall {wall:.1f} ms, device busy {busy:.2f} ms "
-        f"(idle share {1 - busy / wall:.3f}); by kernel (ms): "
+        f"torch.profiler: wall {wall:.1f} ms, {share}; by kernel (ms): "
         + ", ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
   return launches, (U, V, U64, V64, tol)
 
@@ -1328,22 +1340,31 @@ def padded_sweeps(label, run, oracle, device):
 
 def sweep_profile(label, coeffs, fields, state, add, card: str):
   """Device time and idle share of one chunk of CHUNK sweeps through the
-  wrapper, under torch.profiler."""
+  wrapper, under torch.profiler; K6a's time by CUDA events where the
+  profiler recorded no device event."""
   xp = K6.to_padded(state)
   buf = torch.zeros_like(xp)
-  K6.stencil3x3_padded(xp, buf, coeffs, CHUNK, add)  # warm
-  by_name, busy, wall = device_share(
-      lambda: K6.stencil3x3_padded(xp, buf, coeffs, CHUNK, add))
-  kernel_ms = sum(ms for name, ms in by_name.items()
-                  if "stencil3x3" in name) / CHUNK
-  check(kernel_ms > 0, f"{label}: the profile shows no K6a device time "
-        f"({sorted(by_name)})")
+
+  def chunk():
+    K6.stencil3x3_padded(xp, buf, coeffs, CHUNK, add)
+
+  chunk()  # warm
+  by_name, busy, wall = device_share(chunk)
   nbytes = fields * GRID_N * GRID_N * 4
+  if busy is None:
+    kernel_ms = event_ms(chunk)[0] / CHUNK
+    share = (f"device busy and idle share not measured; K6a {kernel_ms:.4f} "
+             f"ms a sweep by CUDA events")
+  else:
+    kernel_ms = sum(ms for name, ms in by_name.items()
+                    if "stencil3x3" in name) / CHUNK
+    check(kernel_ms > 0, f"{label}: the profile shows no K6a device time "
+          f"({sorted(by_name)})")
+    share = (f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); "
+             f"K6a {kernel_ms:.4f} ms a sweep")
   print(f"  {label}: one chunk of {CHUNK} sweeps under torch.profiler: wall "
-        f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
-        f"{1 - busy / wall:.3f}); K6a {kernel_ms:.4f} ms a sweep, "
-        f"{nbytes / kernel_ms / 1e6:.1f} GB/s effective "
-        f"({fields} x n^2 x 4 bytes); on {card}")
+        f"{wall:.3f} ms, {share}, {nbytes / kernel_ms / 1e6:.1f} GB/s "
+        f"effective ({fields} x n^2 x 4 bytes); on {card}")
 
 
 def phase_stencil_path(device, card: str):
@@ -1454,9 +1475,11 @@ def phase_matmul_kernel(device):
   and without the ReLU epilogue (fused), and one epilogue outside the op
   table (unfused); returns the worst |kernel - plain|."""
   check_ptxas("matmul", "hopper_gemm", "K2")
+  check_ptxas("matmul", "sgemm", "K2 float32")
   print(f"  K2 16-bit kernel: {K2.TILE_M} x {K2.TILE_N} output tiles, "
-        f"{K2.TILE_K}-deep stages, a ring of {K2.STAGES}; "
-        f"float32: {K2.SGEMM_TILE_K}-deep tiles")
+        f"{K2.TILE_K}-deep stages, a ring of {K2.STAGES}; float32: "
+        f"{K2.SGEMM_TILE_M} x {K2.SGEMM_TILE_N} output tiles, "
+        f"{K2.SGEMM_TILE_K}-deep stages, a ring of {K2.SGEMM_STAGES}")
   gen = torch.Generator(device=device).manual_seed(41)
   worst, cases = 0.0, 0
   for m, k, n in MATMUL_SHAPES:
@@ -1469,9 +1492,10 @@ def phase_matmul_kernel(device):
         again = K2.matmul(x, y, epilogue=epilogue)
         want = K2.matmul_plain(x, y, epilogue)
         torch.cuda.synchronize()
-        # a 16-bit operand whose rows are not a multiple of 16 bytes is
-        # padded first, once a call
-        padded = 2 * (dtype != torch.float32) * ((k % 8 != 0) + (n % 8 != 0))
+        # an operand whose rows are not a multiple of 16 bytes is padded
+        # first, once a call (TMA reads both in every dtype)
+        per16 = 16 // x.element_size()
+        padded = 2 * ((k % per16 != 0) + (n % per16 != 0))
         check(K2.counts == dict(before, launches=before["launches"] + 2,
                                 padded_operands=before["padded_operands"]
                                 + padded),
@@ -1571,7 +1595,10 @@ def phase_matmul_path(device, card: str):
         x, y)
     err, share, tile, caught = check_product(
         x, y, got, want, f"{ref_name} at {n}^2 {dtype}", block)
-    del want, got
+    del want
+    same = bool(torch.equal(got, K2.matmul(x, y)))
+    check(same, f"K2 at {n}^2 {dtype} is not bit-equal on repeat")
+    del got
     fns = {"plain": lambda: K2.matmul_plain(x, y),
            "kernel": lambda: K2.matmul(x, y),
            "cuBLAS": lambda: torch.matmul(x, y)}
@@ -1583,7 +1610,8 @@ def phase_matmul_path(device, card: str):
           f"(host clock, first at this shape); max|kernel - {ref_name}| "
           f"{err:.4g}, worst share of the bound {share:.3g} (a result "
           f"without one {tile}-wide K tile fails it at {100 * caught:.1f}% "
-          f"of the first {block} rows' entries); kernel "
+          f"of the first {block} rows' entries); repeat bitwise equal: "
+          f"{same}; kernel "
           f"{t['kernel']:.4f} ms ({flops / t['kernel'] / 1e9:.1f} TFLOP/s), "
           f"matmul_plain {t['plain']:.4f} ms, cuBLAS torch.matmul "
           f"{t['cuBLAS']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
@@ -1968,7 +1996,8 @@ def sharded_path(p, mesh, graphs, S, u0, f):
               "sharded_windowed_spmv": KS.counts["sharded_csr_launches"],
               "sharded_windowed_spmm": K5.counts["sharded_launches"],
               "stencil3x3_padded_sharded": K6.counts["k6b_launches"]}
-  want = {"sharded_onehot_spmv": p * PR_ITERS,
+  bands = len(KS.ell_bands(small_S.shape[0], p))
+  want = {"sharded_onehot_spmv": -(-bands // KS.MAX_BANDS) * PR_ITERS,
           "sharded_windowed_spmv": nonempty(big_S.to_windowed_sharded(p))
           * PR_ITERS,
           "sharded_windowed_spmm": ALS_ITERS * (
@@ -1985,8 +2014,14 @@ def sharded_path(p, mesh, graphs, S, u0, f):
         f"(a shard: " + ", ".join(f"{k} {v / p:g}" for k, v in
                                   launches.items())
         + f"); other kernels and plain runs {others}")
+  print(f"  p = {p}: K3a sharded launched "
+        f"{launches['sharded_onehot_spmv'] / PR_ITERS:g} times a call over "
+        f"{KS.counts['sharded_ell_bands'] / PR_ITERS:g} bands a call")
   check(launches == want, f"p = {p}: sharded launches {launches}, expected "
         f"{want}")
+  check(KS.counts["sharded_ell_bands"] == bands * PR_ITERS,
+        f"p = {p}: K3a sharded covered {KS.counts['sharded_ell_bands']} bands "
+        f"in {PR_ITERS} calls, expected {bands} a call")
   check(not any(others.values()), f"p = {p}: an unsharded kernel or a plain "
         f"version ran on the sharded path ({others})")
   return out, launches

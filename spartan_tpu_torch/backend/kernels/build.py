@@ -127,8 +127,8 @@ def one_device(*tensors: torch.Tensor) -> None:
 # less the trailing stream.  Pointers as c_void_p: ctypes would cut them to
 # 32 bits.
 ARGTYPES = {
-    "spmv_ell": [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
-                                         ctypes.c_int],
+    "spmv_ell": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int64, ctypes.c_int],
     "spmv_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int],
     "spmm_csr": [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int64,
                                          ctypes.c_int, ctypes.c_int],

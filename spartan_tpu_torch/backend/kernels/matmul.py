@@ -7,8 +7,9 @@ result and the output in ``x.dtype`` (``matmul.py:36-41,78``).  Kernel:
 ``csrc/matmul.cu``: for bfloat16 and float16 a persistent, warp-specialised
 kernel of ``TILE_M`` x ``TILE_N`` output tiles and ``TILE_K``-deep stages,
 its operands brought by TMA into a ring in shared memory and multiplied by
-``wgmma``; for float32 register-blocked FFMA with ``SGEMM_TILE_K``-deep
-tiles.  Any M, N, K.
+``wgmma``; for float32 the same ring of TMA-fed stages
+(``SGEMM_TILE_K`` deep) under ``SGEMM_TILE_M`` x ``SGEMM_TILE_N`` tiles,
+multiplied by FFMA outside the tensor cores.  Any M, N, K.
 
 The reference traces its epilogue callable into the kernel's last K step.
 A CUDA kernel cannot take a callable, so :func:`plan_epilogue` traces it
@@ -21,14 +22,14 @@ then writes the float32 product and the callable runs on it in torch
 before the cast.
 
 Routing: a CPU tensor runs :func:`matmul_plain`; a CUDA tensor launches
-the kernel.  TMA describes a 16-bit operand only with a 16-byte aligned
-base and a row stride of a multiple of 16 bytes: an operand without both
+the kernel.  TMA describes an operand only with a 16-byte aligned base and
+a row stride of a multiple of 16 bytes: an operand without both
 (:func:`tma_unfit`) is copied first into a zero-padded, aligned buffer
-(:func:`pad_operand`, counted in ``counts["padded_operands"]``), which the
-kernel reads with the operand's own extents.  When x and y do not share a
-dtype in {float32, bfloat16, float16}, both are cast to float32 first and
-the kernel's float32 result is cast to ``x.dtype``, the same function
-:func:`matmul_plain` computes.
+(:func:`pad_operand`, :func:`kernel_operands`, counted in
+``counts["padded_operands"]``), which the kernel reads with the operand's
+own extents.  When x and y do not share a dtype in {float32, bfloat16,
+float16}, both are cast to float32 first and the kernel's float32 result
+is cast to ``x.dtype``, the same function :func:`matmul_plain` computes.
 ``bm``/``bn``/``bk`` are the reference's
 VMEM block sizes, accepted for API parity and ignored: the CUDA kernel
 picks its own tiles and takes every shape through predicated edges.
@@ -55,11 +56,11 @@ _IN_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 _F32 = DTYPE_CODES[torch.float32]
 
 # The 16-bit kernel's output tile (TILE_M x TILE_N), the K depth of a
-# stage and the stages of its ring, and the float32 kernel's K depth;
-# csrc/matmul.cu's H_BM, H_BN, H_BK, kStages and F_BK.
+# stage and the stages of its ring, and the float32 kernel's;
+# csrc/matmul.cu's H_BM, H_BN, H_BK, kStages and F_BM, F_BN, F_BK,
+# F_STAGES.
 TILE_M, TILE_N, TILE_K, STAGES = 128, 256, 64, 4
-SGEMM_TILE_K = 8
-_SGEMM_MAX_ROWS = 65535 * 128  # the float32 kernel's grid: one block a tile
+SGEMM_TILE_M, SGEMM_TILE_N, SGEMM_TILE_K, SGEMM_STAGES = 128, 256, 32, 3
 
 counts = {"launches": 0, "plain_runs": 0, "epilogue_unfused": 0,
           "padded_operands": 0}
@@ -233,12 +234,16 @@ def pad_operand(t: torch.Tensor) -> torch.Tensor:
   return out
 
 
-def _tma_ready(t: torch.Tensor) -> torch.Tensor:
-  """``t``, or its padded copy (counted) where TMA cannot read it."""
-  if not tma_unfit(t):
-    return t
-  counts["padded_operands"] += 1
-  return pad_operand(t)
+def kernel_operands(x: torch.Tensor, y: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """x and y as the kernel reads them (both of one kernel dtype, K > 0):
+  contiguous, and each that TMA cannot read (:func:`tma_unfit`) padded
+  (:func:`pad_operand`, counted in ``counts["padded_operands"]``)."""
+  x, y = x.contiguous(), y.contiguous()
+  padded = [tma_unfit(x), tma_unfit(y)]
+  counts["padded_operands"] += sum(padded)
+  return (pad_operand(x) if padded[0] else x,
+          pad_operand(y) if padded[1] else y)
 
 
 # -- the wrapper ----------------------------------------------------------------
@@ -257,6 +262,14 @@ def matmul(x: torch.Tensor, y: torch.Tensor, bm: int = 512, bn: int = 512,
   if x.device.type != "cuda":
     counts["plain_runs"] += 1
     return matmul_plain(x, y, epilogue)
+  return _launch(x, y, epilogue)
+
+
+def _launch(x: torch.Tensor, y: torch.Tensor,
+            epilogue: Optional[Callable]) -> torch.Tensor:
+  """:func:`matmul`'s kernel route: plan the epilogue, ready the operands
+  (:func:`kernel_operands`), launch K2 through ``build.launch`` and run an
+  unfused epilogue on its float32 product."""
   out_dtype = x.dtype
   if x.dtype != y.dtype or x.dtype not in _IN_CODES:
     x, y = x.float(), y.float()
@@ -268,12 +281,8 @@ def matmul(x: torch.Tensor, y: torch.Tensor, bm: int = 512, bn: int = 512,
   out = torch.empty((m, n), dtype=x.dtype if fused else torch.float32,
                     device=x.device)
   if m and n:
-    if x.dtype == torch.float32 and m > _SGEMM_MAX_ROWS:
-      raise ValueError(f"matmul's float32 kernel takes at most "
-                       f"{_SGEMM_MAX_ROWS} rows, not {m}")
-    x_c, y_c = x.contiguous(), y.contiguous()
-    if x.dtype != torch.float32 and k:
-      x_c, y_c = _tma_ready(x_c), _tma_ready(y_c)
+    x_c, y_c = kernel_operands(x, y) if k else (x.contiguous(),
+                                                y.contiguous())
     prog = program.host_struct(()) if program is not None else None
     build.launch("matmul", x.device, x_c.data_ptr(), x_c.shape[1],
                  y_c.data_ptr(), y_c.shape[1], out.data_ptr(), m, n, k,

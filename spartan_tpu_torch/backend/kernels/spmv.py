@@ -21,16 +21,17 @@ plain torch versions.
 :func:`pack_windowed` pack K3b, as the reference chooses on ``packed.inv``
 (``spmv_pallas.py:784-806``).
 
-The row-sharded forms run the same kernels once a shard of the mesh, each
-launch on its shard's row band and writing that band's slice of one ``y``,
-with ``x`` one tensor that every shard reads (the reference's
-``shard_map`` bodies, ``x`` replicated):
+The row-sharded forms run the same kernels' rows on each shard's row band,
+each band writing its slice of one ``y``, with ``x`` one tensor that every
+shard reads (the reference's ``shard_map`` bodies, ``x`` replicated):
 
 * :func:`sharded_onehot_spmv` replaces ``sharded_onehot_spmv`` (K3a
-  sharded): K3a on each of p near-equal row bands of the ELL, shard d
-  owning rows ``[min(d·ceil(n/p), n), min((d+1)·ceil(n/p), n))``.  The
-  reference pads the rows to a multiple of ``8·p``, its strip height on
-  the TPU; K3a takes any row count, so nothing is padded.
+  sharded): K3a's rows over p near-equal row bands of the ELL, shard d
+  owning rows ``[min(d·ceil(n/p), n), min((d+1)·ceil(n/p), n))``
+  (:func:`ell_bands`), all bands in one launch of K3a over a table of at
+  most ``MAX_BANDS`` bands (:func:`spmv_ell` launches one band).  The reference pads
+  the rows to a multiple of ``8·p``, its strip height on the TPU; K3a
+  takes any row count, so nothing is padded.
 * :func:`sharded_windowed_spmv_traced` replaces the function of that name
   (K3d): K3b on each shard's CSR band of a :class:`ShardedWindowedELL`
   (:func:`pack_windowed_sharded`; shard d owns the reference's rows
@@ -54,7 +55,8 @@ launches and plain runs of each.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,12 +69,14 @@ _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 # nonzeros a block of csrc/spmv_chunked.cu takes (its kChunk)
 CHUNK = 1024
+# bands one launch of csrc/spmv_ell.cu takes (its SP_MAX_BANDS)
+MAX_BANDS = 64
 
 counts = {"ell_launches": 0, "ell_plain_runs": 0, "csr_launches": 0,
           "csr_plain_runs": 0, "chunked_launches": 0,
           "chunked_plain_runs": 0, "sharded_ell_launches": 0,
-          "sharded_ell_plain_runs": 0, "sharded_csr_launches": 0,
-          "sharded_csr_plain_runs": 0}
+          "sharded_ell_bands": 0, "sharded_ell_plain_runs": 0,
+          "sharded_csr_launches": 0, "sharded_csr_plain_runs": 0}
 # rows of the x/y window of the reference's windowed packs: a shard of the
 # sharded windowed pack owns a whole number of these row blocks
 _WIN = 1024
@@ -145,18 +149,8 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
   cols_c, vals_c, x_c = (t.contiguous() for t in (cols, vals.float(),
                                                   x.float()))
   y = torch.empty(n, dtype=torch.float32, device=x.device)
-  _ell_into(cols_c, vals_c, x_c, y)
-  counts["ell_launches"] += 1
+  counts["ell_launches"] += _launch_bands(cols_c, vals_c, x_c, y, [(0, n)])
   return y.to(vals.dtype)
-
-
-def _ell_into(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
-              y: torch.Tensor) -> None:
-  """Launch K3a over contiguous int32 ``cols``, float32 ``vals`` (n, k)
-  and ``x``, writing float32 ``y`` (n,)."""
-  n, k = cols.shape
-  build.launch("spmv_ell", x.device, cols.data_ptr(), vals.data_ptr(),
-               x.data_ptr(), y.data_ptr(), n, k, group_size(k))
 
 
 def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
@@ -351,14 +345,32 @@ def make_spmv_windowed(packed: WindowedELL, use_bf16: bool = False):
 
 # -- the row-sharded forms --------------------------------------------------------
 
+def ell_bands(n: int, n_shards: int) -> List[Tuple[int, int]]:
+  """The non-empty row bands ``(r0, r1)`` of an ELL of n rows on
+  ``n_shards`` shards, in shard order: shard d owns rows
+  ``[min(d·ceil(n/p), n), min((d+1)·ceil(n/p), n))``; shards past the
+  last row own none and are left out."""
+  band = -(-n // n_shards)
+  return [(lo, min(lo + band, n)) for lo in range(0, n, band)]
+
+
+def band_table(cols: torch.Tensor, vals: torch.Tensor, y: torch.Tensor,
+               bands: List[Tuple[int, int]]) -> List[List[int]]:
+  """K3a's launch table, four int64 a band: the addresses of the band's
+  first row of contiguous int32 ``cols`` and float32 ``vals`` (n, k) and
+  of float32 ``y`` (n,), and its row count."""
+  k = cols.shape[1]
+  return [[cols.data_ptr() + 4 * r0 * k, vals.data_ptr() + 4 * r0 * k,
+           y.data_ptr() + 4 * r0, r1 - r0] for r0, r1 in bands]
+
+
 def sharded_onehot_spmv(cols: torch.Tensor, vals: torch.Tensor,
                         x: torch.Tensor, mesh) -> torch.Tensor:
-  """``y = A @ x`` over padded ELL with the rows owner-computed per shard:
-  shard d owns rows ``[min(d·ceil(n/p), n), min((d+1)·ceil(n/p), n))``
-  and one K3a launch a non-empty band writes its slice of one float32
-  ``y``; x is read by every shard.  Returns ``y`` in ``vals.dtype``.  CUDA
-  tensors launch K3a once a non-empty band, CPU tensors run
-  :func:`spmv_ell_plain` a band."""
+  """``y = A @ x`` over padded ELL with the rows owner-computed per shard
+  (:func:`ell_bands`), each band writing its slice of one float32 ``y``;
+  x is read by every shard.  Returns ``y`` in ``vals.dtype``.  CUDA
+  tensors launch K3a once for every ``MAX_BANDS`` non-empty bands, CPU
+  tensors run :func:`spmv_ell_plain` a band."""
   if cols.dim() != 2 or vals.shape != cols.shape or x.dim() != 1:
     raise ValueError(f"sharded_onehot_spmv needs cols/vals (n, k) and x (m,), "
                      f"got {tuple(cols.shape)}, {tuple(vals.shape)}, "
@@ -373,19 +385,32 @@ def sharded_onehot_spmv(cols: torch.Tensor, vals: torch.Tensor,
   if n == 0 or k == 0:
     return torch.zeros(n, dtype=out_dtype, device=x.device)
   y = torch.empty(n, dtype=torch.float32, device=x.device)
-  on_card = x.device.type == "cuda"
-  if on_card:
-    cols, vals, x = (t.contiguous() for t in (cols, vals.float(), x.float()))
-  band = -(-n // mesh.size)
-  for lo in range(0, n, band):
-    rows = slice(lo, min(lo + band, n))
-    if on_card:
-      _ell_into(cols[rows], vals[rows], x, y[rows])
-      counts["sharded_ell_launches"] += 1
-    else:
-      y[rows] = spmv_ell_plain(cols[rows], vals[rows], x)
+  bands = ell_bands(n, mesh.size)
+  if x.device.type != "cuda":
+    for r0, r1 in bands:
+      y[r0:r1] = spmv_ell_plain(cols[r0:r1], vals[r0:r1], x)
       counts["sharded_ell_plain_runs"] += 1
+    return y.to(out_dtype)
+  cols, vals, x = (t.contiguous() for t in (cols, vals.float(), x.float()))
+  counts["sharded_ell_launches"] += _launch_bands(cols, vals, x, y, bands)
+  counts["sharded_ell_bands"] += len(bands)
   return y.to(out_dtype)
+
+
+def _launch_bands(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+                  y: torch.Tensor, bands: List[Tuple[int, int]]) -> int:
+  """K3a over contiguous int32 ``cols``, float32 ``vals`` (n, k) and ``x``,
+  writing float32 ``y`` (n,): one launch (one ctypes call) for every
+  ``MAX_BANDS`` of ``bands``, each row with the whole matrix's lane group.
+  Returns the launches."""
+  k = cols.shape[1]
+  table = band_table(cols, vals, y, bands)
+  for lo in range(0, len(table), MAX_BANDS):
+    chunk = table[lo:lo + MAX_BANDS]
+    flat = (ctypes.c_int64 * (4 * len(chunk)))(*(v for b in chunk for v in b))
+    build.launch("spmv_ell", x.device, ctypes.addressof(flat), len(chunk),
+                 x.data_ptr(), k, group_size(k))
+  return -(-len(table) // MAX_BANDS)
 
 
 def rb_per_of(n: int, n_shards: int) -> int:

@@ -44,13 +44,35 @@
 //    16 bytes, a base that is not 16-byte aligned) is copied by the wrapper
 //    into a zero-padded, aligned buffer first (counted there).
 //
-// float32 (sgemm_kernel): 128x128 tiles, 256 threads, 8-deep K tiles
-// double-buffered in shared memory; each thread keeps an 8x8 register tile
-// of outputs (two 4x4 quadrants 64 rows/columns apart, read as float4) and
-// accumulates with FFMA.  Every load is predicated on the edge.  A separate
-// instantiation carries the epilogue program, so the product without one
-// keeps its K loop's registers (with the interpreter in the same kernel it
-// ran 5 % slower).
+// float32 (sgemm_tma), FFMA outside the tensor cores (no TF32: the
+// product stays full float32), so that the K loop issues little besides
+// FFMA and no FFMA waits on a barrier of the whole block:
+//  * 128 x 256 output tiles, 8 x 16 outputs a thread (two 4-row slabs 64
+//    apart by four 4-column slabs 64 apart), 256 consumer threads in warps
+//    of 4 x 8.  Each thread reads 8 + 16 floats from shared memory a k step
+//    for 128 FFMA.  Shared memory delivers 128 bytes a clock an SM, 32
+//    floats, against 128 FFMA lanes: 8 x 8 (16 floats for 64 FFMA) would
+//    need all of it, 8 x 16 needs three quarters.
+//  * 32-deep K stages in a ring of 3 in dynamic shared memory, both tiles
+//    TMA boxes in their own layouts (x's [BM][BK], y's [BK][BN]; no
+//    transpose, no workspace), with a full and an empty mbarrier a stage.
+//    A producer warpgroup (thread 0 issues the loads) runs ahead across
+//    tiles; a consumer warp waits only for the stage it reads and frees it
+//    once read, so no barrier spans the block.  A thread reads 4 k of one
+//    of its rows of x with one LDS.128, then runs those 4 k steps.  TMA
+//    fills with zeros outside the matrix, so the edges of M, N and K need
+//    no predicate; an operand TMA cannot describe is padded first by the
+//    wrapper, as in 16-bit.  A 16-deep stage's loop holds 152
+//    instructions besides its 2048 FFMA; with 4-byte cp.async copies of x
+//    landing transposed it held 310.
+//  * A persistent block on each SM walks the tiles in the 16-bit path's
+//    grouped order (8 tile rows a group), so that the blocks running at
+//    once share panels of x and y in L2; any M up to 2^31 - 1.
+//  * One block sums each output tile in a fixed K order (each output a
+//    chain of FFMA over k = 0, 1, ...): no split-K and no atomics, the same
+//    bits every run, whatever the tile shape.  A separate instantiation
+//    carries the epilogue program, so the product without one keeps its K
+//    loop's registers.
 //
 // Epilogue (both): stores are predicated on M and N.  With an op program
 // (op_program.cuh, the interpreter K1 uses, read from shared memory), each
@@ -67,8 +89,6 @@
 #include "op_program.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 template <int C>
 struct IC {
@@ -129,140 +149,25 @@ __device__ __forceinline__ void store_pair(OutT* __restrict__ C, int64_t r,
   }
 }
 
-// ---------------------------------------------------------------- float32
-
-constexpr int F_BM = 128, F_BN = 128, F_BK = 8;
-
-// kProgram: with an epilogue program; without one the kernel holds no
-// interpreter, which would crowd the K loop's registers.
-template <bool kProgram>
-__global__ void __launch_bounds__(kThreads)
-sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-             float* __restrict__ C, int64_t M, int64_t N, int64_t K,
-             int vec_a, int vec_b, const __grid_constant__ Program prog) {
-  __shared__ __align__(16) float As[2][F_BK][F_BM];  // A tile, transposed
-  __shared__ __align__(16) float Bs[2][F_BK][F_BN];
-  __shared__ sp_prog::Decoded<float> sprog;
-  if constexpr (kProgram) sp_prog::decode(prog, nullptr, 0, sprog);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int64_t row0 = (int64_t)blockIdx.y * F_BM;
-  const int64_t col0 = (int64_t)blockIdx.x * F_BN;
-  // each thread loads 4 consecutive elements of A (one row) and of B
-  const int a_r = tid >> 1, a_c = (tid & 1) * 4;
-  const int b_r = tid >> 5, b_c = (tid & 31) * 4;
-  float a_ld[4], b_ld[4];
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  auto load_tiles = [&](int64_t k0) {
-    const int64_t ar = row0 + a_r, ak = k0 + a_c;
-    if (vec_a && ar < M && ak + 3 < K) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(A + ar * K + ak));
-      a_ld[0] = v.x; a_ld[1] = v.y; a_ld[2] = v.z; a_ld[3] = v.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a_ld[i] = (ar < M && ak + i < K) ? A[ar * K + ak + i] : 0.0f;
-    }
-    const int64_t bk = k0 + b_r, bc = col0 + b_c;
-    if (vec_b && bk < K && bc + 3 < N) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(B + bk * N + bc));
-      b_ld[0] = v.x; b_ld[1] = v.y; b_ld[2] = v.z; b_ld[3] = v.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        b_ld[i] = (bk < K && bc + i < N) ? B[bk * N + bc + i] : 0.0f;
-    }
-  };
-  auto store_tiles = [&](int s) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) As[s][a_c + i][a_r] = a_ld[i];
-    *reinterpret_cast<float4*>(&Bs[s][b_r][b_c]) =
-        make_float4(b_ld[0], b_ld[1], b_ld[2], b_ld[3]);
-  };
-
-  const int64_t ntiles = (K + F_BK - 1) / F_BK;
-  load_tiles(0);
-  store_tiles(0);
-  __syncthreads();
-  for (int64_t t = 0; t < ntiles; ++t) {
-    const int s = (int)(t & 1);
-    if (t + 1 < ntiles) load_tiles((t + 1) * F_BK);
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[s][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[s][kk][ty * 4 + 64]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[s][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[s][kk][tx * 4 + 64]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // buffer s^1 was last read before the previous barrier
-    if (t + 1 < ntiles) store_tiles(s ^ 1);
-    __syncthreads();
-  }
-
-  if constexpr (!kProgram) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int64_t r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int64_t c = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-        store_one<float, false>(C, r, c, M, N, acc[i][j]);
-      }
-    }
-    return;
-  }
-  // chunk q: row i = q / 2, the four columns of quadrant q % 2
-#pragma unroll 1
-  for (int q = 0; q < 16; ++q) {
-    float v[4], o[4];
-    pick<0, 16>(q, v, [&](auto cq, float (&w)[4]) {
-      constexpr int Q = decltype(cq)::value;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) w[e] = acc[Q / 2][(Q % 2) * 4 + e];
-    });
-    sp_prog::run_program<float, 4, SP_NREG>(sprog, v, o);
-    const int i = q / 2;
-    const int64_t r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    const int64_t c = col0 + (q % 2) * 64 + tx * 4;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      store_one<float, false>(C, r, c + e, M, N, o[e]);
+// Four neighbours of one float32 row (c a multiple of 4): one 16-byte
+// store when N is a multiple of 4 (then all four are inside or none),
+// else one store each.
+__device__ __forceinline__ void store_four(float* __restrict__ C, int64_t r,
+                                           int64_t c, int64_t M, int64_t N,
+                                           float v0, float v1, float v2,
+                                           float v3) {
+  if (r >= M || c >= N) return;
+  if ((N & 3) == 0) {
+    *reinterpret_cast<float4*>(C + r * N + c) = make_float4(v0, v1, v2, v3);
+  } else {
+    store_one<float, false>(C, r, c, M, N, v0);
+    store_one<float, false>(C, r, c + 1, M, N, v1);
+    store_one<float, false>(C, r, c + 2, M, N, v2);
+    store_one<float, false>(C, r, c + 3, M, N, v3);
   }
 }
 
-// ---------------------------------------------------- bfloat16 / float16
-
-constexpr int H_BM = 128;           // output rows a tile (two 64-row halves)
-constexpr int H_BN = 256;           // output columns a tile
-constexpr int H_BK = 64;            // K depth of a stage: one 128-byte row
-constexpr int kStages = 4;          // stages of the ring
-constexpr int kConsumers = 2;       // consumer warpgroups
-constexpr int kHThreads = 128 * (1 + kConsumers);
-constexpr int kGroupM = 8;          // tile rows a group of the walk
-constexpr int kBoxN = 64;           // columns of y one TMA box holds
-constexpr int kBoxBytes = H_BK * kBoxN * 2;  // one 64 x 64 box of y: 8 KB
-
-constexpr int kABytes = H_BM * H_BK * 2;
-constexpr int kBBytes = H_BK * H_BN * 2;
-constexpr int kStageBytes = kABytes + kBBytes;
-// the ring, 1024 bytes to align it for the swizzle, two barriers a stage
-constexpr int kSmem = kStages * kStageBytes + 1024 + 16 * kStages;
-// a block's shared memory on Hopper, less the static program copy
-static_assert(kSmem <= 232448 - (int)sizeof(sp_prog::Decoded<float>),
-              "ring too large");
+// ---------------------------------------------------------------- float32
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -311,6 +216,202 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "r"(c1)
       : "memory");
 }
+
+// Output tile t of the grouped walk: ``group`` tile rows a group, down the
+// rows of a group first, so that the blocks running at once share columns
+// of y and rows of x in L2.
+__device__ __forceinline__ void tile_at(int64_t t, int64_t tiles_m,
+                                        int64_t tiles_n, int group,
+                                        int64_t& tm, int64_t& tn) {
+  const int64_t per_group = (int64_t)group * tiles_n;
+  const int64_t first = t / per_group * group;
+  const int64_t rows =
+      tiles_m - first < group ? tiles_m - first : (int64_t)group;
+  const int64_t r = t % per_group;
+  tm = first + r % rows;
+  tn = r / rows;
+}
+
+// The float32 kernel's shape (matmul.py's SGEMM_TILE_M, SGEMM_TILE_N,
+// SGEMM_TILE_K and SGEMM_STAGES are F_BM, F_BN, F_BK and F_STAGES).
+constexpr int F_BM = 128;     // output rows a tile
+constexpr int F_BN = 256;     // output columns a tile
+constexpr int F_BK = 32;      // K depth of a stage
+constexpr int F_TM = 8;       // output rows a thread
+constexpr int F_TN = 16;      // output columns a thread
+constexpr int F_STAGES = 3;   // stages of the ring
+constexpr int F_GROUP_M = 8;  // tile rows a group of the walk
+constexpr int F_TY = F_BM / F_TM, F_TX = F_BN / F_TN;  // threads along M, N
+constexpr int F_THREADS = F_TY * F_TX;                // consumer threads
+constexpr int F_WN = F_TX / 8;             // warps (4 x 8 threads) along N
+constexpr int F_A = F_BM * F_BK;           // floats of x's box, [BM][BK]
+constexpr int F_B = F_BK * F_BN;           // floats of y's box, [BK][BN]
+constexpr int F_STAGE = F_A + F_B;
+constexpr int F_SMEM = F_STAGES * F_STAGE * 4 + 1024 + 16 * F_STAGES;
+static_assert(F_TM % 4 == 0 && F_TN % 4 == 0 && F_TY % 4 == 0 &&
+                  F_TX % 8 == 0 && F_BK % 4 == 0 && F_THREADS % 128 == 0 &&
+                  (F_A * 4) % 1024 == 0 && (F_STAGE * 4) % 1024 == 0 &&
+                  F_BM <= 256 && F_BN <= 256 && F_STAGES >= 2,
+              "float32 tile shape");
+static_assert(F_SMEM <= 232448 - (int)sizeof(sp_prog::Decoded<float>),
+              "float32 ring too large");
+
+// A producer warpgroup (thread 0 issues the loads; 40 registers a thread)
+// and the F_THREADS consumer threads (232 registers a thread).
+constexpr int T_THREADS = 128 + F_THREADS;
+static_assert(128 * 40 + F_THREADS * 232 <= 65536 - 1024,
+              "float32 register split");
+
+template <bool kProgram>
+__global__ void __launch_bounds__(T_THREADS, 1)
+sgemm_tma(const __grid_constant__ CUtensorMap map_x,
+          const __grid_constant__ CUtensorMap map_y, float* __restrict__ C,
+          int64_t M, int64_t N, int K, const __grid_constant__ Program prog) {
+  constexpr int S = F_STAGES;
+  extern __shared__ uint8_t tsmem[];
+  __shared__ sp_prog::Decoded<float> sprog;
+  // an offset from tsmem, not an integer cast, so that the fragment loads
+  // stay shared-memory loads (LDS) and do not become generic ones
+  float* ring = reinterpret_cast<float*>(
+      tsmem + ((1024 - (smem_u32(tsmem) & 1023)) & 1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * F_STAGE);
+  uint64_t* empty = full + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], F_THREADS / 32);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (kProgram) {
+    sp_prog::decode(prog, nullptr, 0, sprog);  // and the barrier
+  } else {
+    __syncthreads();
+  }
+  const int64_t tiles_m = (M + F_BM - 1) / F_BM;
+  const int64_t tiles_n = (N + F_BN - 1) / F_BN;
+  const int64_t tiles = tiles_m * tiles_n;
+  const int nk = (K + F_BK - 1) / F_BK;
+
+  if (threadIdx.x < 128) {
+    // ---- producer: keeps the ring full, across tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int64_t tm, tn;
+        tile_at(t, tiles_m, tiles_n, F_GROUP_M, tm, tn);
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % S;
+          mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+          float* a = ring + s * F_STAGE;
+          mbar_expect_tx(&full[s], F_STAGE * 4);
+          tma_load(a, &map_x, &full[s], kb * F_BK, (int)(tm * F_BM));
+          tma_load(a + F_A, &map_y, &full[s], (int)(tn * F_BN), kb * F_BK);
+        }
+      }
+    }
+    return;
+  }
+  // ---- consumers: the F_TY x F_TX threads, warps of 4 x 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = threadIdx.x - 128, lane = c & 31, warp = c >> 5;
+  const int ty = (warp / F_WN) * 4 + lane / 8;
+  const int tx = (warp % F_WN) * 8 + lane % 8;
+  constexpr int SM = F_BM * 4 / F_TM, SN = F_BN * 4 / F_TN;
+  float acc[F_TM][F_TN];
+  int it = 0;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int64_t tm, tn;
+    tile_at(t, tiles_m, tiles_n, F_GROUP_M, tm, tn);
+#pragma unroll
+    for (int i = 0; i < F_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.0f;
+    for (int kb = 0; kb < nk; ++kb, ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      const float* As = ring + s * F_STAGE;
+      const float* Bs = As + F_A;
+#pragma unroll
+      for (int kq = 0; kq < F_BK; kq += 4) {
+        float4 a4[F_TM];
+#pragma unroll
+        for (int i = 0; i < F_TM; ++i)
+          a4[i] = *reinterpret_cast<const float4*>(
+              As + ((i / 4) * SM + ty * 4 + i % 4) * F_BK + kq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float b[F_TN];
+#pragma unroll
+          for (int j = 0; j < F_TN / 4; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                Bs + (kq + e) * F_BN + j * SN + tx * 4);
+            b[4 * j] = v.x; b[4 * j + 1] = v.y; b[4 * j + 2] = v.z;
+            b[4 * j + 3] = v.w;
+          }
+#pragma unroll
+          for (int i = 0; i < F_TM; ++i) {
+            const float a = e == 0 ? a4[i].x : e == 1 ? a4[i].y
+                          : e == 2 ? a4[i].z : a4[i].w;
+#pragma unroll
+            for (int j = 0; j < F_TN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+          }
+        }
+      }
+      // every lane of the warp has read the stage: free it
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    const int64_t row0 = tm * F_BM, col0 = tn * F_BN;
+    auto row_of = [&](int i) { return row0 + (i / 4) * SM + ty * 4 + i % 4; };
+    auto col_of = [&](int j) { return col0 + (j / 4) * SN + tx * 4 + j % 4; };
+    if constexpr (!kProgram) {
+#pragma unroll
+      for (int i = 0; i < F_TM; ++i)
+#pragma unroll
+        for (int j = 0; j < F_TN; j += 4)
+          store_four(C, row_of(i), col_of(j), M, N, acc[i][j], acc[i][j + 1],
+                     acc[i][j + 2], acc[i][j + 3]);
+    } else {
+      constexpr int QN = F_TN / 4;
+#pragma unroll 1
+      for (int q = 0; q < F_TM * QN; ++q) {
+        float v[4], o[4];
+        pick<0, F_TM * QN>(q, v, [&](auto cq, float (&w)[4]) {
+          constexpr int Q = decltype(cq)::value;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) w[e] = acc[Q / QN][(Q % QN) * 4 + e];
+        });
+        sp_prog::run_program<float, 4, SP_NREG>(sprog, v, o);
+        store_four(C, row_of(q / QN), col_of((q % QN) * 4), M, N, o[0], o[1],
+                   o[2], o[3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------- bfloat16 / float16
+
+constexpr int H_BM = 128;           // output rows a tile (two 64-row halves)
+constexpr int H_BN = 256;           // output columns a tile
+constexpr int H_BK = 64;            // K depth of a stage: one 128-byte row
+constexpr int kStages = 4;          // stages of the ring
+constexpr int kConsumers = 2;       // consumer warpgroups
+constexpr int kHThreads = 128 * (1 + kConsumers);
+constexpr int kGroupM = 8;          // tile rows a group of the walk
+constexpr int kBoxN = 64;           // columns of y one TMA box holds
+constexpr int kBoxBytes = H_BK * kBoxN * 2;  // one 64 x 64 box of y: 8 KB
+
+constexpr int kABytes = H_BM * H_BK * 2;
+constexpr int kBBytes = H_BK * H_BN * 2;
+constexpr int kStageBytes = kABytes + kBBytes;
+// the ring, 1024 bytes to align it for the swizzle, two barriers a stage
+constexpr int kSmem = kStages * kStageBytes + 1024 + 16 * kStages;
+// a block's shared memory on Hopper, less the static program copy
+static_assert(kSmem <= 232448 - (int)sizeof(sp_prog::Decoded<float>),
+              "ring too large");
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, all in 16-byte units.
@@ -405,21 +506,6 @@ __device__ __forceinline__ void wgmma(float (&d)[H_BN / 2], uint64_t da,
   }
 }
 
-// Output tile t of the grouped walk: kGroupM tile rows a group, down the
-// rows of a group first, so that the blocks running at once share columns
-// of y and rows of x in L2.
-__device__ __forceinline__ void tile_at(int64_t t, int64_t tiles_m,
-                                        int64_t tiles_n, int64_t& tm,
-                                        int64_t& tn) {
-  const int64_t per_group = (int64_t)kGroupM * tiles_n;
-  const int64_t first = t / per_group * kGroupM;
-  const int64_t rows =
-      tiles_m - first < kGroupM ? tiles_m - first : (int64_t)kGroupM;
-  const int64_t r = t % per_group;
-  tm = first + r % rows;
-  tn = r / rows;
-}
-
 // 16-bit operands are handled as raw bits; only wgmma reads them as
 // bfloat16 or float16.  Threads 0-127: the producer warpgroup (thread 0
 // issues the loads); 128-383: the two consumer warpgroups.
@@ -455,7 +541,7 @@ hopper_gemm(const __grid_constant__ CUtensorMap map_x,
       int it = 0;
       for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
         int64_t tm, tn;
-        tile_at(t, tiles_m, tiles_n, tm, tn);
+        tile_at(t, tiles_m, tiles_n, kGroupM, tm, tn);
         for (int kb = 0; kb < nk; ++kb, ++it) {
           const int s = it % S;
           mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
@@ -479,7 +565,7 @@ hopper_gemm(const __grid_constant__ CUtensorMap map_x,
     int it = 0;
     for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
       int64_t tm, tn;
-      tile_at(t, tiles_m, tiles_n, tm, tn);
+      tile_at(t, tiles_m, tiles_n, kGroupM, tm, tn);
 #pragma unroll
       for (int i = 0; i < H_BN / 2; ++i) acc[i] = 0.0f;
       for (int kb = 0; kb < nk; ++kb, ++it) {
@@ -565,22 +651,21 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A tensor map of a row-major (rows, cols) 16-bit matrix with row stride
-// ``ld`` elements, boxes of (box_rows, box_cols), 128-byte swizzle, zeros
-// outside.
-bool encode(CUtensorMap* map, const void* base, bool bf16, int64_t rows,
-            int64_t cols, int64_t ld, uint32_t box_rows, uint32_t box_cols) {
+// A tensor map of a row-major (rows, cols) matrix of ``type`` (``elem``
+// bytes an element) with row stride ``ld`` elements, boxes of (box_rows,
+// box_cols), zeros outside.
+bool encode(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+            int elem, int64_t rows, int64_t cols, int64_t ld,
+            uint32_t box_rows, uint32_t box_cols,
+            CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem};
   const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map,
-            bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint32_t estride[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
+            estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -596,8 +681,12 @@ int launch_hopper(const void* x, int64_t ldx, const void* y, int64_t ldy,
     if (!aligned16(x) || !aligned16(y) || ldx % 8 != 0 || ldy % 8 != 0 ||
         ldx < K || ldy < N)
       return (int)cudaErrorMisalignedAddress;
-    if (!encode(&map_x, x, kBf16, M, K, ldx, H_BM, H_BK) ||
-        !encode(&map_y, y, kBf16, K, N, ldy, H_BK, kBoxN))
+    const CUtensorMapDataType type = kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+    if (!encode(&map_x, x, type, 2, M, K, ldx, H_BM, H_BK,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !encode(&map_y, y, type, 2, K, N, ldy, H_BK, kBoxN,
+                CU_TENSOR_MAP_SWIZZLE_128B))
       return (int)cudaErrorInvalidValue;
   }
   auto kernel = hopper_gemm<kBf16, OutT>;
@@ -620,6 +709,44 @@ int launch_hopper(const void* x, int64_t ldx, const void* y, int64_t ldy,
   return (int)cudaGetLastError();
 }
 
+template <bool kProgram>
+int launch_sgemm_tma(const void* x, int64_t ldx, const void* y, int64_t ldy,
+                     void* out, int64_t M, int64_t N, int64_t K,
+                     const Program& prog, cudaStream_t s) {
+  CUtensorMap map_x, map_y;
+  memset(&map_x, 0, sizeof(map_x));  // K == 0: no load is issued
+  memset(&map_y, 0, sizeof(map_y));
+  if (K > 0) {
+    if (!aligned16(x) || !aligned16(y) || ldx % 4 != 0 || ldy % 4 != 0 ||
+        ldx < K || ldy < N)
+      return (int)cudaErrorMisalignedAddress;
+    if (!encode(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, K, ldx,
+                F_BM, F_BK, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        !encode(&map_y, y, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K, N, ldy,
+                F_BK, F_BN, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = sgemm_tma<kProgram>;
+  static bool attr_set = false;  // once a process for each instantiation
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = ((M + F_BM - 1) / F_BM) * ((N + F_BN - 1) / F_BN);
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<grid, T_THREADS, F_SMEM, s>>>(map_x, map_y,
+                                         static_cast<float*>(out), M, N,
+                                         (int)K, prog);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -628,8 +755,10 @@ extern "C" {
 // of one dtype (in_dtype: 1 float32, 2 bfloat16, 3 float16); out (M, N)
 // contiguous, of out_dtype (float32, or the input dtype); program a
 // Program (op_program.cuh) without a float64 instruction, or NULL for no
-// epilogue.  float32 takes ldx == K and ldy == N; a 16-bit operand needs a 16-byte aligned
-// base and a row stride of a multiple of 8.  Returns cudaGetLastError() of
+// epilogue.  When K > 0, a float32 x and y need 16-byte aligned bases and
+// row strides of a multiple of 4 with ldx >= K and ldy >= N (columns past
+// K or N are never read); a 16-bit operand needs a 16-byte aligned base
+// and a row stride of a multiple of 8.  Returns cudaGetLastError() of
 // the launch (0 on success).
 int spartan_matmul(const void* x, int64_t ldx, const void* y, int64_t ldy,
                    void* out, int64_t M, int64_t N, int64_t K, int in_dtype,
@@ -642,18 +771,10 @@ int spartan_matmul(const void* x, int64_t ldx, const void* y, int64_t ldy,
       (out_dtype != DT_F32 && out_dtype != in_dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == DT_F32) {
-    const int64_t gx = (N + F_BN - 1) / F_BN, gy = (M + F_BM - 1) / F_BM;
-    if (gx > 0x7fffffff || gy > 65535 || ldx != K || ldy != N)
-      return (int)cudaErrorInvalidValue;
-    const int vec_a = aligned16(x) && K % 4 == 0;
-    const int vec_b = aligned16(y) && N % 4 == 0;
-    auto kernel = prog.n > 0 ? sgemm_kernel<true> : sgemm_kernel<false>;
-    kernel<<<dim3((unsigned)gx, (unsigned)gy), kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<float*>(out), M, N, K, vec_a, vec_b, prog);
-    return (int)cudaGetLastError();
-  }
+  if (in_dtype == DT_F32 && prog.n > 0)
+    return launch_sgemm_tma<true>(x, ldx, y, ldy, out, M, N, K, prog, s);
+  if (in_dtype == DT_F32)
+    return launch_sgemm_tma<false>(x, ldx, y, ldy, out, M, N, K, prog, s);
   if (in_dtype == DT_BF16 && out_dtype == DT_F32)
     return launch_hopper<true, float>(x, ldx, y, ldy, out, M, N, K, prog, s);
   if (in_dtype == DT_BF16)

@@ -22,6 +22,18 @@
 //    sum is fixed, so each run gives the same bits.
 //  * Pad entries (col 0, val 0) are multiplied like any other, as the
 //    reference does (0 * x[0]): a non-finite x[0] gives NaN on both sides.
+//  * One entry point, one launch over a table of up to SP_MAX_BANDS row
+//    bands, each with its own cols, vals and y pointers and row count:
+//    blockIdx.y picks the band and blockIdx.x the block within it; the
+//    grid's x covers the longest band and blocks past a shorter band's
+//    rows exit.  spmv.spmv_ell launches one band, the whole matrix.  The
+//    row-sharded form (spmv.sharded_onehot_spmv, replacing
+//    spmv_pallas.py:sharded_onehot_spmv, K3a sharded) launches its shards'
+//    bands at once: a band of a few thousand rows is a few hundred blocks,
+//    too few to fill 132 SMs, so one launch a band paid its ramp and its
+//    tail p times.  Every row runs the same body whatever its band, so
+//    each row's sum is the unsharded one bit for bit, and a shard with
+//    its own storage needs no other kernel.
 //
 // The wrapper (backend/kernels/spmv.py) casts bf16/f16 operands to f32,
 // allocates y, launches on PyTorch's current stream and raises on a
@@ -31,58 +43,90 @@
 #include <stdint.h>
 
 #define SP_THREADS 256
+#define SP_MAX_BANDS 64  // spmv.MAX_BANDS
 
+// One band of the table: its rows of cols/vals (n, k) and of y (n,).
+struct Band {
+  const int32_t* cols;
+  const float* vals;
+  float* y;
+  int64_t n;
+};
+
+struct Bands {
+  Band band[SP_MAX_BANDS];
+  const float* x;
+  int64_t k;
+};
+
+// Rows [blockIdx.x * SP_THREADS / G, (blockIdx.x + 1) * SP_THREADS / G) of
+// band blockIdx.y: lane l of a row's group sums entries l, l + G, ... in
+// order, then the group adds its lanes by a shuffle tree.  Every lane of
+// the warp reaches the shuffles (rows past n carry 0).
 template <int G>
 __global__ void __launch_bounds__(SP_THREADS)
-spmv_ell_kernel(const int32_t* __restrict__ cols,
-                const float* __restrict__ vals,
-                const float* __restrict__ x, float* __restrict__ y,
-                int64_t n, int64_t k) {
-  const int64_t t = (int64_t)blockIdx.x * SP_THREADS + threadIdx.x;
-  const int64_t row = t / G;
+spmv_ell_kernel(const __grid_constant__ Bands t) {
+  const Band& b = t.band[blockIdx.y];
+  // a whole block past its band's rows leaves before any shuffle
+  if ((int64_t)blockIdx.x * (SP_THREADS / G) >= b.n) return;
+  const int64_t row = ((int64_t)blockIdx.x * SP_THREADS + threadIdx.x) / G;
   const int lane = (int)(threadIdx.x & (G - 1));
+  const int64_t k = t.k;
   float acc = 0.0f;
-  if (row < n) {
+  if (row < b.n) {
     const int64_t base = row * k;
     for (int64_t j = lane; j < k; j += G) {
-      acc = __fadd_rn(acc, __fmul_rn(vals[base + j], __ldg(x + cols[base + j])));
+      acc = __fadd_rn(acc, __fmul_rn(b.vals[base + j],
+                                     __ldg(t.x + b.cols[base + j])));
     }
   }
-  // every lane of the warp reaches the shuffles (rows past n carry 0)
   for (int o = G / 2; o > 0; o >>= 1) {
     acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, o, G));
   }
-  if (lane == 0 && row < n) y[row] = acc;
+  if (lane == 0 && row < b.n) b.y[row] = acc;
 }
 
 template <int G>
-static int launch(const void* cols, const void* vals, const void* x, void* y,
-                  int64_t n, int64_t k, cudaStream_t stream) {
-  const int64_t threads = n * G;
-  const int64_t blocks = (threads + SP_THREADS - 1) / SP_THREADS;
+static int launch(const Bands& t, int count, int64_t longest,
+                  cudaStream_t stream) {
+  const int64_t blocks = (longest * G + SP_THREADS - 1) / SP_THREADS;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  spmv_ell_kernel<G><<<(unsigned)blocks, SP_THREADS, 0, stream>>>(
-      static_cast<const int32_t*>(cols), static_cast<const float*>(vals),
-      static_cast<const float*>(x), static_cast<float*>(y), n, k);
+  spmv_ell_kernel<G><<<dim3((unsigned)blocks, (unsigned)count), SP_THREADS,
+                       0, stream>>>(t);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// cols int32 (n, k), vals float32 (n, k), x float32 (m,), y float32 (n,),
-// all contiguous on one device; group is the lanes per row (1..32, a power
-// of two).  Returns cudaGetLastError() of the launch (0 on success).
-int spartan_spmv_ell(const void* cols, const void* vals, const void* x,
-                     void* y, int64_t n, int64_t k, int group, void* stream) {
-  if (n < 1 || k < 1) return (int)cudaErrorInvalidValue;
+// One launch over ``count`` (1..SP_MAX_BANDS) bands: ``table`` holds four
+// int64 a band, the addresses of its cols int32 (n, k), vals float32
+// (n, k) and y float32 (n,), then n >= 1; all bands read one x float32
+// (m,) with k entries a row and ``group`` lanes a row.  Returns
+// cudaGetLastError() of the launch (0 on success).
+int spartan_spmv_ell(const void* table, int count, const void* x,
+                     int64_t k, int group, void* stream) {
+  if (count < 1 || count > SP_MAX_BANDS || k < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t* row = static_cast<const int64_t*>(table);
+  Bands t = {};
+  int64_t longest = 0;
+  for (int b = 0; b < count; ++b, row += 4) {
+    if (row[3] < 1) return (int)cudaErrorInvalidValue;
+    t.band[b] = {reinterpret_cast<const int32_t*>(row[0]),
+                 reinterpret_cast<const float*>(row[1]),
+                 reinterpret_cast<float*>(row[2]), row[3]};
+    if (row[3] > longest) longest = row[3];
+  }
+  t.x = static_cast<const float*>(x);
+  t.k = k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (group) {
-    case 1: return launch<1>(cols, vals, x, y, n, k, s);
-    case 2: return launch<2>(cols, vals, x, y, n, k, s);
-    case 4: return launch<4>(cols, vals, x, y, n, k, s);
-    case 8: return launch<8>(cols, vals, x, y, n, k, s);
-    case 16: return launch<16>(cols, vals, x, y, n, k, s);
-    case 32: return launch<32>(cols, vals, x, y, n, k, s);
+    case 1: return launch<1>(t, count, longest, s);
+    case 2: return launch<2>(t, count, longest, s);
+    case 4: return launch<4>(t, count, longest, s);
+    case 8: return launch<8>(t, count, longest, s);
+    case 16: return launch<16>(t, count, longest, s);
+    case 32: return launch<32>(t, count, longest, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

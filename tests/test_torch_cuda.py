@@ -667,8 +667,10 @@ def test_matmul_kernel_matches_plain(device, mkn, dtype, epilogue):
   before = dict(K2.counts)
   got = K2.matmul(x, y, epilogue=epilogue)
   torch.cuda.synchronize()
-  # a 16-bit operand whose rows are not a multiple of 16 bytes is padded
-  padded = (dtype != torch.float32 and k > 0) * ((k % 8 != 0) + (n % 8 != 0))
+  # an operand whose rows are not a multiple of 16 bytes is padded (TMA
+  # reads both in every dtype)
+  per16 = 16 // x.element_size()
+  padded = (k > 0) * ((k % per16 != 0) + (n % per16 != 0))
   assert K2.counts == dict(before, launches=before["launches"] + 1,
                            padded_operands=before["padded_operands"] + padded)
   want = K2.matmul_plain(x, y, epilogue)
@@ -683,8 +685,10 @@ def test_matmul_unfused_epilogue_and_plain_routes(device):
   y = torch.randn(90, 50, device=device)
   before = dict(K2.counts)
   got = K2.matmul(x, y, epilogue=torch.tanh)
+  # K = 90 and N = 50 are not multiples of 4: TMA reads both padded
   assert K2.counts == dict(before, launches=before["launches"] + 1,
-                           epilogue_unfused=before["epilogue_unfused"] + 1)
+                           epilogue_unfused=before["epilogue_unfused"] + 1,
+                           padded_operands=before["padded_operands"] + 2)
   want = K2.matmul_plain(x, y, torch.tanh)
   assert bool(((got - want).abs() <= _matmul_tol(x, y, want)).all())
   # dtypes off the kernel's list run on it in float32, as matmul_plain does
@@ -697,7 +701,8 @@ def test_matmul_unfused_epilogue_and_plain_routes(device):
       tol = tol + 2.0 * OUT_UNIT[a.dtype] * (want.float().abs() + tol)
     assert bool(((got.float() - want.float()).abs() <= tol).all())
   assert K2.counts == dict(before, launches=before["launches"] + 4,
-                           epilogue_unfused=before["epilogue_unfused"] + 1)
+                           epilogue_unfused=before["epilogue_unfused"] + 1,
+                           padded_operands=before["padded_operands"] + 8)
 
 
 def test_matmul_reads_views_and_block_sizes_are_ignored(device):
@@ -732,6 +737,61 @@ def test_matmul_pads_what_tma_cannot_read(device, dtype):
     assert bool(((got.float() - want.float()).abs()
                  <= _matmul_tol(x, yy, want)).all())
     assert torch.equal(got, again)
+
+
+# The float32 kernel at the edges: every M, N from EDGE_SIZES (around its
+# 128 x 256 tile and 32-deep stage) with every K of EDGE_SIZES and K = 0,
+# both epilogue variants, held to _matmul_tol and bit-equal on repeat; x or
+# y with rows not a multiple of 16 bytes (K or N not a multiple of 4) is
+# padded, counted.
+EDGE_SIZES = (1, 3, 127, 129, 255, 257, 1000)
+
+
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("m", EDGE_SIZES)
+def test_matmul_float32_edges(device, m, n):
+  gen = torch.Generator(device=device).manual_seed(7 * m + n)
+  for k in EDGE_SIZES + (0,):
+    x = torch.randn(m, k, generator=gen, device=device)
+    y = torch.randn(k, n, generator=gen, device=device)
+    for epilogue in (None, _relu):
+      before = dict(K2.counts)
+      got = K2.matmul(x, y, epilogue=epilogue)
+      again = K2.matmul(x, y, epilogue=epilogue)
+      torch.cuda.synchronize()
+      padded = 2 * (k > 0) * ((k % 4 != 0) + (n % 4 != 0))
+      assert K2.counts == dict(before, launches=before["launches"] + 2,
+                               padded_operands=before["padded_operands"]
+                               + padded), (m, k, n)
+      want = K2.matmul_plain(x, y, epilogue)
+      assert got.shape == (m, n) and got.dtype == torch.float32
+      assert bool(((got - want).abs() <= _matmul_tol(x, y, want)).all()), (
+          m, k, n, epilogue)
+      assert torch.equal(got, again), (m, k, n, epilogue)
+
+
+@pytest.mark.parametrize("view", ["sliced", "transposed"])
+def test_matmul_float32_reads_a_noncontiguous_x(device, view):
+  gen = torch.Generator(device=device).manual_seed(3)
+  base = torch.randn(400, 300, generator=gen, device=device)
+  x = base[:, 5:262] if view == "sliced" else base.t()[:, :257]
+  assert not x.is_contiguous()
+  y = torch.randn(x.shape[1], 129, generator=gen, device=device)
+  got = K2.matmul(x, y, epilogue=_relu)
+  want = K2.matmul_plain(x.contiguous(), y, _relu)
+  assert bool(((got - want).abs() <= _matmul_tol(x, y, want)).all())
+  assert torch.equal(got, K2.matmul(x, y, epilogue=_relu))
+
+
+def test_matmul_float32_takes_more_than_65535_tiles_of_rows(device):
+  """Past 65535 · 128 rows, where one block a 128-row tile in gridDim.y
+  stopped: the tiles are a 1-D walk."""
+  gen = torch.Generator(device=device).manual_seed(5)
+  x = torch.randn(8_400_000, 4, generator=gen, device=device)
+  y = torch.randn(4, 4, generator=gen, device=device)
+  got = K2.matmul(x, y)
+  want = K2.matmul_plain(x, y)
+  assert bool(((got - want).abs() <= _matmul_tol(x, y, want)).all())
 
 
 # -- unique-rows SpMV K3c (spmv_chunked) and make_spmv_windowed -----------------
@@ -1008,8 +1068,11 @@ def test_sharded_spmv_kernels_equal_unsharded(device, p):
     torch.cuda.synchronize()
     n = A.shape[0]
     bands = -(-n // -(-n // p))  # non-empty bands of ceil(n/p) rows
+    # one launch over the table of all bands
     assert KS.counts["sharded_ell_launches"] == (
-        before["sharded_ell_launches"] + bands)
+        before["sharded_ell_launches"] + 1)
+    assert KS.counts["sharded_ell_bands"] == (
+        before["sharded_ell_bands"] + bands)
     assert torch.equal(got, KS.spmv_ell(S.cols, S.vals, x))
     packed = S.to_windowed_sharded(p)
     full = sum(packed.rows(d)[1] > packed.rows(d)[0] for d in range(p))
@@ -1021,6 +1084,32 @@ def test_sharded_spmv_kernels_equal_unsharded(device, p):
     assert KS.counts["sharded_csr_plain_runs"] == before[
         "sharded_csr_plain_runs"]
     assert torch.equal(got, KS.spmv_csr(*S.to_csr(), x))
+
+
+@pytest.mark.parametrize("p", [1, 3, 8, 64, 65])
+def test_banded_k3a_equals_unsharded(device, p):
+  """K3a sharded is one launch for every 64 non-empty bands, bit-equal to
+  K3a; n < p leaves the shards past the last row out of the table."""
+  import scipy.sparse as ss
+  gen = torch.Generator(device=device).manual_seed(p)
+  mesh = sp.make_mesh(shape=(p,))
+  for n in (5, 100, 20000):
+    A = ss.random(n, 3000, density=0.004, random_state=n, format="csr",
+                  dtype=np.float32)
+    S = sps.from_scipy(A)
+    x = torch.randn(3000, generator=gen, device=device)
+    bands = len(KS.ell_bands(n, p))
+    before = dict(KS.counts)
+    got = KS.sharded_onehot_spmv(S.cols, S.vals, x, mesh)
+    torch.cuda.synchronize()
+    assert KS.counts["sharded_ell_launches"] == (
+        before["sharded_ell_launches"] + -(-bands // KS.MAX_BANDS))
+    assert KS.counts["sharded_ell_bands"] == (
+        before["sharded_ell_bands"] + bands)
+    assert KS.counts["sharded_ell_plain_runs"] == before[
+        "sharded_ell_plain_runs"]
+    assert torch.equal(got, KS.spmv_ell(S.cols, S.vals, x))
+    assert torch.equal(got, KS.sharded_onehot_spmv(S.cols, S.vals, x, mesh))
 
 
 @pytest.mark.parametrize("p", [3, 8])

@@ -211,3 +211,116 @@ def test_padded_operands_give_the_unpadded_product(k, n):
   full = xp.double() @ ypk.double()
   assert torch.equal(full[:, :n], x.double() @ y.double())
   assert not full[:, n:].any()
+
+
+# -- the operands as the kernel reads them ----------------------------------------
+# Both kernels read x and y through TMA, which needs a 16-byte aligned base
+# and a row stride of a multiple of 16 bytes: an operand without both
+# (tma_unfit) is padded, counted, in every dtype.  Checked on CPU tensors,
+# with the launch stubbed where the wrapper's card route runs.
+
+def _at(rows, cols, dtype, offset=0):
+  """A (rows, cols) tensor of seeded values whose base is ``offset``
+  elements past a 16-byte aligned one."""
+  flat = torch.zeros(rows * cols + 8, dtype=dtype)
+  flat[offset:offset + rows * cols] = torch.from_numpy(
+      np.random.default_rng(rows * cols + offset).standard_normal(
+          rows * cols).astype(np.float32)).to(dtype)
+  return flat[offset:offset + rows * cols].view(rows, cols)
+
+
+# (dtype, x (m, k, base offset), y's (n, base offset), x padded, y padded)
+OPERAND_CASES = [
+    ("float32", (5, 8, 0), (8, 0), False, False),
+    ("float32", (5, 7, 0), (8, 0), True, False),     # K % 4 != 0
+    ("float32", (5, 8, 0), (5, 0), False, True),     # N % 4 != 0
+    ("float32", (5, 8, 1), (8, 0), True, False),     # x 4 bytes off
+    ("float32", (5, 8, 0), (8, 1), False, True),     # y 4 bytes off
+    ("float32", (5, 1001, 3), (1001, 2), True, True),
+    ("bfloat16", (5, 7, 0), (8, 0), True, False),
+    ("bfloat16", (5, 8, 0), (5, 0), False, True),
+    ("bfloat16", (5, 8, 1), (9, 1), True, True),
+    ("float16", (5, 8, 0), (8, 0), False, False),
+]
+
+
+@pytest.mark.parametrize("case", OPERAND_CASES, ids=str)
+def test_kernel_operands_pad_what_tma_cannot_read(case):
+  dtype, (m, k, xoff), (n, yoff), x_padded, y_padded = case
+  dtype = getattr(torch, dtype)
+  x, y = _at(m, k, dtype, xoff), _at(k, n, dtype, yoff)
+  before = K2.counts["padded_operands"]
+  xk, yk = K2.kernel_operands(x, y)
+  assert K2.counts["padded_operands"] - before == x_padded + y_padded
+  for t, got, padded in ((x, xk, x_padded), (y, yk, y_padded)):
+    assert got.is_contiguous() and got.dtype == t.dtype
+    assert torch.equal(got[:, :t.shape[1]], t)
+    if padded:
+      assert not K2.tma_unfit(got) and not got[:, t.shape[1]:].any()
+    else:
+      assert got.shape == t.shape and got.data_ptr() == t.data_ptr()
+
+
+class _Recorder:
+  """``build.launch`` recording K2's arguments and launching nothing."""
+
+  def __init__(self):
+    self.calls = []
+
+  def __call__(self, name, device, x, ldx, y, ldy, out, m, n, k, in_code,
+               out_code, program):
+    assert name == "matmul"
+    self.calls.append(dict(ldx=ldx, ldy=ldy, m=m, n=n, k=k,
+                           codes=(in_code, out_code),
+                           program=program is not None))
+
+
+# (x, y, epilogue, expected arguments, padded operands, unfused epilogues)
+def _route_cases():
+  f32, bf16 = torch.float32, torch.bfloat16
+  wide = _at(6, 20, f32)
+  return [
+      ("f32", _at(5, 8, f32), _at(8, 8, f32), None,
+       dict(ldx=8, ldy=8, m=5, n=8, k=8, codes=(1, 1), program=False), 0, 0),
+      ("f32_k7_n5_relu", _at(5, 7, f32), _at(7, 5, f32), _relu,
+       dict(ldx=8, ldy=8, m=5, n=5, k=7, codes=(1, 1), program=True), 2, 0),
+      ("f32_k0", _at(5, 0, f32), _at(0, 5, f32), None,
+       dict(ldx=0, ldy=5, m=5, n=5, k=0, codes=(1, 1), program=False), 0, 0),
+      ("f32_view", wide[:, 3:11], _at(8, 12, f32), None,
+       dict(ldx=8, ldy=12, m=6, n=12, k=8, codes=(1, 1), program=False), 0,
+       0),
+      ("f64_cast", _at(5, 7, f32).double(), _at(7, 3, f32).double(), None,
+       dict(ldx=8, ldy=4, m=5, n=3, k=7, codes=(1, 1), program=False), 2, 0),
+      ("bf16_tanh", _at(5, 7, bf16), _at(7, 8, bf16), torch.tanh,
+       dict(ldx=8, ldy=8, m=5, n=8, k=7, codes=(2, 1), program=False), 1, 1),
+  ]
+
+
+@pytest.mark.parametrize("case", _route_cases(), ids=lambda c: c[0])
+def test_kernel_route_passes_the_ready_operands(case, monkeypatch):
+  label, x, y, epilogue, want, padded, unfused = case
+  rec = _Recorder()
+  monkeypatch.setattr(K2.build, "launch", rec)
+  before = dict(K2.counts)
+  out = K2._launch(x, y, epilogue)
+  assert rec.calls == [want]
+  assert K2.counts == dict(before, launches=before["launches"] + 1,
+                           padded_operands=before["padded_operands"] + padded,
+                           epilogue_unfused=before["epilogue_unfused"]
+                           + unfused)
+  assert out.shape == (x.shape[0], y.shape[1]) and out.dtype == x.dtype
+
+
+def test_float32_route_has_no_row_cap(monkeypatch):
+  """The float32 kernel walks a 1-D list of tiles: the wrapper hands it
+  more than 65535 tiles of rows (65535 · 128 + 1 rows, on the meta device:
+  no data) without a bound of its own."""
+  rec = _Recorder()
+  monkeypatch.setattr(K2.build, "launch", rec)
+  m = 65535 * 128 + 1
+  x = torch.empty((m, 4), device="meta")
+  y = torch.empty((4, 4), device="meta")
+  out = K2._launch(x, y, None)
+  assert out.shape == (m, 4)
+  assert rec.calls == [dict(ldx=4, ldy=4, m=m, n=4, k=4, codes=(1, 1),
+                            program=False)]

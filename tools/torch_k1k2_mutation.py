@@ -2,15 +2,18 @@
 
     python3 tools/torch_k1k2_mutation.py
 
-Builds, beside the kernels as they are, two mutants from a copy of
-``spartan_tpu_torch/csrc`` in a temporary directory: K2 (``matmul.cu``)
-with the products of its middle K stage skipped, and K1 (the op-program
-interpreter in ``op_program.cuh``) with the result of its second
-instruction dropped.  Each runs through its wrapper at chip_smoke.py's
-full size (8192^2 bfloat16 for K2, ``abs(1+2v)`` over 16384^2 float32 with
-a float64 sum for K1) and is held to chip_smoke.py's checks: the kernels as
-they are must pass, the mutants must fail.  Prints each check's worst
-share of its bound and exits non-zero if a check misses a mutant.
+Builds, beside the kernels as they are, three mutants from copies of
+``spartan_tpu_torch/csrc`` in a temporary directory: K2's 16-bit kernel
+(``hopper_gemm`` in ``matmul.cu``) with the products of its middle K stage
+skipped, K2's float32 kernel (``sgemm_tma``) with the products of its
+middle K stage skipped, and K1 (the op-program interpreter in
+``op_program.cuh``) with the result of its second instruction dropped.
+Each runs through its wrapper at chip_smoke.py's full size (8192^2
+bfloat16 and 32768^2 float32 for K2, ``abs(1+2v)`` over 16384^2 float32
+with a float64 sum for K1) and is held to chip_smoke.py's checks: the
+kernels as they are must pass, the mutants must fail.  Prints each
+check's worst share of its bound and exits non-zero if a check misses a
+mutant.
 """
 
 from __future__ import annotations
@@ -32,12 +35,17 @@ from spartan_tpu_torch.backend.kernels import build  # noqa: E402
 from spartan_tpu_torch.backend.kernels import fused_reduce as K  # noqa: E402
 from spartan_tpu_torch.backend.kernels import matmul as K2  # noqa: E402
 
-# (source, file edited, text, its mutant)
+# mutant -> (source it builds, file edited, text, its mutant)
 MUTANTS = {
-    "matmul": ("matmul.cu",
-               "for (int kk = 0; kk < H_BK / 16; ++kk)",
-               "for (int kk = 0; kk < (kb == nk / 2 ? 0 : H_BK / 16); ++kk)"),
-    "fused_reduce": ("op_program.cuh",
+    "matmul bfloat16": (
+        "matmul", "matmul.cu",
+        "for (int kk = 0; kk < H_BK / 16; ++kk)",
+        "for (int kk = 0; kk < (kb == nk / 2 ? 0 : H_BK / 16); ++kk)"),
+    "matmul float32": (
+        "matmul", "matmul.cu",
+        "for (int kq = 0; kq < F_BK; kq += 4) {",
+        "for (int kq = 0; kq < (kb == nk / 2 ? 0 : F_BK); kq += 4) {"),
+    "fused_reduce": ("fused_reduce", "op_program.cuh",
                      "    f.set(dst, t);\n  }\n  f.get(prog.out, out);",
                      "    if (k != 1) f.set(dst, t);\n  }\n"
                      "  f.get(prog.out, out);"),
@@ -45,20 +53,21 @@ MUTANTS = {
 
 
 def build_mutants(root: Path):
-  """The mutant libraries, one nvcc per source, started together."""
+  """The mutant libraries, one nvcc per mutant, started together."""
   procs = {}
-  for name, (edited, text, mutant) in MUTANTS.items():
-    src = root / name
+  for i, (name, (source, edited, text, mutant)) in enumerate(
+      MUTANTS.items()):
+    src = root / f"mutant{i}"
     shutil.copytree(build.CSRC, src)
     path = src / edited
     body = path.read_text()
     if body.count(text) != 1:
       raise RuntimeError(f"{edited}: the text to mutate is not there once")
     path.write_text(body.replace(text, mutant))
-    so = src / f"lib{name}.so"
+    so = src / f"lib{source}.so"
     procs[name] = (so, subprocess.Popen(
         [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-         str(src / f"{name}.cu")], stdout=subprocess.PIPE,
+         str(src / f"{source}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True))
   libs = {}
   for name, (so, proc) in procs.items():
@@ -69,23 +78,23 @@ def build_mutants(root: Path):
   return libs
 
 
-def use(name: str, lib) -> None:
-  """Route the wrapper of ``name`` to ``lib``: K2 binds it at its next
+def use(source: str, lib) -> None:
+  """Route the wrapper of ``source`` to ``lib``: K2 binds it at its next
   launch, K1 reads ``build.load`` at every call."""
-  build._libs[name] = lib
-  build._bound.pop(name, None)
+  build._libs[source] = lib
+  build._bound.pop(source, None)
 
 
-def k2_check(device) -> str:
+def k2_check(device, n: int, dtype: torch.dtype) -> str:
   gen = torch.Generator(device=device).manual_seed(43)
-  n = cs.BENCH_MM_N
-  x = torch.randn(n, n, generator=gen, device=device).bfloat16()
-  y = torch.randn(n, n, generator=gen, device=device).bfloat16()
+  x = torch.randn(n, n, generator=gen, device=device).to(dtype)
+  y = torch.randn(n, n, generator=gen, device=device).to(dtype)
   got = K2.matmul(x, y)
-  want = K2.matmul_plain(x, y)
+  want = (torch.matmul(x, y) if dtype == torch.float32
+          else K2.matmul_plain(x, y))
   try:
     err, share, tile, caught = cs.check_product(x, y, got, want,
-                                                "matmul_plain")
+                                                "the reference")
   except RuntimeError as e:
     return f"fails: {e}"
   return (f"passes: max|err| {err:.4g}, worst share of the bound "
@@ -105,27 +114,37 @@ def k1_check(device) -> str:
           f"rtol {tol:g}: {share:.4g}")
 
 
+CHECKS = {
+    "matmul bfloat16": lambda d: k2_check(d, cs.BENCH_MM_N, torch.bfloat16),
+    "matmul float32": lambda d: k2_check(d, cs.CFG2_N, torch.float32),
+    "fused_reduce": k1_check,
+}
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("needs an NVIDIA GPU: torch.cuda.is_available() is False")
     return 1
   print(cs.card_line())
   sp.initialize(["--device=cuda"])
+  torch.backends.cuda.matmul.allow_tf32 = False
   device = sp.get_mesh().device
   originals = build.load_all(["matmul", "fused_reduce"])
   with tempfile.TemporaryDirectory() as tmp:
     mutants = build_mutants(Path(tmp))
     results = {}
-    for name, check in (("matmul", k2_check), ("fused_reduce", k1_check)):
-      for kind, lib in (("as it is", originals[name]),
+    for name, check in CHECKS.items():
+      source, _, _, mutant = MUTANTS[name]
+      for kind, lib in (("as it is", originals[source]),
                         ("mutant", mutants[name])):
-        use(name, lib)
+        use(source, lib)
         results[name, kind] = check(device)
         torch.cuda.synchronize()
-        print(f"  {name} {kind} ({MUTANTS[name][0]}"
-              f"{': ' + MUTANTS[name][2] if kind == 'mutant' else ''}): "
+        torch.cuda.empty_cache()
+        print(f"  {name} {kind}"
+              f"{' (' + mutant + ')' if kind == 'mutant' else ''}: "
               f"{results[name, kind]}", flush=True)
-      use(name, originals[name])
+      use(source, originals[source])
   ok = all(results[n, "as it is"].startswith("passes")
            and results[n, "mutant"].startswith("fails") for n in MUTANTS)
   print(f"mutation check: {'every mutant caught' if ok else 'MISSED'}")

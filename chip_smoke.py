@@ -13,8 +13,10 @@ raises on any failure:
   1. build the kernels (csrc/fused_reduce.cu, spmv_ell.cu, spmv_csr.cu,
      spmm_csr.cu, stencil3x3.cu, stencil3x3_padded.cu, matmul.cu,
      spmv_chunked.cu) from source, one nvcc per file, all started together;
-     the sharded kernels are these kernels launched once a shard, K6b the
-     halo-row instantiation in stencil3x3_padded.cu;
+     the sharded kernels are these kernels over the shards' row bands (K3a
+     sharded and K3d one launch over a table of bands, K5b and K6b a
+     launch a band), K6b the halo-row instantiation in
+     stencil3x3_padded.cu;
   2. K1 against its plain torch version on the card, over five chains,
      four shapes, each also as the flattened x[1:] (a base off 16-byte
      alignment), and two accumulators, bit-equal on repeat, with ptxas's
@@ -70,10 +72,15 @@ raises on any failure:
      and at bench.py's 8192^2 bfloat16, each timed beside matmul_plain and
      cuBLAS;
  12. the unique-rows SpMV kernel K3c (spmv_chunked) against its plain
-     version on eight edge cases (bit for bit on repeat), timed on phase
-     5's urand 2^22 graph and phase 7's ML-20M R.T (both held, not rebuilt)
-     beside its plain version, K3b and cuSPARSE; make_spmv_windowed over a
-     classic and a unique pack of each, by launch counts;
+     version on eight edge cases in both its forms (x's windows in shared
+     memory, and the CSR as it is) and three x dtypes (bit for bit on
+     repeat), with the check's power on the full-size results (without one
+     window's partial of the longest row, or one chunk's head, a result
+     must fail it); timed on phase 5's urand 2^22 graph (unwindowed) and
+     phase 7's ML-20M R.T (windowed; both held, not rebuilt) beside its
+     plain version, the other form, K3b and cuSPARSE, each pack's form
+     counted; make_spmv_windowed over a classic and a unique pack of each,
+     by launch counts;
  13. k-means (config 4: n = 2^19, d = k = 64 float32, both centroid
      updates, make_fori and fit_fused) against a float64 NumPy Lloyd, and
      logistic_reg.fit_fused at n = 2^20, d = 64 float64 against a NumPy
@@ -88,7 +95,8 @@ raises on any failure:
      unsharded kernel (K5b also on phase 7's skewed matrix) and against
      its plain version at the unsharded kernel's bound; each timed at
      full shape beside the unsharded kernel, its plain version and
-     cuSPARSE or cuDNN.
+     cuSPARSE or cuDNN; K3a sharded and K3d one launch a call, their bands
+     counted.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4 for K1, phase 6 for K3a/K3b, phase 8 for K5a, phase 10
@@ -534,6 +542,7 @@ def phase_spmv_kernels(device, card: str, big, small):
   """K3a/K3b against their plain versions on the card, then timed beside
   the plain versions and cuSPARSE."""
   check_ptxas("spmv_ell", "spmv_ell", "K3a")
+  check_ptxas("spmv_csr", "spmv_csr_kernel", "K3b/K3d")
   gen = torch.Generator(device=device).manual_seed(99)
   worst = {"spmv_ell": 0.0, "spmv_csr": 0.0}
   for label, A in spmv_cases(big, small):
@@ -1687,12 +1696,23 @@ def row_tol(indptr, indices, data, x, want):
 
 
 def drop_chunk_head(packed, x, got, want, tol):
-  """The check's power on K3c: ``got`` less one chunk's head, the products
-  of the chunk's first row that the chunk carries into that row, for the
-  longest row where it crosses a chunk boundary, else for the middle
-  chunk.  Returns the row, the products dropped, |error| and the row's
-  bound."""
+  """The check's power on K3c: ``got`` less one part of a row that the
+  kernel adds in a pass of its own.  On a windowed pack, one window's
+  partial of the longest row (the window holding most of its products);
+  else one chunk's head, the products of the chunk's first row that the
+  chunk carries into that row, for the longest row where it crosses a
+  chunk boundary, else for the middle chunk.  Returns the row, the part
+  dropped, the products in it, |error| and the row's bound."""
   r = int((packed.indptr[1:] - packed.indptr[:-1]).argmax())
+  if packed.windows is not None:
+    w = packed.windows
+    starts, ends = w.indptr[:, r].tolist(), w.indptr[:, r + 1].tolist()
+    s = max(range(w.count), key=lambda k: ends[k] - starts[k])
+    lo, hi = starts[s], ends[s]
+    part = float((w.data[lo:hi].double() * x[
+        s * KS.WINDOW + w.indices[lo:hi].long()].double()).sum())
+    return (r, f"window {s}'s partial", hi - lo,
+            abs(float(got[r]) - part - float(want[r])), float(tol[r]))
   s, e = int(packed.indptr[r]), int(packed.indptr[r + 1])
   j = s // KS.CHUNK + 1
   if j * KS.CHUNK >= e:
@@ -1702,15 +1722,18 @@ def drop_chunk_head(packed, x, got, want, tol):
   lo, hi = j * KS.CHUNK, min(e, (j + 1) * KS.CHUNK)
   head = float((packed.data[lo:hi].double()
                 * x[packed.indices[lo:hi].long()].double()).sum())
-  return r, hi - lo, abs(float(got[r]) - head - float(want[r])), float(tol[r])
+  return (r, f"chunk {j}'s head", hi - lo,
+          abs(float(got[r]) - head - float(want[r])), float(tol[r]))
 
 
 def check_spmv_full(packed, x, label: str):
-  """K3c on a full-size pack against its plain version and itself (bit for
-  bit), and the check's power: the result without one chunk's head must
-  fail it.  Returns max|kernel - plain| and the worst share of the per-row
-  bound."""
-  args = (packed.indptr, packed.indices, packed.data, packed.chunk_row, x)
+  """K3c on a full-size pack (in the form the pack holds) against its plain
+  version and itself (bit for bit), and the check's power: the result
+  without one window's partial (windowed) or one chunk's head
+  (unwindowed) must fail it.  Returns max|kernel - plain| and the worst
+  share of the per-row bound."""
+  args = (packed.indptr, packed.indices, packed.data, packed.chunk_row, x,
+          packed.windows)
   got, want = KS.spmv_chunked(*args), KS.spmv_chunked_plain(*args)
   again = KS.spmv_chunked(*args)
   diff = (got - want).abs()
@@ -1719,51 +1742,73 @@ def check_spmv_full(packed, x, label: str):
   check(bool((diff <= tol).all()), f"K3c disagrees with its plain version "
         f"on {label}: worst share of the per-row bound {share:.4g}")
   check(bool(torch.equal(got, again)), f"K3c is not deterministic on {label}")
-  row, dropped, bad_err, row_bound = drop_chunk_head(packed, x, got, want, tol)
-  print(f"  K3c on {label}: a result without the {dropped} products of "
-        f"row {row} at the head of a chunk is off by {bad_err:.4g} against "
-        f"the row's bound {row_bound:.4g}")
-  check(bad_err > row_bound, f"K3c's check on {label} passes a result that "
-        f"lost a chunk's head")
+  row, part, dropped, bad_err, row_bound = drop_chunk_head(packed, x, got,
+                                                          want, tol)
+  print(f"  K3c on {label}: a result without {part} of row {row} "
+        f"({dropped} products) is off by {bad_err:.4g} against the row's "
+        f"bound {row_bound:.4g}")
+  check(bad_err > row_bound, f"K3c's check on {label} passes a result "
+        f"without {part}")
   return float(diff.max()), share
 
 
 def phase_spmv_chunked(device, card: str, big, R):
-  """K3c against its plain version on its edge cases (three x dtypes, bit
-  for bit on repeat), then timed on the urand 2^22 graph and ML-20M's R.T
-  beside its plain version, K3b and cuSPARSE; returns the R.T row."""
+  """K3c against its plain version on its edge cases in both forms (the
+  windowed form each pack holds, and the unwindowed form over the same
+  CSR), three x dtypes, bit for bit on repeat; then timed on the urand
+  2^22 graph (unwindowed) and ML-20M's R.T (windowed) beside its plain
+  version, the other form, K3b and cuSPARSE; returns the R.T row."""
+  check_ptxas("spmv_chunked", "chunk_pass", "K3c")
   gen = torch.Generator(device=device).manual_seed(47)
   worst = 0.0
   for label, A in chunk_cases():
     packed = KS.pack_windowed_unique(A)
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-      x = torch.randn(A.shape[1], generator=gen, device=device).to(dtype)
-      args = (packed.indptr, packed.indices, packed.data, packed.chunk_row, x)
-      got, again = KS.spmv_chunked(*args), KS.spmv_chunked(*args)
-      want = KS.spmv_chunked_plain(*args)
-      torch.cuda.synchronize()
-      diff = (got.float() - want.float()).abs()
-      tol = row_tol(packed.indptr, packed.indices, packed.data, x, want)
-      err = float(diff.max()) if diff.numel() else 0.0
-      share = float((diff / tol.clamp_min(1e-30)).max()) if diff.numel() else 0.0
-      same = bool(torch.equal(got, again))
-      worst = max(worst, err)
-      if dtype == torch.float32 or share > 0.5:
-        print(f"  K3c {label:26s} {A.shape[0]}x{A.shape[1]} nnz={A.nnz} "
-              f"chunks={packed.chunk_row.shape[0]} {str(dtype)[6:]}: "
-              f"max|kernel-plain| {err:.3g}, worst share of the per-row bound "
-              f"{share:.3g}; repeat bitwise equal: {same}")
-      check(got.dtype == dtype and got.shape == (A.shape[0],)
-            and bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
-            f"K3c disagrees with its plain version on {label} {dtype}")
-      check(same, f"K3c is not deterministic on {label} {dtype}")
+    check((packed.windows is not None) == (A.nnz > 0),
+          f"K3c's pack of {label} is {packed!r}")
+    forms = [("unwindowed", None)]
+    if packed.windows is not None:
+      forms.append((f"{packed.windows.count} window(s)", packed.windows))
+    for form, windows in forms:
+      for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = torch.randn(A.shape[1], generator=gen, device=device).to(dtype)
+        args = (packed.indptr, packed.indices, packed.data, packed.chunk_row,
+                x, windows)
+        got, again = KS.spmv_chunked(*args), KS.spmv_chunked(*args)
+        want = KS.spmv_chunked_plain(*args)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        tol = row_tol(packed.indptr, packed.indices, packed.data, x, want)
+        err = float(diff.max()) if diff.numel() else 0.0
+        share = (float((diff / tol.clamp_min(1e-30)).max()) if diff.numel()
+                 else 0.0)
+        same = bool(torch.equal(got, again))
+        worst = max(worst, err)
+        if dtype == torch.float32 or share > 0.5:
+          print(f"  K3c {label:26s} {A.shape[0]}x{A.shape[1]} nnz={A.nnz} "
+                f"chunks={packed.chunk_row.shape[0]} {form} "
+                f"{str(dtype)[6:]}: max|kernel-plain| {err:.3g}, worst share "
+                f"of the per-row bound {share:.3g}; repeat bitwise equal: "
+                f"{same}")
+        check(got.dtype == dtype and got.shape == (A.shape[0],)
+              and bool(torch.isfinite(got).all())
+              and bool((diff <= tol).all()),
+              f"K3c ({form}) disagrees with its plain version on {label} "
+              f"{dtype}")
+        check(same, f"K3c ({form}) is not deterministic on {label} {dtype}")
   print("  (bfloat16 and float16 lines are printed where a share passes 0.5)")
 
   timings = {}
-  for label, A in (("urand 2^22", big), ("ML-20M R.T", R.T)):
+  for label, A, form in (("urand 2^22", big, "unwindowed"),
+                         ("ML-20M R.T", R.T, "windowed")):
+    before = dict(KS.counts)
     with Timer() as t_pack:
       packed = KS.pack_windowed_unique(A)
       torch.cuda.synchronize()
+    key = f"chunked_{form}_packs"
+    check(KS.counts == dict(before, **{key: before[key] + 1})
+          and (packed.windows is not None) == (form == "windowed"),
+          f"the unique pack of {label} is {packed!r}, not {form} "
+          f"({KS.counts} after {before})")
     n, m = packed.shape
     nnz, nchunks = packed.nnz, packed.chunk_row.shape[0]
     x = torch.randn(m, generator=gen, device=device)
@@ -1774,30 +1819,35 @@ def phase_spmv_chunked(device, card: str, big, R):
                                   packed.data, size=(n, m),
                                   check_invariants=False)
     csr = (packed.indptr, packed.indices, packed.data)
-    t = time_in_turns({"plain": lambda: KS.spmv_chunked_plain(*args),
-                       "kernel": lambda: KS.spmv_chunked(*args),
-                       "K3b": lambda: KS.spmv_csr(*csr, x),
-                       "cuSPARSE": lambda: lib @ x}, 20)
+    fns = {"plain": lambda: KS.spmv_chunked_plain(*args),
+           "kernel": lambda: KS.spmv_chunked(*args, packed.windows),
+           "K3b": lambda: KS.spmv_csr(*csr, x),
+           "cuSPARSE": lambda: lib @ x}
+    if packed.windows is not None:
+      fns["unwindowed"] = lambda: KS.spmv_chunked(*args)
+    t = time_in_turns(fns, 20)
     nbytes = nnz * 8 + (n + 1) * 8 + (m + n) * 4 + nchunks * 8
     bound_ms, bound_by = bound(nbytes, 2 * nnz)
     longest = int((packed.indptr[1:] - packed.indptr[:-1]).max())
+    other = (f", the unwindowed form {t['unwindowed']:.4f} ms"
+             if "unwindowed" in t else "")
     print(f"  K3c time on {label} (n={n}, m={m}, nnz={nnz}, longest row "
-          f"{longest}, {nchunks} chunks; unique pack built in "
+          f"{longest}, {nchunks} chunks; {packed!r} built in "
           f"{t_pack.elapsed:.2f} s): kernel {t['kernel']:.4f} ms "
           f"({nnz / t['kernel'] / 1e6:.2f} Gnnz/s, "
-          f"{nbytes / t['kernel'] / 1e6:.1f} GB/s), plain {t['plain']:.4f} "
-          f"ms, K3b spmv_csr {t['K3b']:.4f} ms, cuSPARSE "
+          f"{nbytes / t['kernel'] / 1e6:.1f} GB/s){other}, plain "
+          f"{t['plain']:.4f} ms, K3b spmv_csr {t['K3b']:.4f} ms, cuSPARSE "
           f"{t['cuSPARSE']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
           f"{nbytes / 1e6:.1f} MB); max|kernel-plain| {err:.3g}, "
           f"worst share of the per-row bound {share:.3g}, repeat bitwise "
           f"equal (median of {TIMING_REPS} x 20 calls queued ahead of the "
           f"device, CUDA events, in turns; queued ahead: "
-          f"{all(t[f'{v} ahead'] for v in ('kernel', 'plain', 'K3b', 'cuSPARSE'))}"
+          f"{all(t[f'{v} ahead'] for v in fns)}"
           f"; host issue per call: kernel {t['kernel host']:.4f} ms) on {card}")
     timings[label] = {"ms": t["kernel"], "plain_ms": t["plain"],
                       "library_ms": t["cuSPARSE"], "bound_ms": bound_ms,
                       "bound_by": bound_by}
-    del packed, x, args, lib, csr
+    del packed, x, args, lib, csr, fns
   return dict(timings["ML-20M R.T"], max_abs_err=worst)
 
 
@@ -1806,17 +1856,18 @@ def phase_windowed_entry_point(device, big, R) -> int:
   each call moves its own kernel's count only, the two routes agree, and a
   float64 x raises.  Returns K3c's launches in this path."""
   gen = torch.Generator(device=device).manual_seed(53)
-  for label, A in (("urand 2^22", big), ("ML-20M R.T", R.T)):
+  for label, A, unique in (("urand 2^22", big, ("chunked_launches",)),
+                           ("ML-20M R.T", R.T, ("chunked_launches",
+                                                "chunked_windowed_launches"))):
     x = torch.randn(A.shape[1], generator=gen, device=device)
     ys = {}
-    for kind, pack, key in (("classic", KS.pack_windowed, "csr_launches"),
-                            ("unique", KS.pack_windowed_unique,
-                             "chunked_launches")):
+    for kind, pack, keys in (("classic", KS.pack_windowed, ("csr_launches",)),
+                             ("unique", KS.pack_windowed_unique, unique)):
       fn = KS.make_spmv_windowed(pack(A))
       before = dict(KS.counts)
       ys[kind] = fn(x)
       torch.cuda.synchronize()
-      check(KS.counts == dict(before, **{key: before[key] + 1}),
+      check(KS.counts == dict(before, **{k: before[k] + 1 for k in keys}),
             f"make_spmv_windowed on the {kind} pack of {label}: counts "
             f"{KS.counts} after {before}")
       try:
@@ -1833,7 +1884,8 @@ def phase_windowed_entry_point(device, big, R) -> int:
     check(bool((diff <= tol).all()), f"the unique and classic routes "
           f"disagree on {label}")
     print(f"  make_spmv_windowed {label}: the classic pack launched K3b once, "
-          f"the unique pack K3c once; max|unique - classic| "
+          f"the unique pack K3c once ({', '.join(unique)}); max|unique - "
+          f"classic| "
           f"{float(diff.max()):.3g} (per-row bound); a float64 x raised "
           f"NotImplementedError on both")
     del packed, ys, x, diff, tol
@@ -1997,9 +2049,9 @@ def sharded_path(p, mesh, graphs, S, u0, f):
               "sharded_windowed_spmm": K5.counts["sharded_launches"],
               "stencil3x3_padded_sharded": K6.counts["k6b_launches"]}
   bands = len(KS.ell_bands(small_S.shape[0], p))
+  csr_bands = nonempty(big_S.to_windowed_sharded(p))
   want = {"sharded_onehot_spmv": -(-bands // KS.MAX_BANDS) * PR_ITERS,
-          "sharded_windowed_spmv": nonempty(big_S.to_windowed_sharded(p))
-          * PR_ITERS,
+          "sharded_windowed_spmv": -(-csr_bands // KS.MAX_BANDS) * PR_ITERS,
           "sharded_windowed_spmm": ALS_ITERS * (
               nonempty(S.to_windowed_spmm_sharded(p))
               + nonempty(S.T.to_windowed_spmm_sharded(p))),
@@ -2016,12 +2068,17 @@ def sharded_path(p, mesh, graphs, S, u0, f):
         + f"); other kernels and plain runs {others}")
   print(f"  p = {p}: K3a sharded launched "
         f"{launches['sharded_onehot_spmv'] / PR_ITERS:g} times a call over "
-        f"{KS.counts['sharded_ell_bands'] / PR_ITERS:g} bands a call")
+        f"{KS.counts['sharded_ell_bands'] / PR_ITERS:g} bands a call; K3d "
+        f"{launches['sharded_windowed_spmv'] / PR_ITERS:g} times a call over "
+        f"{KS.counts['sharded_csr_bands'] / PR_ITERS:g} bands a call")
   check(launches == want, f"p = {p}: sharded launches {launches}, expected "
         f"{want}")
   check(KS.counts["sharded_ell_bands"] == bands * PR_ITERS,
         f"p = {p}: K3a sharded covered {KS.counts['sharded_ell_bands']} bands "
         f"in {PR_ITERS} calls, expected {bands} a call")
+  check(KS.counts["sharded_csr_bands"] == csr_bands * PR_ITERS,
+        f"p = {p}: K3d covered {KS.counts['sharded_csr_bands']} bands in "
+        f"{PR_ITERS} calls, expected {csr_bands} a call")
   check(not any(others.values()), f"p = {p}: an unsharded kernel or a plain "
         f"version ran on the sharded path ({others})")
   return out, launches
@@ -2413,8 +2470,9 @@ def main() -> None:
   k3c = phase_spmv_chunked(device, card, big, R)
   KS.reset_counts()  # count the windowed entry point's launches only
   k3c["launches"] = phase_windowed_entry_point(device, big, R)
-  check(k3c["launches"] >= 2 and KS.counts["chunked_plain_runs"] == 0,
-        f"make_spmv_windowed did not launch K3c ({KS.counts})")
+  check(k3c["launches"] >= 2 and KS.counts["chunked_windowed_launches"] >= 1
+        and KS.counts["chunked_plain_runs"] == 0,
+        f"make_spmv_windowed did not launch K3c in both forms ({KS.counts})")
   done(12)
 
   print("phase 13: k-means (config 4) and logistic regression (config 3)")

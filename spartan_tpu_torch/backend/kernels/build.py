@@ -129,7 +129,8 @@ def one_device(*tensors: torch.Tensor) -> None:
 ARGTYPES = {
     "spmv_ell": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_int64, ctypes.c_int],
-    "spmv_csr": [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int],
+    "spmv_csr": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int],
     "spmm_csr": [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int64,
                                          ctypes.c_int, ctypes.c_int],
     "stencil3x3": [ctypes.c_void_p] * 2 + [
@@ -141,8 +142,8 @@ ARGTYPES = {
     "matmul": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                ctypes.c_int64, ctypes.c_void_p] + [ctypes.c_int64] * 3 + [
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "spmv_chunked": [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64,
-                                             ctypes.c_int],
+    "spmv_chunked": [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [
+        ctypes.c_void_p, ctypes.c_int],
 }
 # name -> (bound C function, its library), filled at the first launch
 _bound: Dict[str, Tuple[Any, ctypes.CDLL]] = {}

@@ -9,12 +9,17 @@ plain torch versions.
   kernel over a host-built pack).  The TPU pack exists for the TPU's gather
   limits and is not carried over: the kernel reads the device CSR form that
   ``SparseArray.to_csr`` builds (``indptr`` int64, ``indices`` int32,
-  ``data`` float32).  Kernel: ``csrc/spmv_csr.cu``.
+  ``data`` float32).  Kernel: ``csrc/spmv_csr.cu``, launched over a table
+  of one row band.
 * :func:`spmv_chunked` replaces ``windowed_unique_spmv_traced`` (K3c, the
   exact-f32 kernel over the unique-rows pack): the same CSR form cut into
   chunks of ``CHUNK`` nonzeros whatever the row lengths, with
   ``chunk_row`` (the row of each chunk's first nonzero) from
-  :func:`chunk_rows`.  Kernel: ``csrc/spmv_chunked.cu``.
+  :func:`chunk_rows`.  Where x spans at most ``MAX_WINDOWS`` windows of
+  ``WINDOW`` floats, the pack also holds a window-major copy
+  (:class:`ChunkWindows`, :func:`chunk_windows`), whose chunks the kernel
+  runs window by window, so that its gathers of x hit in L1.  Kernel:
+  ``csrc/spmv_chunked.cu``.
 
 :func:`make_spmv_windowed` is the reference's entry point over a
 :class:`WindowedELL` pack: a :func:`pack_windowed_unique` pack takes K3c, a
@@ -33,13 +38,15 @@ shard reads (the reference's ``shard_map`` bodies, ``x`` replicated):
   the rows to a multiple of ``8·p``, its strip height on the TPU; K3a
   takes any row count, so nothing is padded.
 * :func:`sharded_windowed_spmv_traced` replaces the function of that name
-  (K3d): K3b on each shard's CSR band of a :class:`ShardedWindowedELL`
-  (:func:`pack_windowed_sharded`; shard d owns the reference's rows
-  ``[d·rows_per, (d+1)·rows_per)``, ``rows_per = rb_per_of(n, p)·1024``).
-  Every band takes the whole matrix's lane group, so each row is summed
-  in the same order as unsharded K3b sums it and the result is the same
-  bit for bit.  The reference's launch chunking (``_MAX_PREFETCH_STEPS``)
-  is a TPU scalar-memory limit and has no counterpart.
+  (K3d): K3b's rows on each shard's CSR band of a
+  :class:`ShardedWindowedELL` (:func:`pack_windowed_sharded`; shard d owns
+  the reference's rows ``[d·rows_per, (d+1)·rows_per)``, ``rows_per =
+  rb_per_of(n, p)·1024``), all bands in one launch over a table of at
+  most ``MAX_BANDS`` bands (:func:`spmv_csr` launches one band).  Every
+  band takes the whole matrix's lane group, so each row is summed in the
+  same order as unsharded K3b sums it and the result is the same bit for
+  bit.  The reference's launch chunking (``_MAX_PREFETCH_STEPS``) is a TPU
+  scalar-memory limit and has no counterpart.
 
 Both compute in float32, as the TPU kernels do: bfloat16 and float16
 operands are cast to float32 here and the result is cast back (to
@@ -67,16 +74,23 @@ from spartan_tpu_torch.core.mesh import get_mesh
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
-# nonzeros a block of csrc/spmv_chunked.cu takes (its kChunk)
+# nonzeros a chunk of csrc/spmv_chunked.cu (its kChunk)
 CHUNK = 1024
-# bands one launch of csrc/spmv_ell.cu takes (its SP_MAX_BANDS)
+# floats of x a window of its windowed form, and windows at most (its
+# kWindow, kMaxWindows)
+WINDOW = 32768
+MAX_WINDOWS = 8
+# bands one launch of csrc/spmv_ell.cu or csrc/spmv_csr.cu takes (their
+# SP_MAX_BANDS)
 MAX_BANDS = 64
 
 counts = {"ell_launches": 0, "ell_plain_runs": 0, "csr_launches": 0,
           "csr_plain_runs": 0, "chunked_launches": 0,
-          "chunked_plain_runs": 0, "sharded_ell_launches": 0,
-          "sharded_ell_bands": 0, "sharded_ell_plain_runs": 0,
-          "sharded_csr_launches": 0, "sharded_csr_plain_runs": 0}
+          "chunked_windowed_launches": 0, "chunked_plain_runs": 0,
+          "chunked_windowed_packs": 0, "chunked_unwindowed_packs": 0,
+          "sharded_ell_launches": 0, "sharded_ell_bands": 0,
+          "sharded_ell_plain_runs": 0, "sharded_csr_launches": 0,
+          "sharded_csr_bands": 0, "sharded_csr_plain_runs": 0}
 # rows of the x/y window of the reference's windowed packs: a shard of the
 # sharded windowed pack owns a whole number of these row blocks
 _WIN = 1024
@@ -156,10 +170,10 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
 def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
              x: torch.Tensor, group: Optional[int] = None) -> torch.Tensor:
   """``y = A @ x`` over CSR; indptr (n+1,) int64, indices (nnz,) int32, data
-  (nnz,), x (m,) → y (n,) of ``x.dtype``.  CUDA tensors launch K3b, CPU
-  tensors run :func:`spmv_csr_plain`.  ``group`` (lanes a row, which fixes
-  the order of each row's sum) defaults to :func:`group_size` of the mean
-  row length."""
+  (nnz,), x (m,) → y (n,) of ``x.dtype``.  CUDA tensors launch K3b (a table
+  of one row band), CPU tensors run :func:`spmv_csr_plain`.  ``group``
+  (lanes a row, which fixes the order of each row's sum) defaults to
+  :func:`group_size` of the mean row length."""
   if (indptr.dim() != 1 or indptr.shape[0] < 1 or indices.dim() != 1
       or data.shape != indices.shape or x.dim() != 1):
     raise ValueError(f"spmv_csr needs indptr (n+1,), indices/data (nnz,) and "
@@ -178,22 +192,36 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
   n = indptr.shape[0] - 1
   if n == 0:
     return torch.zeros(0, dtype=x.dtype, device=x.device)
-  indptr_c, indices_c, data_c, x_c = (
-      t.contiguous() for t in (indptr, indices, data.float(), x.float()))
   y = torch.empty(n, dtype=torch.float32, device=x.device)
-  _csr_into(indptr_c, indices_c, data_c, x_c, y,
-            group or group_size(indices.shape[0] / n))
-  counts["csr_launches"] += 1
+  band = (indptr.contiguous(), indices.contiguous(), data.float().contiguous(),
+          y)
+  counts["csr_launches"] += _launch_csr_bands(
+      [band], x.float().contiguous(),
+      group or group_size(indices.shape[0] / n))
   return y.to(x.dtype)
 
 
-def _csr_into(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
-              x: torch.Tensor, y: torch.Tensor, group: int) -> None:
-  """Launch K3b over contiguous CSR operands, float32 data and x, writing
-  float32 ``y`` (n,) with ``group`` lanes a row."""
-  build.launch("spmv_csr", x.device, indptr.data_ptr(), indices.data_ptr(),
-               data.data_ptr(), x.data_ptr(), y.data_ptr(),
-               indptr.shape[0] - 1, group)
+def csr_band_table(bands) -> List[List[int]]:
+  """K3b/K3d's launch table, five int64 a band: the addresses of the
+  band's contiguous int64 ``indptr`` (its rows' offsets in its own
+  ``indices``/``data``), int32 ``indices``, float32 ``data`` and float32
+  ``y``, and its row count.  ``bands``: ``(indptr, indices, data, y)``
+  each."""
+  return [[indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
+           y.data_ptr(), y.shape[0]] for indptr, indices, data, y in bands]
+
+
+def _launch_csr_bands(bands, x: torch.Tensor, group: int) -> int:
+  """K3b's rows over ``bands`` (see :func:`csr_band_table`) with float32
+  ``x`` and ``group`` lanes a row: one launch (one ctypes call) for every
+  ``MAX_BANDS`` bands.  Returns the launches."""
+  table = csr_band_table(bands)
+  for lo in range(0, len(table), MAX_BANDS):
+    chunk = table[lo:lo + MAX_BANDS]
+    flat = (ctypes.c_int64 * (5 * len(chunk)))(*(v for b in chunk for v in b))
+    build.launch("spmv_csr", x.device, ctypes.addressof(flat), len(chunk),
+                 x.data_ptr(), group)
+  return -(-len(table) // MAX_BANDS)
 
 
 def chunk_rows(indptr: torch.Tensor) -> torch.Tensor:
@@ -205,22 +233,108 @@ def chunk_rows(indptr: torch.Tensor) -> torch.Tensor:
   return torch.searchsorted(indptr, starts, right=True) - 1
 
 
+class ChunkWindows:
+  """K3c's window-major copy of a CSR matrix (n, m) whose x spans
+  ``count`` <= ``MAX_WINDOWS`` windows of ``WINDOW`` floats.
+
+  Window s holds the nonzeros of each row whose columns lie in
+  ``[s·WINDOW, (s+1)·WINDOW)``, rows in order and each row's nonzeros in
+  their CSR order, as its own CSR: ``indptr[s]`` (int64, (count, n+1))
+  indexes one storage ``indices`` (int32, the column less ``s·WINDOW``) and
+  ``data`` (float32), in which each window starts at a multiple of 4
+  entries (16 bytes) and which is padded to one (pad entries 0).  Each
+  window is cut into chunks of ``CHUNK`` nonzeros from its start;
+  ``chunk_row`` holds, window by window, each chunk's first row (as
+  :func:`chunk_rows`) and then the row of the window's last nonzero.
+  ``table`` holds four ints a window: its first nonzero, one past its last,
+  its chunks and the offset of its rows in ``chunk_row``."""
+
+  __slots__ = ("indptr", "indices", "data", "chunk_row", "table", "count",
+               "nchunks")
+
+  def __init__(self, indptr, indices, data, chunk_row, table):
+    self.indptr, self.indices, self.data = indptr, indices, data
+    self.chunk_row, self.table = chunk_row, table
+    self.count = len(table)
+    self.nchunks = sum(w[2] for w in table)
+
+  def tensors(self) -> list:
+    return [self.indptr, self.indices, self.data, self.chunk_row]
+
+  def __repr__(self):
+    return (f"ChunkWindows({self.count} windows of {WINDOW}, "
+            f"{self.nchunks} chunks)")
+
+
+def windowed(shape: Tuple[int, int], nnz: int) -> bool:
+  """Whether K3c's pack of a matrix of this shape and nnz takes the
+  windowed form: some nonzero, and x within ``MAX_WINDOWS`` windows."""
+  return shape[0] > 0 and nnz > 0 and shape[1] <= WINDOW * MAX_WINDOWS
+
+
+def chunk_windows(indptr: torch.Tensor, indices: torch.Tensor,
+                  data: torch.Tensor, shape: Tuple[int, int]) -> ChunkWindows:
+  """The window-major copy of a CSR matrix that :func:`windowed` takes,
+  built on its device; one copy of the window sizes to the host."""
+  n, m = shape
+  nnz = indices.shape[0]
+  count = -(-m // WINDOW)
+  device = indptr.device
+  rows = torch.repeat_interleave(torch.arange(n, device=device),
+                                 indptr[1:] - indptr[:-1], output_size=nnz)
+  win = indices.long() // WINDOW
+  key = win * n + rows
+  del rows
+  order = torch.argsort(key, stable=True)
+  per_row = torch.bincount(key, minlength=count * n).view(count, n)
+  del key
+  per_win = per_row.sum(1)
+  padded = (per_win + 3) // 4 * 4
+  base = torch.cumsum(padded, 0) - padded
+  w_indptr = torch.zeros((count, n + 1), dtype=torch.int64, device=device)
+  w_indptr[:, 1:] = torch.cumsum(per_row, 1)
+  w_indptr += base[:, None]
+  sorted_win = win[order]
+  first = torch.cumsum(per_win, 0) - per_win  # each window's first in order
+  pos = base[sorted_win] + torch.arange(nnz, device=device) - first[sorted_win]
+  sizes = torch.stack([base, per_win]).tolist()
+  total = sizes[0][-1] + (sizes[1][-1] + 3) // 4 * 4
+  w_indices = torch.zeros(total, dtype=torch.int32, device=device)
+  w_indices[pos] = (indices[order].long() - sorted_win * WINDOW).int()
+  w_data = torch.zeros(total, dtype=torch.float32, device=device)
+  w_data[pos] = data[order].float()
+  table, row_tables, offset = [], [], 0
+  for s, (b, k) in enumerate(zip(*sizes)):
+    chunks = -(-k // CHUNK)
+    table.append([b, b + k, chunks, offset])
+    if chunks:
+      marks = torch.arange(b, b + k, CHUNK, dtype=torch.int64, device=device)
+      marks = torch.cat([marks, marks.new_full((1,), b + k - 1)])
+      row_tables.append(torch.searchsorted(w_indptr[s], marks, right=True) - 1)
+      offset += chunks + 1
+  return ChunkWindows(w_indptr, w_indices, w_data, torch.cat(row_tables),
+                      table)
+
+
 def spmv_chunked_plain(indptr: torch.Tensor, indices: torch.Tensor,
                        data: torch.Tensor, chunk_row: torch.Tensor,
-                       x: torch.Tensor) -> torch.Tensor:
+                       x: torch.Tensor, windows=None) -> torch.Tensor:
   """K3c's plain version: the same product as :func:`spmv_csr_plain`
-  (``chunk_row`` only places the kernel's blocks)."""
+  (``chunk_row`` and ``windows`` only place the kernel's work)."""
   return spmv_csr_plain(indptr, indices, data, x)
 
 
 def spmv_chunked(indptr: torch.Tensor, indices: torch.Tensor,
                  data: torch.Tensor, chunk_row: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor,
+                 windows: Optional[ChunkWindows] = None) -> torch.Tensor:
   """``y = A @ x`` over CSR cut into chunks of ``CHUNK`` nonzeros; indptr
   (n+1,) int64, indices/data (nnz,), chunk_row (ceil(nnz/CHUNK),) int64 from
-  :func:`chunk_rows`, x (m,) → y (n,) of ``x.dtype``, summed in float32 in
-  a fixed order (the same bits on every run).  CUDA tensors launch K3c,
-  CPU tensors run :func:`spmv_chunked_plain`."""
+  :func:`chunk_rows`, x (m,), and for the windowed form the matrix's
+  :class:`ChunkWindows` → y (n,) of ``x.dtype``, summed in float32 in a
+  fixed order (the same bits on every run).  CUDA tensors launch K3c (the
+  windowed form where ``windows`` is given), CPU tensors run
+  :func:`spmv_chunked_plain`."""
   if (indptr.dim() != 1 or indptr.shape[0] < 1 or indices.dim() != 1
       or data.shape != indices.shape or x.dim() != 1
       or chunk_row.shape != (-(-indices.shape[0] // CHUNK),)):
@@ -236,29 +350,62 @@ def spmv_chunked(indptr: torch.Tensor, indices: torch.Tensor,
                     f"{indices.dtype}")
   _check_float("data", data)
   _check_float("x", x)
-  build.one_device(indptr, indices, data, chunk_row, x)
+  n, m, nnz = indptr.shape[0] - 1, x.shape[0], indices.shape[0]
+  if windows is not None:
+    if (windows.indptr.shape != (windows.count, n + 1)
+        or m > windows.count * WINDOW):
+      raise ValueError(f"the windows ({windows}, indptr "
+                       f"{tuple(windows.indptr.shape)}) are not of a matrix "
+                       f"of {n} rows and {m} columns")
+    build.one_device(indptr, indices, data, chunk_row, x, *windows.tensors())
+  else:
+    build.one_device(indptr, indices, data, chunk_row, x)
   if x.device.type != "cuda":
     counts["chunked_plain_runs"] += 1
     return spmv_chunked_plain(indptr, indices, data, chunk_row, x)
-  n, nnz = indptr.shape[0] - 1, indices.shape[0]
   if n >= 2 ** 31:
     raise ValueError(f"spmv_chunked takes fewer than 2^31 rows, not {n}")
   if n == 0 or nnz == 0:
     return torch.zeros(n, dtype=x.dtype, device=x.device)
-  indptr_c, indices_c, data_c, rows_c, x_c = (
-      t.contiguous() for t in (indptr, indices, data.float(), chunk_row,
-                               x.float()))
-  y = torch.empty(n, dtype=torch.float32, device=x.device)
-  carry = torch.empty(2 * rows_c.shape[0], dtype=torch.float32,
-                      device=x.device)
-  tail_row = torch.empty(rows_c.shape[0], dtype=torch.int64, device=x.device)
-  vec = int(indices_c.data_ptr() % 16 == 0 and data_c.data_ptr() % 16 == 0)
-  build.launch("spmv_chunked", x.device, indptr_c.data_ptr(),
-               indices_c.data_ptr(), data_c.data_ptr(), rows_c.data_ptr(),
-               x_c.data_ptr(), y.data_ptr(), carry.data_ptr(),
-               tail_row.data_ptr(), n, nnz, vec)
+  if windows is None:
+    operands = (indptr.contiguous(), indices.contiguous(),
+                data.float().contiguous(), chunk_row.contiguous())
+  else:
+    operands = windows.tensors()
+  y = _launch_chunked(operands, x.float().contiguous(), n, nnz, windows)
   counts["chunked_launches"] += 1
+  if windows is not None:
+    counts["chunked_windowed_launches"] += 1
   return y.to(x.dtype)
+
+
+def chunked_scratch(n: int, nchunks: int, count: int) -> int:
+  """float32 scratch of one K3c launch over ``nchunks`` chunks: each
+  chunk's head and tail, and for more than one window (``count``) the
+  windows' partial rows (count, n); one window writes y itself."""
+  return 2 * nchunks + (count * n if count > 1 else 0)
+
+
+def _launch_chunked(operands, x: torch.Tensor, n: int, nnz: int,
+                    windows: Optional[ChunkWindows]) -> torch.Tensor:
+  """K3c over contiguous ``operands`` (indptr, indices, float32 data,
+  chunk_row: the CSR form, or ``windows``' tensors) and float32 ``x``, with
+  its scratch; returns float32 y (n,)."""
+  if windows is None:
+    nchunks, count, table = operands[3].shape[0], 0, None
+  else:
+    nchunks, count = windows.nchunks, windows.count
+    flat = [v for w in windows.table for v in w]
+    table = (ctypes.c_int64 * len(flat))(*flat)
+  y = torch.empty(n, dtype=torch.float32, device=x.device)
+  scratch = torch.empty(chunked_scratch(n, nchunks, count),
+                        dtype=torch.float32, device=x.device)
+  tail_row = torch.empty(nchunks, dtype=torch.int64, device=x.device)
+  build.launch("spmv_chunked", x.device, *(t.data_ptr() for t in operands),
+               x.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+               tail_row.data_ptr(), n, x.shape[0], nnz, nchunks,
+               None if table is None else ctypes.addressof(table), count)
+  return y
 
 
 # -- the windowed entry point ---------------------------------------------------
@@ -268,21 +415,30 @@ class WindowedELL:
   reference's pack, ``spmv_pallas.py:409``).  It holds the device CSR form
   (``indptr`` int64, ``indices`` int32, ``data`` float32) and, for a
   unique pack, ``chunk_row`` (K3c's chunk-to-first-row table, where the
-  reference's unique pack holds its inverse maps ``inv``); ``chunk_row`` is
-  None for a classic pack."""
+  reference's unique pack holds its inverse maps ``inv``) and, where x is
+  narrow enough (:func:`windowed`), ``windows`` (K3c's window-major copy,
+  :class:`ChunkWindows`); ``chunk_row`` and ``windows`` are None for a
+  classic pack."""
 
-  __slots__ = ("indptr", "indices", "data", "chunk_row", "shape", "nnz")
+  __slots__ = ("indptr", "indices", "data", "chunk_row", "windows", "shape",
+               "nnz")
 
   def __init__(self, indptr: torch.Tensor, indices: torch.Tensor,
                data: torch.Tensor, shape: Tuple[int, int],
-               chunk_row: Optional[torch.Tensor] = None):
+               chunk_row: Optional[torch.Tensor] = None,
+               windows: Optional[ChunkWindows] = None):
     self.indptr, self.indices, self.data = indptr, indices, data
-    self.chunk_row = chunk_row
+    self.chunk_row, self.windows = chunk_row, windows
     self.shape = (int(shape[0]), int(shape[1]))
     self.nnz = int(indices.shape[0])
 
   def __repr__(self):
-    kind = "unique" if self.chunk_row is not None else "classic"
+    if self.chunk_row is None:
+      kind = "classic"
+    elif self.windows is None:
+      kind = "unique, unwindowed"
+    else:
+      kind = f"unique, {self.windows.count} windows of {WINDOW}"
     return (f"WindowedELL({kind}, shape={self.shape}, nnz={self.nnz}, "
             f"device={self.indptr.device})")
 
@@ -313,20 +469,29 @@ def pack_windowed(sp_csr) -> WindowedELL:
 
 def pack_windowed_unique(sp_csr) -> WindowedELL:
   """The unique-rows pack (reference ``spmv_pallas.py:228``): the CSR form
-  plus K3c's chunk table, built on the device."""
+  plus K3c's chunk table and, where :func:`windowed` says so, its
+  window-major copy, built on the device.  The form is counted in
+  ``chunked_windowed_packs`` or ``chunked_unwindowed_packs``."""
   indptr, indices, data, shape = _device_csr(sp_csr)
-  return WindowedELL(indptr, indices, data, shape, chunk_rows(indptr))
+  windows = None
+  if windowed(shape, int(indices.shape[0])):
+    windows = chunk_windows(indptr, indices, data, shape)
+    counts["chunked_windowed_packs"] += 1
+  else:
+    counts["chunked_unwindowed_packs"] += 1
+  return WindowedELL(indptr, indices, data, shape, chunk_rows(indptr),
+                     windows)
 
 
 def make_spmv_windowed(packed: WindowedELL, use_bf16: bool = False):
   """``x -> A @ x`` over a pack (reference ``spmv_pallas.py:770``): a
-  unique pack takes K3c (:func:`spmv_chunked`), a classic pack K3b
-  (:func:`spmv_csr`).  x is a float32, bfloat16 or float16 tensor (or a
-  ``SpartanArray``) on the pack's device; y has ``x.dtype``; a float64 x
-  raises ``NotImplementedError`` as the reference's kernels refuse it.
-  ``use_bf16`` (the reference's switch to drop the bf16 hi/lo residual
-  dots of its classic kernel) is accepted and moot: both routes sum exact
-  float32 products in float32."""
+  unique pack takes K3c (:func:`spmv_chunked`, windowed where the pack
+  holds windows), a classic pack K3b (:func:`spmv_csr`).  x is a float32,
+  bfloat16 or float16 tensor (or a ``SpartanArray``) on the pack's device;
+  y has ``x.dtype``; a float64 x raises ``NotImplementedError`` as the
+  reference's kernels refuse it.  ``use_bf16`` (the reference's switch to
+  drop the bf16 hi/lo residual dots of its classic kernel) is accepted and
+  moot: both routes sum exact float32 products in float32."""
   def spmv_windowed(x):
     if isinstance(x, SpartanArray):
       x = x.data
@@ -337,7 +502,7 @@ def make_spmv_windowed(packed: WindowedELL, use_bf16: bool = False):
                        f"has shape {packed.shape}")
     if packed.chunk_row is not None:
       return spmv_chunked(packed.indptr, packed.indices, packed.data,
-                          packed.chunk_row, x)
+                          packed.chunk_row, x, packed.windows)
     return spmv_csr(packed.indptr, packed.indices, packed.data, x)
 
   return spmv_windowed
@@ -513,11 +678,13 @@ def pack_windowed_sharded(sp_csr, n_shards: int) -> ShardedWindowedELL:
 
 def sharded_windowed_spmv_traced(packed: ShardedWindowedELL, x: torch.Tensor,
                                  mesh) -> torch.Tensor:
-  """``y = A @ x`` over a sharded pack on a mesh of as many shards: one K3b
-  launch a non-empty shard, each writing its rows of one float32 ``y``
-  with the whole matrix's lane group; x is read by every shard.  Returns
-  y (n,) in ``x.dtype``.  CUDA tensors launch K3b, CPU tensors run
-  :func:`spmv_csr_plain` a band."""
+  """``y = A @ x`` over a sharded pack on a mesh of as many shards: K3b's
+  rows on each non-empty shard's band, each writing its rows of one
+  float32 ``y`` with the whole matrix's lane group; x is read by every
+  shard.  Returns y (n,) in ``x.dtype``.  CUDA tensors launch the bands
+  at once, one launch for every ``MAX_BANDS`` of them (counted in
+  ``sharded_csr_launches``, the bands in ``sharded_csr_bands``); CPU
+  tensors run :func:`spmv_csr_plain` a band."""
   if packed.n_shards != mesh.size:
     raise ValueError(f"the pack has {packed.n_shards} shards, the mesh "
                      f"{mesh.size}")
@@ -527,24 +694,31 @@ def sharded_windowed_spmv_traced(packed: ShardedWindowedELL, x: torch.Tensor,
   _check_float("x", x)
   _check_float("data", packed.bands[0][2])
   build.one_device(x, *packed.tensors())
-  n = packed.shape[0]
-  y = torch.empty(n, dtype=torch.float32, device=x.device)
-  on_card = x.device.type == "cuda"
+  y = torch.empty(packed.shape[0], dtype=torch.float32, device=x.device)
   xf = x.float().contiguous()
-  group = packed.group
+  bands = csr_bands(packed, y)
+  if x.device.type != "cuda":
+    for indptr, indices, data, y_rows in bands:
+      y_rows[:] = spmv_csr_plain(indptr, indices, data, xf)
+      counts["sharded_csr_plain_runs"] += 1
+  elif bands:
+    counts["sharded_csr_launches"] += _launch_csr_bands(bands, xf,
+                                                        packed.group)
+    counts["sharded_csr_bands"] += len(bands)
+  return y.to(x.dtype)
+
+
+def csr_bands(packed: ShardedCSR, y: torch.Tensor):
+  """The non-empty shards' bands of a sharded pack as K3b's launch table
+  takes them (:func:`csr_band_table`): contiguous ``indptr`` and
+  ``indices``, float32 ``data`` and the band's rows of ``y``."""
+  bands = []
   for d, (indptr, indices, data) in enumerate(packed.bands):
     r0, r1 = packed.rows(d)
-    if r1 == r0:
-      continue
-    if not on_card:
-      y[r0:r1] = spmv_csr_plain(indptr, indices, data, xf)
-      counts["sharded_csr_plain_runs"] += 1
-      continue
-    indptr, indices, data = (t.contiguous() for t in (indptr, indices,
-                                                      data.float()))
-    _csr_into(indptr, indices, data, xf, y[r0:r1], group)
-    counts["sharded_csr_launches"] += 1
-  return y.to(x.dtype)
+    if r1 > r0:
+      bands.append((indptr.contiguous(), indices.contiguous(),
+                    data.float().contiguous(), y[r0:r1]))
+  return bands
 
 
 def unshard_windowed(packed: ShardedCSR):

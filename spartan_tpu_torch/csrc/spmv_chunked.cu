@@ -6,42 +6,63 @@
 // Replaces spartan_tpu/backend/kernels/spmv_pallas.py:
 // windowed_unique_spmv_traced (K3c), the all-VPU Pallas kernel over the
 // unique-rows pack.  That pack cuts the nonzeros into fixed grid steps of
-// 8x128 slots whatever the row lengths, and keeps each destination row
-// once a strip so the scatter is a permutation and the sum stays float32
-// with no MXU dots.  What carries over: the work is cut by nonzeros, not by
-// rows, and the sum is float32 throughout.  The TPU layout (strips, x
-// windows, int8 inverse maps) does not: a block reads its chunk of the
-// device CSR form directly.
+// 8x128 slots whatever the row lengths, keeps each destination row once a
+// strip so the scatter is a permutation and the sum stays float32 with no
+// MXU dots, and reads x through windows of 1024 entries (_WIN).  What
+// carries over: the work is cut by nonzeros, not by rows, the sum is
+// float32 throughout, and where x is narrow the nonzeros are regrouped by
+// window of x.
 //
-// What bounds it: the bytes, as for K3b (csrc/spmv_csr.cu): 8 bytes a
-// nonzero plus indptr, x and y, at 3.35 TB/s (H100 SXM).  Where K3b gives
-// each row a lane group sized by the mean row length, so that one long row
-// is walked by one group, here no block's work depends on the longest row.
+// What bounds it: the bytes, 8 a nonzero plus indptr, x and y, at 3.35 TB/s
+// (H100 SXM).  A 4-byte gather of x from L2 moves a 32-byte sector, so a
+// kernel that gathers from L2 moves four times the stream's bytes through
+// it (20.0 M gathers, 640 MB, on ML-20M's R.T against a 160 MB stream).
 //
-// Design:
-//  * Pass 1, one block of 256 threads per chunk of 1024 consecutive
-//    nonzeros (4 a thread, 16-byte loads of indices and data where
-//    aligned).  chunk_row[c] (built once per matrix by the wrapper's pack)
-//    is the row holding the chunk's first nonzero.  The block marks in
-//    shared memory where each later row starts inside the chunk (an atomic
-//    max keeps the last of several empty rows starting at one position; a
-//    max is order-free), and a block-wide max-scan gives every position its
-//    row.  The float32 products (__fmul_rn) then go through a block-wide
-//    segmented inclusive scan (thread, warp shuffles, warps in order), so
-//    the last position of each row's run holds the run's sum.  A row that
-//    lies wholly inside the chunk is stored to y.  The run of a row that
-//    began in an earlier chunk goes to head[c]; the run of a row that began
-//    here and goes on past the chunk goes to tail[c] with its row in
-//    tail_row[c] (-1 if none).
-//  * Pass 2, one thread per chunk with a tail row: tail[c] plus head[c'] of
-//    each later chunk the row reaches, in chunk order, stored to y.  A row
-//    spanning many chunks costs one add per chunk here.
-//  * y is zeroed first (cudaMemsetAsync), so rows of zero length read 0.
-//  * No float atomics and a fixed summation order: the result is the same
-//    bits on every run.
+// Two forms, chosen by the pack (spmv.pack_windowed_unique) and launched
+// through one entry point and one kernel, a block of kThreads threads a
+// chunk of kChunk nonzeros:
+//
+//  * Windowed, where x spans at most kMaxWindows windows of kWindow floats.
+//    The pack holds a window-major copy of the CSR: for each window s, the
+//    nonzeros of each row whose columns lie in [s*kWindow, (s+1)*kWindow),
+//    rows in order, with window-local columns, as that window's own CSR
+//    (indptr (S, n+1) into one storage, each window's nonzeros from a
+//    16-byte boundary), cut into chunks counted from the window's start,
+//    with each chunk's first row (and, after a window's chunks, the row of
+//    its last nonzero).  The chunks run in window order, so the blocks
+//    resident on an SM at any time read one window of x (128 KB): the
+//    gathers hit in L1, and the L2 sees the stream, not a sector a
+//    nonzero.  Each window's rows go to its own row of a partial scratch
+//    (S, n); a last pass adds the S partials of each row in window order.
+//    (A persistent form, one block an SM holding its window in shared
+//    memory and walking chunks through a cp.async ring, ran slower with
+//    2 or 3 walkers a block than these 8 blocks an SM: PERF.md.)
+//  * Unwindowed, for wide x (the unique pack of a 2^22-node graph): the
+//    CSR as it is, one window over all of it, x gathered from L2.
+//
+// In both, a thread's loads of the stream and its gathers of x are issued
+// before the chunk's row marks (which wait on indptr), and the stream
+// (indices, data) is read with an evict-first hint (__ldcs), so that x's
+// lines stay in L1 and L2.
+//
+// Common to both, on one chunk: chunk_row[c] is the row holding the chunk's
+// first nonzero.  The chunk marks in shared memory where each later row
+// starts inside it (an atomic max keeps the last of several empty rows
+// starting at one position; a max is order-free), and a max-scan gives
+// every position its row.  The float32 products (__fmul_rn) then go
+// through a chunk-wide segmented inclusive scan (thread, warp shuffles,
+// warps in order), so the last position of each row's run holds the run's
+// sum.  A row that lies wholly inside the chunk is stored; the run of a row
+// that began in an earlier chunk goes to head[c]; the run of a row that
+// began here and goes on past the chunk goes to tail[c] with its row in
+// tail_row[c] (-1 if none).  A carry pass, one thread a chunk with a tail
+// row, adds tail[c] and head[c'] of each later chunk of the window the row
+// reaches, in chunk order.  Rows of zero length read 0 (the output is
+// zeroed first).  No float atomics and a fixed summation order: the same
+// bits on every run.
 //
 // The wrapper (backend/kernels/spmv.py: spmv_chunked) allocates y and the
-// carries, launches on PyTorch's current stream and raises on a non-zero
+// scratch, launches on PyTorch's current stream and raises on a non-zero
 // return.
 
 #include <cuda_runtime.h>
@@ -49,68 +70,79 @@
 
 namespace {
 
+// threads a chunk and nonzeros a thread (a multiple of 4, for its 16-byte
+// loads)
 constexpr int kThreads = 256;
 constexpr int kPer = 4;
-constexpr int kChunk = kThreads * kPer;  // nonzeros a block; the wrapper's CHUNK
+constexpr int kChunk = kThreads * kPer;  // nonzeros a chunk; spmv.CHUNK
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+// floats of x a window of the windowed form (spmv.WINDOW), windows at most
+// (spmv.MAX_WINDOWS)
+constexpr int kWindow = 32768;
+constexpr int kMaxWindows = 8;
+// the thread's loads of the stream and x before the row marks
+// (tools/torch_spmv_time.py builds the other order, and the stream read
+// without its evict-first hint, for its ablations)
+constexpr bool kLoadsFirst = true;
 
-__global__ void __launch_bounds__(kThreads)
-chunk_pass(const int64_t* __restrict__ indptr,
-           const int32_t* __restrict__ indices,
-           const float* __restrict__ data,
-           const int64_t* __restrict__ chunk_row,
-           const float* __restrict__ x, float* __restrict__ y,
-           float* __restrict__ head, float* __restrict__ tail,
-           int64_t* __restrict__ tail_row, int64_t n, int64_t nnz,
-           int64_t nchunks, int vec) {
-  __shared__ int rel[kChunk];  // each position's row, less r_first
-  __shared__ int warp_max[kWarps];
-  __shared__ int warp_flag[kWarps];
-  __shared__ float warp_sum[kWarps];
-  __shared__ int64_t r_hi_shared;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t c = blockIdx.x;
-  const int64_t s = c * kChunk;
-  const int len = (int)min((int64_t)kChunk, nnz - s);
-  const int64_t r_first = chunk_row[c];
+// One window of the windowed form (one window over the whole CSR for the
+// unwindowed form).
+struct Window {
+  int64_t base;     // offset of its first nonzero in indices/data
+  int64_t end;      // one past its last nonzero
+  int64_t chunk0;   // its first chunk's index in head/tail/tail_row
+  int64_t nchunks;  // its chunks of kChunk from base
+  int64_t rows;     // offset of its chunks' first rows in chunk_row
+};
 
-  if (tid == 0) {
-    // the last row that can start inside the chunk: the row holding the
-    // next chunk's first nonzero, or for the last chunk the row holding
-    // the last nonzero (found by bisection, so trailing empty rows cost
-    // nothing)
-    int64_t hi;
-    if (c + 1 < nchunks) {
-      hi = chunk_row[c + 1];
-    } else {
-      int64_t lo = r_first;
-      hi = n - 1;
-      while (lo < hi) {
-        const int64_t mid = lo + (hi - lo + 1) / 2;
-        if (indptr[mid] <= nnz - 1) lo = mid; else hi = mid - 1;
-      }
-    }
-    r_hi_shared = hi;
-  }
-  for (int p = tid; p < kChunk; p += kThreads) rel[p] = 0;
-  __syncthreads();
-  const int64_t r_hi = r_hi_shared;
-  // rows after r_first start strictly after s (r_first is the last row
-  // starting at or before s)
-  for (int64_t r = r_first + 1 + tid; r <= r_hi; r += kThreads) {
-    const int64_t p = indptr[r] - s;
-    if (p < len) atomicMax(&rel[p], (int)(r - r_first));
-  }
-  __syncthreads();
+struct Windows {
+  Window w[kMaxWindows];
+  int count;
+  bool windowed;           // chunk_row holds each window's last row too
+  int vec;                 // indices and data are 16-byte aligned
+  int64_t n;               // rows
+  const int64_t* indptr;   // (count, n + 1)
+  const int32_t* indices;  // window-local columns
+  const float* data;
+  const int64_t* chunk_row;
+  const float* x;
+  float* out;              // (count, n): each window's rows
+  float* head;
+  float* tail;
+  int64_t* tail_row;
+};
 
-  // block-wide inclusive max-scan: every position gets its row
+// The scan's shared state of one chunk.
+struct ScanSmem {
+  int rel[kChunk];  // each position's row, less the chunk's first row
+  int warp_max[kWarps];
+  int warp_flag[kWarps];
+  float warp_sum[kWarps];
+};
+
+// Max-scan the row marks in sm.rel (rel[p] = k where row r_first + k
+// starts at position p, else 0), segmented-scan the products v of this
+// thread's kPer positions, and store each run: to out[row] for a row inside
+// the chunk, to *head for the run of a row that began before the chunk, to
+// *tail (its row to *tail_row) for one that goes on past it.  first_before:
+// row r_first began before the chunk; row_end(k): one past row
+// r_first + k's last nonzero, read for the chunk's last run only.
+template <class RowEnd>
+__device__ __forceinline__ void scan_store(ScanSmem& sm, int tid,
+                                           const float (&v)[kPer], int len,
+                                           int64_t r_first, bool first_before,
+                                           int64_t s, RowEnd row_end,
+                                           float* out, float* head,
+                                           float* tail, int64_t* tail_row) {
+  const int lane = tid & 31, warp = tid >> 5;
   const int p0 = tid * kPer;
+  // block-wide inclusive max-scan: every position gets its row
   int rr[kPer];
   int run = 0;
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    run = max(run, rel[p0 + j]);
+    run = max(run, sm.rel[p0 + j]);
     rr[j] = run;
   }
   int incl = run;
@@ -119,34 +151,14 @@ chunk_pass(const int64_t* __restrict__ indptr,
     const int up = __shfl_up_sync(kFull, incl, o);
     if (lane >= o) incl = max(incl, up);
   }
-  if (lane == 31) warp_max[warp] = incl;
+  if (lane == 31) sm.warp_max[warp] = incl;
   int excl = __shfl_up_sync(kFull, incl, 1);
   if (lane == 0) excl = 0;
   __syncthreads();
-  for (int w = 0; w < warp; ++w) excl = max(excl, warp_max[w]);
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) rr[j] = max(rr[j], excl);
+  for (int w = 0; w < warp; ++w) excl = max(excl, sm.warp_max[w]);
   // publish the rows: the segment flags below read the neighbours'
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) rel[p0 + j] = rr[j];
-
-  // the float32 products of this thread's nonzeros
-  float v[kPer];
-  const int64_t i0 = s + p0;
-  if (vec && p0 + kPer <= len) {
-    const float4 d = __ldg(reinterpret_cast<const float4*>(data + i0));
-    const int4 ix = __ldg(reinterpret_cast<const int4*>(indices + i0));
-    v[0] = __fmul_rn(d.x, __ldg(x + ix.x));
-    v[1] = __fmul_rn(d.y, __ldg(x + ix.y));
-    v[2] = __fmul_rn(d.z, __ldg(x + ix.z));
-    v[3] = __fmul_rn(d.w, __ldg(x + ix.w));
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      v[j] = (p0 + j < len)
-                 ? __fmul_rn(data[i0 + j], __ldg(x + indices[i0 + j]))
-                 : 0.0f;
-  }
+  for (int j = 0; j < kPer; ++j) sm.rel[p0 + j] = max(rr[j], excl);
   __syncthreads();
 
   // segmented inclusive scan: a row's run restarts at its first position
@@ -155,13 +167,16 @@ chunk_pass(const int64_t* __restrict__ indptr,
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const int p = p0 + j;
-    start[j] = (p == 0) || (rel[p] != rel[p - 1]);
+    start[j] = (p == 0) || (sm.rel[p] != sm.rel[p - 1]);
   }
   sv[0] = v[0];
 #pragma unroll
-  for (int j = 1; j < kPer; ++j) sv[j] = start[j] ? v[j] : __fadd_rn(sv[j - 1], v[j]);
+  for (int j = 1; j < kPer; ++j)
+    sv[j] = start[j] ? v[j] : __fadd_rn(sv[j - 1], v[j]);
   // (flag, sum) pairs combine as (f1 | f2, f2 ? s2 : s1 + s2)
-  int flag = start[0] | start[1] | start[2] | start[3];
+  int flag = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) flag |= start[j];
   float sum = sv[kPer - 1];
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -173,23 +188,21 @@ chunk_pass(const int64_t* __restrict__ indptr,
     }
   }
   if (lane == 31) {
-    warp_flag[warp] = flag;
-    warp_sum[warp] = sum;
+    sm.warp_flag[warp] = flag;
+    sm.warp_sum[warp] = sum;
   }
   const float lane_sum = __shfl_up_sync(kFull, sum, 1);
   const int lane_flag = __shfl_up_sync(kFull, flag, 1);
   __syncthreads();
   float pre_sum = 0.0f;
   for (int w = 0; w < warp; ++w)
-    pre_sum = warp_flag[w] ? warp_sum[w] : __fadd_rn(pre_sum, warp_sum[w]);
+    pre_sum = sm.warp_flag[w] ? sm.warp_sum[w]
+                              : __fadd_rn(pre_sum, sm.warp_sum[w]);
   // what runs into this thread's first position from the positions before
-  float carry;
-  if (lane == 0) {
-    carry = pre_sum;
-  } else {
-    carry = lane_flag ? lane_sum : __fadd_rn(pre_sum, lane_sum);
-  }
   // (thread 0's first position starts a run, so it never takes a carry)
+  const float carry = lane == 0 ? pre_sum
+                      : lane_flag ? lane_sum
+                                  : __fadd_rn(pre_sum, lane_sum);
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     if (start[j]) break;
@@ -201,70 +214,212 @@ chunk_pass(const int64_t* __restrict__ indptr,
   for (int j = 0; j < kPer; ++j) {
     const int p = p0 + j;
     if (p >= len) break;
-    if (p + 1 < len && rel[p + 1] == rel[p]) continue;
-    const int64_t r = r_first + rel[p];
-    const bool before = indptr[r] < s;
-    const bool after = indptr[r + 1] > s + len;
+    const bool last = p == len - 1;
+    if (!last && sm.rel[p + 1] == sm.rel[p]) continue;
+    const int k = sm.rel[p];
+    const bool before = k == 0 && first_before;
+    const bool after = last && row_end(k) > s + len;
     if (before) {
-      head[c] = sv[j];
+      *head = sv[j];
     } else if (after) {
-      tail[c] = sv[j];
+      *tail = sv[j];
     } else {
-      y[r] = sv[j];
+      out[r_first + k] = sv[j];
     }
-    if (p == len - 1) tail_row[c] = (!before && after) ? r : -1;
+    if (last) *tail_row = (!before && after) ? r_first + k : -1;
   }
 }
 
+// -- the chunk pass ---------------------------------------------------------------
+
+// The float32 products of positions p0 .. p0 + kPer - 1 of the chunk at s
+// (0 past len).
+__device__ __forceinline__ void products(const int32_t* __restrict__ indices,
+                                         const float* __restrict__ data,
+                                         const float* __restrict__ x,
+                                         int64_t s, int p0, int len, int vec,
+                                         float (&v)[kPer]) {
+  const int64_t i0 = s + p0;
+  if (vec && p0 + kPer <= len) {
+#pragma unroll
+    for (int q = 0; q < kPer; q += 4) {
+      const float4 d = __ldcs(reinterpret_cast<const float4*>(data + i0 + q));
+      const int4 ix = __ldcs(reinterpret_cast<const int4*>(indices + i0 + q));
+      v[q] = __fmul_rn(d.x, __ldg(x + ix.x));
+      v[q + 1] = __fmul_rn(d.y, __ldg(x + ix.y));
+      v[q + 2] = __fmul_rn(d.z, __ldg(x + ix.z));
+      v[q + 3] = __fmul_rn(d.w, __ldg(x + ix.w));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      v[j] = (p0 + j < len) ? __fmul_rn(__ldcs(data + i0 + j),
+                                        __ldg(x + __ldcs(indices + i0 + j)))
+                            : 0.0f;
+  }
+}
+
+// Chunk blockIdx.x of the windows' chunks (in window order).
 __global__ void __launch_bounds__(kThreads)
-carry_pass(const int64_t* __restrict__ indptr, const float* __restrict__ head,
-           const float* __restrict__ tail,
-           const int64_t* __restrict__ tail_row, float* __restrict__ y,
-           int64_t nchunks) {
+chunk_pass(const __grid_constant__ Windows t) {
+  __shared__ ScanSmem sm;
+  const int tid = threadIdx.x;
+  const int64_t chunk = blockIdx.x;
+  int ws = 0;
+  while (chunk >= t.w[ws].chunk0 + t.w[ws].nchunks) ++ws;
+  const int64_t c = chunk - t.w[ws].chunk0;
+  const int64_t s = t.w[ws].base + c * kChunk;
+  const int64_t end = t.w[ws].end;
+  const int len = (int)min((int64_t)kChunk, end - s);
+  const int64_t* __restrict__ indptr = t.indptr + ws * (t.n + 1);
+  const int64_t* __restrict__ rows = t.chunk_row + t.w[ws].rows;
+  const float* __restrict__ x = t.x + (int64_t)ws * kWindow;
+  const int64_t r_first = rows[c];
+  // the last row that can start inside the chunk: the row holding the
+  // next chunk's first nonzero, or for the last chunk the row holding the
+  // last nonzero (the windowed table holds it; else found by bisection, so
+  // trailing empty rows cost nothing)
+  int64_t r_hi;
+  if (c + 1 < t.w[ws].nchunks || t.windowed) {
+    r_hi = rows[c + 1];
+  } else {
+    int64_t lo = r_first;
+    r_hi = t.n - 1;
+    while (lo < r_hi) {
+      const int64_t mid = lo + (r_hi - lo + 1) / 2;
+      if (indptr[mid] <= end - 1) lo = mid; else r_hi = mid - 1;
+    }
+  }
+  const bool first_before = indptr[r_first] < s;
+  const int p0 = tid * kPer;
+#pragma unroll
+  for (int q = 0; q < kPer; q += 4)
+    *reinterpret_cast<int4*>(&sm.rel[p0 + q]) = make_int4(0, 0, 0, 0);
+  float v[kPer];
+  if constexpr (kLoadsFirst)
+    products(t.indices, t.data, x, s, p0, len, t.vec, v);
+  __syncthreads();
+  // rows after r_first start strictly after s (r_first is the last row
+  // starting at or before s)
+  for (int64_t r = r_first + 1 + tid; r <= r_hi; r += kThreads) {
+    const int64_t p = indptr[r] - s;
+    if (p < len) atomicMax(&sm.rel[p], (int)(r - r_first));
+  }
+  if constexpr (!kLoadsFirst)
+    products(t.indices, t.data, x, s, p0, len, t.vec, v);
+  __syncthreads();
+  scan_store(sm, tid, v, len, r_first, first_before, s,
+             [=](int k) { return indptr[r_first + k + 1]; },
+             t.out + ws * t.n, t.head + chunk, t.tail + chunk,
+             t.tail_row + chunk);
+}
+
+// -- the carry pass and the window sum ---------------------------------------------
+
+// One thread a chunk with a tail row: tail[c] plus head[c'] of each later
+// chunk of its window that the row reaches, in chunk order.
+__global__ void __launch_bounds__(kThreads)
+carry_pass(const __grid_constant__ Windows t, int64_t nchunks) {
   const int64_t c = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (c >= nchunks) return;
-  const int64_t r = tail_row[c];
+  const int64_t r = t.tail_row[c];
   if (r < 0) return;
-  const int64_t end = indptr[r + 1];
-  float sum = tail[c];
-  for (int64_t c2 = c + 1; c2 < nchunks && c2 * kChunk < end; ++c2)
-    sum = __fadd_rn(sum, head[c2]);
-  y[r] = sum;
+  int ws = 0;
+  while (c >= t.w[ws].chunk0 + t.w[ws].nchunks) ++ws;
+  const Window& w = t.w[ws];
+  const int64_t end = t.indptr[ws * (t.n + 1) + r + 1];
+  const int64_t last = w.chunk0 + w.nchunks;
+  float sum = t.tail[c];
+  for (int64_t c2 = c + 1;
+       c2 < last && w.base + (c2 - w.chunk0) * kChunk < end; ++c2)
+    sum = __fadd_rn(sum, t.head[c2]);
+  t.out[ws * t.n + r] = sum;
+}
+
+// y[i] = the windows' partials of row i, added in window order.
+__global__ void __launch_bounds__(kThreads)
+window_sum(const float* __restrict__ partial, float* __restrict__ y,
+           int64_t n, int count) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float sum = partial[i];
+  for (int s = 1; s < count; ++s) sum = __fadd_rn(sum, partial[s * n + i]);
+  y[i] = sum;
 }
 
 }  // namespace
 
 extern "C" {
 
-// indptr int64 (n+1,), indices int32 (nnz,), data float32 (nnz,),
-// chunk_row int64 (nchunks,) the row of nonzero c*1024, x float32 (m,),
-// y float32 (n,), carry float32 (2*nchunks,) and tail_row int64
-// (nchunks,) scratch, all contiguous on one device; nchunks =
-// ceil(nnz/1024); vec: indices and data are 16-byte aligned.  Returns
-// cudaGetLastError() of the launches (0 on success).
+// y = A x for A (n x m) in CSR, y float32 (n,), x float32 (m,), scratch
+// float32 (2 * nchunks + (count > 1 ? count * n : 0),) and tail_row int64
+// (nchunks,), all contiguous on one device.
+//
+// Unwindowed (windows null, count 0): indptr int64 (n+1,), indices int32
+// and data float32 (nnz,) as they are, chunk_row int64 (nchunks,) the row
+// of nonzero c*1024, nchunks = ceil(nnz/1024).
+//
+// Windowed (count 1..8, m <= count*32768): indptr int64 (count, n+1) into
+// the window-major storage indices int32 (window-local columns) and data
+// float32, each window from a 16-byte boundary; windows holds four int64 a
+// window: its first nonzero, one past its last, its chunks, and the offset
+// in chunk_row of its chunks' first rows (its chunks + 1 entries, the last
+// the row of the window's last nonzero); nchunks is the windows' chunks in
+// all.
+//
+// Returns the first CUDA error of the launches (0 on success).
 int spartan_spmv_chunked(const void* indptr, const void* indices,
                          const void* data, const void* chunk_row,
-                         const void* x, void* y, void* carry, void* tail_row,
-                         int64_t n, int64_t nnz, int vec, void* stream) {
-  if (n < 1 || n > 0x7fffffff || nnz < 1) return (int)cudaErrorInvalidValue;
-  const int64_t nchunks = (nnz + kChunk - 1) / kChunk;
-  if (nchunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(y, 0, (size_t)n * sizeof(float), s);
+                         const void* x, void* y, void* scratch,
+                         void* tail_row, int64_t n, int64_t m, int64_t nnz,
+                         int64_t nchunks, const void* windows, int count,
+                         void* stream) {
+  if (n < 1 || n > 0x7fffffff || nnz < 1 || nchunks < 1 ||
+      nchunks > 0x7fffffff || count < 0 || count > kMaxWindows ||
+      (count == 0) != (windows == nullptr) ||
+      (count > 0 && m > (int64_t)count * kWindow))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* carry = static_cast<float*>(scratch);
+  Windows t = {};
+  t.n = n;
+  t.indptr = static_cast<const int64_t*>(indptr);
+  t.indices = static_cast<const int32_t*>(indices);
+  t.data = static_cast<const float*>(data);
+  t.chunk_row = static_cast<const int64_t*>(chunk_row);
+  t.x = static_cast<const float*>(x);
+  t.head = carry;
+  t.tail = carry + nchunks;
+  t.tail_row = static_cast<int64_t*>(tail_row);
+  t.vec = (reinterpret_cast<uintptr_t>(indices) & 15) == 0 &&
+          (reinterpret_cast<uintptr_t>(data) & 15) == 0;
+  t.windowed = count > 0;
+  t.count = count > 0 ? count : 1;
+  if (count == 0) {
+    t.w[0] = {0, nnz, 0, nchunks, 0};
+  } else {
+    const int64_t* row = static_cast<const int64_t*>(windows);
+    int64_t chunk0 = 0;
+    for (int s = 0; s < count; ++s, row += 4) {
+      t.w[s] = {row[0], row[1], chunk0, row[2], row[3]};
+      chunk0 += row[2];
+    }
+    if (chunk0 != nchunks) return (int)cudaErrorInvalidValue;
+  }
+  // one window writes y itself; more write their partials, added below
+  t.out = t.count == 1 ? static_cast<float*>(y) : carry + 2 * nchunks;
+  cudaError_t err =
+      cudaMemsetAsync(t.out, 0, (size_t)t.count * n * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
-  float* head = static_cast<float*>(carry);
-  float* tail = head + nchunks;
-  chunk_pass<<<(unsigned)nchunks, kThreads, 0, s>>>(
-      static_cast<const int64_t*>(indptr), static_cast<const int32_t*>(indices),
-      static_cast<const float*>(data), static_cast<const int64_t*>(chunk_row),
-      static_cast<const float*>(x), static_cast<float*>(y), head, tail,
-      static_cast<int64_t*>(tail_row), n, nnz, nchunks, vec);
+  chunk_pass<<<(unsigned)nchunks, kThreads, 0, st>>>(t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   carry_pass<<<(unsigned)((nchunks + kThreads - 1) / kThreads), kThreads, 0,
-               s>>>(static_cast<const int64_t*>(indptr), head, tail,
-                    static_cast<const int64_t*>(tail_row),
-                    static_cast<float*>(y), nchunks);
+               st>>>(t, nchunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || t.count == 1) return (int)err;
+  window_sum<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      t.out, static_cast<float*>(y), n, t.count);
   return (int)cudaGetLastError();
 }
 

@@ -836,6 +836,17 @@ def _chunk_matrix(kind):
     B[5, 0:200] = rng.standard_normal(200)
     B[5, 1024:1060] = rng.standard_normal(36)
     return B.tocsr()
+  if kind == "skewed_four_windows":
+    # a scaled-down ML-20M R.T: power-law row lengths over 100,000 columns
+    n, m = 300, 100_000
+    lengths = np.maximum((9000 * np.arange(1, n + 1) ** -0.9).astype(int), 1)
+    rows = np.repeat(np.arange(n), lengths)
+    cols = np.minimum((rng.pareto(1.2, rows.size) * 4000).astype(np.int64),
+                      m - 1)
+    A = ss.coo_matrix((rng.standard_normal(rows.size).astype(np.float32),
+                       (rows, cols)), shape=(n, m)).tocsr()
+    A.sum_duplicates()
+    return A
   n, m = 3000, 2500  # tests/test_kernels.py's unique-pack matrix
   r, c = rng.integers(0, n, n * 9), rng.integers(0, m, n * 9)
   v = rng.standard_normal(n * 9).astype(np.float32)
@@ -847,7 +858,18 @@ def _chunk_matrix(kind):
 CHUNK_MATRICES = ["nnz0", "below_one_chunk", "row_on_chunk_boundary",
                   "empty_rows_at_both_ends", "row_longer_than_10_chunks",
                   "empty_row_runs_inside_chunks", "heavy_duplicates",
-                  "random_duplicates_summed"]
+                  "random_duplicates_summed", "skewed_four_windows"]
+
+
+def _row_tol(packed, x, want):
+  """The per-row bound: the smaller of the worst case and the random walk
+  over each row's products, plus one rounding to x's dtype."""
+  lengths = (packed.indptr[1:] - packed.indptr[:-1]).float()
+  csr = packed.indptr, packed.indices
+  sum_abs = KS.spmv_csr_plain(*csr, packed.data.abs(), x.float().abs())
+  sum_sq = KS.spmv_csr_plain(*csr, packed.data.square(), x.float().square())
+  return (_sum_bound(lengths, sum_abs, sum_sq, 2.0)
+          + OUT_UNIT[x.dtype] * want.float().abs())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -871,15 +893,44 @@ def test_spmv_chunked_matches_plain_and_repeats_bit_for_bit(device, kind,
   want = KS.spmv_chunked_plain(*args)
   assert got.dtype == want.dtype == dtype and got.shape == (A.shape[0],)
   assert torch.equal(got, again)
-  lengths = (packed.indptr[1:] - packed.indptr[:-1]).float()
-  csr = packed.indptr, packed.indices
-  sum_abs = KS.spmv_csr_plain(*csr, packed.data.abs(), x.float().abs())
-  sum_sq = KS.spmv_csr_plain(*csr, packed.data.square(), x.float().square())
-  tol = (_sum_bound(lengths, sum_abs, sum_sq, 2.0)
-         + OUT_UNIT[dtype] * want.float().abs())
+  tol = _row_tol(packed, x, want)
   assert bool(((got.float() - want.float()).abs() <= tol).all())
   if kind == "empty_rows_at_both_ends":
     assert not bool(got[:100].any()) and not bool(got[200:].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("kind", CHUNK_MATRICES[1:])
+def test_windowed_spmv_chunked_matches_plain_and_repeats_bit_for_bit(
+    device, kind, dtype):
+  """K3c's windowed form (x's windows in shared memory) on the same
+  matrices, one to four windows; the unwindowed form's result is held to
+  the same bound."""
+  A = _chunk_matrix(kind)
+  packed = KS.pack_windowed_unique(A)
+  assert packed.windows is not None
+  assert packed.windows.count == -(-A.shape[1] // KS.WINDOW)
+  gen = torch.Generator(device=device).manual_seed(5)
+  x = torch.randn(A.shape[1], generator=gen, device=device).to(dtype)
+  args = (packed.indptr, packed.indices, packed.data, packed.chunk_row, x)
+  before = dict(KS.counts)
+  got = KS.spmv_chunked(*args, packed.windows)
+  again = KS.spmv_chunked(*args, packed.windows)
+  torch.cuda.synchronize()
+  assert KS.counts == dict(
+      before, chunked_launches=before["chunked_launches"] + 2,
+      chunked_windowed_launches=before["chunked_windowed_launches"] + 2)
+  assert torch.equal(got, again)
+  want = KS.spmv_chunked_plain(*args)
+  assert got.dtype == dtype and got.shape == (A.shape[0],)
+  tol = _row_tol(packed, x, want)
+  assert bool(((got.float() - want.float()).abs() <= tol).all())
+  unwindowed = KS.spmv_chunked(*args)
+  assert bool(((unwindowed.float() - want.float()).abs() <= tol).all())
+  if packed.windows.count == 1:
+    # one window: the same chunks as the CSR's, summed in the same order
+    assert torch.equal(got, unwindowed)
 
 
 @pytest.mark.parametrize("kind", ["random_duplicates_summed",
@@ -891,12 +942,13 @@ def test_make_spmv_windowed_routes_by_pack(device, kind):
   want = A.astype(np.float64) @ x64
   # a float32 sum of len(row) products against float64: len·2^-24·Σ|a·x|
   tol = A.getnnz(1) * 2.0 ** -24 * (abs(A).astype(np.float64) @ np.abs(x64))
-  for pack, key in ((KS.pack_windowed, "csr_launches"),
-                    (KS.pack_windowed_unique, "chunked_launches")):
+  for pack, keys in ((KS.pack_windowed, ("csr_launches",)),
+                     (KS.pack_windowed_unique,
+                      ("chunked_launches", "chunked_windowed_launches"))):
     fn = KS.make_spmv_windowed(pack(A))
     before = dict(KS.counts)
     got = fn(x)
-    assert KS.counts == dict(before, **{key: before[key] + 1})
+    assert KS.counts == dict(before, **{k: before[k] + 1 for k in keys})
     assert got.dtype == torch.float32
     assert bool((np.abs(got.double().cpu().numpy() - want) <= tol).all())
     with pytest.raises(NotImplementedError):
@@ -904,11 +956,17 @@ def test_make_spmv_windowed_routes_by_pack(device, kind):
 
 
 def test_spmv_chunked_from_a_sparse_array(device):
-  S = sps.from_scipy(_matrix("long_row"))
-  x = torch.randn(S.shape[1], device=device)
+  # held to the float64 product: the plain version's own float32 sum (an
+  # index_add on the card) of the row of 10,000 entries strays by more
+  # than this bound, the kernel's does not
+  A = _matrix("long_row")
+  S = sps.from_scipy(A)
+  gen = torch.Generator(device=device).manual_seed(9)
+  x = torch.randn(S.shape[1], generator=gen, device=device)
   got = KS.make_spmv_windowed(KS.pack_windowed_unique(S))(x)
-  want = KS.spmv_csr_plain(*S.to_csr(), x)
-  assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+  want = torch.from_numpy(A.astype(np.float64) @ x.double().cpu().numpy())
+  assert float((got.double().cpu() - want).abs().max()) <= 1e-5 * float(
+      want.abs().max())
 
 
 # -- shuffle, k-means and logistic regression on the card -----------------------
@@ -1079,11 +1137,47 @@ def test_sharded_spmv_kernels_equal_unsharded(device, p):
     before = dict(KS.counts)
     got = KS.sharded_windowed_spmv_traced(packed, x, mesh)
     torch.cuda.synchronize()
+    # one launch over the table of the non-empty bands
     assert KS.counts["sharded_csr_launches"] == (
-        before["sharded_csr_launches"] + full)
+        before["sharded_csr_launches"] + 1)
+    assert KS.counts["sharded_csr_bands"] == (
+        before["sharded_csr_bands"] + full)
     assert KS.counts["sharded_csr_plain_runs"] == before[
         "sharded_csr_plain_runs"]
     assert torch.equal(got, KS.spmv_csr(*S.to_csr(), x))
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_k3d_is_one_launch_bit_equal_to_k3b(device, p):
+  """K3d on a urand-like graph (random columns, mean degree 16) at the
+  reference's row bands: one launch a call, bit-equal to K3b (the one-band
+  table) and to itself on repeat, within the per-row bound of the plain
+  version; with fewer rows than a shard's block the bands past the last
+  row are left out."""
+  import scipy.sparse as ss
+  rng = np.random.default_rng(p)
+  gen = torch.Generator(device=device).manual_seed(p)
+  mesh = sp.make_mesh(shape=(p,))
+  for n in (600, 300_000):
+    A = ss.csc_matrix((np.full(16 * n, 1 / 16, np.float32),
+                       rng.integers(0, n, 16 * n).astype(np.int32),
+                       np.arange(0, 16 * n + 1, 16)), shape=(n, n)).tocsr()
+    packed = KS.pack_windowed_sharded(A, p)
+    whole = KS.pack_windowed(A)
+    csr = (whole.indptr, whole.indices, whole.data)
+    full = sum(packed.rows(d)[1] > packed.rows(d)[0] for d in range(p))
+    x = torch.randn(n, generator=gen, device=device)
+    before = dict(KS.counts)
+    got = KS.sharded_windowed_spmv_traced(packed, x, mesh)
+    again = KS.sharded_windowed_spmv_traced(packed, x, mesh)
+    torch.cuda.synchronize()
+    assert KS.counts == dict(
+        before, sharded_csr_launches=before["sharded_csr_launches"] + 2,
+        sharded_csr_bands=before["sharded_csr_bands"] + 2 * full)
+    assert torch.equal(got, again)
+    assert torch.equal(got, KS.spmv_csr(*csr, x))
+    want = KS.spmv_csr_plain(*csr, x)
+    assert bool(((got - want).abs() <= _row_tol(whole, x, want)).all())
 
 
 @pytest.mark.parametrize("p", [1, 3, 8, 64, 65])
@@ -1146,8 +1240,9 @@ def test_sharded_routes_launch_once_a_shard_on_card(device):
     KS.reset_counts()
     got = e.glom()
     torch.cuda.synchronize()
-    # 40 blocks of 1024 rows, 5 a shard: 8 shards, none empty
-    assert KS.counts["sharded_csr_launches"] == 8
+    # 40 blocks of 1024 rows, 5 a shard: 8 shards, none empty, one launch
+    assert KS.counts["sharded_csr_launches"] == 1
+    assert KS.counts["sharded_csr_bands"] == 8
     assert KS.counts["csr_launches"] == KS.counts["csr_plain_runs"] == 0
   np.testing.assert_array_equal(got, want.cpu().numpy())
 

@@ -1,5 +1,6 @@
 """K3a sharded's band table (``spmv.ell_bands``, ``spmv.band_table``) and
-K3a's launch over it, on the CPU.
+K3a's launch over it, and K3d's CSR band table (``spmv.csr_bands``,
+``spmv.csr_band_table``) and K3b's launch over it, on the CPU.
 
 * The bands follow the boundaries the port pins down for the sharded ELL:
   shard d owns rows ``[min(d·ceil(n/p), n), min((d+1)·ceil(n/p), n))``,
@@ -13,6 +14,12 @@ K3a's launch over it, on the CPU.
   interpret mode on its virtual CPU devices at p = 3 and 4 and with fewer
   rows than shards, at 1e-5 of max|y| (the reference splits x into bf16
   hi/lo halves, tests/test_torch_sharded.py), and bit-equal to ``spmv_ell``.
+* K3d's table: each non-empty shard's band of a sharded CSR pack (views of
+  the pack's rebased indptr, indices and data, and its rows of y), its
+  addresses and row counts, chunks of ``MAX_BANDS`` with ``build.launch``
+  stubbed as above, and a result bit-equal to ``spmv_csr``'s at p = 2, 3,
+  4 and 8, with fewer rows than shards and with more than 64 bands;
+  ``spmv_csr`` launches a table of one band.
 """
 
 import ctypes
@@ -148,3 +155,102 @@ def test_banded_onehot_spmv_matches_the_reference(n, p, rng):
   scale = max(np.abs(want).max(), np.finfo(np.float32).tiny)
   assert np.abs(got.numpy() - want).max() <= 1e-5 * scale
   assert torch.equal(got, KS.spmv_ell(S.cols, S.vals, xt))
+
+
+# -- K3d: K3b's rows over a table of CSR row bands ------------------------------
+
+
+def _csr(n, m=700, density=0.02, seed=0):
+  return ss.random(n, m, density=density, format="csr", dtype=np.float32,
+                   random_state=np.random.RandomState(seed + n))
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+def test_csr_band_table_holds_each_bands_addresses_and_rows(p):
+  A = _csr(5000)
+  packed = KS.pack_windowed_sharded(A, p)
+  y = torch.empty(5000, dtype=torch.float32)
+  bands = KS.csr_bands(packed, y)
+  table = KS.csr_band_table(bands)
+  full = [d for d in range(p) if packed.rows(d)[1] > packed.rows(d)[0]]
+  assert len(table) == len(bands) == len(full)
+  for d, (indptr, indices, data, rows), entry in zip(full, bands, table):
+    r0, r1 = packed.rows(d)
+    band = packed.bands[d]
+    assert entry == [indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
+                     y.data_ptr() + 4 * r0, r1 - r0]
+    # views of the pack's band: nothing copied for float32 operands
+    assert indptr.data_ptr() == band[0].data_ptr()
+    assert indices.data_ptr() == band[1].data_ptr()
+    assert data.data_ptr() == band[2].data_ptr()
+    assert int(indptr[0]) == 0 and int(indptr[-1]) == indices.shape[0]
+    assert rows.shape == (r1 - r0,) and r1 - r0 >= 1
+
+
+class _CsrLaunches:
+  """``build.launch`` for K3b's entry point on CPU tensors: reads the
+  table back, finds each band's tensors by their addresses and runs its
+  rows through the plain version."""
+
+  def __init__(self, bands, x, group):
+    self.by_address = {b[0].data_ptr(): b for b in bands}
+    self.x, self.group = x, group
+    self.calls = []
+
+  def __call__(self, name, device, table, count, x_ptr, group):
+    assert name == "spmv_csr" and 1 <= count <= KS.MAX_BANDS
+    assert x_ptr == self.x.data_ptr() and group == self.group
+    rows = (ctypes.c_int64 * (5 * count)).from_address(table)
+    self.calls.append(count)
+    for b in range(count):
+      indptr, indices, data, y = self.by_address.pop(rows[5 * b])
+      assert rows[5 * b:5 * b + 5] == [
+          indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
+          y.data_ptr(), y.shape[0]]
+      y[:] = KS.spmv_csr_plain(indptr, indices, data, self.x)
+
+
+@pytest.mark.parametrize("n, p, block", [
+    (5000, 2, 1024), (5000, 3, 1024), (5000, 4, 1024), (5000, 8, 1024),
+    (3000, 8, 1024), (5, 8, 1), (3, 65, 1), (700, 64, 1), (700, 65, 1),
+    (1000, 200, 1)], ids=str)
+def test_csr_banded_route_launches_once_for_every_64_bands(n, p, block,
+                                                           monkeypatch, rng):
+  A = _csr(n)
+  cls = KS.ShardedWindowedELL if block == 1024 else KS.ShardedCSR
+  packed = cls.pack(A, p)
+  x = torch.as_tensor(rng.standard_normal(700).astype(np.float32))
+  y = torch.empty(n, dtype=torch.float32)
+  bands = KS.csr_bands(packed, y)
+  assert len(bands) == sum(packed.rows(d)[1] > packed.rows(d)[0]
+                           for d in range(p))
+  stub = _CsrLaunches(bands, x, packed.group)
+  monkeypatch.setattr(build, "launch", stub)
+  assert KS._launch_csr_bands(bands, x, packed.group) == -(
+      -len(bands) // KS.MAX_BANDS)
+  assert stub.calls == [min(KS.MAX_BANDS, len(bands) - lo)
+                        for lo in range(0, len(bands), KS.MAX_BANDS)]
+  assert not stub.by_address  # every band launched once
+  whole = KS.pack_windowed(A)
+  assert torch.equal(y, KS.spmv_csr(whole.indptr, whole.indices, whole.data,
+                                    x))
+
+
+@pytest.mark.parametrize("n", [1, 700, 5000])
+def test_spmv_csr_launches_a_table_of_one_band(n, monkeypatch, rng):
+  A = _csr(n)
+  whole = KS.pack_windowed(A)
+  x = torch.as_tensor(rng.standard_normal(700).astype(np.float32))
+  seen = []
+
+  def launch(name, device, table, count, x_ptr, group):
+    assert name == "spmv_csr" and count == 1
+    seen.append(list((ctypes.c_int64 * 5).from_address(table)))
+    assert group == KS.group_size(A.nnz / n)
+
+  monkeypatch.setattr(build, "launch", launch)
+  y = torch.empty(n, dtype=torch.float32)
+  band = (whole.indptr, whole.indices, whole.data, y)
+  assert KS._launch_csr_bands([band], x, KS.group_size(A.nnz / n)) == 1
+  assert seen == [[whole.indptr.data_ptr(), whole.indices.data_ptr(),
+                   whole.data.data_ptr(), y.data_ptr(), n]]

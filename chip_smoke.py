@@ -27,11 +27,14 @@ raises on any failure:
      against float64 NumPy oracles;
   4. linear-regression training at n = 2^20, d = 64, float64, against a
      NumPy loop, and make_fori against fit;
-  5. the SpMV kernels K3a (spmv_ell) and K3b (spmv_csr) against their plain
-     versions on six matrices (the two PageRank graphs among them), then
-     timed beside their plain versions and cuSPARSE (torch.sparse_csr_tensor
-     @ x), with the calls queued ahead of the device so that the events
-     read device time, and the host's issue time per call apart;
+  5. the SpMV kernels K3a (spmv_ell, x in each block's shared memory) and
+     K3b (spmv_csr) against their plain versions on six matrices (the two
+     PageRank graphs among them), with ptxas's report of each (0-byte stack
+     frame, no spill) and the check's power on K3a (without lane 0's
+     partial of the longest row, a result must fail it), then timed beside
+     their plain versions and cuSPARSE (torch.sparse_csr_tensor @ x), with
+     the calls queued ahead of the device so that the events read device
+     time, and the host's issue time per call apart;
   6. PageRank through pagerank.fit_sparse(sparse.from_scipy(A)): a GAP
      "urand" graph (uniform random targets, 16 out-edges a node) at
      n = 2^22 (CSR kernel) and n = 32768 (ELL kernel), and the
@@ -538,11 +541,43 @@ def spmv_cases(big, small):
   return [("urand 2^22", big), ("urand 32768", small)] + small_cases()
 
 
+def drop_ell_lane(S, x, got, want, tol, label: str) -> None:
+  """The check's power on K3a: ``got`` less lane 0's partial of the
+  longest row (the products K3a's form gives lane 0 before the shuffle
+  tree) must fail the check that ``got`` passed."""
+  cols, vals = S.cols.contiguous(), S.vals.float().contiguous()
+  on_chip, vec, group = KS.ell_form(cols, vals, x.shape[0])
+  r = int((vals != 0).sum(1).argmax())
+  k = cols.shape[1]
+  width = 4 if on_chip else 1  # entries a lane's piece
+  lane0 = [e for j in range(0, -(-k // width), group)
+           for e in range(j * width, min((j + 1) * width, k))]
+  part = float((vals[r, lane0].double()
+                * x[cols[r, lane0].long()].double()).sum())
+  bound = float(tol[r]) if torch.is_tensor(tol) else float(tol)
+  err = abs(float(got[r]) - part - float(want[r]))
+  print(f"  K3a on {label}: a result without lane 0's partial of row {r} "
+        f"({len(lane0)} products, {width} a piece, {vec} a load, {group} "
+        f"lanes) is off by "
+        f"{err:.4g} against the bound {bound:.4g}")
+  check(err > bound, f"K3a's check on {label} passes a result without "
+        f"lane 0's partial")
+
+
 def phase_spmv_kernels(device, card: str, big, small):
   """K3a/K3b against their plain versions on the card, then timed beside
   the plain versions and cuSPARSE."""
-  check_ptxas("spmv_ell", "spmv_ell", "K3a")
+  check_ptxas("spmv_ell", "spmv_ell_onchip", "K3a on chip")
+  check_ptxas("spmv_ell", "spmv_ell_l2", "K3a through L1")
   check_ptxas("spmv_csr", "spmv_csr_kernel", "K3b/K3d")
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
+  print(f"  K3a's form: x copied whole into each block's shared memory for "
+        f"m <= {KS.ELL_MAX_X} (one block an SM, {sms} SMs, no cluster), a "
+        f"row's pieces of 4 entries a lane, loaded 16 bytes at a time where "
+        f"k % 4 == 0 and the rows are aligned, else 4 bytes at a time (the "
+        f"same sum); else gathered through L1; K3b and K3d read the CSR as "
+        f"it is, x gathered from L2 (the form over x's windows in a "
+        f"cluster's shared memory lost: PERF.md)")
   gen = torch.Generator(device=device).manual_seed(99)
   worst = {"spmv_ell": 0.0, "spmv_csr": 0.0}
   for label, A in spmv_cases(big, small):
@@ -571,13 +606,19 @@ def phase_spmv_kernels(device, card: str, big, small):
       else:
         ok = err <= 1e-5 * scale
         rule = "1e-5 max|y|"
+      form = (" (on_chip, vec, group) = "
+              f"{KS.ell_form(S.cols, S.vals, A.shape[1])}"
+              if name == "spmv_ell" else "")
       print(f"  {name} {label:26s} {A.shape[0]}x{A.shape[1]} nnz={S.nnz} "
-            f"k={S.max_nnz_per_row}: max|kernel-plain| {err:.3g} "
+            f"k={S.max_nnz_per_row}{form}: max|kernel-plain| {err:.3g} "
             f"(max|y| {scale:.4g}, tolerance {rule}); "
             f"repeat bitwise equal: {bool(torch.equal(got, again))}")
       check(bool(torch.isfinite(got).all()) and ok,
             f"{name} disagrees with its plain version on {label}")
       check(torch.equal(got, again), f"{name} is not deterministic on {label}")
+      if name == "spmv_ell" and label in ("urand 32768", "one row of 10000"):
+        drop_ell_lane(S, x, got, want, tol if long_row else 1e-5 * scale,
+                      label)
     del S, indptr, indices, data, x
 
   timings = {}

@@ -128,7 +128,8 @@ def one_device(*tensors: torch.Tensor) -> None:
 # 32 bits.
 ARGTYPES = {
     "spmv_ell": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_int64, ctypes.c_int],
+                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int],
     "spmv_csr": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_int],
     "spmm_csr": [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int64,

@@ -4,7 +4,9 @@ plain torch versions.
 * :func:`spmv_ell` replaces ``spartan_tpu/backend/kernels/spmv_pallas.py``
   ``spmv`` (K3a, the one-hot MXU kernel) over the reference's row-major
   padded ELL: ``cols`` int32 and ``vals`` (n, k), pad entries at column 0
-  with value 0.  Kernel: ``csrc/spmv_ell.cu``.
+  with value 0.  Kernel: ``csrc/spmv_ell.cu``, with x in each block's
+  shared memory where :func:`ell_on_chip` says it fits, else gathered
+  through L1 (counted in ``ell_through_l1_launches``).
 * :func:`spmv_csr` replaces ``windowed_spmv_traced`` (K3b, the windowed
   kernel over a host-built pack).  The TPU pack exists for the TPU's gather
   limits and is not carried over: the kernel reads the device CSR form that
@@ -83,9 +85,13 @@ MAX_WINDOWS = 8
 # bands one launch of csrc/spmv_ell.cu or csrc/spmv_csr.cu takes (their
 # SP_MAX_BANDS)
 MAX_BANDS = 64
+# floats of x that K3a's on-chip form holds in each block (csrc/
+# spmv_ell.cu's kMaxX)
+ELL_MAX_X = 32768
 
-counts = {"ell_launches": 0, "ell_plain_runs": 0, "csr_launches": 0,
-          "csr_plain_runs": 0, "chunked_launches": 0,
+counts = {"ell_launches": 0, "ell_plain_runs": 0,
+          "ell_through_l1_launches": 0, "ell_4byte_launches": 0,
+          "csr_launches": 0, "csr_plain_runs": 0, "chunked_launches": 0,
           "chunked_windowed_launches": 0, "chunked_plain_runs": 0,
           "chunked_windowed_packs": 0, "chunked_unwindowed_packs": 0,
           "sharded_ell_launches": 0, "sharded_ell_bands": 0,
@@ -143,7 +149,8 @@ def _check_float(name: str, t: torch.Tensor) -> None:
 def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
   """``y = A @ x`` over padded ELL; cols/vals (n, k), x (m,) → y (n,) of
-  ``vals.dtype``.  CUDA tensors launch K3a, CPU tensors run
+  ``vals.dtype``.  CUDA tensors launch K3a (x in each block's shared
+  memory where :func:`ell_on_chip` says so), CPU tensors run
   :func:`spmv_ell_plain`."""
   if cols.dim() != 2 or vals.shape != cols.shape or x.dim() != 1:
     raise ValueError(f"spmv_ell needs cols/vals (n, k) and x (m,), got "
@@ -562,20 +569,56 @@ def sharded_onehot_spmv(cols: torch.Tensor, vals: torch.Tensor,
   return y.to(out_dtype)
 
 
+def ell_on_chip(m: int) -> bool:
+  """Whether K3a takes its on-chip form for an x of ``m`` floats: x fits
+  in a block's shared memory (``ELL_MAX_X`` floats).  Otherwise it gathers
+  x through L1 (only under ``--sparse_force_onehot`` past
+  ``ONEHOT_MAX_M`` columns)."""
+  return 1 <= m <= ELL_MAX_X
+
+
+def ell_form(cols: torch.Tensor, vals: torch.Tensor,
+             m: int) -> Tuple[int, int, int]:
+  """K3a's launch form for contiguous ``cols``/``vals`` (n, k) and an x of
+  ``m`` floats: ``(on_chip, vec, group)``.  On chip (:func:`ell_on_chip`,
+  fewer than 2^31 rows), ``group`` covers a row's ceil(k / 4) pieces of 4
+  entries in one round, loaded 16 bytes at a time (``vec`` 4) where
+  k % 4 == 0 and both start on 16 bytes, else 4 bytes at a time (``vec``
+  1, the same sum); through L1, ``vec`` 1 and ``group`` covering k.  The
+  form fixes each row's sum order, so every band of a matrix takes the
+  whole matrix's."""
+  n, k = cols.shape
+  if not ell_on_chip(m) or n >= 2 ** 31:
+    return 0, 1, group_size(k)
+  vec = 4 if (k % 4 == 0 and cols.data_ptr() % 16 == 0
+              and vals.data_ptr() % 16 == 0) else 1
+  return 1, vec, group_size(-(-k // 4))
+
+
 def _launch_bands(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
                   y: torch.Tensor, bands: List[Tuple[int, int]]) -> int:
   """K3a over contiguous int32 ``cols``, float32 ``vals`` (n, k) and ``x``,
   writing float32 ``y`` (n,): one launch (one ctypes call) for every
-  ``MAX_BANDS`` of ``bands``, each row with the whole matrix's lane group.
-  Returns the launches."""
-  k = cols.shape[1]
+  ``MAX_BANDS`` of ``bands``, each row in the whole matrix's form
+  (:func:`ell_form`; the through-L1 form counted in
+  ``ell_through_l1_launches``, the on-chip form's 4-byte loads in
+  ``ell_4byte_launches``).  Returns the launches."""
+  k, m = cols.shape[1], x.shape[0]
+  on_chip, vec, group = ell_form(cols, vals, m)
+  if on_chip and x.data_ptr() % 16:
+    x = x.clone()  # the bulk copy reads x from a 16-byte boundary
   table = band_table(cols, vals, y, bands)
   for lo in range(0, len(table), MAX_BANDS):
     chunk = table[lo:lo + MAX_BANDS]
     flat = (ctypes.c_int64 * (4 * len(chunk)))(*(v for b in chunk for v in b))
     build.launch("spmv_ell", x.device, ctypes.addressof(flat), len(chunk),
-                 x.data_ptr(), k, group_size(k))
-  return -(-len(table) // MAX_BANDS)
+                 x.data_ptr(), m, k, group, vec, on_chip)
+  launches = -(-len(table) // MAX_BANDS)
+  if not on_chip:
+    counts["ell_through_l1_launches"] += launches
+  elif vec == 1:
+    counts["ell_4byte_launches"] += launches
+  return launches
 
 
 def rb_per_of(n: int, n_shards: int) -> int:

@@ -225,6 +225,142 @@ def test_spmv_kernels_are_deterministic(device):
   assert torch.equal(KS.spmv_csr(*S.to_csr(), x), KS.spmv_csr(*S.to_csr(), x))
 
 
+# K3a's forms: x in each block's shared memory (16-byte loads where
+# k % 4 == 0 and the rows are aligned, else 4-byte ones) and, past the
+# on-chip capacity, through L1.  A long row is held to a float64 product:
+# float32 sums of k products, |err| <= (k + 1) 2^-24 sum|a x|.
+
+def _urand_ell(n, degree=16, seed=0):
+  import scipy.sparse as ss
+  rng = np.random.default_rng(seed)
+  return sps.from_scipy(ss.csc_matrix(
+      (np.full(degree * n, 1 / degree, np.float32),
+       rng.integers(0, n, degree * n).astype(np.int32),
+       np.arange(0, degree * n + 1, degree)), shape=(n, n)))
+
+
+def _held_to_float64(S, x, got):
+  cols, vals = S.cols.long(), S.vals.double()
+  want = (vals * x.double()[cols]).sum(1)
+  bound = (S.cols.shape[1] + 1) * 2.0 ** -24 * (
+      vals.abs() * x.double().abs()[cols]).sum(1)
+  return bool(((got.double() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("kind", MATRICES + ["urand"])
+def test_k3a_on_chip_matches_plain_and_repeats_bit_for_bit(device, kind):
+  S = _urand_ell(32768) if kind == "urand" else sps.from_scipy(_matrix(kind))
+  gen = torch.Generator(device=device).manual_seed(12)
+  x = torch.randn(S.shape[1], generator=gen, device=device)
+  assert KS.ell_on_chip(S.shape[1])
+  narrow = KS.ell_form(S.cols, S.vals, S.shape[1])[1] == 1  # 4-byte loads
+  before = dict(KS.counts)
+  first = KS.spmv_ell(S.cols, S.vals, x)
+  torch.cuda.synchronize()
+  assert KS.counts == dict(
+      before, ell_launches=before["ell_launches"] + 1,
+      ell_4byte_launches=before["ell_4byte_launches"] + narrow)
+  want = KS.spmv_ell_plain(S.cols, S.vals, x)
+  assert _held_to_float64(S, x, first)
+  if kind != "long_row":
+    assert float((first - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+  assert torch.equal(KS.spmv_ell(S.cols, S.vals, x), first)
+  assert KS.counts["ell_through_l1_launches"] == 0
+
+
+def _k3a_order(cols, vals, x, group):
+  """K3a's float32 result in its on-chip sum order (tests/
+  test_torch_spmv_clusters.py's emulation): lane l's pieces of 4 entries
+  l, l + G, ... in entry order, then the tree."""
+  n, k = cols.shape
+  prods = vals * x[cols]
+  lanes = np.zeros((n, group), np.float32)
+  for lane in range(group):
+    for j in range(lane, -(-k // 4), group):
+      for e in range(4 * j, min(4 * j + 4, k)):
+        lanes[:, lane] = lanes[:, lane] + prods[:, e]
+  o = group // 2
+  while o:
+    lanes[:, :o] = lanes[:, :o] + lanes[:, o:2 * o]
+    o //= 2
+  return lanes[:, 0]
+
+
+def _urand_ell_k(k):
+  """urand 32768's ELL cut or padded to k entries a row (k = 35, 37: rows
+  not on 16 bytes, 4-byte loads)."""
+  S = _urand_ell(32768)
+  cols = torch.zeros((S.shape[0], k), dtype=torch.int32, device=S.cols.device)
+  vals = torch.zeros((S.shape[0], k), device=S.vals.device)
+  w = min(k, S.cols.shape[1])
+  cols[:, :w], vals[:, :w] = S.cols[:, :w], S.vals[:, :w]
+  return cols, vals, S.shape[1]
+
+
+@pytest.mark.parametrize("kind", ["urand", "random", "long_row", "urand35",
+                                  "urand37"])
+def test_k3a_gives_the_bits_of_its_sum_order(device, kind):
+  if kind.startswith("urand") and kind != "urand":
+    cols, vals, m = _urand_ell_k(int(kind[5:]))
+  else:
+    S = _urand_ell(32768) if kind == "urand" else sps.from_scipy(
+        _matrix(kind))
+    cols, vals, m = S.cols, S.vals, S.shape[1]
+  x = torch.randn(m, device=device)
+  on_chip, vec, group = KS.ell_form(cols, vals, m)
+  assert on_chip
+  got = KS.spmv_ell(cols, vals, x)
+  want = _k3a_order(cols.cpu().numpy(), vals.cpu().numpy(), x.cpu().numpy(),
+                    group)
+  np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_k3a_takes_x_through_l1_past_the_on_chip_capacity(device):
+  import scipy.sparse as ss
+  m = KS.ELL_MAX_X + 3
+  S = sps.from_scipy(ss.random(3000, m, density=0.004, random_state=2,
+                               format="csr", dtype=np.float32))
+  x = torch.randn(m, device=device)
+  assert not KS.ell_on_chip(m) and KS.ell_on_chip(m - 3)
+  before = dict(KS.counts)
+  got = KS.spmv_ell(S.cols, S.vals, x)
+  torch.cuda.synchronize()
+  assert KS.counts["ell_through_l1_launches"] == (
+      before["ell_through_l1_launches"] + 1)
+  assert _held_to_float64(S, x, got)
+
+
+def test_k3a_reads_misaligned_operands(device):
+  """x off a 16-byte boundary (copied for the bulk copy) and vals off one
+  (4-byte loads, counted): the same bits as the aligned operands', within
+  the float32 bound of a float64 product."""
+  import scipy.sparse as ss
+  n, k = 5000, 12
+  rng = np.random.default_rng(3)
+  cols = (np.arange(n)[:, None] * k + np.arange(k) * 997) % n  # distinct
+  S = sps.from_scipy(ss.csr_matrix(
+      (rng.standard_normal(n * k).astype(np.float32), cols.ravel(),
+       np.arange(0, n * k + 1, k)), shape=(n, n)))
+  assert S.cols.shape == (n, k)
+  gen = torch.Generator(device=device).manual_seed(4)
+  xs = torch.randn(S.shape[1] + 1, generator=gen, device=device)
+  x = xs[1:]
+  assert x.data_ptr() % 16 and KS.ell_form(S.cols, S.vals, x.shape[0])[1] == 4
+  spare = torch.empty(n * k + 1, device=device)
+  vals = spare[1:].view(n, k)
+  vals.copy_(S.vals)
+  assert KS.ell_form(S.cols, vals, x.shape[0])[1] == 1
+  aligned = KS.spmv_ell(S.cols, S.vals, x.clone())
+  assert torch.equal(KS.spmv_ell(S.cols, S.vals, x), aligned)
+  before = KS.counts["ell_4byte_launches"]
+  got = KS.spmv_ell(S.cols, vals, x)
+  torch.cuda.synchronize()
+  assert KS.counts["ell_4byte_launches"] == before + 1
+  assert torch.equal(got, aligned)
+  assert _held_to_float64(S, x, got)
+
+
 def test_spmv_wrappers_refuse_what_the_kernels_do_not_take(device):
   S = sps.from_scipy(_matrix("tiny"))
   x = torch.randn(S.shape[1], device=device)
@@ -1180,7 +1316,7 @@ def test_k3d_is_one_launch_bit_equal_to_k3b(device, p):
     assert bool(((got - want).abs() <= _row_tol(whole, x, want)).all())
 
 
-@pytest.mark.parametrize("p", [1, 3, 8, 64, 65])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 8, 64, 65])
 def test_banded_k3a_equals_unsharded(device, p):
   """K3a sharded is one launch for every 64 non-empty bands, bit-equal to
   K3a; n < p leaves the shards past the last row out of the table."""

@@ -96,11 +96,13 @@ class _Launches:
     self.cols, self.vals, self.y = cols, vals, y
     self.calls = []
 
-  def __call__(self, name, device, table, count, x_ptr, k, group):
+  def __call__(self, name, device, table, count, x_ptr, m, k, group, vec,
+               on_chip):
     assert name == "spmv_ell" and 1 <= count <= KS.MAX_BANDS
-    assert k == self.cols.shape[1] and group == KS.group_size(k)
-    rows = (ctypes.c_int64 * (4 * count)).from_address(table)
     x = self.x
+    assert k == self.cols.shape[1] and m == x.shape[0]
+    assert (on_chip, vec, group) == KS.ell_form(self.cols, self.vals, m)
+    rows = (ctypes.c_int64 * (4 * count)).from_address(table)
     assert x_ptr == x.data_ptr()
     self.calls.append(count)
     for b in range(count):

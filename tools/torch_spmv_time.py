@@ -1,30 +1,46 @@
-"""Times the CSR SpMV kernels K3b, K3c and K3d beside cuSPARSE on the card,
-for the package under a given checkout, so that two versions can be held
-side by side in one chip call (card only).
+"""Times the SpMV kernels K3a, K3a sharded, K3b, K3c and K3d beside
+cuSPARSE on the card, for the package under a given checkout, so that two
+versions can be held side by side in one chip call (card only).
 
     python3 tools/torch_spmv_time.py [ROOT] [--ablations] [--reps 7]
 
 ROOT (default: this checkout) is the directory that holds the
 ``spartan_tpu_torch`` to time; its kernels build into its own ``_build``.
 The inputs are chip_smoke.py's, made from its seeds: the urand 2^22 graph
-(67.1 M nonzeros, x of 2^22 floats) and the transpose of the ratings of
-MovieLens 20M's shape (26,744 x 138,493, 20.0 M nonzeros).  Through the
-entry points both versions have (``spmv_csr``, ``make_spmv_windowed`` over
+(67.1 M nonzeros, x of 2^22 floats), the transpose of the ratings of
+MovieLens 20M's shape (26,744 x 138,493, 20.0 M nonzeros) and the urand
+graph at n = 32768 (K3a's ELL, k = 36).  Through the entry points both
+versions have (``spmv_csr``, ``make_spmv_windowed`` over
 ``pack_windowed_unique``, ``sharded_windowed_spmv_traced`` over
-``pack_windowed_sharded`` at p = 2, 4, 8), it prints the median over
+``pack_windowed_sharded`` at p = 2, 4, 8, ``spmv_ell`` and
+``sharded_onehot_spmv`` at p = 2, 4, 8), it prints the median over
 ``--reps`` of the device time of one call (CUDA events over 20 calls
 queued behind a spin kernel, in turns) and a digest of each result's
 bytes, so that two versions' bits can be compared.
 
-``--ablations`` (this checkout only) also builds variants of this
-checkout's ``csrc/spmv_csr.cu`` and ``csrc/spmv_chunked.cu``, each with one
-constant changed, into a temporary directory, and times each in turns with
-the kernel as it is on both inputs: K3b loading 1, 4 or 16 entries of a
-long row at a time (8 as it is); K3c with its loads of the stream and x
-issued after the row marks, without the stream's evict-first hint, and
-with chunks of 128 threads, 8 nonzeros a thread.  It then times K3b with
-G = 4, 8, 16 and 32 lanes a row on the urand graph, and K3d at p = 8 as one
-launch and as a launch a band.
+It also times K3a on the same graph with rows of k = 35 (cut) and 37
+(padded), whose rows do not start on 16 bytes.
+
+``--ablations`` (this checkout only) first times K3a at n = 32768 in the
+launch forms its entry point takes, given by hand: x copied whole into
+each block's shared memory with 16-byte loads (the wrapper's form) against
+the through-L1 form (the design before: x gathered through L1, 4-byte
+loads, 32 lanes a row), 16-byte loads at the other G of 8, 16 and 32 lanes
+a row, and the same pieces with 4-byte loads; at k = 35 and 37, the
+on-chip form's 4-byte loads against the through-L1 form.  Each form's
+result digest is printed, so that the forms that keep the sum order can
+be seen to give the same bits.  It then builds variants of this
+checkout's ``csrc/spmv_ell.cu``, ``csrc/spmv_csr.cu`` and
+``csrc/spmv_chunked.cu``, each with one text changed, into a temporary
+directory, and times each in turns with the kernel as it is: K3a
+gathering x through L1 with its 16-byte loads, K3a with blocks of 1024
+threads and 4 rows a slot and of 512 threads and 4 rows a slot (512 and 8
+as it is); K3b loading 1, 4 or 16 entries of a long row at a time (8 as
+it is); K3c with its loads of the stream and x issued after the row
+marks, without the stream's evict-first hint, and with chunks of 128
+threads, 8 nonzeros a thread.  It then times K3b with G = 4, 8, 16 and 32
+lanes a row on the urand graph, and K3d at p = 8 as one launch and as a
+launch a band.
 """
 
 from __future__ import annotations
@@ -58,6 +74,13 @@ VARIANTS = {
     "K3c 128 threads, 8 a thread": (
         "spmv_chunked", "constexpr int kThreads = 256;\nconstexpr int kPer = 4;",
         "constexpr int kThreads = 128;\nconstexpr int kPer = 8;"),
+    "K3a x through L1, 16-byte loads": ("spmv_ell", "add(acc, xs, ",
+                                        "add(acc, t.x, "),
+    "K3a 1024 threads, 4 rows a slot": (
+        "spmv_ell", "constexpr int kThreads = 512;\nconstexpr int kRows = 8;",
+        "constexpr int kThreads = 1024;\nconstexpr int kRows = 4;"),
+    "K3a 512 threads, 4 rows a slot": (
+        "spmv_ell", "constexpr int kRows = 8;", "constexpr int kRows = 4;"),
 }
 
 
@@ -139,12 +162,13 @@ def main() -> int:
           f"{unique!r}")
   del big, RT
 
-  def line(label, t, names, y=None):
+  def line(label, t, names, y=None, inner=20):
     times = ", ".join(f"{name} {t[name]:.4f} ms" for name in names)
     ahead = all(t[f"{name} ahead"] for name in names)
     bits = f"; result digest {digest(y)}" if y is not None else ""
     print(f"{card}; root {root}; {label}: {times} (median of {args.reps} x "
-          f"20 calls, CUDA events, in turns; queued ahead: {ahead}){bits}")
+          f"{inner} calls, CUDA events, in turns; queued ahead: {ahead})"
+          f"{bits}")
 
   for label, (A, whole, unique, x, lib) in mats.items():
     csr = (whole.indptr, whole.indices, whole.data)
@@ -172,13 +196,74 @@ def main() -> int:
         "K3b": lambda: KS.spmv_csr(*csr, x)}, 20, args.reps)
     line(f"urand 2^22 K3d p = {p} ({launches} launches a call)", t,
          ("K3d", "K3b"), y)
+
+  from spartan_tpu_torch.backend import sparse
+  small = sparse.from_scipy(cs.urand_graph(cs.PR_SMALL_N, 2))
+  cols, vals = small.cols, small.vals
+  n, k = cols.shape
+  xa = torch.randn(small.shape[1], generator=gen, device=device)
+  indptr, indices, data = small.to_csr()
+  liba = torch.sparse_csr_tensor(indptr.int(), indices, data,
+                                 size=small.shape, check_invariants=False)
+  t = cs.time_in_turns({"K3a": lambda: KS.spmv_ell(cols, vals, xa),
+                        "cuSPARSE": lambda: liba @ xa}, 200, args.reps)
+  line(f"urand 32768 K3a (k = {k})", t, ("K3a", "cuSPARSE"),
+       KS.spmv_ell(cols, vals, xa), 200)
+  for p in (2, 4, 8):
+    mesh = sp.make_mesh(device, shape=(p,))
+    t = cs.time_in_turns({
+        "K3a sharded": lambda: KS.sharded_onehot_spmv(cols, vals, xa, mesh),
+        "K3a": lambda: KS.spmv_ell(cols, vals, xa)}, 200, args.reps)
+    line(f"urand 32768 K3a sharded p = {p}", t, ("K3a sharded", "K3a"),
+         KS.sharded_onehot_spmv(cols, vals, xa, mesh), 200)
+  # rows off 16-byte boundaries: the same graph cut to 35 entries a row and
+  # padded to 37
+  odd = {}
+  for kk in (35, 37):
+    c = torch.zeros((n, kk), dtype=torch.int32, device=device)
+    v = torch.zeros((n, kk), device=device)
+    c[:, :min(k, kk)], v[:, :min(k, kk)] = (cols[:, :kk], vals[:, :kk])
+    odd[kk] = (c, v)
+  t = cs.time_in_turns({f"K3a k = {kk}": (lambda c=c, v=v: KS.spmv_ell(
+      c, v, xa)) for kk, (c, v) in odd.items()}, 200, args.reps)
+  for kk, (c, v) in odd.items():
+    line(f"urand 32768 K3a (k = {kk})", t, (f"K3a k = {kk}",),
+         KS.spmv_ell(c, v, xa), 200)
   if not args.ablations:
     return 0
+
+  def ell_form(on_chip, vec, group, c=cols, v=vals):
+    """K3a's entry point over one band with its launch form given."""
+    y = torch.empty(n, device=device)
+    flat = (ctypes.c_int64 * 4)(*KS.band_table(c, v, y, [(0, n)])[0])
+
+    def run():
+      build.launch("spmv_ell", device, ctypes.addressof(flat), 1,
+                   xa.data_ptr(), xa.shape[0], c.shape[1], group, vec,
+                   on_chip)
+      return y
+    return run
+
+  g = KS.group_size(k // 4)
+  forms = {f"x in shared memory, 16-byte loads, G = {g}": ell_form(1, 4, g),
+           "through L1 (before)": ell_form(0, 1, KS.group_size(k))}
+  for group in (8, 16, 32):
+    if group != g:
+      forms[f"16-byte loads, G = {group}"] = ell_form(1, 4, group)
+  forms[f"4-byte loads, G = {g}"] = ell_form(1, 1, g)
+  for kk, (c, v) in odd.items():
+    forms[f"k = {kk}, x in shared memory, 4-byte loads"] = ell_form(
+        1, 1, KS.group_size(-(-kk // 4)), c, v)
+    forms[f"k = {kk}, through L1 (before)"] = ell_form(
+        0, 1, KS.group_size(kk), c, v)
+  t = cs.time_in_turns(forms, 200, args.reps)
+  for name, fn in forms.items():
+    line("urand 32768 K3a form", t, (name,), fn(), 200)
 
   with tempfile.TemporaryDirectory() as tmp:
     libs = build_variants(build, Path(tmp))
     as_is = {source: bind(build, source, build.load(source))
-             for source in ("spmv_csr", "spmv_chunked")}
+             for source in ("spmv_csr", "spmv_chunked", "spmv_ell")}
 
     def routed(source, entry, fn):
       def run():
@@ -188,19 +273,24 @@ def main() -> int:
 
     for name, (source, lib) in libs.items():
       entry = bind(build, source, lib)
-      for label, (_, whole, unique, x_m, _) in mats.items():
-        if source == "spmv_csr":
-          fn = (lambda w=whole, v=x_m: KS.spmv_csr(w.indptr, w.indices,
-                                                   w.data, v))
-        else:
-          fn = (lambda u=unique, v=x_m: KS.make_spmv_windowed(u)(v))
+      if source == "spmv_ell":
+        cases = {"urand 32768": lambda: KS.spmv_ell(cols, vals, xa)}
+      elif source == "spmv_csr":
+        cases = {label: (lambda w=whole, v=x_m: KS.spmv_csr(
+            w.indptr, w.indices, w.data, v))
+                 for label, (_, whole, _, x_m, _) in mats.items()}
+      else:
+        cases = {label: (lambda u=unique, v=x_m: KS.make_spmv_windowed(u)(v))
+                 for label, (_, _, unique, x_m, _) in mats.items()}
+      for label, fn in cases.items():
+        inner = 200 if source == "spmv_ell" else 20
         want = routed(source, as_is[source], fn)()
         got = routed(source, entry, fn)()
         torch.cuda.synchronize()
         t = cs.time_in_turns({"as is": routed(source, as_is[source], fn),
-                              name: routed(source, entry, fn)}, 20,
+                              name: routed(source, entry, fn)}, inner,
                              args.reps)
-        line(f"{label} ablation", t, ("as is", name))
+        line(f"{label} ablation", t, ("as is", name), inner=inner)
         print(f"  {name} on {label}: bit-equal to the kernel as it is: "
               f"{bool(torch.equal(got, want))}")
     build._bound.update(as_is)

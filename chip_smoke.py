@@ -17,7 +17,8 @@ raises on any failure:
      sharded and K3d one launch over a table of bands, K5b and K6b a
      launch a band), K6b the halo-row instantiation in
      stencil3x3_padded.cu;
-  2. K1 against its plain torch version on the card, over five chains,
+  2. K1 against its plain torch version on the card, over nine chains
+     (power, floor division and remainder among them),
      four shapes, each also as the flattened x[1:] (a base off 16-byte
      alignment), and two accumulators, bit-equal on repeat, with ptxas's
      report of each of its kernels (0-byte stack frame, no spill); then
@@ -99,10 +100,18 @@ raises on any failure:
      its plain version at the unsharded kernel's bound; each timed at
      full shape beside the unsharded kernel, its plain version and
      cuSPARSE or cuDNN; K3a sharded and K3d one launch a call, their bands
-     counted.
+     counted;
+ 15. the core expression surface at config 1's 16384^2 float32 through the
+     entry points: (b ** 2).sum(), (b // 0.3).sum() and (b % 0.7).sum()
+     each one K1 launch (no plain route), var, std with ddof, prod over a
+     slice, all and any, sliced sums and means, a 4096-row gather, a
+     2^22-element (rows, cols) gather, b[b > 2.5] on the device,
+     b.at[rows, cols].add(1.0) with duplicates against np.add.at, nanmean
+     with NaN planted, each against a float64 NumPy oracle, and how much
+     of b[1:-1, 1:-1].sum() is the contiguous copy K1 reads.
 
 The count of each kernel's launches is set to 0 just before the path that
-runs it (phases 3-4 for K1, phase 6 for K3a/K3b, phase 8 for K5a, phase 10
+runs it (phases 3-4 and 15 for K1, phase 6 for K3a/K3b, phase 8 for K5a, phase 10
 for K6a, phase 11's full-size matmul calls for K2, phase 12's
 make_spmv_windowed calls for K3c, phase 14's path at each p for the
 sharded kernels, summed over the three meshes) and read just after.  K4 has no caller
@@ -248,7 +257,18 @@ CHAINS = {
                   True, False),
     "max(v*s,0.25)": (call("maximum", call("multiply", V, S), LocalConst(0.25)),
                       False, True),
+    # power with a general exponent (powf/pow: the CUDA math library's ulp
+    # bounds, so "transcendental"), with 2 (the square instruction), floor
+    # division and remainder (torch's algorithm, IEEE-rounded steps)
+    "abs(v)**2.5": (call("power", call("absolute", V), LocalConst(2.5)),
+                    True, False),
+    "power(v,2)": (call("power", V, LocalConst(2.0)), False, False),
+    "v//0.3": (call("floor_divide", V, LocalConst(0.3)), False, False),
+    "v%0.7": (call("remainder", V, LocalConst(0.7)), False, False),
 }
+# K1's abs(1+2v) at 16384^2 float32 before this op table grew (PERF.md,
+# PR 8): the new opcodes must not cost it more than 3 %
+K1_ABS_MS_PR8 = 0.4680
 
 
 def tolerance(transcendental: bool, acc: torch.dtype) -> float:
@@ -396,7 +416,9 @@ def phase_kernel_vs_plain(device, card: str):
   nbytes = x.numel() * x.element_size()
   bound_ms, bound_by = bound(nbytes + 8, x.numel() * len(program.instrs))
   print(f"  K1 time at {TIMED_SHAPE} float32, abs(1+2v), float64 acc: "
-        f"kernel {t['kernel']:.4f} ms ({nbytes / t['kernel'] / 1e6:.1f} GB/s), "
+        f"kernel {t['kernel']:.4f} ms ({nbytes / t['kernel'] / 1e6:.1f} GB/s; "
+        f"{100 * (t['kernel'] / K1_ABS_MS_PR8 - 1):+.2f} % against PR 8's "
+        f"{K1_ABS_MS_PR8} ms), "
         f"plain {t['plain']:.4f} ms, torch.sum(dtype=float64) "
         f"{t['torch.sum']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}) "
         f"(median of {TIMING_REPS}, queued ahead of the device, CUDA events, "
@@ -1582,6 +1604,69 @@ def phase_matmul_kernel(device):
   print(f"  K2 300x500x200 float32 epilogue tanh (outside the op table, run "
         f"in torch on the kernel's float32 product): max|kernel-plain| "
         f"{err:.3g}; {cases + 1} cases, counts {K2.counts}")
+  return max(worst, check_new_epilogues(device))
+
+
+def mod2(acc):
+  return acc % 2.0
+
+
+def abs_pow(acc):
+  return torch.abs(acc) ** 1.5
+
+
+def check_new_epilogues(device):
+  """K2's epilogue with % and ** (op-program instructions since the op
+  table took them) against matmul_plain at 300x191x520: the product's
+  bound carried through the op (for %, the distance on the circle of the
+  modulus; for |a|**1.5, its derivative 1.5·|a|**0.5 times the bound, and
+  4 ulps of the result); in float32 also against torch's op on the
+  kernel's own product, bit for bit for % and at 2 float32 ulps for
+  ** (powf on both sides).  Returns the worst |kernel - plain|."""
+  gen = torch.Generator(device=device).manual_seed(47)
+  worst = 0.0
+  for dtype in (torch.float32, torch.bfloat16):
+    x = torch.randn(300, 191, generator=gen, device=device).to(dtype)
+    y = torch.randn(191, 520, generator=gen, device=device).to(dtype)
+    before = dict(K2.counts)
+    got = {"%": K2.matmul(x, y, epilogue=mod2),
+           "**": K2.matmul(x, y, epilogue=abs_pow)}
+    check(K2.counts == dict(before, launches=before["launches"] + 2,
+                            padded_operands=before["padded_operands"] + 2),
+          f"the % and ** epilogues did not fuse into two launches "
+          f"({K2.counts})")
+    prod = K2.matmul_plain(x, y)
+    tol = matmul_tol(x, y, prod).float()
+    unit = max(OUT_UNIT[dtype], 2.0 ** -23)
+    want = {"%": K2.matmul_plain(x, y, mod2),
+            "**": K2.matmul_plain(x, y, abs_pow)}
+    d = (got["%"].float() - want["%"].float()).abs()
+    d_mod = torch.minimum(d, 2.0 - d)
+    ok_mod = bool((d_mod <= tol + 4.0 * unit).all())
+    base = prod.float().abs()
+    pow_tol = (1.5 * (base + tol).sqrt() * tol
+               + 4.0 * unit * want["**"].float().abs())
+    d_pow = (got["**"].float() - want["**"].float()).abs()
+    ok_pow = bool((d_pow <= pow_tol).all())
+    worst = max(worst, float(d_mod.max()), float(d_pow.max()))
+    own = ""
+    if dtype == torch.float32:
+      mine = K2.matmul(x, y)
+      same_mod = bool(torch.equal(got["%"], torch.remainder(mine, 2.0)))
+      pow_ulps = float(((got["**"] - torch.abs(mine) ** 1.5).abs()
+                        / (torch.abs(mine) ** 1.5).clamp_min(1e-30)).max()
+                       / 2.0 ** -23)
+      own = (f"; on the kernel's own product: % bit-equal {same_mod}, ** "
+             f"within {pow_ulps:.2f} ulps")
+      check(same_mod and pow_ulps <= 2.0,
+            "K2's % or ** epilogue disagrees with torch on its own product")
+    print(f"  K2 300x191x520 {str(dtype)[6:]} epilogues a % 2.0 and "
+          f"|a| ** 1.5 (fused): max circular |kernel-plain| "
+          f"{float(d_mod.max()):.3g}, max |kernel-plain| for ** "
+          f"{float(d_pow.max()):.3g}, within the bound: {ok_mod and ok_pow}"
+          f"{own}")
+    check(ok_mod and ok_pow,
+          f"K2's % or ** epilogue disagrees with matmul_plain ({dtype})")
   return worst
 
 
@@ -2399,6 +2484,155 @@ def phase_sharded(device, card: str, graphs, R, als_ref, heat_ref):
 
 
 
+# the expression surface at config 1's published 16384^2 float32
+SURFACE_N, GATHER_ROWS, GATHER_PAIRS, AT_PAIRS = 16384, 4096, 1 << 22, 1 << 20
+PROD_ROWS, NAN_COUNT = 64, 1000
+
+
+def surface_check(label, got, want, rtol, why, secs):
+  """Holds a result (evaluated on the card, fetched) against its float64
+  NumPy oracle and prints both with the wall time."""
+  got = np.asarray(got)
+  want = np.asarray(want)
+  check(got.shape == want.shape, f"{label}: shape {got.shape}, expected "
+        f"{want.shape}")
+  if rtol == 0:
+    ok = bool(np.array_equal(got, want))
+    err = 0.0 if ok else float(np.abs(got.astype(np.float64) - want).max())
+  else:
+    err = float(np.abs(got.astype(np.float64) - want).max()
+                / max(float(np.abs(want).max()), 1e-300))
+    ok = bool(np.isfinite(got).all()) and err <= rtol
+  print(f"  {label}: max err {err:.3g} of max|oracle| (tolerance "
+        f"{rtol:g}: {why}), wall {secs * 1e3:.1f} ms")
+  check(ok, f"{label} disagrees with its NumPy oracle")
+
+
+def phase_expression_surface(device, card: str) -> int:
+  """The core expression surface through the entry points at 16384^2
+  float32: K1's new instructions, the new reductions, slices, gathers, a
+  boolean mask on the device, .at with duplicates and a NaN reduction,
+  each against a float64 NumPy oracle on the host copy.  Returns K1's
+  launches."""
+  from spartan_tpu_torch.expr import slice as slice_mod
+  rng = np.random.default_rng(15)
+  host = rng.uniform(-1.0, 3.0, (SURFACE_N, SURFACE_N)).astype(np.float32)
+  b = sp.from_numpy(host)
+  h64 = host.astype(np.float64)
+  K.reset_counts()
+  elems = {"(b ** 2).sum()": (lambda: (b ** 2).sum(), host * host),
+           "(b // 0.3).sum()": (lambda: (b // 0.3).sum(),
+                                host // np.float32(0.3)),
+           "(b % 0.7).sum()": (lambda: (b % 0.7).sum(),
+                               host % np.float32(0.7))}
+  for label, (fn, values) in elems.items():
+    before = dict(K.counts)
+    with Timer() as t:
+      got = float(fn().glom())
+    check(K.counts["launches"] == before["launches"] + 1
+          and K.counts["routed_plain"] == before["routed_plain"],
+          f"{label} did not launch K1 once ({K.counts} after {before})")
+    # the chain computes in float32, as NumPy's float32 ufunc does; the sum
+    # in float64 in another order
+    surface_check(label, got, values.astype(np.float64).sum(), 1e-9,
+                  "float64 sums in another order", t.elapsed)
+  k1_launches = K.counts["launches"]
+  del values
+  with Timer() as t:
+    got = float(sp.var(b).glom())
+  surface_check("sp.var(b)", got, h64.var(), 1e-9,
+                "float64 accumulation of float32 values", t.elapsed)
+  with Timer() as t:
+    got = float(sp.std(b, ddof=1).glom())
+  surface_check("sp.std(b, ddof=1)", got, h64.std(ddof=1), 1e-9,
+                "float64 accumulation of float32 values", t.elapsed)
+  with Timer() as t:
+    got = b[:PROD_ROWS].prod(axis=0).glom()
+  surface_check(f"b[:{PROD_ROWS}].prod(axis=0)", got,
+                h64[:PROD_ROWS].prod(axis=0), 1e-9,
+                f"{PROD_ROWS} float64 products in another order", t.elapsed)
+  with Timer() as t:
+    got = (bool(sp.all(b > -1.5).glom()), bool(sp.any(b > 2.9999).glom()))
+  surface_check("sp.all(b > -1.5), sp.any(b > 2.9999)", got,
+                (bool((host > -1.5).all()), bool((host > 2.9999).any())), 0,
+                "exact", t.elapsed)
+  with Timer() as t:
+    got = float(b[1:-1, 1:-1].sum().glom())
+  surface_check("b[1:-1, 1:-1].sum()", got, h64[1:-1, 1:-1].sum(), 1e-9,
+                "float64 sums in another order", t.elapsed)
+  with Timer() as t:
+    got = float(b[::2].mean().glom())
+  surface_check("b[::2].mean()", got, h64[::2].mean(), 1e-9,
+                "float64 sums in another order", t.elapsed)
+  rows = rng.integers(0, SURFACE_N, GATHER_ROWS)
+  with Timer() as t:
+    got = b[rows].glom()
+  surface_check(f"b[rows] ({GATHER_ROWS} rows, "
+                f"{GATHER_ROWS * SURFACE_N * 4 / 1e6:.0f} MB)", got,
+                host[rows], 0, "a gather copies", t.elapsed)
+  del got
+  r2 = rng.integers(0, SURFACE_N, GATHER_PAIRS)
+  c2 = rng.integers(0, SURFACE_N, GATHER_PAIRS)
+  with Timer() as t:
+    got = b[sp.from_numpy(r2), sp.from_numpy(c2)].glom()
+  surface_check(f"b[rows, cols] ({GATHER_PAIRS} elements)", got,
+                host[r2, c2], 0, "a gather copies", t.elapsed)
+  before = slice_mod.counts["boolean_mask_device"]
+  with Timer() as t:
+    got = b[b > 2.5].glom()
+  check(slice_mod.counts["boolean_mask_device"] == before + 1,
+        "b[b > 2.5] did not take the device boolean path")
+  surface_check(f"b[b > 2.5] ({got.size} elements, on the device)", got,
+                host[host > 2.5], 0, "a selection copies", t.elapsed)
+  del got
+  # .at with duplicates: a quarter of the pairs again
+  ar = rng.integers(0, SURFACE_N, AT_PAIRS)
+  ac = rng.integers(0, SURFACE_N, AT_PAIRS)
+  ar = np.concatenate([ar, ar[:AT_PAIRS // 4]])
+  ac = np.concatenate([ac, ac[:AT_PAIRS // 4]])
+  with Timer() as t:
+    got = b.at[sp.from_numpy(ar), sp.from_numpy(ac)].add(1.0).glom()
+  want = h64.copy()
+  np.add.at(want, (ar, ac), 1.0)
+  # atomics: each updated value is a float32 sum of at most a few terms in
+  # an order that varies from run to run: within 4 float32 ulps of the
+  # largest |value| of the float64 product
+  surface_check(f"b.at[rows, cols].add(1.0) ({ar.size} updates, "
+                f"{AT_PAIRS // 4} duplicated)", got, want, 4 * 2.0 ** -24,
+                "float32 atomics against np.add.at in float64", t.elapsed)
+  del got, want
+  nan_r = rng.integers(0, SURFACE_N, NAN_COUNT)
+  nan_c = rng.integers(0, SURFACE_N, NAN_COUNT)
+  with_nan = h64.copy()
+  with_nan[nan_r, nan_c] = np.nan
+  with Timer() as t:
+    got = float(sp.nanmean(b.at[sp.from_numpy(nan_r), sp.from_numpy(nan_c)]
+                           .set(float("nan"))).glom())
+  surface_check(f"sp.nanmean(b with {NAN_COUNT} NaN planted)", got,
+                np.nanmean(with_nan), 1e-9, "float64 sums in another order",
+                t.elapsed)
+  del with_nan, h64
+  # the contiguous copy inside a sliced sum: K1 takes main.contiguous()
+  inner = b.evaluate().data[1:-1, 1:-1]
+  copy = inner.contiguous()
+  ident = K.plan(None, 0, torch.float32, {})
+  t = time_in_turns({
+      "sliced sum": lambda: b[1:-1, 1:-1].sum().evaluate(),
+      "copy": lambda: inner.contiguous(),
+      "K1 on the copy": lambda: K.fused_sum(copy, ident, [], torch.float64),
+      "K1 on b": lambda: K.fused_sum(b.evaluate().data, ident, [],
+                                     torch.float64)})
+  print(f"  b[1:-1, 1:-1].sum() at {SURFACE_N}^2 float32: "
+        f"{t['sliced sum']:.4f} ms on the device, of which the contiguous "
+        f"copy {t['copy']:.4f} ms ({100 * t['copy'] / t['sliced sum']:.1f} "
+        f"%) and K1 on the copy {t['K1 on the copy']:.4f} ms; K1 on the "
+        f"whole b {t['K1 on b']:.4f} ms (median of {TIMING_REPS}, CUDA "
+        f"events, in turns) on {card}")
+  del inner, copy, b
+  torch.cuda.empty_cache()
+  return k1_launches
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -2525,6 +2759,16 @@ def main() -> None:
   sharded = phase_sharded(device, card, graphs, R, als_ref, heat_ref)
   del big, small, cfg5, R, graphs, als_ref, heat_ref
   done(14)
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  print("phase 15: the expression surface on the card at 16384^2 float32: "
+        "**, //, % through K1, the new reductions, slices, gathers, a "
+        "boolean mask, .at with duplicates, nanmean")
+  surface_launches = phase_expression_surface(device, card)
+  check(surface_launches >= 3, "phase 15 did not launch K1 three times")
+  k1["launches"] += surface_launches
+  done(15)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

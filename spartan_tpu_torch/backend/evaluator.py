@@ -26,7 +26,8 @@ from spartan_tpu_torch.core.array import SpartanArray
 from spartan_tpu_torch.core.mesh import Mesh, get_mesh
 from spartan_tpu_torch.core.tiling import Tiling
 from spartan_tpu_torch.expr import optimize as opt_mod
-from spartan_tpu_torch.expr.base import (Aval, EmitCtx, Expr, ListExpr, Val,
+from spartan_tpu_torch.expr.base import (Aval, EmitCtx, Expr, ListExpr,
+                                         NotShapeable, Val,
                                          semantic_flags_fingerprint)
 from spartan_tpu_torch.util import log_debug
 
@@ -167,11 +168,30 @@ def _wrap(kind: str, value, tiling: Tiling):
   return SpartanArray(as_device_tensor(value, tiling.mesh.device), tiling)
 
 
+def _materialize_unshapeable(expr: Expr) -> None:
+  """Evaluate, children first, each node whose shape depends on its data
+  (its ``aval`` raises ``NotShapeable``: a boolean mask, a host op), so
+  that the region around it reads its result as a leaf."""
+
+  def visit(e: Expr):
+    if e._cache is not None or not hasattr(e, "evaluate_eager"):
+      return
+    try:
+      e.aval()
+      return  # shapeable after all
+    except NotShapeable:
+      pass
+    e._cache = e.evaluate_eager()
+
+  expr.visit(visit)
+
+
 def _prepass(expr: Expr):
   """One iterative walk: DAG size, whether an interior node carries an
-  eval cache, and the leaves in ``_collect_leaves`` order."""
+  eval cache, whether a node may need eager evaluation
+  (``evaluate_eager``), and the leaves in ``_collect_leaves`` order."""
   size = 0
-  interior_cached = False
+  interior_cached = has_eager = False
   leaves: List[Val] = []
   seen = set()
   stack = [expr]
@@ -187,8 +207,9 @@ def _prepass(expr: Expr):
     if e._cache is not None:
       interior_cached = True
       continue
+    has_eager = has_eager or hasattr(e, "evaluate_eager")
     stack.extend(reversed(e.children()))
-  return size, interior_cached, leaves
+  return size, interior_cached, has_eager, leaves
 
 
 def evaluate(expr: Expr):
@@ -206,7 +227,12 @@ def evaluate(expr: Expr):
     expr._cache = result
     return result
 
-  size, interior_cached, raw_leaves = _prepass(expr)
+  size, interior_cached, has_eager, raw_leaves = _prepass(expr)
+  if has_eager:
+    _materialize_unshapeable(expr)
+    if expr._cache is not None:
+      return expr._cache
+    size, interior_cached, _, raw_leaves = _prepass(expr)
   import sys
   depth_budget = 10 * size + 1000  # the emitters recurse once per node
   if sys.getrecursionlimit() < depth_budget:

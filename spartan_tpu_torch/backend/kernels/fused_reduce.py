@@ -8,7 +8,8 @@ the scalars are the region's 0-d operands.
 The chain reaches the GPU as an *op program*: :func:`plan` translates the
 ``LocalExpr`` tree into a flat list of instructions over a fixed op table
 (add, subtract, multiply, true_divide, negative, absolute, square, sqrt,
-exp, log, maximum, minimum), keyed on the ufunc names that ``map2``'s
+exp, log, maximum, minimum, floor_divide, remainder, power), keyed on the
+ufunc names that ``map2``'s
 wrappers keep (and on the callable being the port's own ufunc).  Each
 instruction carries an opcode, the dtype it computes in (the dtype the
 plain torch evaluation of that node has), a destination register and
@@ -29,7 +30,8 @@ The C entry point picks that variant, and the grid, from the program.
 A chain outside the table — another op, an integer or complex dtype, more
 than ``MAX_INSTR`` instructions, ``MAX_IMM`` immediates or
 ``MAX_DEV_SCALARS`` device scalars, more than ``N_REGS`` values live at
-once —
+once, floor division, remainder or power (``RARE_OPS``) beside a float64
+instruction —
 is refused up front by :func:`plan` and counted in
 ``counts["routed_plain"]``; the reduction then takes its plain path.
 Nothing is decided by catching an exception.
@@ -67,14 +69,45 @@ LOADX, LOADS, LOADI = 0, 1, 2
 _FIRST_OP = 3  # opcodes from here on compute; below, they load
 OPS = {"add": 3, "subtract": 4, "multiply": 5, "true_divide": 6,
        "negative": 7, "absolute": 8, "square": 9, "sqrt": 10, "exp": 11,
-       "log": 12, "maximum": 13, "minimum": 14}
+       "log": 12, "maximum": 13, "minimum": 14, "floor_divide": 15,
+       "remainder": 16, "power": 17}
 _ARITY = {name: (2 if name in ("add", "subtract", "multiply", "true_divide",
-                               "maximum", "minimum") else 1)
+                               "maximum", "minimum", "floor_divide",
+                               "remainder", "power") else 1)
           for name in OPS}
+# a power whose exponent is one of these known scalars takes the op that
+# torch's (and NumPy's) scalar fast path takes
+_POWERS = {2.0: "square", 0.5: "sqrt"}
+# the "rare" ops: only the kernel variants built for them carry their code
+# (program_has_rare in csrc/op_program.cuh), and only in float registers
+RARE_OPS = frozenset(OPS[name] for name in ("floor_divide", "remainder",
+                                            "power"))
 _BINARY_OPS = {code: _ARITY[name] == 2 for name, code in OPS.items()}
 DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
                torch.float16: 3}
 _CODE_DTYPES = {c: d for d, c in DTYPE_CODES.items()}
+
+OP_BITS, DT_BITS = 6, 2  # the packed word of sp_prog::decode
+
+
+def pack_instruction(op: int, dt: int, dst: int, a: int, b: int) -> int:
+  """One instruction as the kernels' shared-memory word (``sp_prog::decode``
+  in csrc/op_program.cuh): op | dt << 6 | dst << 8 | b << 16 | a << 24,
+  ``a`` and ``b`` as signed bytes."""
+  if not (0 <= op < 1 << OP_BITS and 0 <= dt < 1 << DT_BITS
+          and 0 <= dst < 256 and -128 <= a < 128 and -128 <= b < 128):
+    raise ValueError(f"instruction {(op, dt, dst, a, b)} does not pack")
+  return (op | dt << OP_BITS | dst << 8 | (b & 255) << 16
+          | (a & 255) << 24)
+
+
+def unpack_instruction(code: int) -> Tuple[int, int, int, int, int]:
+  """``(op, dt, dst, a, b)`` of a packed word, as ``run_program`` reads it."""
+  def signed(byte):
+    return byte - 256 if byte >= 128 else byte
+  return (code & (1 << OP_BITS) - 1, code >> OP_BITS & (1 << DT_BITS) - 1,
+          code >> 8 & 255, signed(code >> 24 & 255), signed(code >> 16 & 255))
+
 
 counts = {"launches": 0, "plain_runs": 0, "routed_plain": 0}
 
@@ -140,20 +173,25 @@ class Program:
 
 
 class _Reg:
-  """Translation-time value: its register and its abstract value (a meta
-  tensor, or a Python scalar for weak values)."""
-  __slots__ = ("reg", "meta")
+  """Translation-time value: its register, its abstract value (a meta
+  tensor, or a Python scalar for weak values) and, for an immediate whose
+  value the plan knows, that value."""
+  __slots__ = ("reg", "meta", "value")
 
-  def __init__(self, reg: int, meta: Any):
+  def __init__(self, reg: int, meta: Any, value: Any = None):
     self.reg = reg
     self.meta = meta
+    self.value = value
 
 
 def _translate(local_op: Optional[LocalExpr], main_slot: int,
-               main_dtype: torch.dtype, scalar_avals: Dict[int, Aval]
-               ) -> Optional[Program]:
+               main_dtype: torch.dtype, scalar_avals: Dict[int, Aval],
+               known: Optional[Dict[int, Any]] = None) -> Optional[Program]:
   """The op program of ``local_op``, or None when the chain is outside the
-  op table (the up-front predicate: no exception decides the route)."""
+  op table (the up-front predicate: no exception decides the route).
+  ``known`` gives the values of weak scalar slots that a power reads as
+  its exponent (:func:`power_slots`), for the fast paths of ``_POWERS``."""
+  known = known or {}
   if main_dtype not in DTYPE_CODES:
     return None
   instrs: List[Tuple[int, int, int, int, int]] = []
@@ -173,6 +211,7 @@ def _translate(local_op: Optional[LocalExpr], main_slot: int,
       hit = slot_regs.get(node.idx)
       if hit is not None:
         return hit
+      value = None
       if node.idx == main_slot:
         reg = emit(LOADX, DTYPE_CODES[main_dtype])
         meta: Any = torch.empty((1,), dtype=main_dtype, device="meta")
@@ -185,6 +224,7 @@ def _translate(local_op: Optional[LocalExpr], main_slot: int,
             return None
           reg = emit(LOADI, 0, len(imm_sources))
           imm_sources.append(("scalar", k))
+          value = known.get(node.idx)
         else:
           if len(dev_scalars) >= MAX_DEV_SCALARS:
             return None
@@ -194,7 +234,7 @@ def _translate(local_op: Optional[LocalExpr], main_slot: int,
         return None
       if reg is None:
         return None
-      slot_regs[node.idx] = _Reg(reg, meta)
+      slot_regs[node.idx] = _Reg(reg, meta, value)
       return slot_regs[node.idx]
     if isinstance(node, LocalConst):
       v = node.value
@@ -204,7 +244,7 @@ def _translate(local_op: Optional[LocalExpr], main_slot: int,
       if reg is None:
         return None
       imm_sources.append(("const", v))
-      return _Reg(reg, Aval.of(v).abstract_value())
+      return _Reg(reg, Aval.of(v).abstract_value(), v)
     return None
 
   def call(node: FnCallExpr, deps: List[Optional[_Reg]]) -> Optional[_Reg]:
@@ -218,6 +258,9 @@ def _translate(local_op: Optional[LocalExpr], main_slot: int,
     dtype = Aval.of(meta).dtype
     if dtype not in DTYPE_CODES:
       return None  # integer, bool or complex node: not in the program
+    if name == "power" and deps[1].value in _POWERS and not isinstance(
+        deps[1].value, bool):
+      name, deps = _POWERS[deps[1].value], deps[:1]
     b = deps[1].reg if len(deps) == 2 else 0
     reg = emit(OPS[name], DTYPE_CODES[dtype], deps[0].reg, b)
     return None if reg is None else _Reg(reg, meta)
@@ -301,6 +344,30 @@ def allocate(program: Program, n_regs: int = N_REGS) -> Optional[Program]:
 
 
 _plans: Dict[Tuple, Optional[Program]] = {}
+_power_slots: Dict[Tuple, Tuple[int, ...]] = {}
+
+
+def power_slots(local_op: Optional[LocalExpr]) -> Tuple[int, ...]:
+  """The input slots that a ``power`` in ``local_op`` reads directly as its
+  exponent (memoized by the chain's signature)."""
+  if local_op is None:
+    return ()
+  key = local_op.signature()
+  if key not in _power_slots:
+    if len(_power_slots) > 1024:
+      _power_slots.clear()
+    slots, stack, seen = set(), [local_op], set()
+    while stack:
+      node = stack.pop()
+      if not isinstance(node, FnCallExpr) or id(node) in seen:
+        continue
+      seen.add(id(node))
+      if (getattr(node.fn, "__name__", "") == "power" and len(node.deps) == 2
+          and isinstance(node.deps[1], LocalInput)):
+        slots.add(node.deps[1].idx)
+      stack.extend(node.deps)
+    _power_slots[key] = tuple(sorted(slots))
+  return _power_slots[key]
 
 
 def plan(local_op: Optional[LocalExpr], main_slot: int,
@@ -311,13 +378,21 @@ def plan(local_op: Optional[LocalExpr], main_slot: int,
   ``counts["routed_plain"]`` — when the chain cannot be expressed; the
   caller then takes its plain path."""
   avals = {k: Aval.of(v) for k, v in scalars.items()}
+  # a weak exponent's value picks the op (_POWERS): it keys the plan
+  known = {k: scalars[k] for k in power_slots(local_op)
+           if k in avals and avals[k].weak}
   key = (local_op.signature() if local_op is not None else None, main_slot,
-         main_dtype, tuple((k, avals[k].key) for k in sorted(avals)))
+         main_dtype, tuple((k, avals[k].key) for k in sorted(avals)),
+         tuple(sorted(known.items())))
   if key not in _plans:
     if len(_plans) > 1024:
       _plans.clear()
-    ssa = _translate(local_op, main_slot, main_dtype, avals)
-    _plans[key] = None if ssa is None else allocate(fold_scalars(ssa))
+    ssa = _translate(local_op, main_slot, main_dtype, avals, known)
+    program = None if ssa is None else allocate(fold_scalars(ssa))
+    if program is not None and not program.float_regs and any(
+        op in RARE_OPS for op, *_ in program.instrs):
+      program = None  # a rare op in double registers: no such variant
+    _plans[key] = program
   program = _plans[key]
   if program is None:
     counts["routed_plain"] += 1
@@ -331,6 +406,8 @@ _TORCH_OPS = {
     OPS["square"]: lambda v: v * v, OPS["sqrt"]: torch.sqrt,
     OPS["exp"]: torch.exp, OPS["log"]: torch.log,
     OPS["maximum"]: torch.maximum, OPS["minimum"]: torch.minimum,
+    OPS["floor_divide"]: torch.floor_divide,
+    OPS["remainder"]: torch.remainder, OPS["power"]: torch.pow,
 }
 
 

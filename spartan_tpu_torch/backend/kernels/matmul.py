@@ -14,7 +14,7 @@ multiplied by FFMA outside the tensor cores.  Any M, N, K.
 The reference traces its epilogue callable into the kernel's last K step.
 A CUDA kernel cannot take a callable, so :func:`plan_epilogue` traces it
 with ``torch.fx`` into K1's op program (``fused_reduce.Program``, the op
-table add … minimum with immediates), which the kernel runs on each
+table add … power with immediates), which the kernel runs on each
 float32 accumulator before the cast and the store.  An epilogue outside
 the table (another op, a tensor operand, a graph fx cannot trace) is
 decided up front and counted in ``counts["epilogue_unfused"]``: the kernel
@@ -48,8 +48,8 @@ import torch.nn.functional as F
 
 from spartan_tpu_torch.backend.kernels import build
 from spartan_tpu_torch.backend.kernels.fused_reduce import (
-    DTYPE_CODES, LOADI, LOADX, MAX_IMM, MAX_INSTR, OPS, Program, allocate,
-    fold_scalars)
+    _POWERS, DTYPE_CODES, LOADI, LOADX, MAX_IMM, MAX_INSTR, OPS, Program,
+    allocate, fold_scalars)
 from spartan_tpu_torch.expr.base import fn_key
 
 _IN_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
@@ -96,6 +96,9 @@ _FUNCTIONS = {
     torch.square: "square", torch.sqrt: "sqrt", torch.exp: "exp",
     torch.log: "log", torch.maximum: "maximum", torch.minimum: "minimum",
     torch.clamp_min: "maximum", torch.clamp_max: "minimum",
+    operator.floordiv: "floor_divide", torch.floor_divide: "floor_divide",
+    operator.mod: "remainder", torch.remainder: "remainder",
+    operator.pow: "power", torch.pow: "power",
 }
 _METHODS = {
     "add": "add", "sub": "subtract", "subtract": "subtract",
@@ -104,9 +107,11 @@ _METHODS = {
     "abs": "absolute", "absolute": "absolute", "square": "square",
     "sqrt": "sqrt", "exp": "exp", "log": "log", "maximum": "maximum",
     "minimum": "minimum", "clamp_min": "maximum", "clamp_max": "minimum",
+    "floor_divide": "floor_divide", "remainder": "remainder", "pow": "power",
 }
 _RELUS = (torch.relu, F.relu)
-_BINARY = ("add", "subtract", "multiply", "true_divide", "maximum", "minimum")
+_BINARY = ("add", "subtract", "multiply", "true_divide", "maximum", "minimum",
+           "floor_divide", "remainder", "power")
 
 
 def _trace(epilogue: Callable):
@@ -170,6 +175,10 @@ def _translate(graph) -> Optional[Program]:
       return None
     if kw or len(args) != (2 if name in _BINARY else 1):
       return None
+    # a constant exponent that torch's scalar fast path takes as another op
+    if (name == "power" and type(args[1]) in (int, float)
+        and args[1] in _POWERS):
+      name, args = _POWERS[args[1]], args[:1]
     deps = [operand(a) for a in args]
     if any(d is None for d in deps) or not any(
         isinstance(a, torch.fx.Node) for a in args):

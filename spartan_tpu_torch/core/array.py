@@ -160,8 +160,23 @@ class SpartanArray:
   def __abs__(self):
     return self._lazy().__abs__()
 
+  def __invert__(self):
+    return self._lazy().__invert__()
+
+  def __getitem__(self, idx):
+    return self._lazy()[idx]
+
+  def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+    """numpy-left operands (``ndarray * arr``, ``np.sqrt(arr)``) go to the
+    lazy layer as an expr's do, instead of gathering the array."""
+    from spartan_tpu_torch.expr.base import Expr
+    mapped = tuple(i._lazy() if isinstance(i, SpartanArray) else i
+                   for i in inputs)
+    lead = next(i for i in mapped if isinstance(i, Expr))
+    return lead.__array_ufunc__(ufunc, method, *mapped, **kwargs)
+
+  # elementwise __eq__ (installed below): unhashable, like np.ndarray
   __hash__ = None
-  __array_ufunc__ = None  # numpy-left operands defer to the lazy dunders
 
   def __getattr__(self, name):
     if name in _EXPR_DELEGATES:
@@ -171,11 +186,16 @@ class SpartanArray:
 
 
 _EXPR_DELEGATES = frozenset([
-    "T", "sum", "mean", "max", "min", "argmax", "argmin", "dot", "transpose",
+    "T", "sum", "prod", "mean", "std", "var", "max", "min", "argmax",
+    "argmin", "all", "any", "dot", "outer", "transpose", "swapaxes",
+    "squeeze", "clip", "round", "take", "repeat", "diagonal", "trace",
+    "tolist", "conj", "conjugate", "at",
 ])
 
 _BINOP_NAMES = ["add", "radd", "sub", "rsub", "mul", "rmul", "truediv",
-                "rtruediv", "matmul"]
+                "rtruediv", "floordiv", "rfloordiv", "mod", "rmod", "pow",
+                "rpow", "matmul", "lt", "le", "gt", "ge", "eq", "ne", "and",
+                "rand", "or", "ror", "xor", "rxor", "lshift", "rshift"]
 
 
 def _install_lazy_binops():

@@ -106,8 +106,10 @@ struct Occupancy {
 };
 
 // x[head:] is 16-byte aligned; R is the program's register type, F the
-// size of its register file.
-template <typename T, typename Acc, typename R, int F>
+// size of its register file; Rare: the program holds floor division,
+// remainder or power (program_has_rare), whose code only these variants
+// carry.
+template <typename T, typename Acc, typename R, int F, bool Rare>
 __global__ void __launch_bounds__(SP_THREADS, (Occupancy<R, F>::kMinBlocks))
 fused_sum_partials(const T* __restrict__ x, int64_t n, int64_t head,
                    const __grid_constant__ Program prog,
@@ -152,7 +154,7 @@ fused_sum_partials(const T* __restrict__ x, int64_t n, int64_t head,
       R out[V];
 #pragma unroll
       for (int j = 0; j < V; ++j) in[j] = e[p * V + j];
-      sp_prog::run_program<R, V, F>(sprog, in, out);
+      sp_prog::run_program<R, V, F, Rare>(sprog, in, out);
 #pragma unroll
       for (int j = 0; j < V; ++j) acc += (Acc)out[j];
     }
@@ -164,7 +166,7 @@ fused_sum_partials(const T* __restrict__ x, int64_t n, int64_t head,
     const int64_t at = j < head ? j : tail0 + (j - head);
     float in[1] = {widen(x[at])};
     R out[1];
-    sp_prog::run_program<R, 1, F>(sprog, in, out);
+    sp_prog::run_program<R, 1, F, Rare>(sprog, in, out);
     acc += (Acc)out[0];
   }
   acc = block_sum(acc);
@@ -182,7 +184,7 @@ sum_partials(const Acc* __restrict__ partials, int64_t m,
 }
 
 // ``room``: the partial sums ``partials`` holds, a bound on the grid.
-template <typename T, typename Acc, typename R, int F>
+template <typename T, typename Acc, typename R, int F, bool Rare>
 int launch(const void* x, int64_t n, const Program& prog, const void* dscal,
            void* partials, int64_t room, void* out, cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
@@ -199,7 +201,8 @@ int launch(const void* x, int64_t n, const Program& prog, const void* dscal,
   if (work < blocks) blocks = work;
   if (room < blocks) blocks = room;
   if (blocks < 1) blocks = 1;
-  fused_sum_partials<T, Acc, R, F><<<(unsigned)blocks, SP_THREADS, 0, stream>>>(
+  fused_sum_partials<T, Acc, R, F, Rare>
+      <<<(unsigned)blocks, SP_THREADS, 0, stream>>>(
       static_cast<const T*>(x), n, head, prog,
       static_cast<const double*>(dscal), program_dev_scalars(prog),
       static_cast<Acc*>(partials));
@@ -210,29 +213,44 @@ int launch(const void* x, int64_t n, const Program& prog, const void* dscal,
   return (int)cudaGetLastError();
 }
 
-// Double registers for a program with a float64 instruction, else float
-// registers in the smallest file that holds the program.
+// Float registers in the smallest file that holds the program, with or
+// without the rare ops' code.
+template <typename T, typename Acc, bool Rare>
+int launch_file(const void* x, int64_t n, const Program& prog,
+                const void* dscal, void* partials, int64_t room, void* out,
+                cudaStream_t s) {
+  switch (sp_prog::program_file(prog)) {
+    case 1:
+      return launch<T, Acc, float, 1, Rare>(x, n, prog, dscal, partials, room,
+                                            out, s);
+    case 2:
+      return launch<T, Acc, float, 2, Rare>(x, n, prog, dscal, partials, room,
+                                            out, s);
+    case 4:
+      return launch<T, Acc, float, 4, Rare>(x, n, prog, dscal, partials, room,
+                                            out, s);
+    default:
+      return launch<T, Acc, float, 8, Rare>(x, n, prog, dscal, partials, room,
+                                            out, s);
+  }
+}
+
+// Double registers for a program with a float64 instruction (never with a
+// rare op), else float registers.
 template <typename T, typename Acc>
 int launch_regs(const void* x, int64_t n, const Program& prog,
                 const void* dscal, void* partials, int64_t room, void* out,
                 cudaStream_t s) {
-  if (!program_is_float(prog))
-    return launch<T, Acc, double, 8>(x, n, prog, dscal, partials, room, out,
-                                     s);
-  switch (sp_prog::program_file(prog)) {
-    case 1:
-      return launch<T, Acc, float, 1>(x, n, prog, dscal, partials, room,
-                                      out, s);
-    case 2:
-      return launch<T, Acc, float, 2>(x, n, prog, dscal, partials, room,
-                                      out, s);
-    case 4:
-      return launch<T, Acc, float, 4>(x, n, prog, dscal, partials, room,
-                                      out, s);
-    default:
-      return launch<T, Acc, float, 8>(x, n, prog, dscal, partials, room,
-                                      out, s);
+  if (!program_is_float(prog)) {
+    if (program_has_rare(prog)) return (int)cudaErrorInvalidValue;
+    return launch<T, Acc, double, 8, false>(x, n, prog, dscal, partials, room,
+                                            out, s);
   }
+  if (program_has_rare(prog))
+    return launch_file<T, Acc, true>(x, n, prog, dscal, partials, room, out,
+                                     s);
+  return launch_file<T, Acc, false>(x, n, prog, dscal, partials, room, out,
+                                    s);
 }
 
 template <typename Acc>

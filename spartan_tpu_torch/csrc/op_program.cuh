@@ -69,6 +69,10 @@ enum Op {
   OP_LOG = 12,
   OP_MAX = 13,
   OP_MIN = 14,
+  OP_FLOORDIV = 15,  // torch.floor_divide (NumPy's npy_divmod)
+  OP_MOD = 16,       // torch.remainder: the sign of the divisor
+  OP_POW = 17,
+  OP_LAST = OP_POW,
 };
 
 enum DType { DT_F64 = 0, DT_F32 = 1, DT_BF16 = 2, DT_F16 = 3 };
@@ -99,7 +103,7 @@ inline bool program_fits(const Program& p) {
                                                     p.out >= SP_NREG)))
     return false;
   for (int k = 0; k < p.n; ++k) {
-    if (p.op[k] < OP_LOADX || p.op[k] > OP_MIN || p.dst[k] < 0 ||
+    if (p.op[k] < OP_LOADX || p.op[k] > OP_LAST || p.dst[k] < 0 ||
         p.dst[k] >= SP_NREG || p.dt[k] < DT_F64 || p.dt[k] > DT_F16)
       return false;
     if ((p.op[k] == OP_LOADI && (p.a[k] < 0 || p.a[k] >= SP_MAX_IMM)) ||
@@ -135,16 +139,26 @@ inline bool program_is_float(const Program& p) {
   return true;
 }
 
+// True when the program holds floor division, remainder or power: it runs
+// in the kernels instantiated with Rare = true.
+inline bool program_has_rare(const Program& p) {
+  for (int k = 0; k < p.n; ++k)
+    if (p.op[k] >= OP_FLOORDIV && p.op[k] <= OP_LAST) return true;
+  return false;
+}
+
 namespace sp_prog {
 
+// Every opcode from OP_MAX on is binary (program_fits bounds them).
 __device__ __forceinline__ bool is_binary(int op) {
   return op <= OP_DIV || op >= OP_MAX;
 }
 
 // A program as the kernels read it from shared memory: each instruction
-// packed into one word (op | dt << 4 | dst << 8 | b << 16 | a << 24, a and
-// b as signed bytes), the scalars (immediates, then device scalars)
-// already rounded to the register type R.
+// packed into one word (op | dt << 6 | dst << 8 | b << 16 | a << 24: six
+// bits of opcode, two of dtype, a and b as signed bytes;
+// fused_reduce.pack_instruction mirrors it), the scalars (immediates, then
+// device scalars) already rounded to the register type R.
 template <typename R>
 struct Decoded {
   uint32_t code[SP_MAX_INSTR];
@@ -160,7 +174,7 @@ __device__ __forceinline__ void decode(const Program& src,
                                        const double* __restrict__ dscal,
                                        int n_dscal, Decoded<R>& dst) {
   for (int k = threadIdx.x; k < src.n; k += blockDim.x)
-    dst.code[k] = (uint32_t)src.op[k] | ((uint32_t)src.dt[k] << 4) |
+    dst.code[k] = (uint32_t)src.op[k] | ((uint32_t)src.dt[k] << 6) |
                   ((uint32_t)src.dst[k] << 8) |
                   ((uint32_t)(uint8_t)src.b[k] << 16) |
                   ((uint32_t)(uint8_t)src.a[k] << 24);
@@ -173,6 +187,32 @@ __device__ __forceinline__ void decode(const Program& src,
     dst.out = src.out;
   }
   __syncthreads();
+}
+
+// torch's floor_divide and remainder of floating values (c10's
+// div_floor_floating, NumPy's npy_divmod): fmod, the sign fix, floor, the
+// 0.5 correction and copysign for a zero quotient; x / 0 is the IEEE
+// quotient.  Each step is IEEE-rounded, as torch's build computes it.
+// These and powf are the "rare" ops: only the kernels instantiated with
+// Rare = true compile them (program_has_rare), in float registers only
+// (the planner refuses a rare op in a program with a float64
+// instruction), so a program without them runs the code it ran before
+// they existed, with its registers and time.
+__device__ __forceinline__ float floordiv_f(float a, float b) {
+  if (b == 0.0f) return __fdiv_rn(a, b);
+  const float mod = fmodf(a, b);
+  float div = __fdiv_rn(__fsub_rn(a, mod), b);
+  if (mod != 0.0f && ((b < 0.0f) != (mod < 0.0f))) div = __fsub_rn(div, 1.0f);
+  if (div == 0.0f) return copysignf(0.0f, __fdiv_rn(a, b));
+  float q = floorf(div);
+  if (__fsub_rn(div, q) > 0.5f) q = __fadd_rn(q, 1.0f);
+  return q;
+}
+
+__device__ __forceinline__ float mod_f(float a, float b) {
+  const float mod = fmodf(a, b);
+  return (mod != 0.0f && ((b < 0.0f) != (mod < 0.0f))) ? __fadd_rn(mod, b)
+                                                       : mod;
 }
 
 // One opcode over V elements; the switch is outside the element loop.
@@ -191,6 +231,18 @@ __device__ __forceinline__ void decode(const Program& src,
   break;
 
 template <int V>
+__device__ __forceinline__ void apply_rare(int op, const float (&x)[V],
+                                           const float (&y)[V],
+                                           float (&t)[V]) {
+  switch (op) {
+    case OP_FLOORDIV: SP_EACH2(floordiv_f(p, q))
+    case OP_MOD: SP_EACH2(mod_f(p, q))
+    case OP_POW: SP_EACH2(powf(p, q))
+    default: SP_EACH1(0.0f)
+  }
+}
+
+template <int V, bool Rare>
 __device__ __forceinline__ void apply_vec(int op, const float (&x)[V],
                                           const float (&y)[V], float (&t)[V]) {
   switch (op) {
@@ -206,11 +258,17 @@ __device__ __forceinline__ void apply_vec(int op, const float (&x)[V],
     case OP_LOG: SP_EACH1(logf(p))
     case OP_MAX: SP_EACH2((isnan(p) || isnan(q)) ? p + q : fmaxf(p, q))
     case OP_MIN: SP_EACH2((isnan(p) || isnan(q)) ? p + q : fminf(p, q))
-    default: SP_EACH1(0.0f)
+    default:
+      if (Rare) {
+        apply_rare<V>(op, x, y, t);
+        break;
+      }
+      SP_EACH1(0.0f)
   }
 }
 
-template <int V>
+// Double registers take no rare op: the planner refuses one there.
+template <int V, bool Rare>
 __device__ __forceinline__ void apply_vec(int op, const double (&x)[V],
                                           const double (&y)[V],
                                           double (&t)[V]) {
@@ -249,12 +307,12 @@ __device__ __forceinline__ void round_vec(int dt, float (&t)[V]) {
 // One instruction in its own dtype.  16-bit types compute in float and
 // round the result back, as torch's elementwise ops on them do; their
 // operands are rounded to the type first.
-template <int V>
+template <int V, bool Rare>
 __device__ __forceinline__ void run_op(int op, int dt, bool binary,
                                        const float (&x)[V],
                                        const float (&y)[V], float (&t)[V]) {
   if (dt == DT_F32) {
-    apply_vec<V>(op, x, y, t);
+    apply_vec<V, Rare>(op, x, y, t);
     return;
   }
   float xr[V], yr[V];
@@ -266,16 +324,16 @@ __device__ __forceinline__ void run_op(int op, int dt, bool binary,
     for (int v = 0; v < V; ++v) yr[v] = y[v];
     round_vec<V>(dt, yr);
   }
-  apply_vec<V>(op, xr, yr, t);
+  apply_vec<V, Rare>(op, xr, yr, t);
   round_vec<V>(dt, t);
 }
 
-template <int V>
+template <int V, bool Rare>
 __device__ __forceinline__ void run_op(int op, int dt, bool binary,
                                        const double (&x)[V],
                                        const double (&y)[V], double (&t)[V]) {
   if (dt == DT_F64) {
-    apply_vec<V>(op, x, y, t);
+    apply_vec<V, Rare>(op, x, y, t);
     return;
   }
   float xf[V], yf[V], tf[V];
@@ -287,7 +345,7 @@ __device__ __forceinline__ void run_op(int op, int dt, bool binary,
     for (int v = 0; v < V; ++v) yf[v] = (float)y[v];
     round_vec<V>(dt, yf);
   }
-  apply_vec<V>(op, xf, yf, tf);
+  apply_vec<V, Rare>(op, xf, yf, tf);
   round_vec<V>(dt, tf);
 #pragma unroll
   for (int v = 0; v < V; ++v) t[v] = (double)tf[v];
@@ -337,14 +395,14 @@ __device__ __forceinline__ void operand(int code, const RegFile<R, V, F>& f,
 
 // The program's values for V elements ``x`` (widened to float) in F
 // registers of type R.  ``prog`` is in shared memory.
-template <typename R, int V, int F>
+template <typename R, int V, int F, bool Rare>
 __device__ __forceinline__ void run_program(const Decoded<R>& prog,
                                             const float (&x)[V], R (&out)[V]) {
   RegFile<R, V, F> f;
 #pragma unroll 1
   for (int k = 0; k < prog.n; ++k) {
     const uint32_t code = prog.code[k];
-    const int op = code & 15, dt = (code >> 4) & 15, dst = (code >> 8) & 15;
+    const int op = code & 63, dt = (code >> 6) & 3, dst = (code >> 8) & 255;
     const int b = (int8_t)(code >> 16), a = (int8_t)(code >> 24);
     R t[V];
     if (op == OP_LOADX) {
@@ -359,7 +417,7 @@ __device__ __forceinline__ void run_program(const Decoded<R>& prog,
       R ra[V], rb[V];
       operand<R, V, F>(a, f, prog, ra);
       if (binary) operand<R, V, F>(b, f, prog, rb);
-      run_op<V>(op, dt, binary, ra, rb, t);
+      run_op<V, Rare>(op, dt, binary, ra, rb, t);
     }
     f.set(dst, t);
   }

@@ -27,6 +27,12 @@ from spartan_tpu_torch.core.array import SpartanArray, to_torch_dtype
 
 _counter = itertools.count()
 
+
+class NotShapeable(Exception):
+  """A node whose output shape depends on its data (a boolean mask, a host
+  op): its abstract value cannot be inferred, so the evaluator evaluates
+  it eagerly before the region that reads it."""
+
 _PY_SCALAR_DTYPES = {bool: torch.bool, int: torch.int64, float: torch.float64,
                      complex: torch.complex128}
 _WEAK_SAMPLES = {torch.bool: True, torch.int64: 1, torch.float64: 1.0,
@@ -177,10 +183,6 @@ class Expr:
 
   _members: Tuple[str, ...] = ()
   _params: Tuple[str, ...] = ()
-  # numpy-left operands (``ndarray * expr``) defer to the reflected dunders
-  # instead of gathering the expr through ``__array__``
-  __array_ufunc__ = None
-
   def __init__(self, **kw):
     self.expr_id = next(_counter)
     self._cache: Optional[SpartanArray] = None
@@ -363,13 +365,44 @@ class Expr:
     out = self.glom()
     return out.astype(dtype) if dtype is not None else out
 
+  def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+    """Keep ``np.add(ndarray, expr)`` and ``np.sqrt(expr)`` lazy: a plain
+    call of a ufunc the builtins name goes to that builtin; any other
+    ufunc or method materializes its expr operands and runs in NumPy."""
+    if method == "__call__" and not kwargs:
+      from spartan_tpu_torch.expr import builtins as B
+      fn = getattr(B, ufunc.__name__, None)
+      if fn is not None and callable(fn):
+        return fn(*inputs)
+    mat = [np.asarray(x) if isinstance(x, Expr) else x for x in inputs]
+    return getattr(ufunc, method)(*mat, **kwargs)
+
   def item(self):
     return np.asarray(self.glom()).item()
+
+  def tolist(self):
+    """The value as nested Python lists (evaluates)."""
+    return np.asarray(self.glom()).tolist()
+
+  def __bool__(self):
+    # NumPy's rule: a size-1 array converts (this evaluates it), a larger
+    # one is ambiguous
+    if self.size != 1:
+      raise ValueError(
+          "The truth value of an array with more than one element is "
+          "ambiguous. Use sp.any()/sp.all() (this also forces evaluation "
+          "of the lazy expr).")
+    return bool(np.asarray(self.glom()).reshape(()))
 
   def __float__(self):
     if self.size != 1:
       raise TypeError("only size-1 exprs convert to float")
     return float(np.asarray(self.glom()).reshape(()))
+
+  def __int__(self):
+    if self.size != 1:
+      raise TypeError("only size-1 exprs convert to int")
+    return int(np.asarray(self.glom()).reshape(()))
 
   # -- numpy-flavoured methods (the slice's subset) --------------------------
 
@@ -430,6 +463,90 @@ class Expr:
     from spartan_tpu_torch.expr import builtins as B
     return B.dot(self, other)
 
+  def prod(self, axis=None, keepdims=False) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.prod(self, axis=axis, keepdims=keepdims)
+
+  def std(self, axis=None, ddof=0) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.std(self, axis=axis, ddof=ddof)
+
+  def var(self, axis=None, ddof=0) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.var(self, axis=axis, ddof=ddof)
+
+  def all(self, axis=None) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.all(self, axis=axis)
+
+  def any(self, axis=None) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.any(self, axis=axis)
+
+  def clip(self, a_min=None, a_max=None) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.clip(self, a_min, a_max)
+
+  def round(self, decimals=0) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.round(self, decimals=decimals)
+
+  def conj(self) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.conj(self)
+
+  conjugate = conj
+
+  def copy(self) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.copy(self)
+
+  def squeeze(self, axis=None) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.squeeze(self, axis=axis)
+
+  def swapaxes(self, a, b) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.swapaxes(self, a, b)
+
+  def repeat(self, repeats, axis=None) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.repeat(self, repeats, axis=axis)
+
+  def take(self, indices, axis=None) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.take(self, indices, axis=axis)
+
+  def diagonal(self, offset=0) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.diagonal(self, offset=offset)
+
+  def trace(self, offset=0) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.trace(self, offset=offset)
+
+  def outer(self, other) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.outer(self, other)
+
+  @property
+  def at(self) -> "_AtIndexer":
+    """Functional updates as in JAX: ``e.at[idx].set/add/multiply/max/
+    min(v)`` is a new lazy expr (``expr/write.py``); ``e`` is unchanged."""
+    return _AtIndexer(self)
+
+  def __getitem__(self, idx) -> "Expr":
+    from spartan_tpu_torch.expr.slice import make_slice
+    return make_slice(self, idx)
+
+  def __setitem__(self, idx, value):
+    raise TypeError(
+        "exprs are immutable; use the functional update instead:\n"
+        "  new = arr.at[idx].set(value)                     # jax-style\n"
+        "  new = arr.at[idx].add(value)                     # merge\n"
+        "  new = spartan_tpu_torch.write(arr, idx, value, np.add) "
+        "# region form")
+
   # -- operators ------------------------------------------------------------
 
   def _binop(self, other, name: str, reverse: bool = False):
@@ -453,11 +570,37 @@ class Expr:
   def __le__(self, o): return self._binop(o, "less_equal")
   def __gt__(self, o): return self._binop(o, "greater")
   def __ge__(self, o): return self._binop(o, "greater_equal")
-  # __eq__/__ne__ wait (ROADMAP Queue 1): the port's bookkeeping may still
-  # compare exprs with == (membership tests, dict keys)
+  # elementwise, as in NumPy: the port's bookkeeping compares exprs by
+  # expr_id or identity, never with ==
+  def __eq__(self, o): return self._binop(o, "equal")  # type: ignore
+  def __ne__(self, o): return self._binop(o, "not_equal")  # type: ignore
+  def __floordiv__(self, o): return self._binop(o, "floor_divide")
+  def __rfloordiv__(self, o): return self._binop(o, "floor_divide", True)
+  def __mod__(self, o): return self._binop(o, "remainder")
+  def __rmod__(self, o): return self._binop(o, "remainder", True)
+  def __and__(self, o): return self._binop(o, "bitwise_and")
+  def __rand__(self, o): return self._binop(o, "bitwise_and", True)
+  def __or__(self, o): return self._binop(o, "bitwise_or")
+  def __ror__(self, o): return self._binop(o, "bitwise_or", True)
+  def __xor__(self, o): return self._binop(o, "bitwise_xor")
+  def __rxor__(self, o): return self._binop(o, "bitwise_xor", True)
+  def __lshift__(self, o): return self._binop(o, "left_shift")
+  def __rlshift__(self, o): return self._binop(o, "left_shift", True)
+  def __rshift__(self, o): return self._binop(o, "right_shift")
+  def __rrshift__(self, o): return self._binop(o, "right_shift", True)
+  def __invert__(self): return self._unop("bitwise_not")
   def __neg__(self): return self._unop("negative")
   def __abs__(self): return self._unop("absolute")
   def __pos__(self): return self
+
+  def __pow__(self, o):
+    from spartan_tpu_torch.expr import map as map_mod
+    return map_mod.power_operator(self, o)
+
+  def __rpow__(self, o):
+    from spartan_tpu_torch.expr import map as map_mod
+    map_mod.check_power(o, self)
+    return self._binop(o, "power", True)
 
   def __matmul__(self, o):
     return self.dot(o)
@@ -469,7 +612,11 @@ class Expr:
   __hash__ = None  # type: ignore[assignment]  # like np.ndarray
 
   def __repr__(self):
-    return f"{type(self).__name__}[{self.expr_id}]"
+    try:
+      sd = f"shape={self.shape}, dtype={self.dtype}"
+    except NotShapeable:
+      sd = "shape=<data-dependent>"
+    return f"{type(self).__name__}[{self.expr_id}]({sd})"
 
 
 def ensure_recursion_budget(expr: "Expr") -> None:
@@ -575,6 +722,181 @@ class ListExpr(Expr):
 
   def __len__(self):
     return len(self.vals)
+
+
+def _same_kind_cast(src: torch.dtype, dst: torch.dtype) -> bool:
+  """NumPy's ``can_cast(src, dst, "same_kind")`` (bfloat16 as a float)."""
+  from spartan_tpu_torch.core.array import to_numpy_dtype
+
+  def np_dt(d):
+    return np.dtype(np.float32) if d == torch.bfloat16 else to_numpy_dtype(d)
+  return bool(np.can_cast(np_dt(src), np_dt(dst), casting="same_kind"))
+
+
+class _AtIndexer:
+  """``expr.at[idx]``: an update handle (JAX's ``.at``, lazy)."""
+
+  __slots__ = ("_e",)
+
+  def __init__(self, e: Expr):
+    self._e = e
+
+  def __getitem__(self, idx) -> "_AtRef":
+    return _AtRef(self._e, idx)
+
+
+class _AtRef:
+  """``expr.at[idx]`` with its index: ``set``, ``add``, ``multiply``,
+  ``max`` and ``min`` each give a new expr (``expr/write.py``).
+
+  A concrete index (a Python int, a host array or list) out of bounds
+  raises ``IndexError`` when the update is built, as NumPy does; an index
+  array that is an expr is data, and its out-of-bounds updates are
+  dropped, as the reference's scatter drops them."""
+
+  __slots__ = ("_e", "_idx")
+
+  def __init__(self, e: Expr, idx):
+    self._e, self._idx = e, idx
+
+  @staticmethod
+  def _is_bool_index(i) -> bool:
+    if isinstance(i, Expr):
+      return i.dtype == torch.bool
+    if isinstance(i, np.ndarray):
+      return i.dtype == np.bool_
+    if isinstance(i, list):
+      try:
+        arr = np.asarray(i)
+      except ValueError:
+        return False
+      return arr.size > 0 and arr.dtype == np.bool_
+    return False
+
+  def _bool_mask_update(self, mask, v, reducer):
+    """``e.at[mask].<op>(v)`` as a ``where`` over the mask, for a size-1
+    ``v`` only: NumPy's compressed assignment (``len(v) == mask.sum()``)
+    has a shape that depends on the data."""
+    from spartan_tpu_torch.expr import builtins as B
+    dst = self._e
+    mask = lazify(mask)
+    if mask.ndim > dst.ndim:
+      raise IndexError(
+          f".at boolean mask has {mask.ndim} dims; array has {dst.ndim}")
+    if tuple(mask.shape) != tuple(dst.shape[:mask.ndim]):
+      raise IndexError(
+          f".at boolean mask shape {tuple(mask.shape)} does not match "
+          f"array leading dims {tuple(dst.shape[:mask.ndim])}")
+    if mask.ndim < dst.ndim:  # the mask consumes the leading axes
+      mask = B.reshape(mask, tuple(mask.shape) + (1,) * (dst.ndim - mask.ndim))
+    v = lazify(v)
+    if int(np.prod(v.shape)) != 1:
+      raise NotImplementedError(
+          ".at[bool_mask] supports scalar values only: numpy's compressed "
+          "per-cell assignment (len(v) == mask.sum()) has a data-dependent "
+          "shape; use integer indices (np.nonzero(mask)) for per-cell "
+          "scatters")
+    dt = dst.dtype
+    ops = {"set": lambda d, s: s, "add": lambda d, s: d + s,
+           "mul": lambda d, s: d * s, "max": B.maximum, "min": B.minimum}
+    from spartan_tpu_torch.core.array import canonical_reducer
+    return B.where(mask, ops[canonical_reducer(reducer)](dst, v), dst
+                   ).astype(dt)
+
+  def _go(self, v, reducer):
+    from spartan_tpu_torch.expr import builtins as B
+    from spartan_tpu_torch.expr import write as W
+    idx = self._idx
+    if reducer is not None:
+      # the reference's rule, NumPy's same_kind casting: an int array takes
+      # no float update
+      dt, vt = self._e.dtype, lazify(v).dtype
+      from spartan_tpu_torch.expr.map import result_type
+      res = result_type(dt, vt)
+      if not _same_kind_cast(res, dt):
+        name = getattr(reducer, "__name__", reducer)
+        raise TypeError(f".at[...].{name}: cannot cast {res} result to {dt} "
+                        f"with casting rule 'same_kind'")
+    if isinstance(idx, (Expr, np.ndarray, list)):
+      if self._is_bool_index(idx):
+        return self._bool_mask_update(idx, v, reducer)
+      if isinstance(idx, (np.ndarray, list)):
+        ia = np.asarray(idx)
+        if not self._e.ndim:
+          raise IndexError(".at index on a 0-d array")
+        n0 = self._e.shape[0]
+        if ia.size and (int(ia.min()) < -n0 or int(ia.max()) >= n0):
+          raise IndexError(
+              f".at index array has entries outside [-{n0}, {n0}) for "
+              f"axis 0 with size {n0}")
+        idx = ia % n0 if ia.size else ia
+      # an index array is data (a child leaf), never a parameter
+      return W.ScatterAssignExpr(self._e, idx, v, reducer)
+    if isinstance(idx, tuple) and any(
+        isinstance(i, (Expr, np.ndarray, list)) for i in idx):
+      # e.at[rows, cols]: the k leading axes linearized, so the index
+      # arrays stay data and one flat scatter takes them
+      if not all(isinstance(i, (Expr, np.ndarray, list, int, np.integer))
+                 for i in idx):
+        raise NotImplementedError(
+            "mixed slice/array advanced .at indexing is not supported: "
+            "use sp.write for region updates or flat indices for scatter")
+      if any(self._is_bool_index(i) for i in idx):
+        raise NotImplementedError(
+            "boolean masks inside multi-axis .at indexing are not "
+            "supported: use a single full-shape mask or integer indices")
+      shape = tuple(self._e.shape)
+      k = len(idx)
+      if k > self._e.ndim:
+        raise IndexError(
+            f".at received {k} indices for a {self._e.ndim}-d array")
+      lead, trail = shape[:k], shape[k:]
+      strides = np.cumprod((1,) + lead[:0:-1])[::-1]
+      flat = None
+      for d, i in enumerate(idx):
+        # concrete indices are checked, then normalized per axis; an expr
+        # index wraps like mod (an out-of-bounds one lands elsewhere, as
+        # in the reference)
+        if isinstance(i, (int, np.integer)):
+          if not -lead[d] <= int(i) < lead[d]:
+            raise IndexError(
+                f".at index {int(i)} is out of bounds for axis {d} with "
+                f"size {lead[d]}")
+          norm = lazify(int(i) % lead[d])
+        elif isinstance(i, (np.ndarray, list)):
+          ia = np.asarray(i)
+          if ia.size and (int(ia.min()) < -lead[d]
+                          or int(ia.max()) >= lead[d]):
+            raise IndexError(
+                f".at index array for axis {d} has entries outside "
+                f"[-{lead[d]}, {lead[d]})")
+          norm = lazify(ia % lead[d])
+        else:
+          norm = lazify(i) % lead[d]
+        flat = norm * int(strides[d]) if flat is None else (
+            flat + norm * int(strides[d]))
+      dst = (B.ravel(self._e) if not trail
+             else B.reshape(self._e, (int(np.prod(lead)),) + trail))
+      out = W.ScatterAssignExpr(dst, flat, v, reducer)
+      return B.reshape(out, shape)
+    return W.WriteArrayExpr(self._e, idx, v, reducer)
+
+  def set(self, v) -> Expr:
+    return self._go(v, None)
+
+  def add(self, v) -> Expr:
+    return self._go(v, np.add)
+
+  def multiply(self, v) -> Expr:
+    return self._go(v, np.multiply)
+
+  mul = multiply
+
+  def max(self, v) -> Expr:
+    return self._go(v, np.maximum)
+
+  def min(self, v) -> Expr:
+    return self._go(v, np.minimum)
 
 
 def lazify(v: Any) -> Expr:

@@ -15,7 +15,7 @@ the plain torch reduction, as in the reference:
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +41,8 @@ def dtype_for_reduction(dtype) -> torch.dtype:
   return dtype
 
 
-_OPS = ("sum", "mean", "max", "min", "argmax", "argmin")
+_OPS = ("sum", "mean", "max", "min", "argmax", "argmin", "prod", "var",
+        "std", "all", "any", "count_nonzero", "nansum", "nanmax", "nanmin")
 
 
 def _ndim(v) -> int:
@@ -53,10 +54,11 @@ class ReduceExpr(Expr):
   ``axis`` with named ``op``."""
 
   _members = ("inputs",)
-  _params = ("op", "axis", "keepdims", "out_dtype", "local_op")
+  _params = ("op", "axis", "keepdims", "out_dtype", "local_op", "ddof")
 
   def __init__(self, inputs, op: str, axis=None, keepdims=False,
-               out_dtype=None, local_op: Optional[LocalExpr] = None):
+               out_dtype=None, local_op: Optional[LocalExpr] = None,
+               ddof: int = 0):
     if op not in _OPS:
       raise ValueError(f"unknown reduction {op!r}; the port has {_OPS}")
     if isinstance(inputs, Expr):
@@ -65,7 +67,7 @@ class ReduceExpr(Expr):
                      axis=_canon_axis(axis), keepdims=keepdims,
                      out_dtype=(to_torch_dtype(out_dtype)
                                 if out_dtype is not None else None),
-                     local_op=local_op)
+                     local_op=local_op, ddof=int(ddof))
 
   def _value(self, deps: List[Any]):
     if self.local_op is not None:
@@ -152,6 +154,8 @@ class ReduceExpr(Expr):
       x = torch.as_tensor(x, device=ctx.device)
     op, keepdims = self.op, self.keepdims
     dims = self.axis
+    if op in _MORE:
+      return _MORE[op](self, x)
     if op in ("sum", "mean"):
       acc = self.out_dtype or dtype_for_reduction(x.dtype)
       if op == "sum":
@@ -175,9 +179,72 @@ class ReduceExpr(Expr):
 
   def _sig_local(self, memo, result):
     return ("ReduceExpr", self.op, self.axis, self.keepdims,
-            str(self.out_dtype),
+            str(self.out_dtype), self.ddof,
             self.local_op.signature() if self.local_op is not None else None,
             tuple(self._child_sig(c, memo, result) for c in self.inputs))
+
+
+def _dims(x: torch.Tensor, axis) -> Tuple[int, ...]:
+  """The reduced axes, non-negative and sorted (all of them for None)."""
+  if axis is None:
+    return tuple(range(x.ndim))
+  axes = axis if isinstance(axis, tuple) else (axis,)
+  return tuple(sorted(a % x.ndim for a in axes)) if x.ndim else ()
+
+
+def _prod(e: "ReduceExpr", x: torch.Tensor):
+  acc = e.out_dtype or dtype_for_reduction(x.dtype)
+  out = x.to(acc)
+  for d in reversed(_dims(x, e.axis)):  # torch.prod takes one axis
+    out = torch.prod(out, dim=d, keepdim=e.keepdims)
+  return out
+
+
+def _var(e: "ReduceExpr", x: torch.Tensor):
+  acc = e.out_dtype or dtype_for_reduction(x.dtype)
+  if dtype_kind(acc) in "biu":
+    acc = torch.float64
+  v = torch.var(x.to(acc), dim=_dims(x, e.axis), correction=e.ddof,
+                keepdim=e.keepdims)
+  return torch.sqrt(v) if e.op == "std" else v
+
+
+def _all_any(e: "ReduceExpr", x: torch.Tensor):
+  fn = torch.all if e.op == "all" else torch.any
+  b = x if x.dtype == torch.bool else x != 0
+  return fn(b, dim=_dims(x, e.axis), keepdim=e.keepdims)
+
+
+def _count_nonzero(e: "ReduceExpr", x: torch.Tensor):
+  return torch.count_nonzero(x, dim=_dims(x, e.axis))
+
+
+def _nansum(e: "ReduceExpr", x: torch.Tensor):
+  acc = e.out_dtype or dtype_for_reduction(x.dtype)
+  if not x.is_floating_point():
+    return torch.sum(x, dim=_dims(x, e.axis), dtype=acc, keepdim=e.keepdims)
+  return torch.nansum(x.to(acc), dim=_dims(x, e.axis), keepdim=e.keepdims)
+
+
+def _nanmax_min(e: "ReduceExpr", x: torch.Tensor):
+  """NumPy's ``nanmax``/``nanmin``: NaN is skipped, and a slice of NaN
+  only gives NaN."""
+  fn = torch.amax if e.op == "nanmax" else torch.amin
+  dims = _dims(x, e.axis)
+  if not x.is_floating_point():
+    return fn(x, dim=dims, keepdim=e.keepdims)
+  nan = torch.isnan(x)
+  fill = float("-inf") if e.op == "nanmax" else float("inf")
+  out = fn(torch.where(nan, torch.full_like(x, fill), x), dim=dims,
+           keepdim=e.keepdims)
+  return torch.where(torch.all(nan, dim=dims, keepdim=e.keepdims),
+                     torch.full_like(out, float("nan")), out)
+
+
+# the reductions beyond the slice-1 set, each over the reduction's value
+_MORE = {"prod": _prod, "var": _var, "std": _var, "all": _all_any,
+         "any": _all_any, "count_nonzero": _count_nonzero,
+         "nansum": _nansum, "nanmax": _nanmax_min, "nanmin": _nanmax_min}
 
 
 def _canon_axis(axis):
@@ -245,7 +312,36 @@ def _extract_affine(node, big_idx: int):
   return None
 
 
-def reduce(v, op: str, axis=None, keepdims=False, out_dtype=None) -> Expr:
-  """Named-op reduction (``op``: sum, mean, max, min, argmax, argmin)."""
+class CustomReduceExpr(Expr):
+  """A reduction the user supplies: ``fn(x, axis=axis, **fn_kw)``, a torch
+  function over the whole input (the reference's ``reduce`` with
+  ``local_reduce_fn``)."""
+
+  _members = ("inputs",)
+  _params = ("fn", "axis", "fn_kw")
+
+  def __init__(self, inputs, fn, axis=None, fn_kw=None):
+    if isinstance(inputs, Expr):
+      inputs = [inputs]
+    super().__init__(inputs=[lazify(v) for v in inputs], fn=fn, axis=axis,
+                     fn_kw=dict(fn_kw or {}))
+
+  def _emit(self, ctx: EmitCtx, deps: List[Any]):
+    return self.fn(deps[0], axis=self.axis, **self.fn_kw)
+
+
+def reduce(v, op=None, axis=None, keepdims=False, out_dtype=None,
+           ddof: int = 0, dtype_fn=None, local_reduce_fn=None,
+           accumulate_fn=None, fn_kw=None) -> Expr:
+  """A named reduction (``op``: one of ``_OPS``) or, in the reference's
+  extensible form, ``local_reduce_fn(x, axis=..., **fn_kw)`` over the
+  whole input.  ``dtype_fn`` and ``accumulate_fn`` are accepted as the
+  reference accepts them: there is no per-tile merge, so the function
+  must give the whole reduction itself."""
+  if local_reduce_fn is not None:
+    del accumulate_fn, dtype_fn
+    return CustomReduceExpr(v, fn=local_reduce_fn, axis=axis, fn_kw=fn_kw)
+  if not isinstance(op, str):
+    raise TypeError("reduce needs op=<str> or local_reduce_fn=<callable>")
   return ReduceExpr(v, op=op, axis=axis, keepdims=keepdims,
-                    out_dtype=out_dtype)
+                    out_dtype=out_dtype, ddof=ddof)

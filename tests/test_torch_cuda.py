@@ -11,9 +11,10 @@ an NVIDIA GPU:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances (K1's here; each later section states its own): rtol 1e-9
-with a float64 accumulator for chains of IEEE-rounded ops (only the
-summation order differs), 1e-6 for chains with exp/log (the CUDA and torch
-implementations differ by an ulp), 1e-5 with a float32 accumulator.
+with a float64 accumulator for chains of IEEE-rounded ops, floor division
+and remainder among them (only the summation order differs), 1e-6 for
+chains with exp/log/pow (the CUDA and torch implementations differ by an
+ulp), 1e-5 with a float32 accumulator.
 """
 
 import numpy as np
@@ -52,6 +53,14 @@ CHAINS = {
                    True, False),
     "runtime_scalar": (call("maximum", call("multiply", V, S),
                             call("sqrt", S)), False, True),
+    # floor division and remainder: torch's algorithm, IEEE-rounded steps
+    "v_floordiv": (call("floor_divide", V, LocalConst(0.3)), False, False),
+    "v_mod": (call("remainder", V, LocalConst(0.7)), False, False),
+    "square_via_power": (call("power", V, LocalConst(2.0)), False, False),
+    # powf/pow carry the CUDA math library's ulp bounds
+    "v_pow_3": (call("power", V, LocalConst(3.0)), True, False),
+    "abs_v_pow_2_5": (call("power", call("absolute", V), LocalConst(2.5)),
+                      True, False),
 }
 
 
@@ -142,6 +151,26 @@ def test_expression_layer_launches_kernel_on_card(device):
   np.testing.assert_allclose(
       got, np.abs(1 + host * np.float32(2)).astype(np.float64).sum(),
       rtol=1e-9)
+
+
+def test_new_operators_launch_k1_through_the_expression_layer(device):
+  """``(b ** 2).sum()``, ``(b // 0.3).sum()`` and ``(b % 0.7).sum()`` each
+  launch K1 once, with no plain route; float64 NumPy oracles of the
+  float32 chains (rtol 1e-9; the chains are IEEE-rounded)."""
+  host = np.random.default_rng(4).uniform(-1.0, 2.0, (513, 770)).astype(
+      np.float32)
+  b = sp.from_numpy(host)
+  with np.errstate(divide="ignore"):
+    cases = (((b ** 2).sum(), host * host),
+             ((b // 0.3).sum(), host // np.float32(0.3)),
+             ((b % 0.7).sum(), host % np.float32(0.7)))
+  for expr, elems in cases:
+    before = dict(K.counts)
+    got = float(expr.glom())
+    assert K.counts["launches"] == before["launches"] + 1
+    assert K.counts["routed_plain"] == before["routed_plain"]
+    np.testing.assert_allclose(got, elems.astype(np.float64).sum(),
+                               rtol=1e-9)
 
 
 def test_untranslatable_chain_routes_plain_on_card(device):
@@ -816,6 +845,39 @@ def test_matmul_kernel_matches_plain(device, mkn, dtype, epilogue):
   assert torch.equal(got, K2.matmul(x, y, epilogue=epilogue))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_matmul_epilogues_with_mod_and_power(device, dtype):
+  """K2's epilogue takes ``%`` and ``**``.  float32: against torch's op on
+  the kernel's own product, bit for bit for ``%`` and within 2 ulps for
+  ``**`` (powf on both sides; torch may take another path).  Both dtypes:
+  against matmul_plain at the product's bound carried through the op
+  (``%``: the distance on the circle of the modulus)."""
+  gen = torch.Generator(device=device).manual_seed(17)
+  x = torch.randn(300, 191, generator=gen, device=device).to(dtype)
+  y = torch.randn(191, 520, generator=gen, device=device).to(dtype)
+  mod = lambda a: a % 2.0  # noqa: E731
+  pw = lambda a: torch.abs(a) ** 1.5  # noqa: E731
+  before = dict(K2.counts)
+  got_mod = K2.matmul(x, y, epilogue=mod)
+  got_pow = K2.matmul(x, y, epilogue=pw)
+  assert K2.counts["epilogue_unfused"] == before["epilogue_unfused"]
+  prod = K2.matmul_plain(x, y)
+  tol = _matmul_tol(x, y, prod).float()
+  want_mod, want_pow = K2.matmul_plain(x, y, mod), K2.matmul_plain(x, y, pw)
+  d = (got_mod.float() - want_mod.float()).abs()
+  d = torch.minimum(d, 2.0 - d)
+  unit = max(OUT_UNIT[dtype], 2.0 ** -23)
+  assert bool((d <= tol + 2.0 * unit * 2.0).all())
+  base = prod.float().abs()
+  pow_tol = 1.5 * (base + tol).sqrt() * tol + 4 * unit * want_pow.float().abs()
+  assert bool(((got_pow.float() - want_pow.float()).abs() <= pow_tol).all())
+  if dtype == torch.float32:
+    own = K2.matmul(x, y)
+    assert torch.equal(got_mod, torch.remainder(own, 2.0))
+    torch.testing.assert_close(got_pow, torch.abs(own) ** 1.5, rtol=2.4e-7,
+                               atol=0)
+
+
 def test_matmul_unfused_epilogue_and_plain_routes(device):
   x = torch.randn(70, 90, device=device)
   y = torch.randn(90, 50, device=device)
@@ -1435,3 +1497,69 @@ def test_shuffle_drops_out_of_range_updates_on_card(device):
                                        [0, 0, 0, 5]])
   torch.cuda.synchronize()
   assert float((torch.ones(1000, device=device) * 2).sum()) == 2000.0
+
+
+# -- the expression surface on the card -----------------------------------------
+# Slices, gathers, masks and .at updates against NumPy on a host copy:
+# exact for copies, rtol 1e-9 for float64 sums; .at[...].add with
+# duplicate indices uses atomics on the card, so its float bits vary from
+# run to run: it is held to a float64 np.add.at of the same float32 values
+# at 4 float32 ulps of each updated value.
+
+from spartan_tpu_torch.expr import slice as slice_mod  # noqa: E402
+
+
+def test_indexing_on_card(device):
+  host = np.random.default_rng(8).standard_normal((700, 300)).astype(
+      np.float32)
+  b = sp.from_numpy(host)
+  rows = np.random.default_rng(9).integers(0, 700, 257)
+  cols = np.random.default_rng(10).integers(0, 300, 257)
+  np.testing.assert_array_equal(b[1:-1, ::3].glom(), host[1:-1, ::3])
+  np.testing.assert_array_equal(b[::-2, 5].glom(), host[::-2, 5])
+  np.testing.assert_array_equal(b[rows].glom(), host[rows])
+  np.testing.assert_array_equal(b[sp.from_numpy(rows), sp.from_numpy(cols)]
+                                .glom(), host[rows, cols])
+  before = slice_mod.counts["boolean_mask_device"]
+  np.testing.assert_array_equal(b[b > 1.5].glom(), host[host > 1.5])
+  assert slice_mod.counts["boolean_mask_device"] == before + 1
+  np.testing.assert_allclose(float(b[1:-1, 1:-1].sum().glom()),
+                             host[1:-1, 1:-1].astype(np.float64).sum(),
+                             rtol=1e-9)
+
+
+def test_at_add_with_duplicates_on_card(device):
+  host = np.random.default_rng(11).standard_normal((500, 40)).astype(
+      np.float32)
+  rows = np.random.default_rng(12).integers(0, 500, 5000)
+  cols = np.random.default_rng(13).integers(0, 40, 5000)
+  got = sp.from_numpy(host).at[sp.from_numpy(rows),
+                               sp.from_numpy(cols)].add(1.0).glom()
+  want = host.astype(np.float64)
+  np.add.at(want, (rows, cols), 1.0)
+  np.testing.assert_allclose(got, want, rtol=4 * 2.0 ** -24,
+                             atol=4 * 2.0 ** -24 * np.abs(want).max())
+  m = sp.from_numpy(host).at[sp.from_numpy(rows)].max(
+      sp.from_numpy(np.full((5000, 40), 0.5, np.float32))).glom()
+  want_max = host.copy()
+  np.maximum.at(want_max, rows, np.float32(0.5))
+  np.testing.assert_array_equal(m, want_max)
+
+
+def test_reductions_on_card(device):
+  host = np.random.default_rng(14).uniform(0.5, 1.5, (300, 200)).astype(
+      np.float32)
+  host[3, 4] = np.nan
+  b = sp.from_numpy(host)
+  h64 = host.astype(np.float64)
+  np.testing.assert_allclose(float(sp.nanmean(b).glom()), np.nanmean(h64),
+                             rtol=1e-9)
+  clean = sp.from_numpy(np.nan_to_num(host, nan=1.0))
+  c64 = np.nan_to_num(h64, nan=1.0)
+  np.testing.assert_allclose(float(sp.var(clean).glom()), np.var(c64),
+                             rtol=1e-9)
+  np.testing.assert_allclose(float(sp.std(clean, ddof=1).glom()),
+                             np.std(c64, ddof=1), rtol=1e-9)
+  np.testing.assert_allclose(clean[0:50].prod(axis=0).glom(),
+                             c64[0:50].prod(axis=0), rtol=1e-9)
+  assert bool(sp.all(clean > 0).glom()) and not bool(sp.any(clean > 2).glom())

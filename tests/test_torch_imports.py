@@ -66,3 +66,10 @@ def test_port_imports_with_jax_unavailable():
                         cwd=str(PKG.parent))
   assert proc.returncode == 0, proc.stderr
   assert proc.stdout.strip() == "6.0"
+
+
+def test_the_expression_surface_modules_are_checked():
+  """The modules of the core expression surface are among those held to
+  no jax and no reference import, and import with both unavailable."""
+  assert {"spartan_tpu_torch.expr.slice", "spartan_tpu_torch.expr.write",
+          "spartan_tpu_torch.expr.fio"} <= set(MODULES)

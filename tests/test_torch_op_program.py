@@ -6,6 +6,8 @@ Every comparison here is exact (bit for bit, NaN equal to NaN): folding and
 allocation rename where values live, never what an instruction computes.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -254,3 +256,164 @@ def test_fold_keeps_a_scalar_output_and_unfolded_loads():
   alloc = K.allocate(folded)
   x = _x(torch.float32)
   _same(K.evaluate_program(alloc, x, []), K.evaluate_program(ssa, x, []))
+
+
+# -- the opcodes of floor division, remainder and power -----------------------
+
+NEW_CHAINS = {
+    "v_pow_3": (call("power", V, LocalConst(3.0)), lambda v: v ** 3.0),
+    "v_floordiv": (call("floor_divide", V, LocalConst(0.3)),
+                   lambda v: v // 0.3),
+    "v_mod": (call("remainder", V, LocalConst(0.7)), lambda v: v % 0.7),
+    "abs_v_pow_s": (call("power", call("absolute", V), S), None),
+    "mod_of_square": (call("remainder", call("square", V), LocalConst(1.1)),
+                      None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64], ids=str)
+@pytest.mark.parametrize("name", sorted(NEW_CHAINS))
+def test_new_opcodes_translate_and_match_the_chain(name, dtype):
+  """power, floor_divide and remainder are instructions of the program,
+  which computes exactly what the chain computes with torch ops."""
+  chain, _ = NEW_CHAINS[name]
+  scalars = [_scalar("weak")] if name == "abs_v_pow_s" else []
+  slots = dict(enumerate(scalars, start=1))
+  program = K.plan(chain, 0, dtype, slots)
+  if dtype == torch.float64:  # float64 instructions: no rare-op variant
+    assert program is None and K._translate(chain, 0, dtype, {
+        k: Aval.of(v) for k, v in slots.items()}) is not None
+    return
+  assert program is not None
+  ops = {op for op, *_ in program.instrs}
+  want_ops = {"v_pow_3": {K.OPS["power"]}, "v_floordiv": {K.OPS["floor_divide"]},
+              "v_mod": {K.OPS["remainder"]},
+              "abs_v_pow_s": {K.OPS["absolute"], K.OPS["power"]},
+              "mod_of_square": {K.OPS["square"], K.OPS["remainder"]}}[name]
+  assert want_ops <= ops
+  x = _x(dtype)
+  got = K.evaluate_program(program, x, scalars)
+  want = chain.evaluate([x] + scalars)
+  if "pow" in name:
+    # the program's pow reads its exponent as a tensor (pow(x, y), as the
+    # kernel computes it); the chain's torch.pow(x, 3.0) takes torch's
+    # scalar path (x * x * x): ulps apart
+    torch.testing.assert_close(got, want, equal_nan=True)
+  else:
+    _same(got, want)
+
+
+@pytest.mark.parametrize("exponent, op", [(2.0, "square"), (2, "square"),
+                                          (0.5, "sqrt"), (3.0, "power"),
+                                          (True, "power")])
+@pytest.mark.parametrize("form", ["const", "weak"])
+def test_power_with_a_known_exponent_takes_the_fast_op(form, exponent, op):
+  """A power whose exponent is 2 or 0.5 (a constant, or a weak scalar
+  whose value keys the plan) is the square or square-root instruction, as
+  torch's scalar fast path computes it."""
+  if form == "const":
+    chain, slots = call("power", V, LocalConst(exponent)), {}
+  else:
+    chain, slots = call("power", V, S), {1: exponent}
+  program = K.plan(chain, 0, torch.float32, slots)
+  assert [o for o, *_ in program.instrs][1:] == [K.OPS[op]]
+  x = torch.from_numpy(np.abs(_x(torch.float32).numpy()))
+  scalars = [] if form == "const" else [exponent]
+  got = K.evaluate_program(program, x, scalars)
+  want = chain.evaluate([x] + scalars)
+  if op == "power":  # pow(x, tensor) against torch's scalar path
+    torch.testing.assert_close(got, want)
+  else:  # the fast ops give torch's scalar-path bits
+    _same(got, want)
+  # another value of the weak exponent is another plan
+  if form == "weak":
+    other = K.plan(chain, 0, torch.float32, {1: 1.5})
+    assert [o for o, *_ in other.instrs][1:] == [K.OPS["power"]]
+
+
+def test_integer_floor_division_leaves_the_program():
+  i = sp.from_numpy(np.arange(-6, 6, dtype=np.int32).reshape(3, 4))
+  before = K.counts["routed_plain"]
+  got = int((i // 4).sum().glom())
+  assert got == int((np.arange(-6, 6) // 4).sum())
+  assert K.counts["routed_plain"] == before  # an int64 sum: no kernel gate
+
+
+@pytest.mark.parametrize("dt", sorted(K.DTYPE_CODES.values()))
+@pytest.mark.parametrize("op", list(range(K.OPS["power"] + 1)))
+def test_every_opcode_and_dtype_pack_and_unpack(op, dt):
+  """The Python mirror of op_program.cuh's packed word: every opcode and
+  dtype code, registers and folded scalars at their extremes, round-trip,
+  and the fields sit where the C unpacking reads them."""
+  for dst, a, b in ((0, 0, 0), (K.N_REGS - 1, -1 - K.MAX_IMM - 15, 7),
+                    (3, -1, -1 - K.MAX_IMM), (K.N_REGS - 1, 5, -32)):
+    code = K.pack_instruction(op, dt, dst, a, b)
+    assert 0 <= code < 1 << 32
+    assert K.unpack_instruction(code) == (op, dt, dst, a, b)
+    assert code & 63 == op and (code >> 6) & 3 == dt
+    assert (code >> 8) & 255 == dst
+  with pytest.raises(ValueError):
+    K.pack_instruction(64, 0, 0, 0, 0)
+  with pytest.raises(ValueError):
+    K.pack_instruction(op, 4, 0, 0, 0)
+
+
+def test_the_largest_opcode_fits_the_packed_word():
+  assert max(K.OPS.values()) < 1 << K.OP_BITS
+  assert max(K.DTYPE_CODES.values()) < 1 << K.DT_BITS
+  header = (pathlib.Path(K.__file__).resolve().parents[2] / "csrc"
+            / "op_program.cuh").read_text()
+  for name, code in (("OP_FLOORDIV", K.OPS["floor_divide"]),
+                     ("OP_MOD", K.OPS["remainder"]),
+                     ("OP_POW", K.OPS["power"])):
+    assert f"{name} = {code}," in header
+  assert "op = code & 63, dt = (code >> 6) & 3" in header
+
+
+def test_epilogue_takes_the_new_ops():
+  for fn, op in ((lambda a: a % 2.0, "remainder"),
+                 (lambda a: a // 3.0, "floor_divide"),
+                 (lambda a: a ** 1.5, "power"),
+                 (lambda a: torch.pow(a, 2.0), "square"),
+                 (lambda a: a ** 0.5, "sqrt")):
+    program = K2.plan_epilogue(fn)
+    assert program is not None
+    assert [o for o, *_ in program.instrs][-1] == K.OPS[op]
+    acc = torch.linspace(0.5, 7.0, 29)
+    torch.testing.assert_close(K.evaluate_program(program, acc, []), fn(acc))
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("name", ["v_pow_3", "v_floordiv", "v_mod"])
+def test_plain_k1_matches_the_reference_kernel_on_new_ops(name, acc):
+  """K1's plain version against the reference's ``fused_sum`` in interpret
+  mode: rtol 1e-5 with a float32 accumulator (another order), 1e-6 with
+  a float64 one (the per-element values agree to the last bit, or an ulp
+  for pow, as with exp)."""
+  import jax.numpy as jnp
+  from spartan_tpu.backend.kernels import fused_reduce as ref_kernels
+  chain, jfn = NEW_CHAINS[name]
+  host = np.random.default_rng(7).uniform(-1.0, 2.0, (64, 256)).astype(
+      np.float32)
+  program = K.plan(chain, 0, torch.float32, {})
+  before = K.counts["plain_runs"]
+  got = K.fused_sum(torch.from_numpy(host), program, [], acc)
+  assert K.counts["plain_runs"] == before + 1
+  jacc = jnp.float32 if acc == torch.float32 else jnp.float64
+  want = ref_kernels.fused_sum(jnp.asarray(host), jfn, scalars=[],
+                               acc_dtype=jacc, interpret=True)
+  np.testing.assert_allclose(float(got), float(want),
+                             rtol=1e-5 if acc == torch.float32 else 1e-6)
+
+
+def test_rare_ops_beside_a_float64_instruction_are_refused_and_counted():
+  """Floor division, remainder and power run only in float registers: a
+  program that would need double registers takes the plain path."""
+  chain = call("remainder", call("add", V, S), LocalConst(0.7))
+  assert K.plan(chain, 0, torch.float32, {1: _scalar("f32")}) is not None
+  before = K.counts["routed_plain"]
+  assert K.plan(chain, 0, torch.float32, {1: _scalar("f64")}) is None
+  assert K.counts["routed_plain"] == before + 1
+  no_rare = call("add", V, S)
+  assert not K.plan(no_rare, 0, torch.float32, {1: _scalar("f64")}).float_regs

@@ -10,7 +10,8 @@ last three also on meshes of 2, 4 and 8 logical shards of the card, and
 raises on any failure:
 
   0. identify the card (nvidia-smi name and power limit, torch and CUDA);
-  1. build the kernels (csrc/fused_reduce.cu, spmv_ell.cu, spmv_csr.cu,
+  1. build the kernels (csrc/fused_reduce.cu, fused_reduce_rare1.cu,
+     fused_reduce_rare.cu, spmv_ell.cu, spmv_csr.cu,
      spmm_csr.cu, stencil3x3.cu, stencil3x3_padded.cu, matmul.cu,
      spmv_chunked.cu) from source, one nvcc per file, all started together;
      the sharded kernels are these kernels over the shards' row bands (K3a
@@ -18,10 +19,13 @@ raises on any failure:
      launch a band), K6b the halo-row instantiation in
      stencil3x3_padded.cu;
   2. K1 against its plain torch version on the card, over nine chains
-     (power, floor division and remainder among them),
-     four shapes, each also as the flattened x[1:] (a base off 16-byte
-     alignment), and two accumulators, bit-equal on repeat, with ptxas's
-     report of each of its kernels (0-byte stack frame, no spill); then
+     (power, floor division and remainder among them) and fourteen of the
+     trig, hyperbolic, rounding and log/exp ops (each of the 31 new ones
+     in one), four shapes, each also as the flattened x[1:] (a base off
+     16-byte alignment), and two accumulators, bit-equal on repeat, with
+     ptxas's report of each of its kernels, common and rare (0-byte stack
+     frame, no spill); sin of 1e6 v and sin/cos/tan of values up to 1e30
+     against a float64 evaluation on the card (an ulp an element); then
      each chain timed at 16384^2 float32 beside the plain version and
      torch.sum;
   3. the fused map+reduce (affine and kernel paths) and a 4096^2 dot,
@@ -108,11 +112,21 @@ raises on any failure:
      2^22-element (rows, cols) gather, b[b > 2.5] on the device,
      b.at[rows, cols].add(1.0) with duplicates against np.add.at, nanmean
      with NaN planted, each against a float64 NumPy oracle, and how much
-     of b[1:-1, 1:-1].sum() is the contiguous copy K1 reads.
+     of b[1:-1, 1:-1].sum() is the contiguous copy K1 reads;
+ 16. the builtins at config 1's 16384^2 float32 through the entry points:
+     seven K1 sums of the new ufuncs (sin, tanh, floor, log1p, arctan2,
+     hypot, sin of 1e6 b; no plain route) against NumPy's float32 values
+     summed in float64, each timed beside its plain version and
+     torch.sum(torch.<op>(x)); K2 with a fused tanh epilogue at 8192^2
+     bfloat16 against a float64 product, timed beside cuBLAS + torch.tanh;
+     eye, linspace(0, 1, 2^28), meshgrid, zeros_like, nonzero(b > 2.5),
+     compress, choose, resize, unique/isin/bincount over 2^26 int32 keys
+     and map_with_location, each against NumPy.
 
 The count of each kernel's launches is set to 0 just before the path that
-runs it (phases 3-4 and 15 for K1, phase 6 for K3a/K3b, phase 8 for K5a, phase 10
-for K6a, phase 11's full-size matmul calls for K2, phase 12's
+runs it (phases 3-4, 15 and 16 for K1, phase 6 for K3a/K3b, phase 8 for
+K5a, phase 10 for K6a, phase 11's full-size matmul calls and phase 16's
+for K2, phase 12's
 make_spmv_windowed calls for K3c, phase 14's path at each p for the
 sharded kernels, summed over the three meshes) and read just after.  K4 has no caller
 in the package: its count is the launches of phase 9's checks.  The
@@ -125,6 +139,7 @@ CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import gc
 import json
 import statistics
@@ -153,7 +168,8 @@ from spartan_tpu_torch.expr.map import UFUNCS
 from spartan_tpu_torch.util import Timer
 
 DEVICE = "cuda"
-KERNELS = ("fused_reduce", "spmv_ell", "spmv_csr", "spmm_csr", "stencil3x3",
+KERNELS = ("fused_reduce", "fused_reduce_rare1", "fused_reduce_rare",
+           "spmv_ell", "spmv_csr", "spmm_csr", "stencil3x3",
            "stencil3x3_padded", "matmul", "spmv_chunked")
 KERNEL_SHAPES = [((16384, 16384), torch.float32), ((8192, 8192), torch.bfloat16),
                  ((10_000_019,), torch.float32), ((13, 20), torch.float32)]
@@ -266,6 +282,54 @@ CHAINS = {
     "v//0.3": (call("floor_divide", V, LocalConst(0.3)), False, False),
     "v%0.7": (call("remainder", V, LocalConst(0.7)), False, False),
 }
+
+def _sum(*terms):
+  out = terms[0]
+  for t in terms[1:]:
+    out = call("add", out, t)
+  return out
+
+
+def _scaled(c):
+  return call("multiply", V, LocalConst(c))
+
+
+_ABS1 = call("add", call("absolute", V), LocalConst(1.0))
+# the trig, hyperbolic, rounding and log/exp ops (the rare variants): each
+# of the 31 in a chain; "oracle" chains are also held to a float64
+# evaluation on the card (their arguments pass CUDA sinf's fast reduction,
+# 105615, and reach 1e30)
+NEW_CHAINS = {
+    "sin(1e6v)": (call("sin", _scaled(1e6)), True, False),
+    "trig(1e30v)": (_sum(call("sin", _scaled(1e30)),
+                         call("cos", _scaled(1e30)),
+                         call("tan", _scaled(3e29))), True, False),
+    "floor(3v)": (call("floor", _scaled(3.0)), False, False),
+    "tanh(0.5v)": (call("tanh", _scaled(0.5)), True, False),
+    "log1p(abs(v))": (call("log1p", call("absolute", V)), True, False),
+    "arctan2(v,0.5)": (call("arctan2", V, LocalConst(0.5)), True, False),
+    "hypot(v,2)": (call("hypot", V, LocalConst(2.0)), True, False),
+    "ceil+trunc+rint": (_sum(call("ceil", _scaled(3.0)),
+                             call("trunc", _scaled(3.0)),
+                             call("rint", _scaled(3.0))), False, False),
+    "asin+acos+atan": (_sum(call("arcsin", _scaled(0.3)),
+                            call("arccos", _scaled(0.3)),
+                            call("arctan", V)), True, False),
+    "hyperbolic": (_sum(call("sinh", V), call("cosh", V), call("arcsinh", V),
+                        call("arccosh", _ABS1),
+                        call("arctanh", _scaled(0.3))), True, False),
+    "exp2..cbrt": (_sum(call("exp2", V), call("expm1", V),
+                        call("log2", _ABS1), call("log10", _ABS1),
+                        call("cbrt", V)), True, False),
+    "erf+erfc": (_sum(call("erf", V), call("erfc", V)), True, False),
+    "copysign+fmax+fmin": (_sum(call("copysign", V, call(
+        "subtract", V, LocalConst(0.5))), call("fmax", V, LocalConst(0.5)),
+        call("fmin", V, LocalConst(0.5))), False, False),
+    "logaddexp(2)": (_sum(call("logaddexp", V, LocalConst(0.5)),
+                          call("logaddexp2", V, _scaled(0.5))), True, False),
+}
+ORACLE_CHAINS = ("sin(1e6v)", "trig(1e30v)")
+ALL_CHAINS = {**CHAINS, **NEW_CHAINS}
 # K1's abs(1+2v) at 16384^2 float32 before this op table grew (PERF.md,
 # PR 8): the new opcodes must not cost it more than 3 %
 K1_ABS_MS_PR8 = 0.4680
@@ -361,6 +425,8 @@ def check_ptxas(source: str, entry: str, label: str) -> None:
 def phase_kernel_vs_plain(device, card: str):
   """K1 against fused_sum_plain on the same card tensors."""
   check_ptxas("fused_reduce", "fused_sum_partials", "K1")
+  check_ptxas("fused_reduce_rare1", "fused_sum_partials", "K1 rare, 1 reg")
+  check_ptxas("fused_reduce_rare", "fused_sum_partials", "K1 rare")
   worst_abs = 0.0
   gen = torch.Generator(device=device).manual_seed(1234)
   launches0 = K.counts["launches"]
@@ -370,16 +436,22 @@ def phase_kernel_vs_plain(device, card: str):
     s = torch.tensor(0.7, dtype=torch.float32, device=device)
     # the tensor, and its flattened x[1:]: a base off 16-byte alignment
     for view, x in (("", whole), (" [1:]", whole.reshape(-1)[1:])):
-      for name, (chain, transcendental, has_scalar) in CHAINS.items():
+      for name, (chain, transcendental, has_scalar) in ALL_CHAINS.items():
         scalars = [s] if has_scalar else []
         program = K.plan(chain, 0, dtype, dict(enumerate(scalars, start=1)))
         check(program is not None, f"chain {name} did not translate")
+        # a new chain's sum may cancel (sin, tan): its error is read
+        # against the sum of |values|, which bounds what the per-element
+        # differences can add up to
+        scale = (K.evaluate_program(program, x, scalars).double().abs()
+                 .sum().item() if name in NEW_CHAINS else None)
         for acc in (torch.float32, torch.float64):
           got = K.fused_sum(x, program, scalars, acc).item()
           again = K.fused_sum(x, program, scalars, acc).item()
           want = K.fused_sum_plain(x, program, scalars, acc).item()
           tol = tolerance(transcendental, acc)
-          err = rel_err(got, want)
+          err = (rel_err(got, want) if scale is None
+                 else abs(got - want) / max(scale, 1e-300))
           worst_abs = max(worst_abs, abs(got - want))
           print(f"  K1 {name:14s} {str(tuple(shape)) + view:21s} "
                 f"{str(dtype)[6:]:8s} acc={str(acc)[6:]:7s} kernel={got:.17g} "
@@ -395,6 +467,7 @@ def phase_kernel_vs_plain(device, card: str):
   check(K.counts["launches"] == launches0 + n_cases,
         f"launches rose by {K.counts['launches'] - launches0}, expected "
         f"{n_cases}")
+  check_against_float64(device, gen)
   # time at the main path's shape: abs(1+2v) over 16384^2 float32, float64
   # accumulation; kernel and plain in turns, with every chain of CHAINS (the
   # identity program among them) and torch.sum(dtype=float64), the library
@@ -404,7 +477,7 @@ def phase_kernel_vs_plain(device, card: str):
   program = K.plan(CHAINS["abs(1+2v)"][0], 0, torch.float32, {})
   fns = {"plain": lambda: K.fused_sum_plain(x, program, [], torch.float64)}
   programs = {}
-  for name, (chain, _, has_scalar) in CHAINS.items():
+  for name, (chain, _, has_scalar) in ALL_CHAINS.items():
     scalars = [s] if has_scalar else []
     programs[name] = K.plan(chain, 0, torch.float32,
                             dict(enumerate(scalars, start=1)))
@@ -431,6 +504,38 @@ def phase_kernel_vs_plain(device, card: str):
   return {"max_abs_err": worst_abs, "ms": t["kernel"], "plain_ms": t["plain"],
           "library_ms": t["torch.sum"], "bound_ms": bound_ms,
           "bound_by": bound_by}
+
+
+def check_against_float64(device, gen, names=ORACLE_CHAINS) -> None:
+  """The large-argument chains at 16384^2 float32 against a float64
+  evaluation of the same float32 arguments on the card: the kernel's
+  sin/cos/tan must be within an ulp an element, so the sums within
+  2^-23 of the sum of |values| (CUDA's __sinf, wrong past |x| ~ pi, fails
+  it: tools/torch_k1k2_mutation.py).  The plain version (torch's sinf)
+  is held to the same bound."""
+  x = torch.rand(TIMED_SHAPE, generator=gen, device=device) * 3 - 1
+  for name in names:
+    program = K.plan(NEW_CHAINS[name][0], 0, torch.float32, {})
+    if name == "sin(1e6v)":
+      want_v = torch.sin((x * 1e6).double())
+    else:
+      want_v = (torch.sin((x * 1e30).double()) + torch.cos(
+          (x * 1e30).double()) + torch.tan((x * 3e29).double()))
+    want = want_v.sum().item()
+    bound_abs = 2.0 ** -23 * want_v.abs().sum().item()
+    del want_v
+    got = K.fused_sum(x, program, [], torch.float64).item()
+    plain = K.fused_sum_plain(x, program, [], torch.float64).item()
+    print(f"  K1 {name} at {TIMED_SHAPE} float32 against float64 on the "
+          f"card: kernel {got:.17g}, plain {plain:.17g}, float64 "
+          f"{want:.17g}; |kernel - float64| {abs(got - want):.4g}, |plain "
+          f"- float64| {abs(plain - want):.4g}, bound {bound_abs:.4g} "
+          f"(2^-23 of the sum of |values|: an ulp an element)")
+    check(abs(got - want) <= bound_abs,
+          f"K1 {name} strays from the float64 evaluation: {got} vs {want}")
+    check(abs(plain - want) <= bound_abs,
+          f"the plain {name} strays from the float64 evaluation")
+  del x
 
 
 def phase_map_reduce_and_dot(rng):
@@ -1591,18 +1696,19 @@ def phase_matmul_kernel(device):
   x = torch.randn(300, 500, generator=gen, device=device)
   y = torch.randn(500, 200, generator=gen, device=device)
   before = dict(K2.counts)
-  got = K2.matmul(x, y, epilogue=torch.tanh)
-  want = K2.matmul_plain(x, y, torch.tanh)
+  got = K2.matmul(x, y, epilogue=torch.sigmoid)
+  want = K2.matmul_plain(x, y, torch.sigmoid)
   torch.cuda.synchronize()
   check(K2.counts == dict(before, launches=before["launches"] + 1,
                           epilogue_unfused=before["epilogue_unfused"] + 1),
-        f"the tanh epilogue was not run unfused after one launch ({K2.counts})")
+        f"the sigmoid epilogue was not run unfused after one launch "
+        f"({K2.counts})")
   err = float((got - want).abs().max())
   check(bool(((got - want).abs() <= matmul_tol(x, y, want)).all()),
         "K2 with an unfused epilogue disagrees with its plain version")
   worst = max(worst, err)
-  print(f"  K2 300x500x200 float32 epilogue tanh (outside the op table, run "
-        f"in torch on the kernel's float32 product): max|kernel-plain| "
+  print(f"  K2 300x500x200 float32 epilogue sigmoid (outside the op table, "
+        f"run in torch on the kernel's float32 product): max|kernel-plain| "
         f"{err:.3g}; {cases + 1} cases, counts {K2.counts}")
   return max(worst, check_new_epilogues(device))
 
@@ -2633,6 +2739,245 @@ def phase_expression_surface(device, card: str) -> int:
   return k1_launches
 
 
+BUILTIN_N, BUILTIN_MM_N, LINSPACE_N = 16384, 8192, 1 << 28
+KEYS_N, KEY_VALUES, KEY_BINS, TEST_KEYS = 1 << 26, 10 ** 6, 1 << 20, 1000
+RESIZE_SHAPE = (12288, 16384)
+ORACLE_BLOCKS = 16  # row blocks of each K1 sum's NumPy oracle
+
+
+def events_ms(fn):
+  """(ms between CUDA events around one call of ``fn`` on the device, its
+  result): for calls that wait on the host (a length read back), so the
+  span holds the host's gaps."""
+  marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+  marks[0].record()
+  out = fn()
+  marks[1].record()
+  marks[1].synchronize()
+  return marks[0].elapsed_time(marks[1]), out
+
+
+# phase 16's sums through the entry points: (label, the entry point on b,
+# the chain K1 runs, NumPy's float32 values, torch's library function, an
+# exact op)
+BUILTIN_SUMS = [
+    ("sp.sum(sp.sin(b))", lambda b: sp.sum(sp.sin(b)), call("sin", V),
+     np.sin, torch.sin, False),
+    ("sp.sum(sp.tanh(b * 0.5))", lambda b: sp.sum(sp.tanh(b * 0.5)),
+     call("tanh", _scaled(0.5)), lambda h: np.tanh(h * np.float32(0.5)),
+     lambda x: torch.tanh(x * 0.5), False),
+    ("sp.sum(sp.floor(b * 3.0))", lambda b: sp.sum(sp.floor(b * 3.0)),
+     call("floor", _scaled(3.0)), lambda h: np.floor(h * np.float32(3.0)),
+     lambda x: torch.floor(x * 3.0), True),
+    ("sp.sum(sp.log1p(sp.abs(b)))", lambda b: sp.sum(sp.log1p(sp.abs(b))),
+     call("log1p", call("absolute", V)), lambda h: np.log1p(np.abs(h)),
+     lambda x: torch.log1p(torch.abs(x)), False),
+    ("sp.sum(sp.arctan2(b, 0.5))", lambda b: sp.sum(sp.arctan2(b, 0.5)),
+     call("arctan2", V, LocalConst(0.5)),
+     lambda h: np.arctan2(h, np.float32(0.5)),
+     lambda x: torch.atan2(x, torch.tensor(0.5, device=x.device)), False),
+    ("sp.sum(sp.hypot(b, 2.0))", lambda b: sp.sum(sp.hypot(b, 2.0)),
+     call("hypot", V, LocalConst(2.0)),
+     lambda h: np.hypot(h, np.float32(2.0)),
+     lambda x: torch.hypot(x, torch.tensor(2.0, device=x.device)), False),
+    ("sp.sum(sp.sin(b * 1e6))", lambda b: sp.sum(sp.sin(b * 1e6)),
+     call("sin", _scaled(1e6)), lambda h: np.sin(h * np.float32(1e6)),
+     lambda x: torch.sin(x * 1e6), False),
+]
+
+
+def _sum_stats(np_fn, host):
+  """(sum, sum of |values|) of NumPy's float32 values, in float64."""
+  values = np_fn(host)
+  return (float(values.sum(dtype=np.float64)),
+          float(np.abs(values).sum(dtype=np.float64)))
+
+
+def builtin_sums(b, host, card: str, pool) -> int:
+  """K1 through the entry points on the new ufuncs, each against NumPy's
+  float32 values summed in float64 (computed on the host's cores in
+  ``pool`` meanwhile) and timed beside its plain version and
+  torch.sum(torch.<op>(x)); returns K1's launches."""
+  x = b.evaluate().data
+  # each oracle in row blocks, so that the host's cores share it (NumPy's
+  # float32 sin of arguments past 71476 takes its scalar path)
+  step = -(-host.shape[0] // ORACLE_BLOCKS)
+  oracles = [[pool.submit(_sum_stats, item[3], host[i:i + step])
+              for i in range(0, host.shape[0], step)]
+             for item in BUILTIN_SUMS]
+  launches = 0
+  for (label, entry, chain, np_fn, lib_fn, exact), blocks in zip(
+      BUILTIN_SUMS, oracles):
+    before = dict(K.counts)
+    with Timer() as t:
+      got = float(entry(b).glom())
+    check(K.counts["launches"] == before["launches"] + 1
+          and K.counts["routed_plain"] == before["routed_plain"],
+          f"{label} did not launch K1 once ({K.counts} after {before})")
+    launches += 1
+    with Timer() as waited:
+      parts = [f.result() for f in blocks]
+    want, scale = sum(p[0] for p in parts), sum(p[1] for p in parts)
+    # NumPy's float32 libm and CUDA's agree to an ulp an element (exact
+    # ops: the same values); the sums add in other orders
+    tol = 1e-9 if exact else 1e-6
+    err = abs(got - want) / max(scale, 1e-300)
+    program = K.plan(chain, 0, torch.float32, {})
+    tm = time_in_turns({
+        "kernel": lambda p=program: K.fused_sum(x, p, [], torch.float64),
+        "plain": lambda p=program: K.fused_sum_plain(x, p, [],
+                                                     torch.float64),
+        "library": lambda f=lib_fn: torch.sum(f(x), dtype=torch.float64)})
+    print(f"  {label}: kernel {got:.17g}, NumPy {want:.17g}, |err| / "
+          f"sum|values| {err:.3g} (tolerance {tol:g}); wall "
+          f"{t.elapsed * 1e3:.1f} ms (then {waited.elapsed:.2f} s waiting for "
+          f"NumPy); device kernel {tm['kernel']:.4f} ms, plain "
+          f"{tm['plain']:.4f} ms, torch.sum(torch.<op>(x)) "
+          f"{tm['library']:.4f} ms (median of {TIMING_REPS}, CUDA events, "
+          f"in turns) on {card}")
+    check(np.isfinite(got) and err <= tol,
+          f"{label} disagrees with its NumPy oracle")
+  return launches
+
+
+def builtin_matmul(device, card: str) -> int:
+  """K2 with a tanh epilogue at 8192^2 bfloat16 through matmul.matmul,
+  against a float64 product and tanh on the card (matmul_tol bounds the
+  product; tanh is 1-Lipschitz), timed beside its plain version and
+  cuBLAS followed by torch.tanh; returns K2's launches."""
+  gen = torch.Generator(device=device).manual_seed(16)
+  n = BUILTIN_MM_N
+  x = torch.randn(n, n, generator=gen, device=device).to(torch.bfloat16)
+  y = torch.randn(n, n, generator=gen, device=device).to(torch.bfloat16)
+  before = dict(K2.counts)
+  with Timer() as t:
+    got = K2.matmul(x, y, epilogue=torch.tanh)
+    torch.cuda.synchronize()
+  check(K2.counts["launches"] == before["launches"] + 1
+        and K2.counts["epilogue_unfused"] == before["epilogue_unfused"],
+        f"K2 with a tanh epilogue did not launch fused ({K2.counts})")
+  prod = x.double() @ y.double()
+  want = torch.tanh(prod)
+  tol = matmul_tol(x, y, want)
+  err = (got.double() - want).abs()
+  share = float((err / tol).max())
+  del prod, err, tol
+  tm = time_in_turns({
+      "kernel": lambda: K2.matmul(x, y, epilogue=torch.tanh),
+      "plain": lambda: K2.matmul_plain(x, y, torch.tanh),
+      "library": lambda: torch.tanh(torch.matmul(x, y))})
+  print(f"  K2 tanh(x @ y) at {n}^2 bfloat16: worst share of the bound "
+        f"{share:.4g} against float64 (product bound + bfloat16 rounding), "
+        f"wall {t.elapsed * 1e3:.1f} ms; device kernel {tm['kernel']:.4f} "
+        f"ms, plain {tm['plain']:.4f} ms, cuBLAS + torch.tanh "
+        f"{tm['library']:.4f} ms (median of {TIMING_REPS}, CUDA events, in "
+        f"turns) on {card}")
+  check(share <= 1.0, "K2's tanh epilogue strays from float64")
+  del x, y, got, want
+  return 1
+
+
+def builtin_item(label, fn, want, rtol=0.0, why="exact"):
+  """One constructor or selection through its entry point: device time
+  between events around the evaluation, the wall with the fetch, held to
+  NumPy's ``want`` (a future of the host pool) exactly or at ``rtol`` of
+  max|oracle|."""
+  with Timer() as t:
+    ms, arr = events_ms(lambda: fn().evaluate())
+    got = arr.data.cpu().numpy()
+  with Timer() as waited:
+    oracle = want.result()
+  surface_check(f"{label} (device {ms:.3f} ms; then {waited.elapsed:.2f} s "
+                f"waiting for NumPy)", got, oracle, rtol, why, t.elapsed)
+  del got, arr, oracle
+
+
+def phase_builtins(device, card: str):
+  """The elementwise, constructor and selection builtins at config 1's
+  16384^2 float32 through the entry points, each against NumPy (its
+  oracles computed on six host threads while the card works); returns
+  K1's and K2's launches."""
+  from spartan_tpu_torch.expr import slice as slice_mod
+  rng = np.random.default_rng(16)
+  n = BUILTIN_N
+  host = rng.standard_normal((n, n), dtype=np.float32)
+  b = sp.from_numpy(host)
+  K.reset_counts()
+  with concurrent.futures.ThreadPoolExecutor(max_workers=6) as pool:
+    k1_launches = builtin_sums(b, host, card, pool)
+    k2_launches = builtin_matmul(device, card)
+    torch.cuda.empty_cache()
+    vec = np.arange(n, dtype=np.float32) * np.float32(0.5)
+    pick = rng.integers(0, 3, (n, n), dtype=np.int32)
+    rows = host[:, 0] > 0
+    keys_host = rng.integers(0, KEY_VALUES, KEYS_N, dtype=np.int32)
+    test_host = rng.integers(0, KEY_VALUES, TEST_KEYS, dtype=np.int32)
+    grid_i = np.arange(n, dtype=np.int32)
+    counted = pool.submit(np.bincount, keys_host, minlength=KEY_BINS)
+    want = {
+        "eye": pool.submit(np.eye, n),
+        "linspace": pool.submit(np.linspace, 0, 1, LINSPACE_N),
+        "mesh": [pool.submit(lambda i=i: np.meshgrid(vec, vec)[i])
+                 for i in range(2)],
+        "zeros_like": pool.submit(np.zeros_like, host),
+        "nonzero": pool.submit(lambda: np.stack(np.nonzero(host > 2.5))),
+        "compress": pool.submit(np.compress, rows, host, axis=0),
+        "choose": pool.submit(lambda: np.choose(
+            pick, [host, host * np.float32(2.0), -host], mode="clip")),
+        "resize": pool.submit(np.resize, host, RESIZE_SHAPE),
+        "unique": pool.submit(lambda: np.flatnonzero(
+            counted.result()).astype(np.int32)),
+        "isin": pool.submit(np.isin, keys_host, test_host),
+        "location": pool.submit(lambda: host.astype(np.float64)
+                                + grid_i[:, None] - grid_i[None, :]),
+    }
+    builtin_item(f"sp.eye({n})", lambda: sp.eye(n), want["eye"])
+    builtin_item(f"sp.linspace(0, 1, {LINSPACE_N})",
+                 lambda: sp.linspace(0, 1, LINSPACE_N), want["linspace"])
+    for i in range(2):
+      builtin_item(f"sp.meshgrid(a, a)[{i}] of two {n}-vectors",
+                   lambda i=i: sp.meshgrid(vec, vec)[i], want["mesh"][i])
+    builtin_item("sp.zeros_like(b)", lambda: sp.zeros_like(b),
+                 want["zeros_like"])
+    del want["eye"], want["linspace"], want["mesh"], want["zeros_like"]
+    torch.cuda.empty_cache()
+    sel0 = slice_mod.counts["selection_device"]
+    with Timer() as t:
+      ms, idx = events_ms(lambda: sp.nonzero(b > 2.5).evaluate())
+      got = idx.data.cpu().numpy()
+    surface_check(f"sp.nonzero(b > 2.5) ({got.shape[1]} indices; device "
+                  f"{ms:.3f} ms)", got, want.pop("nonzero").result(), 0,
+                  "exact", t.elapsed)
+    del got, idx
+    builtin_item(f"sp.compress of {int(rows.sum())} rows",
+                 lambda: sp.compress(rows, b, axis=0), want.pop("compress"))
+    builtin_item(f"sp.choose over three {n}^2 choices",
+                 lambda: sp.choose(sp.from_numpy(pick), [b, b * 2.0, -b]),
+                 want.pop("choose"))
+    del pick
+    builtin_item(f"sp.resize(b, {RESIZE_SHAPE})",
+                 lambda: sp.resize(b, RESIZE_SHAPE), want.pop("resize"))
+    keys = sp.from_numpy(keys_host)
+    builtin_item(f"sp.unique of {KEYS_N} int32 keys from {KEY_VALUES} "
+                 f"values", lambda: sp.unique(keys), want.pop("unique"))
+    builtin_item(f"sp.isin(keys, {TEST_KEYS} keys)",
+                 lambda: sp.isin(keys, sp.from_numpy(test_host)),
+                 want.pop("isin"))
+    builtin_item(f"sp.bincount(keys, minlength={KEY_BINS})",
+                 lambda: sp.bincount(keys, minlength=KEY_BINS), counted)
+    del keys_host, keys, counted
+    check(slice_mod.counts["selection_device"] >= sel0 + 4,
+          "the selections did not run on the device")
+    builtin_item("sp.map_with_location(b, v + c[0] - c[1])",
+                 lambda: sp.map_with_location(b,
+                                              lambda v, c: v + c[0] - c[1]),
+                 want.pop("location"), rtol=2.0 ** -22,
+                 why="float32 sums of two coordinates against float64")
+  del b, host
+  torch.cuda.empty_cache()
+  return k1_launches, k2_launches
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -2769,6 +3114,16 @@ def main() -> None:
   check(surface_launches >= 3, "phase 15 did not launch K1 three times")
   k1["launches"] += surface_launches
   done(15)
+
+  print("phase 16: the elementwise, constructor and selection builtins at "
+        "16384^2 float32: K1 on the new ufuncs, K2 with a tanh epilogue, "
+        "eye/linspace/meshgrid/zeros_like, nonzero/compress/choose/resize/"
+        "unique/isin/bincount, map_with_location")
+  builtin_k1, builtin_k2 = phase_builtins(device, card)
+  check(builtin_k1 >= 7, "phase 16 did not launch K1 seven times")
+  k1["launches"] += builtin_k1
+  k2_row["launches"] += builtin_k2
+  done(16)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

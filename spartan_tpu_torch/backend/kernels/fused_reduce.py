@@ -7,10 +7,14 @@ the scalars are the region's 0-d operands.
 
 The chain reaches the GPU as an *op program*: :func:`plan` translates the
 ``LocalExpr`` tree into a flat list of instructions over a fixed op table
-(add, subtract, multiply, true_divide, negative, absolute, square, sqrt,
-exp, log, maximum, minimum, floor_divide, remainder, power), keyed on the
-ufunc names that ``map2``'s
-wrappers keep (and on the callable being the port's own ufunc).  Each
+(``OPS``: add, subtract, multiply, true_divide, negative, absolute,
+square, sqrt, exp, log, maximum, minimum; and the "rare" ops: the trig,
+hyperbolic, rounding and log/exp ufuncs, cbrt, erf, erfc, floor_divide,
+remainder, power, arctan2, hypot, copysign, fmax, fmin, logaddexp,
+logaddexp2; ``fix`` is trunc's op, and rad2deg/deg2rad of float32 or
+float64 a multiply by NumPy's constant), keyed on the ufunc names that
+``map2``'s wrappers keep (and on the callable being the port's own
+ufunc).  Each
 instruction carries an opcode, the dtype it computes in (the dtype the
 plain torch evaluation of that node has), a destination register and
 source registers or slots.  Leaves are the big operand's element
@@ -30,8 +34,8 @@ The C entry point picks that variant, and the grid, from the program.
 A chain outside the table — another op, an integer or complex dtype, more
 than ``MAX_INSTR`` instructions, ``MAX_IMM`` immediates or
 ``MAX_DEV_SCALARS`` device scalars, more than ``N_REGS`` values live at
-once, floor division, remainder or power (``RARE_OPS``) beside a float64
-instruction —
+once, a rare op (``RARE_OPS``) beside a float64 instruction (the
+reference's K1 takes only float32 and 16-bit mains) —
 is refused up front by :func:`plan` and counted in
 ``counts["routed_plain"]``; the reduction then takes its plain path.
 Nothing is decided by catching an exception.
@@ -53,7 +57,7 @@ import torch
 from spartan_tpu_torch.expr.base import Aval
 from spartan_tpu_torch.expr.local import (FnCallExpr, LocalConst, LocalExpr,
                                           LocalInput, _postorder)
-from spartan_tpu_torch.expr.map import UFUNCS
+from spartan_tpu_torch.expr.map import UFUNCS, cbrt_plain, scale_factor
 
 MAX_INSTR = 64
 MAX_IMM = 16
@@ -67,21 +71,36 @@ PARTIALS_PER_SM = 8
 
 LOADX, LOADS, LOADI = 0, 1, 2
 _FIRST_OP = 3  # opcodes from here on compute; below, they load
+# the binary opcodes are add .. true_divide and maximum on; the unary ones
+# lie between them (sp_prog::is_binary's two compares)
 OPS = {"add": 3, "subtract": 4, "multiply": 5, "true_divide": 6,
        "negative": 7, "absolute": 8, "square": 9, "sqrt": 10, "exp": 11,
-       "log": 12, "maximum": 13, "minimum": 14, "floor_divide": 15,
-       "remainder": 16, "power": 17}
-_ARITY = {name: (2 if name in ("add", "subtract", "multiply", "true_divide",
-                               "maximum", "minimum", "floor_divide",
-                               "remainder", "power") else 1)
-          for name in OPS}
+       "log": 12, "sin": 13, "cos": 14, "tan": 15, "arcsin": 16,
+       "arccos": 17, "arctan": 18, "sinh": 19, "cosh": 20, "tanh": 21,
+       "arcsinh": 22, "arccosh": 23, "arctanh": 24, "floor": 25, "ceil": 26,
+       "trunc": 27, "rint": 28, "exp2": 29, "expm1": 30, "log2": 31,
+       "log10": 32, "log1p": 33, "cbrt": 34, "erf": 35, "erfc": 36,
+       "maximum": 37, "minimum": 38, "floor_divide": 39, "remainder": 40,
+       "power": 41, "arctan2": 42, "hypot": 43, "copysign": 44, "fmax": 45,
+       "fmin": 46, "logaddexp": 47, "logaddexp2": 48}
+_ARITY = {name: (2 if code <= OPS["true_divide"] or code >= OPS["maximum"]
+                 else 1) for name, code in OPS.items()}
+# ufuncs that are another op of the table: ``fix`` of a float is ``trunc``
+_SAME_AS = {"fix": "trunc"}
+# ufuncs that are a multiply by a constant, translated as one where the
+# constant gives torch's bits: float32 and float64 (16-bit nodes compute
+# in float32 and round once, which no instruction does: refused)
+_SCALED = {"rad2deg": "rad2deg", "degrees": "rad2deg", "deg2rad": "deg2rad",
+           "radians": "deg2rad"}
 # a power whose exponent is one of these known scalars takes the op that
 # torch's (and NumPy's) scalar fast path takes
 _POWERS = {2.0: "square", 0.5: "sqrt"}
 # the "rare" ops: only the kernel variants built for them carry their code
-# (program_has_rare in csrc/op_program.cuh), and only in float registers
-RARE_OPS = frozenset(OPS[name] for name in ("floor_divide", "remainder",
-                                            "power"))
+# (is_rare_op in csrc/op_program.cuh: sin .. erfc and floor_divide on), and
+# only in float registers
+RARE_OPS = frozenset(code for code in OPS.values()
+                     if OPS["sin"] <= code <= OPS["erfc"]
+                     or code >= OPS["floor_divide"])
 _BINARY_OPS = {code: _ARITY[name] == 2 for name, code in OPS.items()}
 DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
                torch.float16: 3}
@@ -250,14 +269,28 @@ def _translate(local_op: Optional[LocalExpr], main_slot: int,
   def call(node: FnCallExpr, deps: List[Optional[_Reg]]) -> Optional[_Reg]:
     name = getattr(node.fn, "__name__", "")
     # the port's own ufunc under that name, not just any callable named so
-    if (any(d is None for d in deps) or name not in OPS
-        or UFUNCS.get(name) is not node.fn or node.kw
-        or len(deps) != _ARITY[name]):
+    if (any(d is None for d in deps) or UFUNCS.get(name) is not node.fn
+        or node.kw):
+      return None
+    name = _SAME_AS.get(name, name)
+    if name not in OPS and name not in _SCALED:
+      return None
+    if len(deps) != _ARITY.get(name, 1):
       return None
     meta = node.fn(*[d.meta for d in deps])
     dtype = Aval.of(meta).dtype
     if dtype not in DTYPE_CODES:
       return None  # integer, bool or complex node: not in the program
+    if name in _SCALED:
+      if dtype not in (torch.float32, torch.float64) or len(
+          imm_sources) >= MAX_IMM:
+        return None
+      const = scale_factor(_SCALED[name], dtype)
+      c = emit(LOADI, 0, len(imm_sources))
+      if c is None:
+        return None
+      imm_sources.append(("const", const))
+      name, deps = "multiply", [deps[0], _Reg(c, const, const)]
     if name == "power" and deps[1].value in _POWERS and not isinstance(
         deps[1].value, bool):
       name, deps = _POWERS[deps[1].value], deps[:1]
@@ -389,8 +422,7 @@ def plan(local_op: Optional[LocalExpr], main_slot: int,
       _plans.clear()
     ssa = _translate(local_op, main_slot, main_dtype, avals, known)
     program = None if ssa is None else allocate(fold_scalars(ssa))
-    if program is not None and not program.float_regs and any(
-        op in RARE_OPS for op, *_ in program.instrs):
+    if program is not None and not program.float_regs and has_rare(program):
       program = None  # a rare op in double registers: no such variant
     _plans[key] = program
   program = _plans[key]
@@ -408,6 +440,21 @@ _TORCH_OPS = {
     OPS["maximum"]: torch.maximum, OPS["minimum"]: torch.minimum,
     OPS["floor_divide"]: torch.floor_divide,
     OPS["remainder"]: torch.remainder, OPS["power"]: torch.pow,
+    OPS["sin"]: torch.sin, OPS["cos"]: torch.cos, OPS["tan"]: torch.tan,
+    OPS["arcsin"]: torch.asin, OPS["arccos"]: torch.acos,
+    OPS["arctan"]: torch.atan, OPS["sinh"]: torch.sinh,
+    OPS["cosh"]: torch.cosh, OPS["tanh"]: torch.tanh,
+    OPS["arcsinh"]: torch.asinh, OPS["arccosh"]: torch.acosh,
+    OPS["arctanh"]: torch.atanh, OPS["floor"]: torch.floor,
+    OPS["ceil"]: torch.ceil, OPS["trunc"]: torch.trunc,
+    OPS["rint"]: torch.round, OPS["exp2"]: torch.exp2,
+    OPS["expm1"]: torch.expm1, OPS["log2"]: torch.log2,
+    OPS["log10"]: torch.log10, OPS["log1p"]: torch.log1p,
+    OPS["cbrt"]: cbrt_plain, OPS["erf"]: torch.erf,
+    OPS["erfc"]: torch.erfc, OPS["arctan2"]: torch.atan2,
+    OPS["hypot"]: torch.hypot, OPS["copysign"]: torch.copysign,
+    OPS["fmax"]: torch.fmax, OPS["fmin"]: torch.fmin,
+    OPS["logaddexp"]: torch.logaddexp, OPS["logaddexp2"]: torch.logaddexp2,
 }
 
 
@@ -470,19 +517,44 @@ _IN_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 _ACC_CODES = {torch.float64: 0, torch.float32: 1}
 
 
-def _library() -> ctypes.CDLL:
+# the source and C entry point of each set of variants, built in parallel:
+# programs without a rare op (csrc/fused_reduce.cu), with one in a single
+# register (fused_reduce_rare1.cu, the costly rare ops unrolled) and with
+# one in more registers (fused_reduce_rare.cu, looped)
+SOURCES = {"common": ("fused_reduce", "spartan_fused_sum"),
+           "rare1": ("fused_reduce_rare1", "spartan_fused_sum_rare1"),
+           "rare": ("fused_reduce_rare", "spartan_fused_sum_rare")}
+
+
+def has_rare(program: Program) -> bool:
+  return any(op in RARE_OPS for op, *_ in program.instrs)
+
+
+def variant_set(program: Program) -> str:
+  """The key of ``SOURCES`` whose variants run ``program``."""
+  if not has_rare(program):
+    return "common"
+  registers = 1 + max([program.out] + [d for _, _, d, _, _ in program.instrs])
+  return "rare1" if registers == 1 else "rare"
+
+
+def _library(kind: str):
+  """The bound C entry point of the variant set ``kind`` and its
+  library."""
   from spartan_tpu_torch.backend.kernels import build
-  lib = build.load("fused_reduce")
-  if lib.spartan_fused_sum.argtypes is None:
+  source, entry = SOURCES[kind]
+  lib = build.load(source)
+  fn = getattr(lib, entry)
+  if fn.argtypes is None:
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    lib.spartan_fused_sum.argtypes = [
+    fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p]
-    lib.spartan_fused_sum.restype = ctypes.c_int
+    fn.restype = ctypes.c_int
     lib.spartan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.spartan_cuda_error_string.restype = ctypes.c_char_p
-  return lib
+  return fn, lib
 
 
 def _launch(x: torch.Tensor, program: Program, scalars: Sequence[Any],
@@ -500,7 +572,7 @@ def _launch(x: torch.Tensor, program: Program, scalars: Sequence[Any],
     if v.device != x.device or v.numel() != 1:
       raise ValueError(f"device scalar {tuple(v.shape)} on {v.device} does "
                        f"not fit x on {x.device}")
-  lib = _library()
+  fn, lib = _library(variant_set(program))
   n = x.numel()
   sms = torch.cuda.get_device_properties(x.device).multi_processor_count
   room = max(1, min(-(-n // (THREADS * 8)), sms * PARTIALS_PER_SM))
@@ -511,7 +583,7 @@ def _launch(x: torch.Tensor, program: Program, scalars: Sequence[Any],
   prog = program.host_struct(scalars)
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.spartan_fused_sum(
+    rc = fn(
         x.data_ptr(), _IN_CODES[x.dtype], n, ctypes.addressof(prog),
         dscal.data_ptr() if dscal is not None else None,
         partials.data_ptr(), room, out.data_ptr(), _ACC_CODES[acc_dtype],

@@ -14,7 +14,10 @@ multiplied by FFMA outside the tensor cores.  Any M, N, K.
 The reference traces its epilogue callable into the kernel's last K step.
 A CUDA kernel cannot take a callable, so :func:`plan_epilogue` traces it
 with ``torch.fx`` into K1's op program (``fused_reduce.Program``, the op
-table add … power with immediates), which the kernel runs on each
+table with immediates: the arithmetic, maximum/minimum, the
+trig, hyperbolic, rounding and log/exp functions, erf/erfc, atan2, hypot,
+copysign, fmax/fmin, logaddexp/logaddexp2, floor division, remainder and
+power), which the kernel runs on each
 float32 accumulator before the cast and the store.  An epilogue outside
 the table (another op, a tensor operand, a graph fx cannot trace) is
 decided up front and counted in ``counts["epilogue_unfused"]``: the kernel
@@ -48,8 +51,8 @@ import torch.nn.functional as F
 
 from spartan_tpu_torch.backend.kernels import build
 from spartan_tpu_torch.backend.kernels.fused_reduce import (
-    _POWERS, DTYPE_CODES, LOADI, LOADX, MAX_IMM, MAX_INSTR, OPS, Program,
-    allocate, fold_scalars)
+    _ARITY, _POWERS, DTYPE_CODES, LOADI, LOADX, MAX_IMM, MAX_INSTR, OPS,
+    Program, allocate, fold_scalars)
 from spartan_tpu_torch.expr.base import fn_key
 
 _IN_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
@@ -99,7 +102,24 @@ _FUNCTIONS = {
     operator.floordiv: "floor_divide", torch.floor_divide: "floor_divide",
     operator.mod: "remainder", torch.remainder: "remainder",
     operator.pow: "power", torch.pow: "power",
+    torch.atan2: "arctan2", torch.arctan2: "arctan2", torch.hypot: "hypot",
+    torch.copysign: "copysign", torch.fmax: "fmax", torch.fmin: "fmin",
+    torch.logaddexp: "logaddexp", torch.logaddexp2: "logaddexp2",
+    F.tanh: "tanh",
 }
+# the unary ops of the table under torch's names (functions and methods)
+_UNARY_TORCH = {
+    "sin": "sin", "cos": "cos", "tan": "tan", "asin": "arcsin",
+    "arcsin": "arcsin", "acos": "arccos", "arccos": "arccos",
+    "atan": "arctan", "arctan": "arctan", "sinh": "sinh", "cosh": "cosh",
+    "tanh": "tanh", "asinh": "arcsinh", "arcsinh": "arcsinh",
+    "acosh": "arccosh", "arccosh": "arccosh", "atanh": "arctanh",
+    "arctanh": "arctanh", "floor": "floor", "ceil": "ceil",
+    "trunc": "trunc", "fix": "trunc", "exp2": "exp2", "expm1": "expm1",
+    "log2": "log2", "log10": "log10", "log1p": "log1p", "erf": "erf",
+    "erfc": "erfc",
+}
+_FUNCTIONS.update({getattr(torch, t): name for t, name in _UNARY_TORCH.items()})
 _METHODS = {
     "add": "add", "sub": "subtract", "subtract": "subtract",
     "mul": "multiply", "multiply": "multiply", "div": "true_divide",
@@ -108,10 +128,12 @@ _METHODS = {
     "sqrt": "sqrt", "exp": "exp", "log": "log", "maximum": "maximum",
     "minimum": "minimum", "clamp_min": "maximum", "clamp_max": "minimum",
     "floor_divide": "floor_divide", "remainder": "remainder", "pow": "power",
+    "atan2": "arctan2", "arctan2": "arctan2", "hypot": "hypot",
+    "copysign": "copysign", "fmax": "fmax", "fmin": "fmin",
+    "logaddexp": "logaddexp", "logaddexp2": "logaddexp2", **_UNARY_TORCH,
 }
 _RELUS = (torch.relu, F.relu)
-_BINARY = ("add", "subtract", "multiply", "true_divide", "maximum", "minimum",
-           "floor_divide", "remainder", "power")
+_BINARY = tuple(name for name, arity in _ARITY.items() if arity == 2)
 
 
 def _trace(epilogue: Callable):
@@ -119,7 +141,12 @@ def _trace(epilogue: Callable):
   Python function, control flow on the traced value, a call that does not
   take a proxy): such an epilogue is outside the table."""
   if not isinstance(epilogue, types.FunctionType):
-    return None
+    if (not isinstance(epilogue, types.BuiltinFunctionType)
+        or _FUNCTIONS.get(epilogue) is None
+        or _FUNCTIONS[epilogue] in _BINARY):
+      return None
+    fn = epilogue  # a unary torch function of the table, as it is
+    epilogue = lambda a: fn(a)  # noqa: E731
   try:
     return torch.fx.symbolic_trace(epilogue).graph
   except (torch.fx.proxy.TraceError, TypeError, RuntimeError):
@@ -169,6 +196,9 @@ def _translate(graph) -> Optional[Program]:
       name = _FUNCTIONS[node.target]
     elif node.op == "call_method" and node.target == "relu":
       name, args = "maximum", [args[0], 0.0]
+    elif (node.op == "call_function" and node.target is torch.round
+          or node.op == "call_method" and node.target == "round"):
+      name = "rint"  # without decimals: half to even
     elif node.op == "call_method" and node.target in _METHODS:
       name = _METHODS[node.target]
     else:

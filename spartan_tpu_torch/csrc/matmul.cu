@@ -384,7 +384,8 @@ sgemm_tma(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
           for (int e = 0; e < 4; ++e) w[e] = acc[Q / QN][(Q % QN) * 4 + e];
         });
-        sp_prog::run_program<float, 4, SP_NREG, true>(sprog, v, o);
+        sp_prog::run_program<float, 4, SP_NREG, sp_prog::kRareUnrolled>(
+            sprog, v, o);
         store_four(C, row_of(q / QN), col_of((q % QN) * 4), M, N, o[0], o[1],
                    o[2], o[3]);
       }
@@ -611,7 +612,8 @@ hopper_gemm(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
             for (int e = 0; e < 4; ++e) u[e] = acc[4 * J + e];
           });
-          sp_prog::run_program<float, 4, SP_NREG, true>(sprog, v, o);
+          sp_prog::run_program<float, 4, SP_NREG, sp_prog::kRareUnrolled>(
+            sprog, v, o);
           store_pair<OutT, kBf16>(C, r0, c0 + 8 * j, M, N, o[0], o[1]);
           store_pair<OutT, kBf16>(C, r0 + 8, c0 + 8 * j, M, N, o[2], o[3]);
         }

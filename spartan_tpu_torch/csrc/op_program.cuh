@@ -44,6 +44,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "trig_f.cuh"
+
 #define SP_MAX_INSTR 64
 #define SP_MAX_IMM 16
 #define SP_MAX_DSCAL 16   // fused_reduce.MAX_DEV_SCALARS
@@ -57,22 +59,56 @@ enum Op {
   OP_LOADX = 0,   // r[dst] = the element (K1: x[i]; K2: the f32 accumulator)
   OP_LOADS = 1,   // r[dst] = device scalar a
   OP_LOADI = 2,   // r[dst] = immediate a
+  // binary
   OP_ADD = 3,
   OP_SUB = 4,
   OP_MUL = 5,
   OP_DIV = 6,
+  // unary: every opcode from OP_NEG to OP_ERFC
   OP_NEG = 7,
   OP_ABS = 8,
   OP_SQUARE = 9,
   OP_SQRT = 10,
   OP_EXP = 11,
   OP_LOG = 12,
-  OP_MAX = 13,
-  OP_MIN = 14,
-  OP_FLOORDIV = 15,  // torch.floor_divide (NumPy's npy_divmod)
-  OP_MOD = 16,       // torch.remainder: the sign of the divisor
-  OP_POW = 17,
-  OP_LAST = OP_POW,
+  OP_SIN = 13,       // the rare unary ops, OP_SIN .. OP_ERFC
+  OP_COS = 14,
+  OP_TAN = 15,
+  OP_ASIN = 16,
+  OP_ACOS = 17,
+  OP_ATAN = 18,
+  OP_SINH = 19,
+  OP_COSH = 20,
+  OP_TANH = 21,
+  OP_ASINH = 22,
+  OP_ACOSH = 23,
+  OP_ATANH = 24,
+  OP_FLOOR = 25,
+  OP_CEIL = 26,
+  OP_TRUNC = 27,
+  OP_RINT = 28,      // half to even
+  OP_EXP2 = 29,
+  OP_EXPM1 = 30,
+  OP_LOG2 = 31,
+  OP_LOG10 = 32,
+  OP_LOG1P = 33,
+  OP_CBRT = 34,
+  OP_ERF = 35,
+  OP_ERFC = 36,
+  // binary: every opcode from OP_MAX on (program_fits bounds them)
+  OP_MAX = 37,
+  OP_MIN = 38,
+  OP_FLOORDIV = 39,  // torch.floor_divide (NumPy's npy_divmod); rare from here
+  OP_MOD = 40,       // torch.remainder: the sign of the divisor
+  OP_POW = 41,
+  OP_ATAN2 = 42,
+  OP_HYPOT = 43,
+  OP_COPYSIGN = 44,
+  OP_FMAX = 45,      // NaN-ignoring
+  OP_FMIN = 46,
+  OP_LOGADDEXP = 47,
+  OP_LOGADDEXP2 = 48,
+  OP_LAST = OP_LOGADDEXP2,
 };
 
 enum DType { DT_F64 = 0, DT_F32 = 1, DT_BF16 = 2, DT_F16 = 3 };
@@ -139,17 +175,25 @@ inline bool program_is_float(const Program& p) {
   return true;
 }
 
-// True when the program holds floor division, remainder or power: it runs
-// in the kernels instantiated with Rare = true.
+// True when the op's code is carried only by the kernels instantiated with
+// Rare = true: OP_SIN .. OP_ERFC and OP_FLOORDIV .. OP_LAST.
+inline bool is_rare_op(int op) {
+  return (op >= OP_SIN && op <= OP_ERFC) || (op >= OP_FLOORDIV &&
+                                             op <= OP_LAST);
+}
+
+// True when the program holds a rare op: it runs in the kernels
+// instantiated with Rare = true.
 inline bool program_has_rare(const Program& p) {
   for (int k = 0; k < p.n; ++k)
-    if (p.op[k] >= OP_FLOORDIV && p.op[k] <= OP_LAST) return true;
+    if (is_rare_op(p.op[k])) return true;
   return false;
 }
 
 namespace sp_prog {
 
-// Every opcode from OP_MAX on is binary (program_fits bounds them).
+// The binary opcodes are OP_ADD .. OP_DIV and OP_MAX .. OP_LAST (the
+// unary ones lie between): two compares.
 __device__ __forceinline__ bool is_binary(int op) {
   return op <= OP_DIV || op >= OP_MAX;
 }
@@ -189,15 +233,18 @@ __device__ __forceinline__ void decode(const Program& src,
   __syncthreads();
 }
 
+// The "rare" ops (is_rare_op): only the kernels instantiated with Rare =
+// true compile them (program_has_rare), in float registers only (the
+// planner refuses a rare op in a program with a float64 instruction), so
+// a program without them runs the code it ran before they existed, with
+// its registers and time.  Each is the float function torch's CUDA kernel
+// for the op calls (sin, cos and tan from trig_f.cuh, within an ulp of
+// sinf's, without its stack frame), or its steps:
+//
 // torch's floor_divide and remainder of floating values (c10's
 // div_floor_floating, NumPy's npy_divmod): fmod, the sign fix, floor, the
 // 0.5 correction and copysign for a zero quotient; x / 0 is the IEEE
 // quotient.  Each step is IEEE-rounded, as torch's build computes it.
-// These and powf are the "rare" ops: only the kernels instantiated with
-// Rare = true compile them (program_has_rare), in float registers only
-// (the planner refuses a rare op in a program with a float64
-// instruction), so a program without them runs the code it ran before
-// they existed, with its registers and time.
 __device__ __forceinline__ float floordiv_f(float a, float b) {
   if (b == 0.0f) return __fdiv_rn(a, b);
   const float mod = fmodf(a, b);
@@ -230,19 +277,119 @@ __device__ __forceinline__ float mod_f(float a, float b) {
   }                                                       \
   break;
 
+// torch's logaddexp and logaddexp2: an infinity against itself is itself,
+// else the larger plus log1p of the smaller's share.
+__device__ __forceinline__ float logaddexp_f(float a, float b) {
+  if (isinf(a) && a == b) return a;
+  return __fadd_rn(fmaxf(a, b), log1pf(expf(-fabsf(__fsub_rn(a, b)))));
+}
+
+__device__ __forceinline__ float logaddexp2_f(float a, float b) {
+  if (isinf(a) && a == b) return a;
+  return __fmaf_rn(log1pf(exp2f(-fabsf(__fsub_rn(a, b)))),
+                   1.4426950408889634f, fmaxf(a, b));
+}
+
+// The rare ops of more than a few instructions, as switch cases: EACH1 and
+// EACH2 say what a case does with its value of p (and q).
+#define SP_RARE_COSTLY(EACH1, EACH2)                                  \
+  case OP_SIN: /* one body for the three */                          \
+  case OP_COS:                                                        \
+  case OP_TAN: EACH1(sp_trig::trig(op - OP_SIN, p))                   \
+  case OP_ASIN: EACH1(asinf(p))                                       \
+  case OP_ACOS: EACH1(acosf(p))                                       \
+  case OP_ATAN: EACH1(atanf(p))                                       \
+  case OP_SINH: EACH1(sinhf(p))                                       \
+  case OP_COSH: EACH1(coshf(p))                                       \
+  case OP_TANH: EACH1(tanhf(p))                                       \
+  case OP_ASINH: EACH1(asinhf(p))                                     \
+  case OP_ACOSH: EACH1(acoshf(p))                                     \
+  case OP_ATANH: EACH1(atanhf(p))                                     \
+  case OP_EXP2: EACH1(exp2f(p))                                       \
+  case OP_EXPM1: EACH1(expm1f(p))                                     \
+  case OP_LOG2: EACH1(log2f(p))                                       \
+  case OP_LOG10: EACH1(log10f(p))                                     \
+  case OP_LOG1P: EACH1(log1pf(p))                                     \
+  case OP_CBRT: EACH1(cbrtf(p))                                       \
+  case OP_ERF: EACH1(erff(p))                                         \
+  case OP_ERFC: EACH1(erfcf(p))                                       \
+  case OP_FLOORDIV: EACH2(floordiv_f(p, q))                           \
+  case OP_MOD: EACH2(mod_f(p, q))                                     \
+  case OP_POW: EACH2(powf(p, q))                                      \
+  case OP_ATAN2: EACH2(atan2f(p, q))                                  \
+  case OP_HYPOT: EACH2(hypotf(p, q))                                  \
+  case OP_LOGADDEXP: EACH2(logaddexp_f(p, q))                         \
+  case OP_LOGADDEXP2: EACH2(logaddexp2_f(p, q))
+
+#define SP_RETURN(expr) return (expr);
+
+// One costly rare op on one element (the looped form's body).
+__device__ __forceinline__ float rare_scalar(int op, float p, float q) {
+  switch (op) {
+    SP_RARE_COSTLY(SP_RETURN, SP_RETURN)
+    default: return 0.0f;
+  }
+}
+
+#undef SP_RETURN
+
+// Element v of x, by an unrolled select over constant indices (so the
+// array stays in registers when v is known only at run time).
 template <int V>
+__device__ __forceinline__ float pick(const float (&x)[V], int v) {
+  float o = x[V - 1];
+#pragma unroll
+  for (int k = 0; k < V - 1; ++k)
+    if (v == k) o = x[k];
+  return o;
+}
+
+// How a kernel variant carries the rare ops (its Rare template
+// parameter): not at all, or the costly ones looped or unrolled.  The
+// ops of a few instructions (rounding, copysign, fmax, fmin) always run as
+// the common ops do, the switch outside an unrolled loop over the V
+// elements.  Unrolled, so do the costly ones: their code (a libm function,
+// or sin/cos/tan's reduction) is inlined V times.  Looped, they run one
+// element at a time through rare_scalar in a loop that is not unrolled,
+// inlined once: a build several times faster and a kernel about twice as
+// slow on them, which K1's variants of more than one register take
+// (fused_reduce_rare.cu); K1's one-register variants (fused_reduce_rare1.cu)
+// and K2's epilogue unroll them.
+enum RareForm { kNoRare = 0, kRareLooped = 1, kRareUnrolled = 2 };
+
+template <int V, bool Unrolled>
 __device__ __forceinline__ void apply_rare(int op, const float (&x)[V],
                                            const float (&y)[V],
                                            float (&t)[V]) {
   switch (op) {
-    case OP_FLOORDIV: SP_EACH2(floordiv_f(p, q))
-    case OP_MOD: SP_EACH2(mod_f(p, q))
-    case OP_POW: SP_EACH2(powf(p, q))
-    default: SP_EACH1(0.0f)
+    case OP_FLOOR: SP_EACH1(floorf(p))
+    case OP_CEIL: SP_EACH1(ceilf(p))
+    case OP_TRUNC: SP_EACH1(truncf(p))
+    case OP_RINT: SP_EACH1(rintf(p))
+    case OP_COPYSIGN: SP_EACH2(copysignf(p, q))
+    case OP_FMAX: SP_EACH2(fmaxf(p, q))
+    case OP_FMIN: SP_EACH2(fminf(p, q))
+    default:
+      if (Unrolled) {
+        switch (op) {
+          SP_RARE_COSTLY(SP_EACH1, SP_EACH2)
+          default: SP_EACH1(0.0f)
+        }
+        break;
+      }
+#pragma unroll 1
+      for (int v = 0; v < V; ++v) {
+        const float r = rare_scalar(op, pick<V>(x, v), pick<V>(y, v));
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          if (v == k) t[k] = r;
+      }
   }
 }
 
-template <int V, bool Rare>
+#undef SP_RARE_COSTLY
+
+template <int V, int Rare>
 __device__ __forceinline__ void apply_vec(int op, const float (&x)[V],
                                           const float (&y)[V], float (&t)[V]) {
   switch (op) {
@@ -259,8 +406,8 @@ __device__ __forceinline__ void apply_vec(int op, const float (&x)[V],
     case OP_MAX: SP_EACH2((isnan(p) || isnan(q)) ? p + q : fmaxf(p, q))
     case OP_MIN: SP_EACH2((isnan(p) || isnan(q)) ? p + q : fminf(p, q))
     default:
-      if (Rare) {
-        apply_rare<V>(op, x, y, t);
+      if (Rare != kNoRare) {
+        apply_rare<V, Rare == kRareUnrolled>(op, x, y, t);
         break;
       }
       SP_EACH1(0.0f)
@@ -268,7 +415,7 @@ __device__ __forceinline__ void apply_vec(int op, const float (&x)[V],
 }
 
 // Double registers take no rare op: the planner refuses one there.
-template <int V, bool Rare>
+template <int V, int Rare>
 __device__ __forceinline__ void apply_vec(int op, const double (&x)[V],
                                           const double (&y)[V],
                                           double (&t)[V]) {
@@ -307,7 +454,7 @@ __device__ __forceinline__ void round_vec(int dt, float (&t)[V]) {
 // One instruction in its own dtype.  16-bit types compute in float and
 // round the result back, as torch's elementwise ops on them do; their
 // operands are rounded to the type first.
-template <int V, bool Rare>
+template <int V, int Rare>
 __device__ __forceinline__ void run_op(int op, int dt, bool binary,
                                        const float (&x)[V],
                                        const float (&y)[V], float (&t)[V]) {
@@ -328,7 +475,7 @@ __device__ __forceinline__ void run_op(int op, int dt, bool binary,
   round_vec<V>(dt, t);
 }
 
-template <int V, bool Rare>
+template <int V, int Rare>
 __device__ __forceinline__ void run_op(int op, int dt, bool binary,
                                        const double (&x)[V],
                                        const double (&y)[V], double (&t)[V]) {
@@ -395,7 +542,7 @@ __device__ __forceinline__ void operand(int code, const RegFile<R, V, F>& f,
 
 // The program's values for V elements ``x`` (widened to float) in F
 // registers of type R.  ``prog`` is in shared memory.
-template <typename R, int V, int F, bool Rare>
+template <typename R, int V, int F, int Rare>
 __device__ __forceinline__ void run_program(const Decoded<R>& prog,
                                             const float (&x)[V], R (&out)[V]) {
   RegFile<R, V, F> f;

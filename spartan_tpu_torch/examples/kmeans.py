@@ -4,8 +4,7 @@ Distances by one ``dot`` → argmin labels → the centroid update, either as
 a one-hot matrix product (the default) or as the reference's shuffle with
 an add reducer (``use_matmul=False``).  :func:`fit` evaluates one update a
 step; :func:`fit_fused` runs the whole Lloyd loop as torch ops on the
-device.  ``farthest_init`` (and ``fit_fused(init="farthest")``) waits for
-``Expr.__getitem__`` (ROADMAP Queue 1 item 5).
+device, seeded at random or by :func:`farthest_init`.
 """
 
 from __future__ import annotations
@@ -73,18 +72,37 @@ def fit(points, k: int, iterations: int = 10, centers=None, seed: int = 0):
   return centers.evaluate(), labels.evaluate() if labels is not None else None
 
 
+def farthest_init(points, k: int, seed: int = 0) -> np.ndarray:
+  """Farthest-point (k-center greedy) seeding: a random first center,
+  then repeatedly the point farthest from its nearest chosen center, one
+  fused distance map and argmax a round.  Immune to the random seeding's
+  empty-cluster fixed point (two seeds in one tight blob)."""
+  points = sp.lazify(points)
+  n = points.shape[0]
+  rng = np.random.default_rng(seed)
+  first = int(rng.integers(0, n))
+  chosen = [np.asarray(points[first].glom())]
+  for _ in range(k - 1):
+    cs = sp.Val(np.stack(chosen))
+    d2 = (sp.sum(points * points, axis=1).reshape((n, 1))
+          - 2.0 * sp.dot(points, sp.transpose(cs))
+          + sp.sum(cs * cs, axis=1))
+    nxt = int(sp.argmax(sp.min(d2, axis=1)).glom())
+    chosen.append(np.asarray(points[nxt].glom()))
+  return np.stack(chosen)
+
+
 def fit_fused(points, k: int, iterations: int = 10, centers=None,
               seed: int = 0, init: str = "random"):
   """The whole Lloyd loop as torch ops on the points' device, in the
   points' dtype (the reference's one compiled loop; semantics match
-  :func:`fit`).  Returns a ``SpartanArray``."""
+  :func:`fit`; ``init='farthest'`` seeds with :func:`farthest_init`).
+  Returns a ``SpartanArray``."""
   points = sp.lazify(points).evaluate()
   n, d = points.shape
   if centers is None and init == "farthest":
-    raise NotImplementedError(
-        "fit_fused(init='farthest') needs farthest_init, which waits for "
-        "Expr.__getitem__ (ROADMAP Queue 1 item 5)")
-  if centers is None:
+    c0 = farthest_init(sp.Val(points), k, seed)
+  elif centers is None:
     rng = np.random.default_rng(seed)
     c0 = np.asarray(points.glom()[rng.choice(n, k, replace=False)])
   else:

@@ -36,3 +36,10 @@ def make_data(n: int = 4096, d: int = 16, seed: int = 0, tile_hint=None):
   w_true = rng.standard_normal(d)
   y = X @ w_true + 0.01 * rng.standard_normal(n)
   return (sp.from_numpy(X, tile_hint=tile_hint), sp.from_numpy(y), w_true)
+
+
+def run(n: int = 4096, d: int = 16, iterations: int = 50, alpha: float = 0.05):
+  """Fit the seeded data of :func:`make_data`; returns ``(w, w_true)``."""
+  X, y, w_true = make_data(n, d)
+  w = fit(X, y, iterations, alpha)
+  return w, w_true

@@ -10,6 +10,11 @@ float64 in both.  ``map2`` therefore casts strong operands to
 does against jax's lattice), and the float-valued unary ufuncs lift
 integer input to float64.  Python scalars stay weak: ``f32 * 2.0`` is
 float32, while a float scalar against an integer tensor gives float64.
+Where torch's function differs from NumPy's (no ``cbrt``, ``spacing``,
+``modf`` or popcount; ``imag`` of a real tensor; ``heaviside`` of nan;
+``gcd``/``lcm`` of floats; ``ldexp``'s rounding of ``2**e``), the ufunc
+here computes NumPy's.  ``map_with_location`` hands its function the
+global index grids as well.
 """
 
 from __future__ import annotations
@@ -40,6 +45,34 @@ class MapExpr(Expr):
   def _sig_local(self, memo, result):
     return ("MapExpr", self.op.signature(),
             tuple(self._child_sig(c, memo, result) for c in self.inputs))
+
+
+class MapWithLocationExpr(Expr):
+  """``fn(*values, coords, **fn_kw)``: a map that also sees the global index
+  grids of its first input's shape, ``coords[d]`` the index along axis d as
+  int32 (the reference's ``broadcasted_iota``), a broadcast view."""
+
+  _members = ("inputs",)
+  _params = ("fn", "fn_kw")
+
+  def __init__(self, inputs: Sequence[Expr], fn: Callable, fn_kw=None):
+    super().__init__(inputs=list(inputs), fn=fn, fn_kw=dict(fn_kw or {}))
+
+  def _emit(self, ctx: EmitCtx, deps: List):
+    shape = tuple(deps[0].shape)
+    device = deps[0].device
+    coords = tuple(
+        torch.arange(n, dtype=torch.int32, device=device).reshape(
+            (1,) * d + (n,) + (1,) * (len(shape) - d - 1)).expand(shape)
+        for d, n in enumerate(shape))
+    return self.fn(*deps, coords, **self.fn_kw)
+
+
+def map_with_location(inputs, fn: Callable, fn_kw=None) -> MapWithLocationExpr:
+  """Lazy map where ``fn(*values, coords)`` sees the global index grids."""
+  if isinstance(inputs, Expr) or not isinstance(inputs, (list, tuple)):
+    inputs = [inputs]
+  return MapWithLocationExpr([lazify(v) for v in inputs], fn, fn_kw)
 
 
 def map(inputs, fn: Callable, fn_kw=None) -> MapExpr:
@@ -416,6 +449,312 @@ def check_power(base, exponent) -> None:
     raise ValueError("Integers to negative integer powers are not allowed.")
 
 
+# -- the float ufuncs of builtins' trig, hyperbolic, rounding and log/exp
+# families (the rare ops of K1's and K2's op table) ----------------------
+
+def _float_unary(name: str, op: Callable) -> Callable:
+  """A float-valued unary ufunc: integer and bool input lift to float64
+  (``_inexact``), float dtypes stay."""
+  def fn(x):
+    return op(_inexact(x))
+  fn.__name__ = name
+  fn.__qualname__ = name
+  return fn
+
+
+def _float_operands(x, y, name: str = ""):
+  """``x`` and ``y`` promoted as NumPy does (:func:`promote`), an integer
+  or bool result lifted to float64, both as tensors on one device."""
+  x, y = promote(x, y, name)
+  x, y = _tensors(x, y)
+  if x.device != y.device:  # a constant lifted on the host: its 0-d value
+    x, y = (x.to(y.device), y) if x.dim() == 0 else (x, y.to(x.device))
+  dt = torch.promote_types(x.dtype, y.dtype)
+  if dtype_kind(dt) in "biu":
+    x, y = x.to(torch.float64), y.to(torch.float64)
+  return x, y
+
+
+def _float_binary(name: str, op: Callable) -> Callable:
+  def fn(x, y):
+    return op(*_float_operands(x, y, name))
+  fn.__name__ = name
+  fn.__qualname__ = name
+  return fn
+
+
+def cbrt_plain(x: torch.Tensor) -> torch.Tensor:
+  """The real cube root (torch has none): ``|x| ** (1/3)`` in float64 and
+  one Newton step, with the sign of x; ±0, ±inf and nan pass through."""
+  d = x.to(torch.float64)
+  a = d.abs()
+  y = torch.pow(a, 1.0 / 3.0)
+  refined = y - (y * y * y - a) / (3.0 * y * y)
+  y = torch.where(torch.isfinite(y) & (y > 0), refined, y)
+  return torch.copysign(y, d).to(x.dtype)
+
+
+# NumPy's constants for degrees and radians: float32 (and the 16-bit types,
+# computed in float32) use ``180.0f / NPY_PIf``, float64 ``180.0 / NPY_PI``
+# (torch's and the reference's float32 constant is float32(180 / pi), an
+# ulp away)
+_SCALES = {"rad2deg": (float(np.float32(180.0) / np.float32(np.pi)),
+                       180.0 / np.pi),
+           "deg2rad": (float(np.float32(np.pi) / np.float32(180.0)),
+                       np.pi / 180.0)}
+
+
+def scale_factor(kind: str, dtype: torch.dtype) -> float:
+  """The constant ``rad2deg``/``deg2rad`` multiply a ``dtype`` array by."""
+  single, double = _SCALES[kind]
+  return double if dtype == torch.float64 else single
+
+
+def _scaled(kind: str, name: str) -> Callable:
+  def fn(x):
+    x = _inexact(x)
+    c = scale_factor(kind, x.dtype)
+    if x.dtype in _HALF:  # NumPy's half loops: float32, rounded once
+      return (x.float() * c).to(x.dtype)
+    return x * c
+  fn.__name__ = name
+  fn.__qualname__ = name
+  return fn
+
+
+def spacing(x):
+  """NumPy's ``spacing``: the distance to the next value away from zero,
+  negative below zero (-0.0 counts as zero; nan at ±inf)."""
+  x = _inexact(x)
+  inf = torch.full_like(x, float("inf"))
+  out = torch.nextafter(x, torch.where(x < 0, -inf, inf)) - x
+  return torch.where(torch.isinf(x), torch.full_like(x, float("nan")), out)
+
+
+def fabs(x):
+  x = _inexact(x)
+  if x.is_complex():
+    raise TypeError("ufunc 'fabs' not supported for complex input")
+  return torch.abs(x)
+
+
+def signbit(x):
+  return torch.signbit(_lift(x))
+
+
+def nan_to_num(x, nan: float = 0.0, posinf=None, neginf=None):
+  x = _lift(x)
+  if not (x.is_floating_point() or x.is_complex()):
+    return x.clone()
+  return torch.nan_to_num(x, nan=nan, posinf=posinf, neginf=neginf)
+
+
+def isneginf(x):
+  return torch.isneginf(_lift(x))
+
+
+def isposinf(x):
+  return torch.isposinf(_lift(x))
+
+
+def real(x):
+  x = _lift(x)
+  return x.real.clone() if x.is_complex() else x.clone()
+
+
+def imag(x):
+  """NumPy's ``imag``: zeros of the array's dtype for a real array (torch
+  raises there)."""
+  x = _lift(x)
+  return x.imag.clone() if x.is_complex() else torch.zeros_like(x)
+
+
+def iscomplex(x):
+  x = _lift(x)
+  if x.is_complex():
+    return x.imag != 0
+  return torch.zeros_like(x, dtype=torch.bool)
+
+
+def isreal(x):
+  x = _lift(x)
+  if x.is_complex():
+    return x.imag == 0
+  return torch.ones_like(x, dtype=torch.bool)
+
+
+def angle(x):
+  """NumPy's ``angle``: ``arctan2(imag, real)``, so a negative real (and
+  -0.0) gives pi."""
+  x = _lift(x)
+  if x.is_complex():
+    return torch.angle(x)
+  x = _inexact(x)
+  return torch.atan2(torch.zeros_like(x), x)
+
+
+_POPCOUNT = None
+
+
+def bitwise_count(x):
+  """NumPy's ``bitwise_count``: the 1 bits of |x|, as uint8 (a byte
+  table; torch has no popcount)."""
+  global _POPCOUNT
+  x = _lift(x)
+  if dtype_kind(x.dtype) not in "biu":
+    raise TypeError("ufunc 'bitwise_count' not supported for the input "
+                    "types (integers and bools only)")
+  if _POPCOUNT is None or _POPCOUNT.device != x.device:
+    _POPCOUNT = torch.tensor([bin(i).count("1") for i in _py.range(256)],
+                             dtype=torch.uint8, device=x.device)
+  a = x.to(torch.int64).abs()
+  out = torch.zeros(x.shape, dtype=torch.uint8, device=x.device)
+  for shift in _py.range(0, 8 * x.element_size(), 8):
+    out += _POPCOUNT[(a >> shift) & 255]
+  return out
+
+
+def arctan2(x, y):
+  return torch.atan2(*_float_operands(x, y, "arctan2"))
+
+
+def hypot(x, y):
+  return torch.hypot(*_float_operands(x, y, "hypot"))
+
+
+def copysign(x, y):
+  return torch.copysign(*_float_operands(x, y, "copysign"))
+
+
+def nextafter(x, y):
+  return torch.nextafter(*_float_operands(x, y, "nextafter"))
+
+
+def logaddexp(x, y):
+  return torch.logaddexp(*_float_operands(x, y, "logaddexp"))
+
+
+def logaddexp2(x, y):
+  return torch.logaddexp2(*_float_operands(x, y, "logaddexp2"))
+
+
+def heaviside(x, y):
+  """NumPy's ``heaviside``: 0 below zero, ``y`` at zero, 1 above; nan
+  stays nan (torch's gives 0, and needs one dtype)."""
+  x, y = _float_operands(x, y, "heaviside")
+  dt = torch.result_type(x, y)
+  x, y = x.to(dt), y.to(dt)
+  step = torch.where(x == 0, y, (x > 0).to(x.dtype))
+  return torch.where(torch.isnan(x), x, step)
+
+
+def _fmaxmin(name: str, op: Callable, logical: Callable) -> Callable:
+  def fn(x, y):
+    x, y = _tensors(*promote(x, y, name))
+    if x.dtype == torch.bool and y.dtype == torch.bool:
+      return logical(x, y)
+    return op(x, y)
+  fn.__name__ = name
+  fn.__qualname__ = name
+  return fn
+
+
+fmax = _fmaxmin("fmax", torch.fmax, torch.logical_or)
+fmin = _fmaxmin("fmin", torch.fmin, torch.logical_and)
+
+
+def ldexp(x, e):
+  """``x * 2**e`` exactly (torch's ``ldexp`` rounds ``2**e`` in x's dtype
+  first): the power in two float64 halves.  ``e`` must be an integer."""
+  if (isinstance(e, torch.Tensor) and dtype_kind(e.dtype) not in "biu"
+      or isinstance(e, float)):
+    raise TypeError("ufunc 'ldexp' needs an integer exponent")
+  x = _inexact(x)
+  e = torch.as_tensor(e, device=x.device).to(torch.int64).clamp(-2200, 2200)
+  half = torch.div(e, 2, rounding_mode="floor")
+  two = torch.tensor(2.0, dtype=torch.float64, device=x.device)
+  out = x.to(torch.float64) * torch.pow(two, half) * torch.pow(two, e - half)
+  return out.to(x.dtype)
+
+
+def gcd(x, y):
+  x, y = _tensors(*promote(x, y, "gcd"))
+  if dtype_kind(x.dtype) not in "iu" or dtype_kind(y.dtype) not in "iu":
+    raise TypeError("ufunc 'gcd' not supported for the input types "
+                    "(integers only)")
+  return torch.gcd(x, y)
+
+
+def lcm(x, y):
+  x, y = _tensors(*promote(x, y, "lcm"))
+  if dtype_kind(x.dtype) not in "iu" or dtype_kind(y.dtype) not in "iu":
+    raise TypeError("ufunc 'lcm' not supported for the input types "
+                    "(integers only)")
+  return torch.lcm(x, y)
+
+
+def isclose(x, y, rtol: float = 1e-05, atol: float = 1e-08,
+            equal_nan: bool = False):
+  """NumPy's ``isclose``: ``|x - y| <= atol + rtol * |y|``, infinities
+  close only to themselves; integers compare as float64."""
+  x, y = _float_operands(x, y, "isclose")
+  x, y = torch.broadcast_tensors(x, y)
+  return torch.isclose(x, y, rtol=rtol, atol=atol, equal_nan=equal_nan)
+
+
+def frexp_mantissa(x):
+  return torch.frexp(_inexact(x)).mantissa
+
+
+def frexp_exponent(x):
+  """The exponent of ``frexp`` as int32, as NumPy gives it."""
+  return torch.frexp(_inexact(x)).exponent.to(torch.int32)
+
+
+def modf_fraction(x):
+  """``modf``'s fractional part with the sign of x: 0 at ±inf."""
+  x = _inexact(x)
+  frac = torch.where(torch.isinf(x), torch.zeros_like(x), x - torch.trunc(x))
+  return torch.copysign(frac, x)
+
+
+def modf_integral(x):
+  return torch.trunc(_inexact(x))
+
+
+sin = _float_unary("sin", torch.sin)
+cos = _float_unary("cos", torch.cos)
+tan = _float_unary("tan", torch.tan)
+arcsin = _float_unary("arcsin", torch.asin)
+arccos = _float_unary("arccos", torch.acos)
+arctan = _float_unary("arctan", torch.atan)
+sinh = _float_unary("sinh", torch.sinh)
+cosh = _float_unary("cosh", torch.cosh)
+tanh = _float_unary("tanh", torch.tanh)
+arcsinh = _float_unary("arcsinh", torch.asinh)
+arccosh = _float_unary("arccosh", torch.acosh)
+arctanh = _float_unary("arctanh", torch.atanh)
+floor = _float_unary("floor", torch.floor)
+ceil = _float_unary("ceil", torch.ceil)
+trunc = _float_unary("trunc", torch.trunc)
+exp2 = _float_unary("exp2", torch.exp2)
+expm1 = _float_unary("expm1", torch.expm1)
+log2 = _float_unary("log2", torch.log2)
+log10 = _float_unary("log10", torch.log10)
+log1p = _float_unary("log1p", torch.log1p)
+fix = _float_unary("fix", torch.trunc)  # a float result, as NumPy's
+rint = _float_unary("rint", torch.round)  # half to even
+sinc = _float_unary("sinc", torch.sinc)
+i0 = _float_unary("i0", torch.i0)
+erf = _float_unary("erf", torch.erf)
+erfc = _float_unary("erfc", torch.erfc)
+cbrt = _float_unary("cbrt", cbrt_plain)
+rad2deg = _scaled("rad2deg", "rad2deg")
+deg2rad = _scaled("deg2rad", "deg2rad")
+degrees = _scaled("rad2deg", "degrees")
+radians = _scaled("deg2rad", "radians")
+
+
 # the operator ``x ** c`` on a float array, for these Python scalars c,
 # takes NumPy's fast path (``sp.power`` stays ``pow``)
 _FAST_POWERS = {2: "square", 0.5: "sqrt", -1: "reciprocal", 1: "positive"}
@@ -439,10 +778,17 @@ BINARY = {f.__name__: f for f in (
     less_equal, greater, greater_equal, floor_divide, remainder, fmod,
     power, float_power, equal, not_equal, bitwise_and, bitwise_or,
     bitwise_xor, left_shift, right_shift, logical_and, logical_or,
-    logical_xor)}
+    logical_xor, arctan2, hypot, copysign, nextafter, logaddexp,
+    logaddexp2, heaviside, fmax, fmin, gcd, lcm)}
 UNARY = {f.__name__: f for f in (
     negative, absolute, square, sqrt, exp, log, bitwise_not, logical_not,
-    isnan, isinf, isfinite, sign, reciprocal, positive, conj, copy)}
+    isnan, isinf, isfinite, sign, reciprocal, positive, conj, copy, sin,
+    cos, tan, arcsin, arccos, arctan, sinh, cosh, tanh, arcsinh, arccosh,
+    arctanh, floor, ceil, trunc, exp2, expm1, log2, log10, log1p, cbrt,
+    spacing, sinc, fabs, signbit, fix, rint, i0, erf, erfc, isneginf,
+    isposinf, real, imag, iscomplex, isreal, angle, bitwise_count, rad2deg,
+    deg2rad, degrees, radians, frexp_mantissa, frexp_exponent,
+    modf_fraction, modf_integral)}
 
 # what map kernels actually hold: binary ops wrapped for NumPy promotion
 UFUNCS: Dict[str, Callable] = dict(UNARY)

@@ -1,7 +1,10 @@
 """Lazy array creation (port of ``spartan_tpu/expr/ndarray.py``).
 
-Creation emits ``torch.full`` / ``arange`` / ``rand`` / ``randn`` inside the
-region, on the region's device.  Random creation draws from an explicit
+Creation emits ``torch.full`` / ``arange`` / ``eye`` / ``linspace`` /
+``tri`` / the window functions / ``rand`` / ``randn`` / ``randint`` inside
+the region, on the region's device.  ``linspace`` computes NumPy's values
+(``i * step + start`` in float64, the last element ``stop``), the windows
+NumPy's formulas in float64.  Random creation draws from an explicit
 ``torch.Generator(device).manual_seed(seed)`` per node; its stream differs
 from the reference's ``jax.random`` one, so parity tests feed both packages
 the same data through ``from_numpy`` instead.
@@ -38,7 +41,8 @@ class CreationExpr(Expr):
   def __init__(self, op: str, out_shape: Sequence[int], out_dtype,
                params: Optional[Dict[str, Any]] = None,
                tile_hint: Optional[Sequence[int]] = None):
-    if op not in ("full", "arange", "rand", "randn"):
+    if op not in ("full", "arange", "eye", "linspace", "tri", "window",
+                  "rand", "randn", "randint"):
       raise ValueError(f"unknown creation op {op!r}")
     out_shape = tuple(int(s) for s in out_shape)
     super().__init__(op=op, out_shape=out_shape,
@@ -62,9 +66,63 @@ class CreationExpr(Expr):
         vals = p["start"] + p["step"] * torch.arange(
             n, dtype=torch.float64, device=dev)
       return vals.to(dt).reshape(shape)
+    if op == "eye":
+      rows = torch.arange(shape[0], device=dev)[:, None]
+      cols = torch.arange(shape[1], device=dev)[None, :]
+      return (cols - rows == p["k"]).to(dt)
+    if op == "tri":
+      rows = torch.arange(shape[0], device=dev)[:, None]
+      cols = torch.arange(shape[1], device=dev)[None, :]
+      return (cols - rows <= p["k"]).to(dt)
+    if op == "linspace":
+      return _linspace(p["start"], p["stop"], shape[0], dev).to(dt)
+    if op == "window":
+      return _window(p["name"], shape[0], p.get("beta"), dev).to(dt)
     gen = torch.Generator(device=dev).manual_seed(p["seed"])
+    if op == "randint":
+      return torch.randint(p["low"], p["high"], shape, generator=gen,
+                           dtype=dt, device=dev)
     if dtype_kind(dt) != "f":
       raise TypeError(f"{op} creates floating arrays, not {dt}")
     if op == "rand":
       return torch.rand(shape, generator=gen, dtype=dt, device=dev)
     return torch.randn(shape, generator=gen, dtype=dt, device=dev)
+
+
+def _linspace(start, stop, num: int, device) -> torch.Tensor:
+  """NumPy's ``linspace`` in float64: ``arange(num) * step + start`` with
+  ``step = (stop - start) / (num - 1)``, the last element ``stop``
+  (torch's own rounds differently)."""
+  y = torch.arange(num, dtype=torch.float64, device=device)
+  delta = float(stop) - float(start)
+  div = num - 1
+  if div > 0:
+    step = delta / div
+    y = y / div * delta if step == 0 else y * step
+  else:
+    y = y * delta
+  y = y + float(start)
+  if num > 1:
+    y[-1] = float(stop)
+  return y
+
+
+def _window(name: str, m: int, beta, device) -> torch.Tensor:
+  """NumPy's window of length ``m`` (its formula, in float64)."""
+  if m < 1:
+    return torch.zeros(0, dtype=torch.float64, device=device)
+  if m == 1:
+    return torch.ones(1, dtype=torch.float64, device=device)
+  if name == "kaiser":
+    n = torch.arange(m, dtype=torch.float64, device=device)
+    alpha = (m - 1) / 2.0
+    arg = beta * torch.sqrt(1 - ((n - alpha) / alpha) ** 2.0)
+    return torch.i0(arg) / torch.i0(torch.tensor(float(beta),
+                                                 dtype=torch.float64))
+  n = torch.arange(1 - m, m, 2, dtype=torch.float64, device=device)
+  if name == "bartlett":
+    return torch.where(n <= 0, 1 + n / (m - 1), 1 - n / (m - 1))
+  c = torch.cos(torch.pi * n / (m - 1))
+  if name == "blackman":
+    return 0.42 + 0.5 * c + 0.08 * torch.cos(2.0 * torch.pi * n / (m - 1))
+  return {"hamming": 0.54 + 0.46 * c, "hanning": 0.5 + 0.5 * c}[name]

@@ -15,7 +15,11 @@ A boolean mask gives a shape that depends on the data: ``BooleanMaskExpr``
 raises :class:`NotShapeable`, and the evaluator evaluates it before its
 region, on the device with torch's boolean indexing (counted in
 ``counts["boolean_mask_device"]``).  A boolean part inside a tuple index
-takes the reference's host path (``HostExpr``).
+takes the reference's host path (``HostExpr``).  The selection builtins
+whose length depends on the data (``nonzero``, ``compress``, ``unique``,
+the set operations, ``bincount`` …) are ``SelectExpr`` nodes: the same
+boundary, a torch function of the inputs on the device, counted in
+``counts["selection_device"]``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 from spartan_tpu_torch.core.array import SpartanArray, dtype_kind
 from spartan_tpu_torch.expr.base import EmitCtx, Expr, NotShapeable, lazify
 
-counts = {"boolean_mask_device": 0}
+counts = {"boolean_mask_device": 0, "selection_device": 0}
 
 
 def reset_counts() -> None:
@@ -203,6 +207,35 @@ class BooleanMaskExpr(Expr):
                        f"{tuple(src.shape[:mask.ndim])}")
     counts["boolean_mask_device"] += 1
     return SpartanArray(src.data[mask], src.tiling)
+
+
+class SelectExpr(Expr):
+  """``fn(*tensors)`` over the evaluated inputs, on the device, for a
+  result whose shape depends on the data: like ``BooleanMaskExpr`` the
+  evaluator evaluates it before the region that reads it.  ``fn`` is a
+  module-level function (it keys the node), ``fn_kw`` its options."""
+
+  _members = ("inputs",)
+  _params = ("fn", "fn_kw")
+
+  def __init__(self, inputs, fn, fn_kw=None):
+    super().__init__(inputs=[lazify(v) for v in inputs], fn=fn,
+                     fn_kw=dict(fn_kw or {}))
+
+  def aval(self):
+    raise NotShapeable(f"{getattr(self.fn, '__name__', self.fn)} has a "
+                       f"data-dependent shape")
+
+  def _emit(self, ctx, deps):
+    raise NotShapeable("a data-dependent selection must be evaluated "
+                       "eagerly")
+
+  def evaluate_eager(self) -> SpartanArray:
+    args = [c.evaluate() for c in self.inputs]
+    device = args[0].device
+    counts["selection_device"] += 1
+    out = self.fn(*[a.data.to(device) for a in args], **self.fn_kw)
+    return SpartanArray(out, args[0].tiling)
 
 
 def _tuple_has_array(idx) -> bool:

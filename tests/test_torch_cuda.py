@@ -882,12 +882,12 @@ def test_matmul_unfused_epilogue_and_plain_routes(device):
   x = torch.randn(70, 90, device=device)
   y = torch.randn(90, 50, device=device)
   before = dict(K2.counts)
-  got = K2.matmul(x, y, epilogue=torch.tanh)
+  got = K2.matmul(x, y, epilogue=torch.sigmoid)
   # K = 90 and N = 50 are not multiples of 4: TMA reads both padded
   assert K2.counts == dict(before, launches=before["launches"] + 1,
                            epilogue_unfused=before["epilogue_unfused"] + 1,
                            padded_operands=before["padded_operands"] + 2)
-  want = K2.matmul_plain(x, y, torch.tanh)
+  want = K2.matmul_plain(x, y, torch.sigmoid)
   assert bool(((got - want).abs() <= _matmul_tol(x, y, want)).all())
   # dtypes off the kernel's list run on it in float32, as matmul_plain does
   for a, b in ((x.double(), y.double()), (x.half(), y), (x, y.bfloat16())):
@@ -1563,3 +1563,48 @@ def test_reductions_on_card(device):
   np.testing.assert_allclose(clean[0:50].prod(axis=0).glom(),
                              c64[0:50].prod(axis=0), rtol=1e-9)
   assert bool(sp.all(clean > 0).glom()) and not bool(sp.any(clean > 2).glom())
+
+
+NEW_OP_CHAINS = {
+    "sin": lambda v: call("sin", v), "tan": lambda v: call("tan", v),
+    "tanh": lambda v: call("tanh", v),
+    "floor": lambda v: call("floor", call("multiply", v,
+                                            LocalConst(3.0))),
+    "arctan2": lambda v: call("arctan2", v, LocalConst(0.5)),
+    "hypot": lambda v: call("hypot", v, LocalConst(2.0)),
+    "log1p": lambda v: call("log1p", call("absolute", v)),
+    "erfc": lambda v: call("erfc", v),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("name", sorted(NEW_OP_CHAINS))
+def test_k1_rare_ops_against_plain(device, name, dtype):
+  """K1's rare variants against fused_sum_plain, at 1e-6 of the sum of
+  |values| (CUDA's libm and this kernel's sin/cos/tan agree with torch's
+  to an ulp an element) with a float64 sum."""
+  gen = torch.Generator(device=device).manual_seed(5)
+  x = (torch.rand(1_000_003, generator=gen, device=device) * 6 - 3).to(dtype)
+  program = K.plan(NEW_OP_CHAINS[name](LocalInput(0)), 0, dtype, {})
+  assert program is not None and K.has_rare(program)
+  got = K.fused_sum(x, program, [], torch.float64).item()
+  values = K.evaluate_program(program, x, [])
+  want = torch.sum(values, dtype=torch.float64).item()
+  scale = values.double().abs().sum().item()
+  assert abs(got - want) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("scale", [1e6, 1e30])
+def test_k1_trig_past_the_fast_reduction(device, scale):
+  """sin, cos and tan past |x| = 105615 (CUDA sinf's slow path) and up to
+  1e30 within an ulp an element of float64."""
+  gen = torch.Generator(device=device).manual_seed(6)
+  x = torch.rand(1 << 20, generator=gen, device=device) * 2 - 1
+  for name in ("sin", "cos", "tan"):
+    chain = call(name, call("multiply", LocalInput(0), LocalConst(scale)))
+    program = K.plan(chain, 0, torch.float32, {})
+    got = K.fused_sum(x, program, [], torch.float64).item()
+    arg = (x * scale).double()
+    want_v = getattr(torch, name)(arg)
+    assert abs(got - want_v.sum().item()) <= (
+        2.0 ** -23 * want_v.abs().sum().item())

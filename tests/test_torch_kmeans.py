@@ -111,9 +111,39 @@ def test_fit_fused_matches_reference_and_fit(given):
 
 
 def test_fit_fused_farthest_init_waits():
-  _, pts, _ = _data()
-  with pytest.raises(NotImplementedError, match="Expr.__getitem__"):
-    kmeans.fit_fused(pts, K, 2, init="farthest")
+  """``init='farthest'`` no longer waits: it seeds with farthest_init,
+  as the reference's does."""
+  ref_pts, pts, _ = _data()
+  want = ref_kmeans.fit_fused(ref_pts, K, 2, init="farthest", seed=3).glom()
+  got = kmeans.fit_fused(pts, K, 2, init="farthest", seed=3)
+  np.testing.assert_allclose(got.glom(), np.asarray(want), rtol=1e-10)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_farthest_init_matches_reference(seed):
+  ref_pts, pts, _ = _data(512, 4, 3, 9)
+  want = ref_kmeans.farthest_init(ref_pts, 5, seed=seed)
+  got = kmeans.farthest_init(pts, 5, seed=seed)
+  np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_farthest_init_leaves_no_cluster_empty():
+  """Two tight, distant blobs: farthest seeding puts one center in each
+  (random seeds can land both in one, the Watch list's empty-cluster
+  case), so every cluster keeps its 64 points, with the reference's
+  centers."""
+  rng = np.random.default_rng(4)
+  blob = np.concatenate([rng.normal(0.0, 0.01, (64, 2)),
+                         rng.normal(50.0, 0.01, (64, 2))])
+  pts = sp.from_numpy(blob)
+  c0 = kmeans.farthest_init(pts, 2, seed=0)
+  np.testing.assert_array_equal(
+      c0, np.asarray(ref_kmeans.farthest_init(ref.from_numpy(blob), 2,
+                                              seed=0)))
+  assert abs(c0[0, 0] - c0[1, 0]) > 40.0
+  centers = kmeans.fit_fused(pts, 2, 5, init="farthest").glom()
+  labels = kmeans.assign_labels(pts, sp.from_numpy(centers)).glom()
+  assert np.bincount(labels, minlength=2).min() == 64
 
 
 def test_make_fori_step_equals_fit():

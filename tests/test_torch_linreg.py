@@ -85,3 +85,12 @@ def test_loop_carry_must_keep_dtype():
   with pytest.raises(ValueError, match="shape and dtype"):
     sp.make_fori(lambda w: sp.dot(Xp.T, sp.dot(Xp, w)) * 1.0,
                  sp.zeros((D,), dtype=np.float32) + 0)
+
+
+def test_run_matches_reference():
+  """``run`` fits the seeded data of ``make_data`` in both packages."""
+  want_w, want_true = ref_linreg.run(n=512, d=8, iterations=20)
+  got_w, got_true = linear_reg.run(n=512, d=8, iterations=20)
+  np.testing.assert_array_equal(got_true, want_true)
+  np.testing.assert_allclose(got_w.glom(), np.asarray(want_w.glom()),
+                             rtol=1e-10)

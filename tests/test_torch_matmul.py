@@ -109,7 +109,7 @@ def test_epilogue_translates_into_the_op_program(name):
 
 
 OUTSIDE = {
-    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
     "power": lambda a: torch.float_power(a, 2),  # ** itself is in the table
     "to float64": lambda a: a.double(),
     "clamp with keywords": lambda a: torch.clamp(a, min=0.0),
@@ -292,6 +292,8 @@ def _route_cases():
       ("f64_cast", _at(5, 7, f32).double(), _at(7, 3, f32).double(), None,
        dict(ldx=8, ldy=4, m=5, n=3, k=7, codes=(1, 1), program=False), 2, 0),
       ("bf16_tanh", _at(5, 7, bf16), _at(7, 8, bf16), torch.tanh,
+       dict(ldx=8, ldy=8, m=5, n=8, k=7, codes=(2, 2), program=True), 1, 0),
+      ("bf16_sigmoid", _at(5, 7, bf16), _at(7, 8, bf16), torch.sigmoid,
        dict(ldx=8, ldy=8, m=5, n=8, k=7, codes=(2, 1), program=False), 1, 1),
   ]
 

@@ -78,6 +78,13 @@ def main() -> int:
       "v//0.3": ("floor_divide", lambda: call("floor_divide", v,
                                               LocalConst(0.3))),
       "v%0.7": ("remainder", lambda: call("remainder", v, LocalConst(0.7))),
+      "sin(v)": ("sin", lambda: call("sin", v)),
+      "tanh(0.5v)": ("tanh", lambda: call("tanh", call(
+          "multiply", v, LocalConst(0.5)))),
+      "floor(3v)": ("floor", lambda: call("floor", call(
+          "multiply", v, LocalConst(3.0)))),
+      "arctan2(v,0.5)": ("arctan2", lambda: call("arctan2", v,
+                                                 LocalConst(0.5))),
   }
   x = torch.randn(args.n, args.n, generator=torch.Generator(
       device="cuda").manual_seed(7), device="cuda")
@@ -90,10 +97,14 @@ def main() -> int:
     program = K.plan(chain, 0, torch.float32, {})
     fns[name] = lambda p=program: K.fused_sum(x, p, [], torch.float64)
   fns["torch.sum"] = lambda: torch.sum(x, dtype=torch.float64)
-  build.load("fused_reduce")
-  for line in build.build_log("fused_reduce").splitlines():
-    if "registers" in line or "stack frame" in line:
-      print(f"  ptxas: {line.strip()}")
+  sources = [name for name in ("fused_reduce", "fused_reduce_rare1",
+                               "fused_reduce_rare")
+             if (build.CSRC / f"{name}.cu").is_file()]
+  build.load_all(sources)
+  for source in sources:
+    for line in build.build_log(source).splitlines():
+      if "registers" in line or "stack frame" in line:
+        print(f"  ptxas {source}: {line.strip()}")
   for fn in fns.values():
     fn()
   samples = {name: [] for name in fns}

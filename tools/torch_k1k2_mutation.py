@@ -2,16 +2,19 @@
 
     python3 tools/torch_k1k2_mutation.py
 
-Builds, beside the kernels as they are, three mutants from copies of
+Builds, beside the kernels as they are, four mutants from copies of
 ``spartan_tpu_torch/csrc`` in a temporary directory: K2's 16-bit kernel
 (``hopper_gemm`` in ``matmul.cu``) with the products of its middle K stage
 skipped, K2's float32 kernel (``sgemm_tma``) with the products of its
-middle K stage skipped, and K1 (the op-program interpreter in
-``op_program.cuh``) with the result of its second instruction dropped.
-Each runs through its wrapper at chip_smoke.py's full size (8192^2
-bfloat16 and 32768^2 float32 for K2, ``abs(1+2v)`` over 16384^2 float32
-with a float64 sum for K1) and is held to chip_smoke.py's checks: the
-kernels as they are must pass, the mutants must fail.  Prints each
+middle K stage skipped, K1 (the op-program interpreter in
+``op_program.cuh``) with the result of its second instruction dropped, and
+K1's one-register rare variants (``fused_reduce_rare1.cu``) with CUDA's
+``__sinf`` in place of the interpreter's sin.  Each runs through its wrapper at
+chip_smoke.py's full size (8192^2 bfloat16 and 32768^2 float32 for K2,
+``abs(1+2v)`` over 16384^2 float32 with a float64 sum for K1,
+``sin(1e6 v)`` there against its float64 evaluation for the sin mutant)
+and is held to chip_smoke.py's checks: the kernels as they are must pass,
+the mutants must fail.  Prints each
 check's worst share of its bound and exits non-zero if a check misses a
 mutant.
 """
@@ -49,6 +52,10 @@ MUTANTS = {
                      "    f.set(dst, t);\n  }\n  f.get(prog.out, out);",
                      "    if (k != 1) f.set(dst, t);\n  }\n"
                      "  f.get(prog.out, out);"),
+    "fused_reduce sin": (
+        "fused_reduce_rare1", "op_program.cuh",
+        "EACH1(sp_trig::trig(op - OP_SIN, p))",
+        "EACH1(op == OP_SIN ? __sinf(p) : sp_trig::trig(op - OP_SIN, p))"),
 }
 
 
@@ -114,10 +121,22 @@ def k1_check(device) -> str:
           f"rtol {tol:g}: {share:.4g}")
 
 
+def k1_sin_check(device) -> str:
+  """sin(1e6 v) over 16384^2 float32 against its float64 evaluation
+  (chip_smoke.check_against_float64)."""
+  gen = torch.Generator(device=device).manual_seed(1234)
+  try:
+    cs.check_against_float64(device, gen, ("sin(1e6v)",))
+  except RuntimeError as e:
+    return f"fails: {e}"
+  return "passes: within an ulp an element of the float64 sum"
+
+
 CHECKS = {
     "matmul bfloat16": lambda d: k2_check(d, cs.BENCH_MM_N, torch.bfloat16),
     "matmul float32": lambda d: k2_check(d, cs.CFG2_N, torch.float32),
     "fused_reduce": k1_check,
+    "fused_reduce sin": k1_sin_check,
 }
 
 
@@ -129,7 +148,7 @@ def main() -> int:
   sp.initialize(["--device=cuda"])
   torch.backends.cuda.matmul.allow_tf32 = False
   device = sp.get_mesh().device
-  originals = build.load_all(["matmul", "fused_reduce"])
+  originals = build.load_all(["matmul", "fused_reduce", "fused_reduce_rare1"])
   with tempfile.TemporaryDirectory() as tmp:
     mutants = build_mutants(Path(tmp))
     results = {}

@@ -121,10 +121,23 @@ raises on any failure:
      bfloat16 against a float64 product, timed beside cuBLAS + torch.tanh;
      eye, linspace(0, 1, 2^28), meshgrid, zeros_like, nonzero(b > 2.5),
      compress, choose, resize, unique/isin/bincount over 2^26 int32 keys
-     and map_with_location, each against NumPy.
+     and map_with_location, each against NumPy; the phase's host seconds
+     outside its items printed by kind;
+ 17. the linear-algebra, statistics, polynomial, histogram and shape
+     builtins at config 1's 16384^2 float32 through the entry points:
+     sp.norm(b), sp.norm(b, 1) and sp.norm(b, 3) each one K1 launch (no
+     plain route), timed beside the plain version and
+     torch.linalg.vector_norm(x, ord, dtype=float64); einsum of three
+     4096^2 matrices (pairwise TensorDotExprs), tensordot, vdot, kron of
+     two 128^2 blocks, cov and corrcoef of b[:256]; concatenate, stack,
+     tile, roll, pad, rot90, flip and array_split bit for bit; histogram
+     with 1024 bins, interp of 2^26 points over 2^20 knots, convolve of
+     2^24 values with 129 taps, diff, gradient, take_along_axis and
+     packbits/unpackbits, each against NumPy (its comparisons on six host
+     threads while the card works), the host seconds printed as in 16.
 
 The count of each kernel's launches is set to 0 just before the path that
-runs it (phases 3-4, 15 and 16 for K1, phase 6 for K3a/K3b, phase 8 for
+runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
 K5a, phase 10 for K6a, phase 11's full-size matmul calls and phase 16's
 for K2, phase 12's
 make_spmv_windowed calls for K3c, phase 14's path at each p for the
@@ -140,6 +153,7 @@ CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import gc
 import json
 import statistics
@@ -230,6 +244,30 @@ SPIN_CYCLES = 20_000_000  # about 10 ms of an H100 SM clock
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+
+
+# host seconds a phase spends outside its items, by kind (phases 16-17)
+HOST_SPANS: dict = {}
+
+
+@contextlib.contextmanager
+def host_span(name: str):
+  t0 = time.perf_counter()
+  try:
+    yield
+  finally:
+    HOST_SPANS[name] = HOST_SPANS.get(name, 0.0) + time.perf_counter() - t0
+
+
+def print_host_spans(phase: int, wall: float) -> None:
+  """The phase's wall split by kind (``items``: the items' own walls,
+  device work and fetches), the rest unnamed host work."""
+  named = sum(HOST_SPANS.values())
+  parts = ", ".join(f"{k} {v:.2f} s" for k, v in sorted(HOST_SPANS.items()))
+  print(f"  phase {phase} wall {wall:.2f} s: {parts}, other "
+        f"{wall - named:.2f} s; host work outside the items "
+        f"{wall - HOST_SPANS.get('items', 0.0):.2f} s")
+  HOST_SPANS.clear()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -348,7 +386,8 @@ def event_ms(fn, inner: int = 1):
   ``inner`` back-to-back calls.  The calls are queued behind a spin kernel
   (``torch.cuda._sleep``) that outlasts their issue, so the CUDA events time
   the device running them back to back, not the host issuing them; the
-  spin is lengthened until it outlasts the issue (``queued ahead``)."""
+  spin is lengthened until it outlasts the issue (``queued ahead``), unless
+  the issue waited for the spin to end (a blocking copy in the call)."""
   cycles = SPIN_CYCLES
   for _ in range(4):
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -361,8 +400,9 @@ def event_ms(fn, inner: int = 1):
     host = (time.perf_counter() - t0) * 1e3
     marks[2].record()
     marks[2].synchronize()
-    ahead = host < 0.5 * marks[0].elapsed_time(marks[1])
-    if ahead:
+    spin = marks[0].elapsed_time(marks[1])
+    ahead = host < 0.5 * spin
+    if ahead or host >= spin:  # a longer spin would be waited for too
       break
     cycles *= 4
   return marks[1].elapsed_time(marks[2]) / inner, host / inner, ahead
@@ -2602,13 +2642,14 @@ def surface_check(label, got, want, rtol, why, secs):
   want = np.asarray(want)
   check(got.shape == want.shape, f"{label}: shape {got.shape}, expected "
         f"{want.shape}")
-  if rtol == 0:
-    ok = bool(np.array_equal(got, want))
-    err = 0.0 if ok else float(np.abs(got.astype(np.float64) - want).max())
-  else:
-    err = float(np.abs(got.astype(np.float64) - want).max()
-                / max(float(np.abs(want).max()), 1e-300))
-    ok = bool(np.isfinite(got).all()) and err <= rtol
+  with host_span("compare"):
+    if rtol == 0:
+      ok = bool(np.array_equal(got, want))
+      err = 0.0 if ok else float(np.abs(got.astype(np.float64) - want).max())
+    else:
+      err = float(np.abs(got.astype(np.float64) - want).max()
+                  / max(float(np.abs(want).max()), 1e-300))
+      ok = bool(np.isfinite(got).all()) and err <= rtol
   print(f"  {label}: max err {err:.3g} of max|oracle| (tolerance "
         f"{rtol:g}: {why}), wall {secs * 1e3:.1f} ms")
   check(ok, f"{label} disagrees with its NumPy oracle")
@@ -2811,11 +2852,12 @@ def builtin_sums(b, host, card: str, pool) -> int:
     before = dict(K.counts)
     with Timer() as t:
       got = float(entry(b).glom())
+    HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
     check(K.counts["launches"] == before["launches"] + 1
           and K.counts["routed_plain"] == before["routed_plain"],
           f"{label} did not launch K1 once ({K.counts} after {before})")
     launches += 1
-    with Timer() as waited:
+    with Timer() as waited, host_span("waiting for NumPy"):
       parts = [f.result() for f in blocks]
     want, scale = sum(p[0] for p in parts), sum(p[1] for p in parts)
     # NumPy's float32 libm and CUDA's agree to an ulp an element (exact
@@ -2823,11 +2865,12 @@ def builtin_sums(b, host, card: str, pool) -> int:
     tol = 1e-9 if exact else 1e-6
     err = abs(got - want) / max(scale, 1e-300)
     program = K.plan(chain, 0, torch.float32, {})
-    tm = time_in_turns({
-        "kernel": lambda p=program: K.fused_sum(x, p, [], torch.float64),
-        "plain": lambda p=program: K.fused_sum_plain(x, p, [],
-                                                     torch.float64),
-        "library": lambda f=lib_fn: torch.sum(f(x), dtype=torch.float64)})
+    with host_span("timing in turns"):
+      tm = time_in_turns({
+          "kernel": lambda p=program: K.fused_sum(x, p, [], torch.float64),
+          "plain": lambda p=program: K.fused_sum_plain(x, p, [],
+                                                       torch.float64),
+          "library": lambda f=lib_fn: torch.sum(f(x), dtype=torch.float64)})
     print(f"  {label}: kernel {got:.17g}, NumPy {want:.17g}, |err| / "
           f"sum|values| {err:.3g} (tolerance {tol:g}); wall "
           f"{t.elapsed * 1e3:.1f} ms (then {waited.elapsed:.2f} s waiting for "
@@ -2885,7 +2928,8 @@ def builtin_item(label, fn, want, rtol=0.0, why="exact"):
   with Timer() as t:
     ms, arr = events_ms(lambda: fn().evaluate())
     got = arr.data.cpu().numpy()
-  with Timer() as waited:
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  with Timer() as waited, host_span("waiting for NumPy"):
     oracle = want.result()
   surface_check(f"{label} (device {ms:.3f} ms; then {waited.elapsed:.2f} s "
                 f"waiting for NumPy)", got, oracle, rtol, why, t.elapsed)
@@ -2900,19 +2944,25 @@ def phase_builtins(device, card: str):
   from spartan_tpu_torch.expr import slice as slice_mod
   rng = np.random.default_rng(16)
   n = BUILTIN_N
-  host = rng.standard_normal((n, n), dtype=np.float32)
-  b = sp.from_numpy(host)
+  with host_span("draws"):
+    host = rng.standard_normal((n, n), dtype=np.float32)
+  with host_span("uploads"):
+    b = sp.from_numpy(host)
   K.reset_counts()
-  with concurrent.futures.ThreadPoolExecutor(max_workers=6) as pool:
+  pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
+  with pool:
     k1_launches = builtin_sums(b, host, card, pool)
-    k2_launches = builtin_matmul(device, card)
+    with Timer() as t:
+      k2_launches = builtin_matmul(device, card)
+    HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
     torch.cuda.empty_cache()
-    vec = np.arange(n, dtype=np.float32) * np.float32(0.5)
-    pick = rng.integers(0, 3, (n, n), dtype=np.int32)
-    rows = host[:, 0] > 0
-    keys_host = rng.integers(0, KEY_VALUES, KEYS_N, dtype=np.int32)
-    test_host = rng.integers(0, KEY_VALUES, TEST_KEYS, dtype=np.int32)
-    grid_i = np.arange(n, dtype=np.int32)
+    with host_span("draws"):
+      vec = np.arange(n, dtype=np.float32) * np.float32(0.5)
+      pick = rng.integers(0, 3, (n, n), dtype=np.int32)
+      rows = host[:, 0] > 0
+      keys_host = rng.integers(0, KEY_VALUES, KEYS_N, dtype=np.int32)
+      test_host = rng.integers(0, KEY_VALUES, TEST_KEYS, dtype=np.int32)
+      grid_i = np.arange(n, dtype=np.int32)
     counted = pool.submit(np.bincount, keys_host, minlength=KEY_BINS)
     want = {
         "eye": pool.submit(np.eye, n),
@@ -2945,6 +2995,7 @@ def phase_builtins(device, card: str):
     with Timer() as t:
       ms, idx = events_ms(lambda: sp.nonzero(b > 2.5).evaluate())
       got = idx.data.cpu().numpy()
+    HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
     surface_check(f"sp.nonzero(b > 2.5) ({got.shape[1]} indices; device "
                   f"{ms:.3f} ms)", got, want.pop("nonzero").result(), 0,
                   "exact", t.elapsed)
@@ -2973,9 +3024,289 @@ def phase_builtins(device, card: str):
                                               lambda v, c: v + c[0] - c[1]),
                  want.pop("location"), rtol=2.0 ** -22,
                  why="float32 sums of two coordinates against float64")
-  del b, host
-  torch.cuda.empty_cache()
+    t_exit = time.perf_counter()
+  HOST_SPANS["pool exit"] = time.perf_counter() - t_exit
+  with host_span("free"):
+    del b, host
+    torch.cuda.empty_cache()
   return k1_launches, k2_launches
+
+
+# phase 17: the linear-algebra, statistics, polynomial, histogram and shape
+# builtins with concatenate, stack and tile, at config 1's 16384^2 float32
+SLICE_N, EINSUM_N, KRON_BLOCK, COV_ROWS = 16384, 4096, 128, 256
+HIST_BINS, HIST_RANGE = 1024, (-4.0, 4.0)
+INTERP_POINTS, INTERP_KNOTS = 1 << 26, 1 << 20
+CONV_N, CONV_TAPS = 1 << 24, 129
+TILE_ROWS, TAKE_COLS = 4096, 256
+# |norm - oracle| / oracle: |v|**2 rounds once in float32 (all terms
+# positive), |v| is exact, powf(|v|, 3) is within a few ulps; the sums are
+# float64 in another order
+NORM_TOL = {2: 1e-7, 1: 1e-9, 3: 1e-6}
+
+
+def k1_chain(e):
+  """(the fused local op, the main operand's slot, {slot: scalar operand})
+  of the reduction inside ``e``, as the evaluator hands them to K1."""
+  from spartan_tpu_torch.expr.reduce import ReduceExpr
+  nodes = []
+  e.optimized().visit(nodes.append)
+  red = next(n for n in nodes if isinstance(n, ReduceExpr))
+  big = next(k for k, c in enumerate(red.inputs) if c.ndim >= 1)
+  scalars = {k: c.leaf_value() for k, c in enumerate(red.inputs) if k != big}
+  return red.local_op, big, scalars
+
+
+def _norm_terms(host, order):
+  """NumPy's float64 sum of |v|**order over a block of rows."""
+  h = np.abs(host.astype(np.float64))
+  return float((h if order == 1 else h ** order).sum())
+
+
+def slice_norms(b, host, card: str, pool) -> int:
+  """``sp.norm(b)``, ``sp.norm(b, 1)`` and ``sp.norm(b, 3)`` through the
+  entry point, each one K1 launch, against NumPy's float64 norm (row
+  blocks summed on the host's threads), K1's sum timed beside its plain
+  version and ``torch.linalg.vector_norm(x, ord, dtype=float64)``;
+  returns K1's launches."""
+  x = b.evaluate().data
+  step = -(-host.shape[0] // ORACLE_BLOCKS)
+  oracles = {o: [pool.submit(_norm_terms, host[i:i + step], o)
+                 for i in range(0, host.shape[0], step)]
+             for o in (2, 1, 3)}
+  for order, blocks in oracles.items():
+    before = dict(K.counts)
+    with Timer() as t:
+      got = float(sp.norm(b, order).glom())
+    HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+    check(K.counts["launches"] == before["launches"] + 1
+          and K.counts["routed_plain"] == before["routed_plain"],
+          f"sp.norm(b, {order}) did not launch K1 once ({K.counts} after "
+          f"{before})")
+    with host_span("waiting for NumPy"):
+      want = sum(f.result() for f in blocks) ** (1.0 / order)
+    err = rel_err(got, want)
+    local_op, big, slots = k1_chain(sp.norm(b, order))
+    program = K.plan(local_op, big, torch.float32, slots)
+    check(program is not None, f"norm {order}'s chain has no K1 program")
+    scalars = [slots[k] for k in sorted(slots)]
+    with host_span("timing in turns"):
+      tm = time_in_turns({
+          "kernel": lambda p=program, s=scalars: K.fused_sum(
+              x, p, s, torch.float64),
+          "plain": lambda p=program, s=scalars: K.fused_sum_plain(
+              x, p, s, torch.float64),
+          "library": lambda o=order: torch.linalg.vector_norm(
+              x, o, dtype=torch.float64)})
+    print(f"  sp.norm(b, {order}): {got:.17g}, NumPy {want:.17g}, relative "
+          f"err {err:.3g} (tolerance {NORM_TOL[order]:g}); wall "
+          f"{t.elapsed * 1e3:.1f} ms; device K1 sum {tm['kernel']:.4f} ms, "
+          f"plain {tm['plain']:.4f} ms, torch.linalg.vector_norm(x, "
+          f"{order}, dtype=float64) {tm['library']:.4f} ms (median of "
+          f"{TIMING_REPS}, CUDA events, in turns) on {card}")
+    check(np.isfinite(got) and err <= NORM_TOL[order],
+          f"sp.norm(b, {order}) disagrees with NumPy")
+  return len(oracles)
+
+
+def _held(label, got, oracle, rtol, why, ms, wall):
+  """The comparison of one phase 17 item, run on a host thread: ``got``
+  against ``oracle()`` exactly (``rtol`` 0), within ``rtol`` of
+  max|oracle|, or (a callable ``rtol``) within ``rtol(want)`` an
+  element; (passed, its report line)."""
+  t0 = time.perf_counter()
+  want = oracle()
+  got = np.asarray(got)
+  if got.shape != want.shape:
+    return False, f"  {label}: shape {got.shape}, expected {want.shape}"
+  if callable(rtol):
+    worst = float((np.abs(got.astype(np.float64) - want)
+                   / rtol(want)).max()) if got.size else 0.0
+    ok, err, tol = bool(np.isfinite(got).all()) and worst <= 1.0, worst, 1.0
+    what = "worst share of the bound"
+  elif rtol == 0:
+    ok = got.dtype == want.dtype and bool(np.array_equal(got, want))
+    err, tol, what = 0.0 if ok else float("nan"), 0, "bit for bit"
+  else:
+    err = float(np.abs(got.astype(np.float64) - want).max()
+                / max(float(np.abs(want).max()), 1e-300))
+    ok, tol = bool(np.isfinite(got).all()) and err <= rtol, rtol
+    what = "max err of max|oracle|"
+  return ok, (f"  {label}: {what} {err:.3g} (tolerance {tol:g}: {why}); "
+              f"device {ms:.3f} ms, wall {wall * 1e3:.1f} ms; compared in "
+              f"{time.perf_counter() - t0:.2f} s on a host thread")
+
+
+def slice_item(label, fn, oracle, pool, held, rtol=0.0, why="exact"):
+  """One builtin through its entry point: device time between events
+  around the evaluation, the wall with the fetch; the comparison with
+  NumPy's ``oracle()`` goes to ``pool`` (collected in ``held``)."""
+  with Timer() as t:
+    ms, arr = events_ms(lambda: fn().evaluate())
+    got = arr.data.cpu().numpy()
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  del arr
+  held.append(pool.submit(_held, label, got, oracle, rtol, why, ms,
+                          t.elapsed))
+
+
+def _interp_blocks(xq, xp, fp, pool):
+  """NumPy's interp of ``xq`` in row blocks on the pool's threads (a
+  binary search a point: about 30 s on one core at 2^26 points); the
+  oracle waits for them."""
+  step = -(-xq.shape[0] // ORACLE_BLOCKS)
+  blocks = [pool.submit(np.interp, xq[i:i + step], xp, fp)
+            for i in range(0, xq.shape[0], step)]
+  return lambda: np.concatenate([f.result() for f in blocks])
+
+
+def _hist_blocks(host):
+  step = -(-host.shape[0] // ORACLE_BLOCKS)
+  return sum(np.histogram(host[i:i + step], HIST_BINS, HIST_RANGE)[0]
+             for i in range(0, host.shape[0], step))
+
+
+def phase_slice(device, card: str) -> int:
+  """The linear-algebra, statistics, polynomial, histogram and shape
+  builtins with concatenate, stack and tile at config 1's 16384^2 float32
+  through the entry points: K1 through ``sp.norm``; contractions, shapes
+  and statistics each against NumPy (its comparisons on six host threads
+  while the card works).  Returns K1's launches."""
+  from spartan_tpu_torch.expr.dot import TensorDotExpr
+  rng = np.random.default_rng(17)
+  n = SLICE_N
+  with host_span("draws"):
+    host = rng.standard_normal((n, n), dtype=np.float32)
+  with host_span("uploads"):
+    b = sp.from_numpy(host)
+  K.reset_counts()
+  held = []
+  pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
+  with pool:
+    launches = slice_norms(b, host, card, pool)
+    # contractions
+    with host_span("draws"):
+      mats = [rng.standard_normal((EINSUM_N, EINSUM_N), dtype=np.float32)
+              for _ in range(3)]
+    with host_span("uploads"):
+      dev = [sp.from_numpy(m) for m in mats]
+    e = sp.einsum("ij,jk,kl->il", *dev)
+    dots = []
+    e.visit(lambda node: dots.append(node) if isinstance(
+        node, TensorDotExpr) else None)
+    check(len(dots) == 2, f"einsum of three did not go pairwise ({dots})")
+    a64, b64, c64 = (m.astype(np.float64) for m in mats)
+    slice_item(f"sp.einsum('ij,jk,kl->il') at {EINSUM_N}^2 (two "
+               f"TensorDotExprs, float64)", lambda: e,
+               lambda: (a64 @ b64) @ c64, pool, held, 1e-10,
+               "float64 products in another order")
+    slice_item(f"sp.tensordot(A, B, axes=2) at {EINSUM_N}^2",
+               lambda: sp.tensordot(dev[0], dev[1], axes=2),
+               lambda: np.asarray((a64 * b64).sum()), pool, held, 1e-10,
+               "float64 sums in another order")
+    slice_item("sp.vdot(b, b)", lambda: sp.vdot(b, b),
+               lambda: np.asarray((host.astype(np.float64) ** 2).sum()),
+               pool, held, 1e-7, "float32 products, each rounded once")
+    del dev
+    kb = (host[:KRON_BLOCK, :KRON_BLOCK], host[KRON_BLOCK:2 * KRON_BLOCK,
+                                               :KRON_BLOCK])
+    slice_item(f"sp.kron of two {KRON_BLOCK}^2 blocks ({n}^2)",
+               lambda: sp.kron(b[:KRON_BLOCK, :KRON_BLOCK],
+                               b[KRON_BLOCK:2 * KRON_BLOCK, :KRON_BLOCK]),
+               lambda: np.kron(*kb), pool, held, 0,
+               "NumPy's float32 products, each rounded once")
+    rows64 = host[:COV_ROWS].astype(np.float64)
+    slice_item(f"sp.cov(b[:{COV_ROWS}])", lambda: sp.cov(b[:COV_ROWS]),
+               lambda: np.cov(rows64), pool, held, 1e-10,
+               "float64 sums in another order")
+    slice_item(f"sp.corrcoef(b[:{COV_ROWS}])",
+               lambda: sp.corrcoef(b[:COV_ROWS]),
+               lambda: np.corrcoef(rows64), pool, held, 1e-10,
+               "float64 sums in another order")
+    torch.cuda.empty_cache()
+    # shapes, bit for bit
+    shapes = [
+        ("sp.concatenate([b, b])", lambda: sp.concatenate([b, b]),
+         lambda: np.concatenate([host, host])),
+        ("sp.stack([b, b])", lambda: sp.stack([b, b]),
+         lambda: np.stack([host, host])),
+        (f"sp.tile(b[:{TILE_ROWS}], (2, 1))",
+         lambda: sp.tile(b[:TILE_ROWS], (2, 1)),
+         lambda: np.tile(host[:TILE_ROWS], (2, 1))),
+        ("sp.roll(b, 7, axis=1)", lambda: sp.roll(b, 7, axis=1),
+         lambda: np.roll(host, 7, axis=1)),
+        ("sp.pad(b, 1, mode='edge')", lambda: sp.pad(b, 1, mode="edge"),
+         lambda: np.pad(host, 1, mode="edge")),
+        ("sp.rot90(b)", lambda: sp.rot90(b), lambda: np.rot90(host)),
+        ("sp.flip(b)", lambda: sp.flip(b), lambda: np.flip(host)),
+    ]
+    for label, fn, oracle in shapes:
+      slice_item(label, fn, oracle, pool, held)
+      torch.cuda.empty_cache()
+    for i, piece in enumerate(sp.array_split(b, 3)):
+      slice_item(f"sp.array_split(b, 3)[{i}]", lambda p=piece: p,
+                 lambda i=i: np.array_split(host, 3)[i], pool, held)
+    # statistics
+    slice_item(f"sp.histogram(b, bins={HIST_BINS}, range={HIST_RANGE})",
+               lambda: sp.histogram(b, bins=HIST_BINS, range=HIST_RANGE),
+               lambda: _hist_blocks(host), pool, held, 0,
+               "edges multiples of 2^-7, exact in float32")
+    with host_span("draws"):
+      xp = np.sort(rng.uniform(-1.0, 1.0, INTERP_KNOTS))
+      fp = rng.standard_normal(INTERP_KNOTS)
+      xq = rng.uniform(-1.1, 1.1, INTERP_POINTS)
+    with host_span("uploads"):
+      dxq, dxp, dfp = sp.from_numpy(xq), sp.from_numpy(xp), sp.from_numpy(fp)
+    slice_item(f"sp.interp of {INTERP_POINTS} points over {INTERP_KNOTS} "
+               f"knots", lambda: sp.interp(dxq, dxp, dfp),
+               _interp_blocks(xq, xp, fp, pool), pool, held, 1e-14,
+               "NumPy's float64 operations, an ulp apart at most")
+    del dxq, dxp, dfp
+    with host_span("draws"):
+      sig = rng.standard_normal(CONV_N, dtype=np.float32)
+      taps = rng.standard_normal(CONV_TAPS, dtype=np.float32)
+    s64, t64 = sig.astype(np.float64), taps.astype(np.float64)
+    # a float32 sum of 129 products and its rounding: within 130 float32
+    # units of the largest sum of |terms|
+    scale = 130 * 2.0 ** -24
+
+    def conv_bound(want, s=s64, t=t64):
+      return scale * float(np.convolve(np.abs(s), np.abs(t)).max())
+
+    slice_item(f"sp.convolve of {CONV_N} values with {CONV_TAPS} taps",
+               lambda: sp.convolve(sp.from_numpy(sig), sp.from_numpy(taps)),
+               lambda: np.convolve(s64, t64), pool, held, conv_bound,
+               "130 float32 units of the largest sum of |terms|")
+    slice_item("sp.diff(b, axis=1)", lambda: sp.diff(b, axis=1),
+               lambda: np.diff(host, axis=1), pool, held, 0,
+               "NumPy's float32 differences")
+    for axis, part in enumerate(sp.gradient(b)):
+      slice_item(f"sp.gradient(b)[{axis}]", lambda p=part: p,
+                 lambda a=axis: np.gradient(host, axis=a), pool, held, 0,
+                 "NumPy's float32 differences and halvings")
+    idx = rng.integers(-n, n, (n, TAKE_COLS))
+    slice_item(f"sp.take_along_axis(b, idx, axis=1) ({n} x {TAKE_COLS}, "
+               f"negative indices)",
+               lambda: sp.take_along_axis(b, sp.from_numpy(idx), 1),
+               lambda: np.take_along_axis(host, idx, 1), pool, held)
+    packed = sp.packbits(b > 0)
+    slice_item("sp.packbits(b > 0)", lambda: packed,
+               lambda: np.packbits(host > 0), pool, held)
+    slice_item("sp.unpackbits(sp.packbits(b > 0))",
+               lambda: sp.unpackbits(packed),
+               lambda: (host > 0).reshape(-1).astype(np.uint8), pool, held)
+    with host_span("waiting for the comparisons"):
+      results = [f.result() for f in held]
+    t_exit = time.perf_counter()
+  HOST_SPANS["pool exit"] = time.perf_counter() - t_exit
+  for ok, line in results:
+    print(line)
+  for ok, line in results:
+    check(ok, f"phase 17 item disagrees with NumPy:{line}")
+  with host_span("free"):
+    del b, host, held, results
+    torch.cuda.empty_cache()
+  return launches
 
 
 def main() -> None:
@@ -2992,10 +3323,12 @@ def main() -> None:
   t_start = time.perf_counter()
   t_phase = [t_start]
 
-  def done(phase: int) -> None:
+  def done(phase: int) -> float:
     now = time.perf_counter()
-    print(f"  phase {phase} wall {now - t_phase[0]:.2f} s")
+    wall = now - t_phase[0]
+    print(f"  phase {phase} wall {wall:.2f} s")
     t_phase[0] = now
+    return wall
 
   print("phase 1: build the kernels, one nvcc per source, in parallel")
   build.load_all(KERNELS)
@@ -3119,11 +3452,22 @@ def main() -> None:
         "16384^2 float32: K1 on the new ufuncs, K2 with a tanh epilogue, "
         "eye/linspace/meshgrid/zeros_like, nonzero/compress/choose/resize/"
         "unique/isin/bincount, map_with_location")
+  HOST_SPANS.clear()
   builtin_k1, builtin_k2 = phase_builtins(device, card)
   check(builtin_k1 >= 7, "phase 16 did not launch K1 seven times")
   k1["launches"] += builtin_k1
   k2_row["launches"] += builtin_k2
-  done(16)
+  print_host_spans(16, done(16))
+
+  print("phase 17: the linear-algebra, statistics, polynomial, histogram and "
+        "shape builtins at 16384^2 float32: K1 through sp.norm, einsum, "
+        "tensordot, vdot, kron, cov, corrcoef, concatenate/stack/tile/roll/"
+        "pad/rot90/flip/array_split, histogram, interp, convolve, diff, "
+        "gradient, take_along_axis, packbits/unpackbits")
+  slice_k1 = phase_slice(device, card)
+  check(slice_k1 >= 3, "phase 17 did not launch K1 three times")
+  k1["launches"] += slice_k1
+  print_host_spans(17, done(17))
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

@@ -54,9 +54,9 @@ def shutdown() -> None:
 
 from spartan_tpu_torch.expr.builtins import *  # noqa: F401,F403,E402
 from spartan_tpu_torch.expr.builtins import __all__ as _builtin_all  # noqa: E402
-from spartan_tpu_torch.expr.base import (Expr, ListExpr,  # noqa: E402
-                                         NotShapeable, Val, evaluate, force,
-                                         lazify)
+from spartan_tpu_torch.expr.base import (DictExpr, Expr,  # noqa: E402
+                                         ListExpr, NotShapeable, TupleExpr,
+                                         Val, evaluate, force, lazify)
 from spartan_tpu_torch.expr.map import map  # noqa: E402,A004
 from spartan_tpu_torch.expr.reduce import reduce  # noqa: E402,A004
 from spartan_tpu_torch.expr.loop import fori_loop, make_fori  # noqa: E402
@@ -67,7 +67,7 @@ from spartan_tpu_torch.backend.sparse import (SparseArray,  # noqa: E402
 
 __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "Mesh", "SpartanArray", "get_mesh", "make_mesh", "with_mesh",
-           "Expr", "ListExpr", "NotShapeable", "Val", "evaluate", "force",
+           "Expr", "ListExpr", "TupleExpr", "DictExpr", "NotShapeable", "Val", "evaluate", "force",
            "lazify", "map",
            "reduce", "fori_loop", "make_fori", "interop", "sparse",
            "SparseArray", "sparse_diagonal", "sprandn"] + list(_builtin_all)

@@ -26,8 +26,8 @@ from spartan_tpu_torch.core.array import SpartanArray
 from spartan_tpu_torch.core.mesh import Mesh, get_mesh
 from spartan_tpu_torch.core.tiling import Tiling
 from spartan_tpu_torch.expr import optimize as opt_mod
-from spartan_tpu_torch.expr.base import (Aval, EmitCtx, Expr, ListExpr,
-                                         NotShapeable, Val,
+from spartan_tpu_torch.expr.base import (Aval, DictExpr, EmitCtx, Expr,
+                                         ListExpr, NotShapeable, Val,
                                          semantic_flags_fingerprint)
 from spartan_tpu_torch.util import log_debug
 
@@ -162,6 +162,9 @@ def as_device_tensor(v, device: torch.device) -> torch.Tensor:
 
 
 def _wrap(kind: str, value, tiling: Tiling):
+  if kind == "dict":
+    return {k: SpartanArray(as_device_tensor(v, tiling.mesh.device), tiling)
+            for k, v in value.items()}
   if kind == "list":
     return [SpartanArray(as_device_tensor(v, tiling.mesh.device), tiling)
             for v in value]
@@ -239,7 +242,8 @@ def evaluate(expr: Expr):
     sys.setrecursionlimit(min(depth_budget, 1_000_000))
   stats["evals"] += 1
   fkey = flags_key(mesh)
-  kind = "list" if isinstance(expr, ListExpr) else "one"
+  kind = ("dict" if isinstance(expr, DictExpr) else
+          "list" if isinstance(expr, ListExpr) else "one")
 
   # fast lane: skip the optimizer for a structure seen before.  Only valid
   # when no interior node carries an eval cache (that changes what

@@ -223,3 +223,15 @@ def from_numpy(arr, tile_hint: Optional[Sequence[int]] = None,
   tiling = auto_tiling(arr.shape, tile_hint, mesh or get_mesh())
   data = torch.from_numpy(arr).to(tiling.mesh.device, copy=True)
   return SpartanArray(data, tiling)
+
+
+def create(shape: Sequence[int], dtype=np.float64,
+           tile_hint: Optional[Sequence[int]] = None,
+           mesh: Optional[Mesh] = None, fill: float = 0) -> SpartanArray:
+  """A dense array of ``shape`` filled with ``fill`` on the mesh's device
+  (reference ``DistArray.create``)."""
+  shape = tuple(int(s) for s in shape)
+  tiling = auto_tiling(shape, tile_hint, mesh or get_mesh())
+  data = torch.full(shape, fill, dtype=to_torch_dtype(dtype),
+                    device=tiling.mesh.device)
+  return SpartanArray(data, tiling)

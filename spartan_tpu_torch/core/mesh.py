@@ -155,6 +155,14 @@ def with_mesh(mesh: Mesh):
     _state.stack.pop()
 
 
+def replicated(mesh: Optional[Mesh] = None):
+  """The replicated placement on ``mesh`` (default: the active one): a
+  tiling with the empty spec, every shard reading the whole array (the
+  reference's ``NamedSharding(mesh, PartitionSpec())``)."""
+  from spartan_tpu_torch.core.tiling import Tiling
+  return Tiling(mesh or get_mesh())
+
+
 def num_devices(mesh: Optional[Mesh] = None) -> int:
   """The number of shards of ``mesh`` (default: the active one)."""
   return (mesh or get_mesh()).size

@@ -724,6 +724,31 @@ class ListExpr(Expr):
     return len(self.vals)
 
 
+class TupleExpr(ListExpr):
+  """A tuple of sub-expressions evaluated together (a ``ListExpr``)."""
+
+
+class DictExpr(Expr):
+  """A dict of sub-expressions evaluated together (one region): evaluates
+  to a dict of arrays under the same keys."""
+
+  _members = ("vals",)
+  _params = ("keys",)
+
+  def __init__(self, d: Dict[str, Any]):
+    keys = tuple(d.keys())
+    super().__init__(vals=[lazify(d[k]) for k in keys], keys=keys)
+
+  def _emit(self, ctx, deps):
+    return dict(zip(self.keys, deps))
+
+  def aval(self):
+    return {k: v.aval() for k, v in zip(self.keys, self.vals)}
+
+  def __getitem__(self, k):
+    return self.vals[self.keys.index(k)]
+
+
 def _same_kind_cast(src: torch.dtype, dst: torch.dtype) -> bool:
   """NumPy's ``can_cast(src, dst, "same_kind")`` (bfloat16 as a float)."""
   from spartan_tpu_torch.core.array import to_numpy_dtype

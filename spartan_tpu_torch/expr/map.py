@@ -68,6 +68,22 @@ class MapWithLocationExpr(Expr):
     return self.fn(*deps, coords, **self.fn_kw)
 
 
+def structural(fn: Callable) -> Callable:
+  """Mark a map function that is not elementwise (its result's shape is
+  not the broadcast of its inputs' shapes: a gather, ``kron``, ``pad``):
+  the optimizer then keeps its inputs whole (``ConstFoldCreations``)."""
+  fn.structural = True
+  return fn
+
+
+def is_structural(op: LocalExpr) -> bool:
+  """Does the fused kernel ``op`` call a :func:`structural` function?"""
+  from spartan_tpu_torch.expr.local import _postorder
+  return _postorder(op, lambda n: False,
+                    lambda n, deps: (getattr(n.fn, "structural", False)
+                                     or _py.any(deps)))
+
+
 def map_with_location(inputs, fn: Callable, fn_kw=None) -> MapWithLocationExpr:
   """Lazy map where ``fn(*values, coords)`` sees the global index grids."""
   if isinstance(inputs, Expr) or not isinstance(inputs, (list, tuple)):

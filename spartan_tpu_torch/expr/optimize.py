@@ -5,7 +5,8 @@
   ``LocalExpr`` kernel, spliced into the consuming reduction (what the
   fused-reduce kernel translates);
 * ``ConstFoldCreations`` — ``ones(shape) + b`` → ``1.0 + b`` (a strong 0-d
-  leaf of the creation's dtype) when ``b`` already carries the shape;
+  leaf of the creation's dtype) when ``b`` already carries the shape, in
+  elementwise kernels only (not past a ``map.structural`` function);
 * ``AutoTiling`` — the tiling pass; on the single-device mesh every array
   is one tile, so it changes nothing.  The cost-model ``SmartTiling`` waits
   for multi-device meshes.
@@ -21,7 +22,7 @@ from spartan_tpu_torch.config import FLAGS
 from spartan_tpu_torch.core.array import to_numpy_dtype
 from spartan_tpu_torch.expr import local as local_mod
 from spartan_tpu_torch.expr.base import Expr, Val, ensure_recursion_budget
-from spartan_tpu_torch.expr.map import MapExpr
+from spartan_tpu_torch.expr.map import MapExpr, is_structural
 from spartan_tpu_torch.expr.ndarray import CreationExpr
 from spartan_tpu_torch.expr.reduce import ReduceExpr
 
@@ -181,6 +182,8 @@ class ConstFoldCreations:
         return e
       if isinstance(e, ReduceExpr) and e.local_op is None:
         return e
+      if is_structural(e.op if isinstance(e, MapExpr) else e.local_op):
+        return e  # a ones((n,)) beside a gather index stays an array
       shapes = [c.shape for c in e.inputs]
       new_inputs = list(e.inputs)
       changed = False

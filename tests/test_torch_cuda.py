@@ -5,7 +5,8 @@
 tensors; the sharded entry points (K3a sharded, K3d, K5b, K6b) against
 their unsharded kernels; the expression layer's, PageRank's, ALS's, the
 stencil examples' and make_spmv_windowed's kernel paths; shuffle, integer
-dot, k-means and logistic regression on the card.  Run on a machine with
+dot, k-means, logistic regression and the linear-algebra, statistics and
+shape builtins (integer einsum's exact route among them) on the card.  Run on a machine with
 an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1468,6 +1469,56 @@ def test_integer_dot_and_tensordot_on_card(device, dtype):
                       ([1, 2], [1, 0])).glom()
   np.testing.assert_array_equal(got_t, np.tensordot(c, d, ([1, 2], [1, 0])))
   assert D.counts["exact_int_route"] == 3
+
+
+SLICE_RNG = np.random.default_rng(14)
+SLICE_I = SLICE_RNG.integers(-1 << 20, 1 << 20, (6, 7)).astype(np.int64)
+SLICE_F = SLICE_RNG.standard_normal((6, 7))
+# the linear-algebra, statistics and shape builtins on the card: (the
+# port's call over sp, NumPy's value)
+SLICE_CASES = {
+    "einsum_batch_int": (lambda m: m.einsum("bij,bjk->bik", SLICE_I[None],
+                                            SLICE_I.T[None]),
+                         lambda: np.einsum("bij,bjk->bik", SLICE_I[None],
+                                           SLICE_I.T[None])),
+    "einsum_diag_int": (lambda m: m.einsum("ii->i", SLICE_I[:6, :6]),
+                        lambda: np.einsum("ii->i", SLICE_I[:6, :6])),
+    "inner_int": (lambda m: m.inner(SLICE_I, SLICE_I),
+                  lambda: np.inner(SLICE_I, SLICE_I)),
+    "kron_int": (lambda m: m.kron(SLICE_I[:2, :3], SLICE_I[2:4, :2]),
+                 lambda: np.kron(SLICE_I[:2, :3], SLICE_I[2:4, :2])),
+    "convolve_int": (lambda m: m.convolve(SLICE_I[0], SLICE_I[1, :3]),
+                     lambda: np.convolve(SLICE_I[0], SLICE_I[1, :3])),
+    "take_along_negative": (lambda m: m.take_along_axis(
+        m.from_numpy(SLICE_F), m.from_numpy(np.array([[-1, 0, -7]] * 6)), 1),
+                            lambda: np.take_along_axis(
+        SLICE_F, np.array([[-1, 0, -7]] * 6), 1)),
+    "histogram": (lambda m: m.histogram(m.from_numpy(SLICE_F), 5),
+                  lambda: np.histogram(SLICE_F, 5)[0]),
+    "packbits_roundtrip": (lambda m: m.unpackbits(m.packbits(
+        m.from_numpy(SLICE_F > 0), axis=1), axis=1, count=7),
+                           lambda: (SLICE_F > 0).astype(np.uint8)),
+    "pad_reflect_odd": (lambda m: m.pad(m.from_numpy(SLICE_F), (2, 9),
+                                        "reflect", reflect_type="odd"),
+                        lambda: np.pad(SLICE_F, (2, 9), "reflect",
+                                       reflect_type="odd")),
+    "concatenate_mixed": (lambda m: m.concatenate(
+        [m.from_numpy(SLICE_I.astype(np.int32)), m.from_numpy(SLICE_F)], 1),
+                          lambda: np.concatenate(
+        [SLICE_I.astype(np.int32), SLICE_F], 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_CASES))
+def test_slice_builtins_on_card(device, name):
+  """Integer contractions take the exact route on the card (torch's CUDA
+  matmul has no integers); gathers wrap negative indices without a
+  device-side assert; the rest as on the CPU, exactly."""
+  call, want = SLICE_CASES[name]
+  got = np.asarray(call(sp).glom())
+  expected = want()
+  assert got.dtype == expected.dtype
+  np.testing.assert_array_equal(got, expected)
 
 
 def test_shuffle_drops_out_of_range_updates_on_card(device):

@@ -134,7 +134,20 @@ raises on any failure:
      with 1024 bins, interp of 2^26 points over 2^20 knots, convolve of
      2^24 values with 129 taps, diff, gradient, take_along_axis and
      packbits/unpackbits, each against NumPy (its comparisons on six host
-     threads while the card works), the host seconds printed as in 16.
+     threads while the card works), the host seconds printed as in 16;
+ 18. the sorts, searches, order statistics and prefix scans at config 1's
+     16384^2 float32 through the entry points: sp.sort/sp.argsort along
+     each axis and of the raveled 2^28 elements, held on the card
+     (non-decreasing, the argsort a stable permutation by bincount, the
+     gather equal to the sort) and on sampled rows, columns and ranks
+     against NumPy; stable argsorts of 2^26 keys with heavy int32 ties,
+     with -0.0 beside +0.0 and with NaNs of both signs, exactly against
+     NumPy's stable argsort; cumsum (float64) along an axis and raveled,
+     cumprod, cummax/cummin carrying NaN; median, percentile([1, 50, 99])
+     and nanmedian with NaN planted, whole and along an axis;
+     searchsorted/digitize of 2^26 queries into 2^20 boundaries;
+     permutation(2^26); a logaddexp scan_fn over 2^24 values; each item's
+     device time on its own line, the host seconds printed as in 16.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
@@ -3309,6 +3322,340 @@ def phase_slice(device, card: str) -> int:
   return launches
 
 
+
+# phase 18: the sorts, searches, order statistics and prefix scans at
+# config 1's 16384^2 float32
+SORT_N = 16384
+SORT_SAMPLES = 8  # rows, columns and ranks of each sort held to NumPy
+STABLE_KEYS = 1 << 26
+SEARCH_QUERIES, SEARCH_BOUNDS = 1 << 26, 1 << 20
+PERM_N = 1 << 26
+LSE_N = 1 << 24
+NAN_SHARE = 2.0 ** -16  # of b's entries, besides one in each sampled row
+STATS_Q = (1, 50, 99)
+F32_ULP = 2.0 ** -23
+
+
+def _agree(label, got, oracle, tol, why):
+  """Run on a host thread: ``got`` against NumPy's ``oracle()``, NaN
+  where NumPy has NaN and the rest exactly in NumPy's dtype (``tol`` 0)
+  or each element within ``tol(want)``; (passed, its report line)."""
+  t0 = time.perf_counter()
+  want = np.asarray(oracle())
+  got = np.asarray(got)
+  if got.shape != want.shape:
+    return False, f"  {label}: shape {got.shape}, expected {want.shape}"
+  nan_w = np.isnan(want) if want.dtype.kind == "f" else np.zeros(
+      want.shape, bool)
+  nan_g = np.isnan(got) if got.dtype.kind == "f" else np.zeros(
+      got.shape, bool)
+  ok = bool(np.array_equal(nan_g, nan_w))
+  g, w = got[~nan_w], want[~nan_w]
+  if tol == 0:
+    ok = ok and got.dtype == want.dtype and bool(np.array_equal(g, w))
+    if ok and got.dtype.kind == "f":  # -0.0 and +0.0 in NumPy's places
+      ok = bool(np.array_equal(np.signbit(g), np.signbit(w)))
+    what, err = "bit for bit", 0.0 if ok else float("nan")
+  else:
+    err = float((np.abs(g.astype(np.float64) - w) / tol(w)).max()
+                if g.size else 0.0)
+    ok, what = ok and err <= 1.0, "worst share of the bound"
+  return ok, (f"  {label}: {what} {err:.3g} ({why}); NaN at "
+              f"{int(nan_w.sum())} places; compared in "
+              f"{time.perf_counter() - t0:.2f} s on a host thread")
+
+
+def _evaluated(label, fn):
+  """``fn()`` (an expr) evaluated, then evaluated again by ``event_ms``,
+  queued behind a spin so that the CUDA events time the card and not the
+  host's gaps while six threads run NumPy's comparisons (the first call
+  grows the allocator's pool to the item's buffers): the second call's
+  device time, printed, and the first call's tensor."""
+  with Timer() as t:
+    arr = fn().evaluate()
+    ms, host, ahead = event_ms(lambda: fn().evaluate())
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  print(f"  {label}: device {ms:.3f} ms (second call, queued ahead: "
+        f"{ahead}, host issue {host:.1f} ms), wall of both "
+        f"{t.elapsed * 1e3:.1f} ms")
+  return arr.data
+
+
+def _checked_on_card(label, x, s, idx, axis) -> None:
+  """A sort along ``axis`` (None: of the raveled array) held on the card:
+  non-decreasing, the indices a permutation of each slice (each
+  slice-and-index key counted once by ``bincount``), increasing inside
+  each run of equal values (stable), and ``x`` gathered by them equal to
+  the sort."""
+  d = 0 if axis is None else axis
+  xs = x.reshape(-1) if axis is None else x
+  m = s.shape[d]
+  lo, hi = s.narrow(d, 0, m - 1), s.narrow(d, 1, m - 1)
+  rising = bool((hi >= lo).all())
+  stable = bool(((hi != lo) | (idx.narrow(d, 1, m - 1)
+                               > idx.narrow(d, 0, m - 1))).all())
+  gathered = bool(torch.equal(torch.take_along_dim(xs, idx, d), s))
+  if axis is None:
+    keys = idx
+  else:
+    line = torch.arange(SORT_N, device=x.device)
+    keys = (idx + line[:, None] * SORT_N if axis == 1
+            else idx * SORT_N + line[None, :])
+  once = bool((torch.bincount(keys.reshape(-1), minlength=keys.numel())
+               == 1).all())
+  del keys
+  print(f"  {label} on the card: non-decreasing {rising}, a permutation "
+        f"{once}, stable {stable}, the gather equal to the sort {gathered}")
+  check(rising and once and stable and gathered,
+        f"{label} failed its checks on the card")
+
+
+def _sorts(b, x, host, lines, rng, pool, hold) -> None:
+  """``sp.sort``/``sp.argsort`` along each axis and of the raveled 2^28
+  elements, held on the card, sampled slices held to NumPy."""
+  flat = host.reshape(-1)
+  ranks = np.sort(rng.choice(flat.size, SORT_SAMPLES, replace=False))
+  for axis in (1, 0, None):
+    s = _evaluated(f"sp.sort(b, axis={axis})", lambda: sp.sort(b, axis=axis))
+    idx = _evaluated(f"sp.argsort(b, axis={axis})",
+                     lambda: sp.argsort(b, axis=axis))
+    _checked_on_card(f"sort and argsort along axis {axis}", x, s, idx, axis)
+    if axis == 1:
+      part = host[lines]
+      hold(f"sp.sort(b, axis=1), {SORT_SAMPLES} rows", s[lines].cpu(),
+           lambda p=part: np.sort(p, axis=1))
+      hold(f"sp.argsort(b, axis=1), {SORT_SAMPLES} rows", idx[lines].cpu(),
+           lambda p=part: np.argsort(p, axis=1, kind="stable"))
+    elif axis == 0:
+      part = host[:, lines]
+      hold(f"sp.sort(b, axis=0), {SORT_SAMPLES} columns",
+           s[:, lines].cpu(), lambda p=part: np.sort(p, axis=0))
+      hold(f"sp.argsort(b, axis=0), {SORT_SAMPLES} columns",
+           idx[:, lines].cpu(),
+           lambda p=part: np.argsort(p, axis=0, kind="stable"))
+    else:
+      at = torch.from_numpy(ranks).to(x.device)
+      ranked = pool.submit(lambda: np.partition(flat, ranks)[ranks])
+      hold(f"sp.sort(b, axis=None) at {SORT_SAMPLES} ranks of {flat.size}",
+           s[at].cpu(), ranked.result)
+      hold("sp.argsort(b, axis=None) at those ranks, gathered",
+           flat[idx[at].cpu().numpy()], ranked.result)
+    del s, idx
+    torch.cuda.empty_cache()
+
+
+def _stable_keys(rng):
+  """2^26 keys of each kind that stress a sort's stability."""
+  k = STABLE_KEYS
+  ints = rng.integers(0, 16, k, dtype=np.int32)
+  zeros = rng.choice(np.array([-1.0, -0.0, 0.0, 1.0], np.float32), k)
+  nans = rng.standard_normal(k, dtype=np.float32)
+  nans[rng.random(k) < 0.05] = np.nan
+  nans[rng.random(k) < 0.05] = -np.nan  # the sign bit set
+  nans[rng.random(k) < 0.05] = np.float32(-0.0)
+  nans[rng.random(k) < 0.05] = np.float32(0.0)
+  return {"int32 keys in [0, 16)": ints,
+          "float32 keys of -1, -0.0, +0.0 and 1": zeros,
+          "float32 normal keys, 5% NaN, 5% -NaN, 5% -0.0, 5% +0.0": nans}
+
+
+def _scans(b, bn, x, host, hostn, lines, hold) -> None:
+  """cumsum in float64 along axis 1 (sampled rows) and of the raveled
+  array (whole), cumprod (sampled rows), and cummax/cummin carrying NaN
+  (sampled rows and columns), against NumPy."""
+  n = SORT_N
+  for axis in (1, None):
+    got = _evaluated(f"sp.cumsum(b, axis={axis})",
+                     lambda: sp.cumsum(b, axis=axis))
+    check(got.dtype == torch.float64,
+          f"cumsum of float32 accumulated in {got.dtype}, not float64")
+    running = torch.cumsum(x.abs().reshape(-1) if axis is None else x.abs(),
+                           0 if axis is None else axis, dtype=torch.float64)
+    scale = float(running.max())
+    del running
+    tol = (lambda w, c=scale: np.full(w.shape, 1e-9 * c))
+    why = ("float64 sums in another order: 1e-9 of the largest running sum "
+           "of |b| (float32 sums would stray about 6e-8 of it)")
+    if axis is None:
+      hold("sp.cumsum(b, axis=None) (float64), whole", got.cpu(),
+           lambda: np.cumsum(host, dtype=np.float64), tol, why)
+    else:
+      hold(f"sp.cumsum(b, axis=1) (float64), {SORT_SAMPLES} rows",
+           got[lines].cpu(),
+           lambda: np.cumsum(host[lines], axis=1, dtype=np.float64), tol,
+           why)
+    del got
+  got = _evaluated("sp.cumprod(1 + 0.001 * b, axis=1)",
+                   lambda: sp.cumprod(1 + 0.001 * b, axis=1))
+  hold(f"sp.cumprod(1 + 0.001 * b, axis=1) (float64), {SORT_SAMPLES} rows",
+       got[lines].cpu(),
+       lambda: np.cumprod(1 + 0.001 * host[lines], axis=1, dtype=np.float64),
+       lambda w: 1e-10 * np.abs(w),
+       f"float64 products: 1e-10 of each value ({n} factors at most)")
+  del got
+  for name, ufunc in (("cummax", np.maximum), ("cummin", np.minimum)):
+    for axis in (1, 0):
+      got = _evaluated(f"sp.{name}(b with NaN, axis={axis})",
+                       lambda f=getattr(sp, name), a=axis: f(bn, axis=a))
+      pick = (lambda t: t[lines]) if axis == 1 else (lambda t: t[:, lines])
+      hold(f"sp.{name}(b with NaN, axis={axis}), {SORT_SAMPLES} "
+           f"{'rows' if axis == 1 else 'columns'}", pick(got).cpu(),
+           lambda u=ufunc, a=axis, p=pick: u.accumulate(p(hostn), axis=a))
+      del got
+  torch.cuda.empty_cache()
+
+
+def _nan_planted(host, lines, rng):
+  """``host`` with NAN_SHARE of its entries NaN and one NaN in each of the
+  sampled ``lines`` as rows and as columns, half of them with the sign
+  bit set."""
+  out = host.copy()
+  n = host.shape[1]
+  at = np.concatenate([rng.integers(0, out.size, int(out.size * NAN_SHARE)),
+                       lines * n + rng.integers(0, n, lines.size),
+                       rng.integers(0, n, lines.size) * n + lines])
+  out.reshape(-1)[at] = np.where(np.arange(at.size) % 2 == 0, np.nan,
+                                 -np.nan).astype(np.float32)
+  return out
+
+
+def _order_statistics(b, bn, host, hostn, lines, hold) -> None:
+  """median, percentile(q=[1, 50, 99]) and nanmedian with NaN planted,
+  of the whole array and along axis 1 (sampled rows held to NumPy's
+  float64 values, rounded once to float32 as the port's are)."""
+  one_ulp = lambda w: F32_ULP * np.maximum(np.abs(w), 1e-30)
+  why = "one float32 ulp: NumPy's float64 order statistics rounded once"
+  q = list(STATS_Q)
+  rows = host[lines].astype(np.float64)
+  rows_n = hostn[lines].astype(np.float64)
+  items = [
+      ("sp.median(b)", lambda: sp.median(b),
+       lambda: np.median(host.astype(np.float64))),
+      (f"sp.percentile(b, {q})", lambda: sp.percentile(b, q),
+       lambda: np.percentile(host.astype(np.float64), q)),
+      ("sp.nanmedian(b with NaN)", lambda: sp.nanmedian(bn),
+       lambda: np.nanmedian(hostn.astype(np.float64))),
+  ]
+  for label, fn, oracle in items:
+    got = _evaluated(label, fn)
+    hold(label, got.cpu(), oracle, one_ulp, why)
+  axis_items = [
+      ("sp.median(b, axis=1)", lambda: sp.median(b, axis=1),
+       lambda: np.median(rows, axis=1), lambda t: t[lines]),
+      (f"sp.percentile(b, {q}, axis=1)", lambda: sp.percentile(b, q, axis=1),
+       lambda: np.percentile(rows, q, axis=1), lambda t: t[:, lines]),
+      ("sp.nanmedian(b with NaN, axis=1)", lambda: sp.nanmedian(bn, axis=1),
+       lambda: np.nanmedian(rows_n, axis=1), lambda t: t[lines]),
+      ("sp.median(b with NaN, axis=1)", lambda: sp.median(bn, axis=1),
+       lambda: np.median(rows_n, axis=1), lambda t: t[lines]),
+  ]
+  for label, fn, oracle, pick in axis_items:
+    got = _evaluated(label, fn)
+    hold(f"{label}, {SORT_SAMPLES} rows", pick(got).cpu(), oracle, one_ulp,
+         why)
+  torch.cuda.empty_cache()
+
+
+def _searches(rng, pool, hold) -> None:
+  """searchsorted (both sides) and digitize (increasing and decreasing
+  bins, both sides) of 2^26 queries into 2^20 boundaries with ties,
+  exactly; NumPy's searches in blocks on the pool."""
+  bounds = np.sort(rng.standard_normal(SEARCH_BOUNDS, dtype=np.float32))
+  bounds[1::97] = bounds[0::97][:bounds[1::97].size]  # runs of ties
+  bounds = np.sort(bounds)
+  queries = rng.standard_normal(SEARCH_QUERIES, dtype=np.float32)
+  queries[::101] = bounds[rng.integers(0, bounds.size,
+                                       queries[::101].size)]
+  desc = bounds[::-1].copy()
+  db, dq, dd = sp.from_numpy(bounds), sp.from_numpy(queries), \
+      sp.from_numpy(desc)
+  step = -(-queries.size // ORACLE_BLOCKS)
+
+  def blocks(fn):
+    parts = [pool.submit(fn, queries[i:i + step])
+             for i in range(0, queries.size, step)]
+    return lambda: np.concatenate([f.result() for f in parts])
+
+  for side in ("left", "right"):
+    oracle = blocks(lambda v, s=side: np.searchsorted(bounds, v, side=s))
+    got = _evaluated(f"sp.searchsorted(bounds, queries, side={side!r})",
+                     lambda s=side: sp.searchsorted(db, dq, side=s))
+    hold(f"sp.searchsorted of {queries.size} queries into {bounds.size} "
+         f"boundaries, side={side!r}", got.cpu(), oracle)
+  for label, bins, dbins in (("increasing", bounds, db),
+                             ("decreasing", desc, dd)):
+    for right in (False, True):
+      oracle = blocks(lambda v, b_=bins, r=right: np.digitize(v, b_, r))
+      got = _evaluated(f"sp.digitize(queries, {label} bins, right={right})",
+                       lambda d=dbins, r=right: sp.digitize(dq, d, r))
+      hold(f"sp.digitize, {label} bins, right={right}", got.cpu(), oracle)
+  del db, dq, dd
+
+
+def phase_sorts(device, card: str) -> None:
+  """The sorts, searches, order statistics and prefix scans at config 1's
+  16384^2 float32 through the entry points: each held on the card where
+  it can be (a sort non-decreasing, its argsort a stable permutation),
+  and against NumPy on six host threads while the card works."""
+  rng = np.random.default_rng(18)
+  n = SORT_N
+  lines = np.sort(rng.choice(n, SORT_SAMPLES, replace=False))
+  with host_span("draws"):
+    host = rng.standard_normal((n, n), dtype=np.float32)
+    hostn = _nan_planted(host, lines, rng)
+    keys = _stable_keys(rng)
+    lse = rng.standard_normal(LSE_N, dtype=np.float32)
+  with host_span("uploads"):
+    b, bn = sp.from_numpy(host), sp.from_numpy(hostn)
+  x = b.evaluate().data
+  held = []
+  pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
+
+  def hold(label, got, oracle, tol=0, why="exact"):
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    held.append(pool.submit(_agree, label, got, oracle, tol, why))
+
+  with pool:
+    _sorts(b, x, host, lines, rng, pool, hold)
+    for label, k in keys.items():
+      with host_span("uploads"):
+        dk = sp.from_numpy(k)
+      got = _evaluated(f"sp.argsort of {k.size} {label}",
+                       lambda: sp.argsort(dk))
+      hold(f"sp.argsort of {k.size} {label}", got.cpu(),
+           lambda k=k: np.argsort(k, kind="stable"))
+      del dk, got
+    _scans(b, bn, x, host, hostn, lines, hold)
+    _order_statistics(b, bn, host, hostn, lines, hold)
+    _searches(rng, pool, hold)
+    got = _evaluated(f"sp.permutation({PERM_N})",
+                     lambda: sp.permutation(PERM_N))
+    once = bool((torch.bincount(got, minlength=PERM_N) == 1).all())
+    print(f"  sp.permutation({PERM_N}) on the card: a permutation {once}")
+    check(once and got.numel() == PERM_N,
+          "sp.permutation is not a permutation")
+    del got
+    # 2·log2(n) logaddexp steps deep, each within 2 float32 ulps
+    depth = 2 * int(np.ceil(np.log2(LSE_N)))
+    got = _evaluated(f"sp.scan(v, scan_fn=torch.logaddexp) of {LSE_N}",
+                     lambda: sp.scan(sp.from_numpy(lse),
+                                     scan_fn=torch.logaddexp))
+    hold(f"sp.scan(v, scan_fn=torch.logaddexp) of {LSE_N} (float32)",
+         got.cpu(), lambda: np.logaddexp.accumulate(lse.astype(np.float64)),
+         lambda w: (depth + 1) * 2 * 2.0 ** -24 * np.maximum(np.abs(w), 1.0),
+         f"{depth} steps deep, 2 float32 ulps each, of max(|value|, 1)")
+    del got
+    with host_span("waiting for the comparisons"):
+      results = [f.result() for f in held]
+  for ok, line in results:
+    print(line)
+  for ok, line in results:
+    check(ok, f"phase 18 item disagrees with NumPy:{line}")
+  with host_span("free"):
+    del b, bn, x, host, hostn, held, results
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -3468,6 +3815,13 @@ def main() -> None:
   check(slice_k1 >= 3, "phase 17 did not launch K1 three times")
   k1["launches"] += slice_k1
   print_host_spans(17, done(17))
+  print("phase 18: the sorts, searches, order statistics and prefix scans at "
+        "16384^2 float32: sort/argsort along each axis and of 2^28 "
+        "elements, stable argsorts of 2^26 tied keys, cumsum/cumprod/cummax/"
+        "cummin, median/percentile/nanmedian, searchsorted/digitize, "
+        "permutation, a logaddexp scan_fn")
+  phase_sorts(device, card)
+  print_host_spans(18, done(18))
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

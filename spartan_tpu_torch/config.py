@@ -179,6 +179,11 @@ FLAGS.add(BoolFlag("use_kernels", True,
 FLAGS.add(IntFlag("max_expr_cache", 1024, "max cached region runners"))
 FLAGS.add(IntFlag("max_fused_kernel_ops", 128,
                   "stop splicing map kernels beyond this op count"))
+FLAGS.add(StrFlag("sort_method", "auto",
+                  "sort/percentile lowering: 'gather' and 'auto' take one "
+                  "torch.sort of the whole array (the reference's gather "
+                  "lowering); 'sample' (the distributed sample sort) is not "
+                  "ported and raises"))
 FLAGS.add(StrFlag("dot_precision", "default",
                   "matmul precision for float inputs: 'default', 'high' and "
                   "'highest' all run full float32 on the port (TF32 is "

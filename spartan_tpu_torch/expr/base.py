@@ -169,7 +169,8 @@ def semantic_flags_fingerprint() -> Tuple:
   return (FLAGS.float64_reductions, FLAGS.opt_affine_reduce,
           FLAGS.dot_precision, FLAGS.use_kernels, FLAGS.sparse_force_onehot,
           FLAGS.sparse_force_windowed, FLAGS.sparse_force_winmm,
-          FLAGS.sparse_dense_route, FLAGS.sparse_force_dense)
+          FLAGS.sparse_dense_route, FLAGS.sparse_force_dense,
+          FLAGS.sort_method)
 
 
 class Expr:
@@ -528,6 +529,36 @@ class Expr:
   def outer(self, other) -> "Expr":
     from spartan_tpu_torch.expr import builtins as B
     return B.outer(self, other)
+
+  def cumsum(self, axis=None) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.cumsum(self, axis=axis)
+
+  def cumprod(self, axis=None) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.cumprod(self, axis=axis)
+
+  def sort(self, axis=-1) -> "Expr":
+    """A sorted COPY: exprs are immutable (``np.ndarray.sort`` sorts in
+    place), as the reference's."""
+    from spartan_tpu_torch.expr import builtins as B
+    return B.sort(self, axis=axis)
+
+  def argsort(self, axis=-1) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.argsort(self, axis=axis)
+
+  def partition(self, kth, axis=-1) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.partition(self, kth, axis=axis)
+
+  def argpartition(self, kth, axis=-1) -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.argpartition(self, kth, axis=axis)
+
+  def searchsorted(self, queries, side="left") -> "Expr":
+    from spartan_tpu_torch.expr import builtins as B
+    return B.searchsorted(self, queries, side=side)
 
   @property
   def at(self) -> "_AtIndexer":

@@ -25,6 +25,8 @@ import torch
 
 import spartan_tpu_torch.expr.dot as dot_mod
 import spartan_tpu_torch.expr.reduce as reduce_mod
+import spartan_tpu_torch.expr.scan as scan_mod
+import spartan_tpu_torch.expr.sort_expr as sort_mod
 from spartan_tpu_torch.core.array import from_numpy as _from_numpy_arr
 from spartan_tpu_torch.core.array import SpartanArray, dtype_kind, to_torch_dtype
 from spartan_tpu_torch.expr import map as map_mod
@@ -37,6 +39,7 @@ from spartan_tpu_torch.expr.reshape import (ConcatenateExpr, RavelExpr,
                                             TransposeExpr)
 from spartan_tpu_torch.expr.shuffle import shuffle
 from spartan_tpu_torch.expr.slice import SelectExpr
+from spartan_tpu_torch.expr.sort_expr import PercentileExpr, SortExpr
 from spartan_tpu_torch.expr.stencil import avgpool, maxpool, stencil
 from spartan_tpu_torch.expr.write import assign, write
 
@@ -985,7 +988,7 @@ def _unique_sorted(x, equal_nan: bool):
   """(values, inverse, counts, first index) of the flattened ``x`` in
   sorted order, NaNs last: merged into one where ``equal_nan``."""
   flat = x.reshape(-1)
-  order = torch.sort(flat, stable=True).indices
+  order = sort_mod.argsort(flat)  # NaNs last on the card too
   s = flat[order]
   new = torch.ones_like(s, dtype=torch.bool)
   if s.numel() > 1:
@@ -1063,7 +1066,7 @@ def _intersect_fn(a, b):
   dt = map_mod.result_type(a.dtype, b.dtype)
   ua = _unique_sorted(a.to(dt), True)[0]
   ub = _unique_sorted(b.to(dt), True)[0]
-  aux = torch.sort(torch.cat([ua, ub]), stable=True).values
+  aux = sort_mod.sort(torch.cat([ua, ub]))
   return aux[:-1][aux[1:] == aux[:-1]]
 
 
@@ -1071,7 +1074,7 @@ def _setxor_fn(a, b):
   dt = map_mod.result_type(a.dtype, b.dtype)
   ua = _unique_sorted(a.to(dt), True)[0]
   ub = _unique_sorted(b.to(dt), True)[0]
-  aux = torch.sort(torch.cat([ua, ub]), stable=True).values
+  aux = sort_mod.sort(torch.cat([ua, ub]))
   if aux.numel() == 0:
     return aux
   edge = torch.ones(1, dtype=torch.bool, device=aux.device)
@@ -1879,36 +1882,56 @@ def gradient(v, *varargs, axis=None, edge_order=1):
   return outs[0] if len(outs) == 1 else outs
 
 
-@map_mod.structural
-def _interp_fn(x, xp, fp, left, right):
-  x, xp, fp = [t.to(torch.float64) for t in _tensors(x, xp, fp)]
+def _interp_part(x, xp, fp, lval, rval, by_reciprocal: bool):
+  """NumPy's ``interp`` of float64 ``fp`` (one part of a complex one with
+  ``by_reciprocal``: NumPy's complex loop multiplies by ``1 / dx`` where
+  its real loop divides)."""
   n = xp.numel()
   j = torch.searchsorted(xp, x.contiguous(), right=True) - 1
   lo = j.clamp(0, _py.max(n - 2, 0))
   hi = (lo + 1).clamp(max=n - 1)
   x0, x1, y0, y1 = xp[lo], xp[hi], fp[lo], fp[hi]
-  slope = (y1 - y0) / (x1 - x0)
+  slope = ((y1 - y0) * (1 / (x1 - x0)) if by_reciprocal
+           else (y1 - y0) / (x1 - x0))
   out = slope * (x - x0) + y0
   # NumPy: a NaN from one side is tried from the other
   alt = slope * (x - x1) + y1
   alt = torch.where(torch.isnan(alt) & (y0 == y1), y0, alt)
   out = torch.where(torch.isnan(out), alt, out)
   out = torch.where(x == x0, y0, out)
-  lval = fp[0] if left is None else torch.tensor(float(left),
-                                                 dtype=torch.float64,
-                                                 device=x.device)
-  rval = fp[-1] if right is None else torch.tensor(float(right),
-                                                   dtype=torch.float64,
-                                                   device=x.device)
   out = torch.where(j == n - 1, fp[-1], out)
   out = torch.where(j < 0, lval, out)
   out = torch.where(x > xp[-1], rval, out)
   return torch.where(torch.isnan(x), x, out)
 
 
+@map_mod.structural
+def _interp_fn(x, xp, fp, left, right):
+  x, xp, fp = _tensors(x, xp, fp)
+  x, xp = x.to(torch.float64), xp.to(torch.float64)
+
+  def end(value, default, part):
+    if value is None:
+      return default
+    return torch.tensor(part(complex(value)), dtype=torch.float64,
+                        device=x.device)
+
+  if not fp.is_complex():
+    fp = fp.to(torch.float64)
+    return _interp_part(x, xp, fp, end(left, fp[0], lambda c: c.real),
+                        end(right, fp[-1], lambda c: c.real), False)
+  fp = fp.to(torch.complex128)
+  re, im = (_interp_part(x, xp, f, end(left, f[0], part),
+                         end(right, f[-1], part), True)
+            for f, part in ((fp.real, lambda c: c.real),
+                            (fp.imag, lambda c: c.imag)))
+  return torch.complex(re, im)
+
+
 def interp(x, xp, fp, left=None, right=None) -> Expr:
   """NumPy's ``interp`` (increasing ``xp``), float64 as NumPy gives it
-  for float32 input (the reference keeps float32)."""
+  for float32 input (the reference keeps float32); complex128 for a
+  complex ``fp``, each part as NumPy's complex loop computes it."""
   xp_, fp_ = lazify(xp), lazify(fp)
   if xp_.ndim != 1 or fp_.ndim != 1:
     raise ValueError("Data points must be 1-D sequences")
@@ -1916,8 +1939,6 @@ def interp(x, xp, fp, left=None, right=None) -> Expr:
     raise ValueError("fp and xp are not of the same length")
   if xp_.shape[0] == 0:
     raise ValueError("array of sample points is empty")
-  if fp_.dtype.is_complex:
-    raise TypeError("interp of complex fp is not ported")
   return map([lazify(x), xp_, fp_], _interp_fn,
              fn_kw={"left": left, "right": right})
 
@@ -1964,6 +1985,11 @@ def _correlate_core(a: torch.Tensor, v: torch.Tensor, mode: str):
   m = v.shape[0]
   left, right = {"valid": (0, 0), "same": (m // 2, m - 1 - m // 2),
                  "full": (m - 1, m - 1)}[mode]
+  if a.is_complex():  # four real correlations: NumPy's complex products
+    ar, ai, vr, vi = a.real, a.imag, v.real, v.imag
+    return torch.complex(
+        _correlate_core(ar, vr, mode) - _correlate_core(ai, vi, mode),
+        _correlate_core(ar, vi, mode) + _correlate_core(ai, vr, mode))
   if a.is_floating_point():
     work = a.dtype if a.dtype in (torch.float32, torch.float64) else (
         torch.float32)
@@ -1989,9 +2015,11 @@ def _correlate_fn(a, v, mode, flip):
     if v.shape[0] > a.shape[0]:
       a, v = v, a
     return _correlate_core(a, v.flip(0), mode)
-  if v.shape[0] > a.shape[0]:  # NumPy swaps, then reverses the result
-    return _correlate_core(v, a, mode).flip(0)
-  return _correlate_core(a, v, mode)
+  # NumPy conjugates v; it swaps a shorter a with v, correlates and
+  # reverses the result
+  if v.shape[0] > a.shape[0]:
+    return _correlate_core(v.conj_physical(), a, mode).flip(0)
+  return _correlate_core(a, v.conj_physical(), mode)
 
 
 def _correlation(a, v, mode, flip) -> Expr:
@@ -2004,9 +2032,6 @@ def _correlation(a, v, mode, flip) -> Expr:
       raise ValueError("object too deep for desired array")
     if x.size == 0:
       raise ValueError(f"{name} cannot be empty")
-    if x.dtype.is_complex:
-      raise TypeError("convolve and correlate of complex arrays are not "
-                      "ported")
   return map([a, v], _correlate_fn,
              fn_kw={"mode": _CORR_MODES[mode], "flip": flip})
 
@@ -2018,8 +2043,8 @@ def convolve(a, v, mode: str = "full") -> Expr:
 
 
 def correlate(a, v, mode: str = "valid") -> Expr:
-  """NumPy's ``correlate`` of two 1-D real arrays: ``v`` the longer, the
-  two swapped and the result reversed, as NumPy does."""
+  """NumPy's ``correlate`` of two 1-D arrays, ``v`` conjugated: ``v`` the
+  longer, the two swapped and the result reversed, as NumPy does."""
   return _correlation(a, v, mode, False)
 
 
@@ -2881,7 +2906,7 @@ def _stat(chunk, axis, stat):
   if stat == "mean":
     out = torch.mean(x, dim=axis, keepdim=True)
   else:
-    s = torch.sort(x, dim=axis).values
+    s = torch.sort(x, dim=axis, stable=True).values
     n = s.shape[axis]
     hi = s.narrow(axis, n // 2, 1)
     out = hi if n % 2 else (s.narrow(axis, n // 2 - 1, 1) + hi) / 2
@@ -3368,6 +3393,311 @@ def dsplit(v, indices_or_sections):
   return split(v, indices_or_sections, axis=2)
 
 
+# -- scans ---------------------------------------------------------------------
+
+def cumsum(v, axis=None) -> Expr:
+  return scan_mod.scan(v, "sum", axis=axis)
+
+
+def cumprod(v, axis=None) -> Expr:
+  return scan_mod.scan(v, "prod", axis=axis)
+
+
+def cummax(v, axis=None) -> Expr:
+  return scan_mod.scan(v, "max", axis=axis)
+
+
+def cummin(v, axis=None) -> Expr:
+  return scan_mod.scan(v, "min", axis=axis)
+
+
+scan = scan_mod.scan
+
+
+def _nan_as_zero(x):
+  return torch.where(torch.isnan(x), torch.zeros((), dtype=x.dtype,
+                                                 device=x.device), x)
+
+
+def nancumsum(v, axis=None) -> Expr:
+  """``cumsum`` with NaN counted as 0."""
+  v = lazify(v)
+  if dtype_kind(v.dtype) not in "fc":
+    return cumsum(v, axis=axis)
+  return cumsum(map([v], _nan_as_zero), axis=axis)
+
+
+def nancumprod(v, axis=None) -> Expr:
+  """``cumprod`` with NaN counted as 1."""
+  v = lazify(v)
+  if dtype_kind(v.dtype) not in "fc":
+    return cumprod(v, axis=axis)
+  return cumprod(map([v], _nan_as_one), axis=axis)
+
+
+@map_mod.structural
+def _unwrap_fn(p, discont, axis, period):
+  p, = _tensors(p)
+  dd = _diff_fn(p, 1, axis)
+  if discont is None:
+    discont = period / 2
+  if dtype_kind(dd.dtype) in "iu" and isinstance(period, (int, np.integer)):
+    interval_high, rem = _py.divmod(period, 2)  # NumPy's integer unwrap
+    ambiguous = rem == 0
+  else:
+    interval_high, ambiguous = period / 2, True
+  interval_low = -interval_high
+  ops = _np_ops
+  ddmod = ops["add"](ops["remainder"](ops["subtract"](dd, interval_low),
+                                      period), interval_low)
+  if ambiguous:  # abs(dd) == period / 2 keeps the sign of dd
+    ddmod = torch.where((ddmod == interval_low) & (dd > 0), interval_high,
+                        ddmod)
+  ph_correct = ops["subtract"](ddmod, dd)
+  ph_correct = torch.where(ops["less"](ops["absolute"](dd), discont), 0,
+                           ph_correct)
+  tail = p.narrow(axis, 1, _py.max(p.shape[axis] - 1, 0))
+  return torch.cat([p.narrow(axis, 0, _py.min(p.shape[axis], 1)).to(
+      ph_correct.dtype), ops["add"](tail, torch.cumsum(ph_correct, axis))],
+                   axis)
+
+
+def unwrap(p, discont=None, axis=-1, period=2 * np.pi) -> Expr:
+  """NumPy's ``unwrap``: jumps of more than ``max(discont, period / 2)``
+  between neighbours along ``axis`` taken back by multiples of
+  ``period`` (its algorithm: ``diff``, the wrapped differences, and the
+  ``cumsum`` of the corrections)."""
+  p = lazify(p)
+  return map([p], _unwrap_fn, fn_kw={"discont": discont,
+                                     "axis": _norm_axis(int(axis), p.ndim),
+                                     "period": period})
+
+
+# -- sorting, order statistics and searching -----------------------------------
+
+def sort(v, axis=-1) -> Expr:
+  return SortExpr(lazify(v), axis, "sort")
+
+
+def argsort(v, axis=-1) -> Expr:
+  return SortExpr(lazify(v), axis, "argsort")
+
+
+def msort(v) -> Expr:
+  return sort(v, axis=0)
+
+
+def partition(v, kth, axis=-1) -> Expr:
+  """NumPy's ``partition`` by a full sort, as the reference: element
+  ``kth`` lands at its sorted place with the smaller values before it and
+  the larger after, which a total sort satisfies."""
+  del kth
+  return SortExpr(lazify(v), axis, "sort")
+
+
+def argpartition(v, kth, axis=-1) -> Expr:
+  del kth
+  return SortExpr(lazify(v), axis, "argsort")
+
+
+def _check_interpolable(v: Expr):
+  if v.dtype == torch.bool:  # NumPy's lerp subtracts: it raises too
+    raise TypeError("numpy boolean subtract, the `-` operator, is not "
+                    "supported, use the bitwise_xor, the `^` operator, or "
+                    "the logical_xor function instead.")
+
+
+def _check_percent(q):
+  qa = np.asarray(q)
+  if np.any(qa < 0) or np.any(qa > 100):
+    raise ValueError("Percentiles must be in the range [0, 100]")
+
+
+def _check_fraction(q):
+  qa = np.asarray(q)
+  if np.any(qa < 0) or np.any(qa > 1):
+    raise ValueError("Quantiles must be in the range [0, 1]")
+
+
+def _fractions(q):
+  """The percentiles ``q`` as fractions, divided by 100 once in float64."""
+  return np.true_divide(np.asarray(q, np.float64), 100)
+
+
+def percentile(v, q, axis=None) -> Expr:
+  """NumPy's ``percentile`` by its ``linear`` method (float64 for
+  integers, the dtype of a float array)."""
+  v = lazify(v)
+  _check_percent(q)
+  _check_interpolable(v)
+  return PercentileExpr(v, _fractions(q), axis)
+
+
+def median(v, axis=None) -> Expr:
+  return PercentileExpr(lazify(v), 0.5, axis)
+
+
+def quantile(v, q, axis=None) -> Expr:
+  """NumPy's quantile (q in [0, 1])."""
+  v = lazify(v)
+  _check_fraction(q)
+  _check_interpolable(v)
+  return PercentileExpr(v, q, axis)
+
+
+def nanmedian(v, axis=None) -> Expr:
+  """``median`` of the values that are not NaN (NaN for a slice of NaN
+  only), from the sort with NaN last and each slice's count."""
+  return PercentileExpr(lazify(v), 0.5, axis, ignore_nan=True)
+
+
+def nanpercentile(v, q, axis=None) -> Expr:
+  v = lazify(v)
+  _check_percent(q)
+  _check_interpolable(v)
+  return PercentileExpr(v, _fractions(q), axis, ignore_nan=True)
+
+
+def nanquantile(v, q, axis=None) -> Expr:
+  v = lazify(v)
+  _check_fraction(q)
+  _check_interpolable(v)
+  return PercentileExpr(v, q, axis, ignore_nan=True)
+
+
+def _searchsorted(a: torch.Tensor, v: torch.Tensor, right: bool):
+  """``np.searchsorted(a, v, side)`` of a sorted 1-D ``a`` (NaN last): in
+  NumPy's order NaN is above every number (torch's search treats a NaN
+  boundary as below).  The NaNs of ``a`` become inf for the search; a
+  NaN query goes after the numbers (left) or at the end (right), an inf
+  query with ``right`` before the NaNs."""
+  a, v = _tensors(*map_mod.promote(a, v))
+  if a.dtype == torch.bool:
+    a, v = a.to(torch.uint8), v.to(torch.uint8)
+  shape = v.shape
+  v = v.reshape(-1).contiguous()
+  if not a.is_floating_point():
+    return torch.searchsorted(a.contiguous(), v, right=right).reshape(shape)
+  numbers = (~torch.isnan(a)).sum()
+  out = torch.searchsorted(
+      torch.where(torch.isnan(a), float("inf"), a).contiguous(), v,
+      right=right)
+  if right:
+    out = torch.where(v == float("inf"), numbers, out)
+    out = torch.where(torch.isnan(v), a.shape[0], out)
+  else:
+    out = torch.where(torch.isnan(v), numbers, out)
+  return out.reshape(shape)
+
+
+@map_mod.structural
+def _searchsorted_fn(a, v, side):
+  return _searchsorted(a, v, side == "right")
+
+
+def _check_sorted_operand(a: Expr, name: str):
+  if a.ndim != 1:
+    raise ValueError(f"{name} must be 1-dimensional")
+  if a.dtype.is_complex:
+    raise TypeError(f"searching complex {name} is not supported")
+
+
+def searchsorted(v, queries, side="left") -> Expr:
+  """NumPy's ``searchsorted`` of ``queries`` in the sorted 1-D ``v``
+  (int64 indices; both promoted to NumPy's common type)."""
+  if side not in ("left", "right"):
+    raise ValueError(f"side must be 'left' or 'right' (got {side!r})")
+  v = lazify(v)
+  _check_sorted_operand(v, "a")
+  return map([v, lazify(queries)], _searchsorted_fn, fn_kw={"side": side})
+
+
+@map_mod.structural
+def _digitize_fn(x, bins, right):
+  bins, = _tensors(bins)
+  if bins.shape[0] == 0:
+    return _searchsorted(bins, x, not right)
+  desc = bins[-1] < bins[0]
+  idx = _searchsorted(torch.where(desc, bins.flip(0), bins), x, not right)
+  return torch.where(desc, bins.shape[0] - idx, idx)
+
+
+def digitize(x, bins, right=False) -> Expr:
+  """NumPy's ``digitize``: bins increasing, or decreasing (the last below
+  the first, decided on the device; then NumPy's ``len(bins) -
+  searchsorted(bins[::-1], x)``)."""
+  x, bins = lazify(x), lazify(bins)
+  if x.dtype.is_complex:
+    raise TypeError("x may not be complex")
+  _check_sorted_operand(bins, "bins")
+  return map([x, bins], _digitize_fn, fn_kw={"right": bool(right)})
+
+
+@map_mod.structural
+def _lexsort_fn(*keys, axis):
+  keys = torch.broadcast_tensors(*_tensors(*keys))
+  order = sort_mod.argsort(keys[0], axis)
+  for k in keys[1:]:
+    order = torch.take_along_dim(order, sort_mod.argsort(
+        torch.take_along_dim(k, order, axis), axis), axis)
+  return order
+
+
+def lexsort(keys, axis=-1) -> Expr:
+  """NumPy's ``lexsort``: the last key sorts first, by successive stable
+  argsorts from the first key to the last."""
+  ins = [lazify(k) for k in keys]
+  if not ins:
+    raise TypeError("need sequence of keys with len > 0 in lexsort")
+  return map(ins, _lexsort_fn, fn_kw={"axis": axis})
+
+
+_COMPLEX64_FROM = (torch.int8, torch.int16, torch.uint8)
+
+
+@map_mod.structural
+def _sort_complex_fn(x):
+  out = torch.complex64 if x.dtype in _COMPLEX64_FROM else torch.complex128
+  return sort_mod.sort(x, -1).to(x.dtype if x.is_complex() else out)
+
+
+def sort_complex(v) -> Expr:
+  """NumPy's ``sort_complex``: sorted along the last axis by the real
+  part, then the imaginary part, as complex (NumPy's complex64 for int8,
+  int16 and uint8, complex128 for the other real dtypes)."""
+  return map([lazify(v)], _sort_complex_fn)
+
+
+def permutation(v) -> Expr:
+  """A random permutation (``np.random.permutation``): an int gives a
+  permuted ``arange``, an array is permuted along axis 0; the argsort of
+  uniform random keys, as the reference (its stream differs from
+  ``jax.random``'s)."""
+  if isinstance(v, (int, np.integer)):
+    return argsort(rand(int(v)))
+  v = lazify(v)
+  return take(v, argsort(rand(v.shape[0])), axis=0)
+
+
+def choice(v, size, replace: bool = True) -> Expr:
+  """A random sample of a 1-D population (``np.random.choice``): with
+  replacement a gather at uniform random indices, without the first
+  ``size`` entries of a permutation."""
+  if isinstance(v, (int, np.integer)):
+    v = arange(int(v))
+  v = lazify(v)
+  if len(v.shape) != 1:
+    raise ValueError("a must be 1-dimensional")
+  n = v.shape[0]
+  size = int(size)
+  if replace:
+    return take(v, randint(0, n, size=(size,)))
+  if size > n:
+    raise ValueError("cannot take a larger sample than population when "
+                     "replace=False")
+  return take(v, permutation(n)[:size])
+
+
 __all__ = [
     "zeros", "ones", "full", "arange", "rand", "randn", "from_numpy",
     "set_random_seed", "negative", "abs", "absolute", "square", "sqrt",
@@ -3437,4 +3767,10 @@ __all__ = [
     "concatenate", "concat", "stack", "vstack", "hstack", "dstack",
     "column_stack", "tile", "append", "block", "insert", "delete", "roll",
     "split", "array_split", "hsplit", "vsplit", "dsplit",
+    # scans, sorts, order statistics and searches
+    "cumsum", "cumprod", "cummax", "cummin", "scan", "nancumsum",
+    "nancumprod", "unwrap", "sort", "argsort", "msort", "partition",
+    "argpartition", "percentile", "median", "quantile", "nanmedian",
+    "nanpercentile", "nanquantile", "searchsorted", "digitize", "lexsort",
+    "sort_complex", "permutation", "choice",
 ]

@@ -6,7 +6,8 @@ tensors; the sharded entry points (K3a sharded, K3d, K5b, K6b) against
 their unsharded kernels; the expression layer's, PageRank's, ALS's, the
 stencil examples' and make_spmv_windowed's kernel paths; shuffle, integer
 dot, k-means, logistic regression and the linear-algebra, statistics and
-shape builtins (integer einsum's exact route among them) on the card.  Run on a machine with
+shape builtins (integer einsum's exact route among them), and the sorts,
+searches, order statistics and scans on the card.  Run on a machine with
 an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1659,3 +1660,180 @@ def test_k1_trig_past_the_fast_reduction(device, scale):
     want_v = getattr(torch, name)(arg)
     assert abs(got - want_v.sum().item()) <= (
         2.0 ** -23 * want_v.abs().sum().item())
+
+
+# Sorts, searches, order statistics and scans on the card (expr/sort_expr.py,
+# expr/scan.py).  Orderings, searches and integer or max/min scans exactly
+# against NumPy (argsorts against its stable argsort); float64 sums at
+# 1e-10 relative; order statistics of float32 within one float32 ulp of
+# NumPy's float64 values.
+
+def _stress_keys(kind, n, seed):
+  rng = np.random.default_rng(seed)
+  if kind == "int32_ties":
+    return rng.integers(0, 8, n).astype(np.int32)
+  if kind == "signed_zeros":
+    return rng.choice(np.array([-1.0, -0.0, 0.0, 1.0], np.float32), n)
+  if kind == "nans":
+    x = rng.standard_normal(n).astype(np.float32)
+    x[rng.random(n) < 0.05] = np.nan
+    x[rng.random(n) < 0.05] = -np.nan  # the sign bit set
+    x[rng.random(n) < 0.05] = -0.0
+    return x
+  x = rng.integers(0, 4, n).astype(np.float64)
+  x[rng.random(n) < 0.1] = -np.nan
+  return x
+
+
+@pytest.mark.parametrize("n", [100, 5000, 1 << 20])
+@pytest.mark.parametrize("kind", ["int32_ties", "signed_zeros", "nans",
+                                  "float64_nans"])
+def test_stable_argsort_on_card(device, kind, n):
+  x = _stress_keys(kind, n, n)
+  d = sp.from_numpy(x)
+  want = np.argsort(x, kind="stable")
+  np.testing.assert_array_equal(sp.argsort(d).glom(), want)
+  got = sp.sort(d).glom()
+  np.testing.assert_array_equal(got, x[want])  # NaN equal to NaN
+  assert sp.argsort(d).glom().dtype == np.int64
+
+
+@pytest.mark.parametrize("axis", [0, 1, None])
+def test_sorts_along_axes_on_card(device, axis):
+  x = _stress_keys("nans", 3000 * 700, 3).reshape(3000, 700)
+  d = sp.from_numpy(x)
+  np.testing.assert_array_equal(sp.argsort(d, axis=axis).glom(),
+                                np.argsort(x, axis=axis, kind="stable"))
+  np.testing.assert_array_equal(sp.sort(d, axis=axis).glom(),
+                                np.sort(x, axis=axis))
+  np.testing.assert_array_equal(sp.lexsort([d[0], d[1]]).glom(),
+                                np.lexsort([x[0], x[1]]))
+
+
+def test_unique_of_signed_nans_on_card(device):
+  x = np.array([2.0, -np.nan, 1.0, np.nan, -0.0, 0.0, 2.0])
+  np.testing.assert_array_equal(sp.unique(x).glom(), np.unique(x))
+
+
+def test_scans_on_card(device):
+  rng = np.random.default_rng(9)
+  x = rng.standard_normal((513, 1000)).astype(np.float32)
+  d = sp.from_numpy(x)
+  for axis in (0, 1, None):
+    got = sp.cumsum(d, axis=axis).glom()
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, np.cumsum(x, axis=axis,
+                                              dtype=np.float64),
+                               rtol=1e-10, atol=1e-10)
+  np.testing.assert_allclose(
+      sp.cumprod(1 + 0.001 * d, axis=1).glom(),
+      np.cumprod(1 + 0.001 * x, axis=1, dtype=np.float64), rtol=1e-10)
+  xn = x.copy()
+  xn[rng.random(xn.shape) < 0.002] = np.nan
+  dn = sp.from_numpy(xn)
+  for axis in (0, 1):
+    np.testing.assert_array_equal(sp.cummax(dn, axis=axis).glom(),
+                                  np.maximum.accumulate(xn, axis=axis))
+    np.testing.assert_array_equal(sp.cummin(dn, axis=axis).glom(),
+                                  np.minimum.accumulate(xn, axis=axis))
+    np.testing.assert_allclose(sp.nancumsum(dn, axis=axis).glom(),
+                               np.nancumsum(xn.astype(np.float64),
+                                            axis=axis), rtol=1e-10,
+                               atol=1e-10)
+  i = rng.integers(-5, 6, (300, 40)).astype(np.int32)
+  np.testing.assert_array_equal(sp.cumsum(i, axis=0).glom(),
+                                np.cumsum(i, axis=0))
+  u = rng.integers(0, 256, 1000).astype(np.uint8)
+  np.testing.assert_array_equal(sp.cumsum(u).glom(),
+                                np.cumsum(u).astype(np.int64))
+
+
+def test_custom_scan_on_card(device):
+  rng = np.random.default_rng(10)
+  x = rng.standard_normal(1 << 16)
+  d = sp.from_numpy(x)
+  np.testing.assert_array_equal(sp.scan(d, scan_fn=torch.maximum).glom(),
+                                np.maximum.accumulate(x))
+  got = sp.scan(d, scan_fn=torch.logaddexp, reverse=True).glom()
+  want = np.logaddexp.accumulate(x[::-1])[::-1]
+  np.testing.assert_allclose(got, want, rtol=2 * x.size * 2.0 ** -52)
+
+
+def test_order_statistics_on_card(device):
+  rng = np.random.default_rng(11)
+  x = rng.standard_normal((257, 300)).astype(np.float32)
+  xn = x.copy()
+  xn[rng.random(x.shape) < 0.01] = np.nan
+  xn[5] = np.nan
+  d, dn = sp.from_numpy(x), sp.from_numpy(xn)
+  x64, xn64 = x.astype(np.float64), xn.astype(np.float64)
+  ulp = 2.0 ** -23
+  cases = [
+      (sp.median(d), np.median(x64)),
+      (sp.median(d, axis=0), np.median(x64, axis=0)),
+      (sp.percentile(d, [1, 50, 99], axis=1),
+       np.percentile(x64, [1, 50, 99], axis=1)),
+      (sp.quantile(d, 0.3), np.quantile(x64, 0.3)),
+      (sp.median(dn, axis=1), np.median(xn64, axis=1)),
+      (sp.nanmedian(dn), np.nanmedian(xn64)),
+      (sp.nanpercentile(dn, [10, 90], axis=1),
+       np.nanpercentile(xn64, [10, 90], axis=1)),
+  ]
+  for e, want in cases:
+    got = np.asarray(e.glom())
+    assert got.dtype == np.float32 and got.shape == np.shape(want)
+    np.testing.assert_allclose(got, want, rtol=ulp, atol=0)
+  i = rng.integers(-50, 50, 1001).astype(np.int32)
+  np.testing.assert_array_equal(sp.percentile(i, [0, 33, 100]).glom(),
+                                np.percentile(i, [0, 33, 100]))
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_searches_on_card(device, side):
+  rng = np.random.default_rng(12)
+  bounds = np.sort(np.concatenate([rng.integers(-50, 50, 3000) / 4.0,
+                                   [np.inf, np.nan, -np.nan]]))
+  q = np.concatenate([rng.uniform(-15, 15, 20000), bounds[::7],
+                      [np.nan, -np.nan, np.inf, -np.inf]])
+  np.testing.assert_array_equal(
+      sp.searchsorted(bounds, q, side=side).glom(),
+      np.searchsorted(bounds, q, side=side))
+  finite = np.unique(bounds[np.isfinite(bounds)])
+  for bins in (finite, finite[::-1].copy()):
+    for right in (False, True):
+      np.testing.assert_array_equal(sp.digitize(q, bins, right).glom(),
+                                    np.digitize(q, bins, right))
+
+
+def test_permutation_and_choice_on_card(device):
+  got = sp.permutation(1 << 20).glom()
+  np.testing.assert_array_equal(np.sort(got), np.arange(1 << 20))
+  c = sp.choice(1000, 300, replace=False).glom()
+  assert len(set(c.tolist())) == 300 and c.min() >= 0 and c.max() < 1000
+
+
+def test_complex_convolve_correlate_interp_on_card(device):
+  rng = np.random.default_rng(13)
+  a = rng.standard_normal(1000) + 1j * rng.standard_normal(1000)
+  v = rng.standard_normal(33) + 1j * rng.standard_normal(33)
+  for name in ("convolve", "correlate"):
+    for mode in ("valid", "same", "full"):
+      want = getattr(np, name)(a, v, mode)
+      got = getattr(sp, name)(a, v, mode).glom()
+      np.testing.assert_allclose(got, want, rtol=0,
+                                 atol=1e-13 * np.abs(want).max())
+  xp = np.sort(rng.uniform(-2, 2, 50))
+  xq = rng.uniform(-2.5, 2.5, 1000)
+  np.testing.assert_array_equal(sp.interp(xq, xp, v[:1].repeat(50) * xp
+                                          ).glom(),
+                                np.interp(xq, xp, v[:1].repeat(50) * xp))
+
+
+def test_sort_method_sample_raises_on_card(device):
+  from spartan_tpu_torch.config import FLAGS
+  FLAGS.sort_method = "sample"
+  try:
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+      sp.sort(np.arange(8.0)).glom()
+  finally:
+    FLAGS.sort_method = "auto"

@@ -147,14 +147,30 @@ raises on any failure:
      and nanmedian with NaN planted, whole and along an axis;
      searchsorted/digitize of 2^26 queries into 2^20 boundaries;
      permutation(2^26); a logaddexp scan_fn over 2^24 values; each item's
-     device time on its own line, the host seconds printed as in 16.
+     device time on its own line, the host seconds printed as in 16;
+ 19. the loops and the Krylov solvers of sp.sparse.linalg in float32, each
+     solve one sp.while_loop whose matvecs launch K3a or K3b: cg on a
+     backward-Euler heat step (I + 100 L) u = u0 on a 2048^2 grid (K3b),
+     again on a mesh of 8 shards (K3d; x and the iteration count bit for
+     bit the unsharded run's), bicgstab and gmres(20) on an upwind
+     convection-diffusion matrix of that grid, cg on the reference test's
+     _sparse_spd and minres on a shifted graph Laplacian (indefinite) at
+     n = 32768 (K3a), lsqr and lsmr on a 2^22 x 2^20 sparse system (K3b on
+     A and A.T); each held to a float64 solve (scipy's, the heat step's in a
+     worker process; a float64 CGLS on the card for the least squares) and
+     to its true residual in float64 on the card, its launches to its
+     matvec count; then each solve's host and device ms an iteration (the
+     sync an iteration of while_loop's host-read condition included);
+     scan_iters over 50 PageRank steps on phase 6's 32768-node graph
+     against make_fori, and cond both ways.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
 K5a, phase 10 for K6a, phase 11's full-size matmul calls and phase 16's
 for K2, phase 12's
 make_spmv_windowed calls for K3c, phase 14's path at each p for the
-sharded kernels, summed over the three meshes) and read just after.  K4 has no caller
+sharded kernels, summed over the three meshes, and each counted solve and
+the scan of phase 19 for K3a, K3b and K3d) and read just after.  K4 has no caller
 in the package: its count is the launches of phase 9's checks.  The
 last two lines are a JSON object describing each kernel (its launches on
 its path, its worst disagreement with the plain version, its time, the
@@ -169,6 +185,7 @@ import concurrent.futures
 import contextlib
 import gc
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -176,10 +193,12 @@ import time
 
 import numpy as np
 import scipy.sparse as ss
+import scipy.sparse.linalg as ssl
 import torch
 import torch.nn.functional as F
 
 import spartan_tpu_torch as sp
+from spartan_tpu_torch import sparse_linalg as spl
 from spartan_tpu_torch.backend import sparse
 from spartan_tpu_torch.backend.kernels import build
 from spartan_tpu_torch.backend.kernels import fused_reduce as K
@@ -3656,6 +3675,549 @@ def phase_sorts(device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 19: while_loop, scan_iters and cond, and the Krylov solvers of
+# sp.sparse.linalg in float32 with their matvecs on K3a/K3b (K3d on a mesh
+# of 8 shards)
+GRID_SIDE = 2048  # the heat and convection-diffusion grids: n = 2^22
+HEAT_C = 100.0  # backward Euler, c = dt/h^2: kappa about 1 + 8c = 801
+# I + c (L + v D_x), D_x the upwind difference; |A|_inf = 1 + c (8 + 2v)
+# = 25 at c = 2, small enough that gmres's Krylov estimate of its residual
+# stays well inside rtol of the true float32 residual its final check reads
+CONV_C, CONV_V = 2.0, 2.0
+SOLVE_N = 32768  # the K3a systems
+SPD_DEGREE = 8  # _sparse_spd's G: G + G.T has about 16 entries a row
+REGULAR_PERMS, REGULAR_SHIFT = 8, 12.0  # W: 16-regular; A = 12 I - W
+TALL_M, TALL_N, TALL_K = 1 << 22, 1 << 20, 8
+SCAN_STEPS = 50
+SOLVE_SHARDS = 8
+# the solves' tolerances: reachable in float32 at these condition numbers
+# (gmres's final check is a true residual, which float32 keeps near 1e-5
+# here, so its rtol is 1e-4)
+RTOL = {"cg": 1e-5, "bicgstab": 1e-5, "gmres": 1e-4, "minres": 1e-5}
+LS_TOL = 1e-5
+EPS64 = 2.0 ** -53
+ORACLE_RTOL, ORACLE_ITERS = 1e-8, 1000  # scipy's float64 cg
+# the heat step's scipy cg, in a worker process that phase 19 waits for:
+# 600x below the bound x's own residual is held to (6.3e-4)
+HEAT_ORACLE_RTOL = 1e-6
+MINRES_ORACLE_RTOL = 1e-10  # scipy's float64 minres, up to ORACLE_ITERS
+TIMING_SAMPLES = 7
+
+
+def grid_laplacian(side: int):
+  """The 5-point Laplacian (4 on the diagonal, -1 to each neighbour, a
+  Dirichlet boundary) on a side x side grid, row-major, float64 CSR."""
+  t = ss.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(side, side))
+  eye = ss.identity(side)
+  return (ss.kron(eye, t) + ss.kron(t, eye)).tocsr()
+
+
+def heat_system(side: int):
+  """One backward-Euler heat step (I + c L) u = u0 on a side^2 grid: SPD,
+  5 entries a row, kappa about 801, strictly diagonally dominant by rows
+  with margin 1 (so ||A^-1||_inf <= 1); and u0, uniform in [0, 1)."""
+  u0 = np.random.default_rng(190).random(side ** 2, dtype=np.float32)
+  return (ss.identity(side ** 2) + HEAT_C * grid_laplacian(side)).tocsr(), u0
+
+
+def convection_system(side: int):
+  """Convection-diffusion, I + c (L + v D_x) with D_x the upwind (west)
+  difference: nonsymmetric, 5 entries a row, strictly diagonally dominant
+  by rows with margin 1."""
+  d = ss.diags([-1.0, 1.0], [-1, 0], shape=(side, side))
+  upwind = ss.kron(ss.identity(side), d)
+  return (ss.identity(side ** 2)
+          + CONV_C * (grid_laplacian(side) + CONV_V * upwind)).tocsr()
+
+
+def spd_system():
+  """The reference test's ``_sparse_spd`` construction
+  (tests/test_sparse_linalg.py:20-25) at n = 32768: G + G.T plus the
+  diagonal of its row sums + 1, about 17 entries a row, margin 1."""
+  # a Generator, not the test's RandomState: RandomState draws the
+  # positions through a permutation of all n^2 = 2^30 of them
+  g = ss.random(SOLVE_N, SOLVE_N, density=SPD_DEGREE / SOLVE_N,
+                random_state=np.random.default_rng(2), format="csr")
+  a = (g + g.T).tocsr()
+  return (a + ss.diags(np.asarray(np.abs(a).sum(axis=1)).ravel() + 1.0)
+          ).tocsr()
+
+
+def indefinite_system():
+  """A shifted graph Laplacian: W the adjacency of a random 16-regular
+  multigraph (8 random permutations and their transposes), A = 12 I - W =
+  (16 I - W) - 4 I.  The constant vector has eigenvalue -4; the others
+  are 12 - (W's other eigenvalues, within about +-7.75), so A is
+  indefinite and well conditioned.  Returns A and W."""
+  rng = np.random.default_rng(19)
+  n = SOLVE_N
+  rows = np.tile(np.arange(n), REGULAR_PERMS)
+  cols = np.concatenate([rng.permutation(n) for _ in range(REGULAR_PERMS)])
+  p = ss.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(n, n))
+  w = (p + p.T).tocsr()
+  return (REGULAR_SHIFT * ss.identity(n) - w).tocsr(), w
+
+
+def tall_system(m: int, n: int, k: int):
+  """A tall sparse least-squares system, m x n, k entries a row at uniform
+  random columns, standard normal values; b standard normal."""
+  rng = np.random.default_rng(23)
+  cols = rng.integers(0, n, m * k, dtype=np.int32)
+  vals = rng.standard_normal(m * k, dtype=np.float32)
+  indptr = np.arange(0, m * k + 1, k, dtype=np.int64)
+  a = ss.csr_matrix((vals, cols, indptr), shape=(m, n))
+  a.sum_duplicates()
+  return a, rng.standard_normal(m).astype(np.float32)
+
+
+def csr64(a, device):
+  """``a`` as a float64 torch CSR tensor on ``device`` (the residual
+  oracle's operand: cuSPARSE on the card)."""
+  a = ss.csr_matrix(a, dtype=np.float64)
+  return torch.sparse_csr_tensor(
+      torch.from_numpy(a.indptr.astype(np.int64)),
+      torch.from_numpy(a.indices.astype(np.int64)),
+      torch.from_numpy(a.data), size=a.shape).to(device)
+
+
+def matvec64(a64, x: torch.Tensor) -> torch.Tensor:
+  return (a64 @ x.double().unsqueeze(1)).squeeze(1)
+
+
+def norm2_bound(a) -> float:
+  """sqrt(|A|_1 |A|_inf) of a scipy matrix, an upper bound of |A|_2."""
+  a = abs(a)
+  return float(np.sqrt(a.sum(axis=0).max() * a.sum(axis=1).max()))
+
+
+def norm64(v: torch.Tensor) -> float:
+  return float(torch.linalg.vector_norm(v.double()))
+
+
+def counted_solve(label, name, call, key: str):
+  """``call()`` (a solve of ``name``) once with the SpMV counts set to 0
+  just before it: the x tensor, the rest of its result, its iterations,
+  and its kernel launches (``key``: the counts' ``ell``, ``csr`` or
+  ``sharded_csr``), checked against the matvec count and no plain run."""
+  KS.reset_counts()
+  with spl._loops_run() as runs, Timer() as t:
+    out = call()
+    x = out[0].data if hasattr(out[0], "data") else out[0].evaluate().data
+    torch.cuda.synchronize()
+  iters = spl._iterations(name, runs[-1][0])
+  per, extra = spl._MATVECS[name]
+  want = per * iters + extra
+  launches = KS.counts[f"{key}_launches"]
+  plain = KS.counts[f"{key}_plain_runs"]
+  print(f"  {label}: {name} {iters} iterations, result {out[1:]}, "
+        f"{key} launches {launches} = {per} x {iters} + {extra} matvecs, "
+        f"plain runs {plain}; first call {t.elapsed:.2f} s")
+  check(launches == want and plain == 0,
+        f"{label}: {launches} {key} launches and {plain} plain runs for "
+        f"{want} matvecs")
+  return x, out[1:], iters, launches
+
+
+def timed_solve(label, name, solve, iters: int, kernel: str):
+  """Host and device ms an iteration of ``solve(**limit)``, for the full
+  solve (``iters`` iterations) and one cut to about a quarter as many by
+  its iteration limit.  Host: the wall of the solve's ``while_loop`` call,
+  the median of TIMING_SAMPLES calls; each iteration reads its condition
+  on the host, so that wall holds every iteration's issue and its wait for
+  the card.  Differenced between the two limits over the difference of
+  their iterations, which takes out the call's entry and its wait for the
+  work queued before the loop.  Device: the kernels of one whole solve
+  under torch.profiler, differenced the same way (``kernel``'s part
+  apart).  The idle share 1 - device / host is printed as it comes: since
+  every iteration waits for the card, host below device says only that
+  the two differences agree within their noise, and is flagged so.
+  Returns the host and device ms an iteration (device None if not
+  measured)."""
+  if name == "gmres":
+    short = {"maxiter": 1}  # one restart cycle
+  else:
+    short = {{"lsqr": "iter_lim"}.get(name, "maxiter"): max(1, iters // 4)}
+  runs = []
+  for limit in ({}, short):
+    with spl._loops_run() as loops:
+      solve(**limit)  # builds this limit's steps
+      for _ in range(TIMING_SAMPLES):
+        torch.cuda.synchronize()
+        solve(**limit)
+    k = spl._iterations(name, loops[-1][0])
+    wall = statistics.median(sec for _, sec in loops[1:]) * 1e3
+    by_name, dev_ms, _ = device_share(lambda: solve(**limit))
+    spmv = sum(v for key, v in by_name.items() if kernel in key)
+    runs.append((k, wall, dev_ms, spmv))
+  (k1, wall1, dev1, spmv1), (k0, wall0, dev0, spmv0) = runs
+  host = (wall1 - wall0) / (k1 - k0)
+  head = (f"  {label}: {k1} and {k0} iterations, their loops {wall1:.3f} and "
+          f"{wall0:.3f} ms (median of {TIMING_SAMPLES}): host {host:.4f} ms "
+          f"an iteration")
+  if dev1 is None or dev0 is None:
+    print(f"{head}; device time not measured")
+    return host, None
+  dev = (dev1 - dev0) / (k1 - k0)
+  print(f"{head}, device {dev:.4f} ms ({kernel} "
+        f"{(spmv1 - spmv0) / (k1 - k0):.4f}), 1 - device / host "
+        f"{1.0 - dev / host:.3f}")
+  if host < dev:
+    print(f"  FLAG {label}: host below device by {dev - host:.4f} ms an "
+          "iteration, which one sync an iteration rules out: the loop is "
+          "bound by the card within this estimate's noise; no idle share")
+  return host, dev
+
+
+def hold_solve(label, a64, x, b64, rtol, iters, a_norm, inv_norm,
+               oracle=None):
+  """float64 on the card: x's true residual |b - A x|_2 / |b|_2 against the
+  bound that rtol, the iterations and |A|_2 |A^-1|_2 fix (|x|_2 <=
+  |A^-1|_2 |b|_2; ``a_norm`` and ``inv_norm`` upper bounds of |A|_2 and
+  |A^-1|_2).  With ``oracle`` = (x64 on the host, its residual bound): the
+  oracle's own residual against that bound, and |x - x64|_2 against
+  |A^-1|_2 (bound + oracle's bound) |b|_2.  Returns the residual bound."""
+  b_norm = norm64(b64)
+  rel = norm64(b64 - matvec64(a64, x)) / b_norm
+  bound = spl._residual_bound(rtol, iters, a_norm, inv_norm * b_norm, b_norm)
+  line = (f"  {label}: |b - A x|_2 / |b|_2 {rel:.3g} <= {bound:.3g} (rtol "
+          f"{rtol:g}, {iters} iterations, |A|_2 <= {a_norm:.4g}, |A^-1|_2 <= "
+          f"{inv_norm:.4g}; float64 on the card)")
+  ok = rel <= bound
+  if oracle is not None:
+    x64_host, bound64 = oracle
+    x64 = torch.from_numpy(x64_host).to(b64.device)
+    rel64 = norm64(b64 - matvec64(a64, x64)) / b_norm
+    err = norm64(x.double() - x64)
+    err_bound = inv_norm * (bound + bound64) * b_norm
+    line += (f"; the float64 oracle's {rel64:.3g} <= {bound64:.3g}; "
+             f"|x - x64|_2 {err:.3g} <= |A^-1|_2 (both bounds) |b|_2 = "
+             f"{err_bound:.3g}")
+    ok = ok and rel64 <= bound64 and err <= err_bound
+  print(line)
+  check(ok, f"{label}: x is past its residual or its oracle's bound")
+  return bound
+
+
+def heat_step_oracle(side: int, x0: np.ndarray) -> np.ndarray:
+  """scipy's float64 cg of the heat step to HEAT_ORACLE_RTOL, started from
+  the card's x (its own residual is held to its bound, so the start
+  changes only how long it takes), run in a worker process (scipy's sparse
+  products hold the interpreter lock, which a thread would take from the
+  card's loop)."""
+  a, u0 = heat_system(side)
+  return ssl.cg(a, u0.astype(np.float64), x0=x0.astype(np.float64),
+                rtol=HEAT_ORACLE_RTOL, maxiter=ORACLE_ITERS)[0]
+
+
+def oracle_bound(rtol, a_norm, inv_norm) -> float:
+  """The float64 true residual, relative to |b|, of a scipy solve whose
+  stopping rule holds it to ``rtol`` |b|, within ORACLE_ITERS
+  iterations."""
+  return spl._residual_bound(rtol, ORACLE_ITERS, a_norm, inv_norm, 1.0,
+                             eps=EPS64)
+
+
+def solves_on_the_grid(device, procs):
+  """cg on the heat step through K3b (its float64 oracle submitted to
+  ``procs``), the same on 8 shards through K3d, bicgstab and gmres(20) on
+  convection-diffusion through K3b."""
+  with Timer() as t_build:
+    heat, u0 = heat_system(GRID_SIDE)
+    conv = convection_system(GRID_SIDE)
+    S_heat = sparse.from_scipy(heat, dtype=np.float32)
+    S_conv = sparse.from_scipy(conv, dtype=np.float32)
+    b = sp.from_numpy(u0)
+    b64 = torch.from_numpy(u0).to(device).double()
+    heat64, conv64 = csr64(heat, device), csr64(conv, device)
+    torch.cuda.synchronize()
+  print(f"  built the {GRID_SIDE}^2 heat and convection-diffusion systems (n = "
+        f"{heat.shape[0]}, {heat.nnz} and {conv.nnz} entries) and took them "
+        f"in in {t_build.elapsed:.2f} s")
+  fmt = sparse.spmv_expr(S_heat, sp.ones((heat.shape[0],),
+                                         dtype=np.float32)).fmt
+  check(fmt == "win", f"the heat system routed to {fmt!r}, not the CSR "
+        "kernel")
+  lin = sp.sparse.linalg
+  out = {}
+
+  def heat_cg(**limit):
+    return lin.cg(S_heat, b, rtol=RTOL["cg"], **limit)
+
+  x, res, iters, launches = counted_solve(f"heat step {GRID_SIDE}^2", "cg",
+                                          heat_cg, "csr")
+  check(res[0] == 0, "cg on the heat step did not converge")
+  out["csr"] = launches
+  out["heat"] = (heat, heat64, b64, x, iters)
+  out["oracle"] = procs.submit(heat_step_oracle, GRID_SIDE, x.cpu().numpy())
+  timing = {"heat cg": ("cg", heat_cg, iters, "spmv_csr")}
+  mesh = sp.make_mesh(device, shape=(SOLVE_SHARDS,))
+  with sp.with_mesh(mesh):
+    x8, res8, iters8, launches8 = counted_solve(
+        f"heat step on {SOLVE_SHARDS} shards", "cg", heat_cg, "sharded_csr")
+  same = bool(torch.equal(x8, x)) and iters8 == iters
+  print(f"  {SOLVE_SHARDS} shards through K3d: x and the iteration count "
+        f"bit for bit the unsharded run's: {same}")
+  check(same and res8 == res, "the sharded cg differs from the unsharded")
+  out["sharded_csr"] = launches8
+  del x8
+  b_conv = sp.from_numpy(u0)
+  xs = {}
+  for name, kw in (("bicgstab", {}), ("gmres", {"restart": 20})):
+    def solve(name=name, kw=kw, **limit):
+      return getattr(lin, name)(S_conv, b_conv, rtol=RTOL[name], **kw,
+                                **limit)
+
+    xs[name], res, iters, launches = counted_solve(
+        f"convection-diffusion {GRID_SIDE}^2", name, solve, "csr")
+    check(res[0] == 0, f"{name} on convection-diffusion did not converge")
+    out["csr"] += launches
+    timing[f"convection {name}"] = (name, solve, iters, "spmv_csr")
+    xs[name + " bound"] = hold_solve(
+        f"convection {name}", conv64, xs[name], b64, RTOL[name], iters,
+        norm2_bound(conv), 1.0)
+  # margin 1 by rows and by columns: |A^-1|_2 <= 1
+  gap = norm64(xs["bicgstab"].double() - xs["gmres"])
+  bound = (xs["bicgstab bound"] + xs["gmres bound"]) * norm64(b64)
+  print(f"  bicgstab and gmres agree: |x_b - x_g|_2 {gap:.3g} <= |A^-1|_2 "
+        f"(both residual bounds) |b|_2 = {bound:.3g}")
+  check(gap <= bound, "bicgstab and gmres disagree past their bounds")
+  del conv64, xs
+  return out, timing
+
+
+def minres_oracle(a, w, b):
+  """scipy's float64 minres to MINRES_ORACLE_RTOL, and A's smallest
+  |eigenvalue|: min(4, |12 - rho2|) with rho2 W's second largest eigenvalue
+  (W's largest is 16, the constant vector's)."""
+  rho = ssl.eigsh(w, k=2, which="LA", return_eigenvectors=False)
+  return (ssl.minres(a, b, rtol=MINRES_ORACLE_RTOL, maxiter=ORACLE_ITERS)[0],
+          min(4.0, abs(REGULAR_SHIFT - float(rho.min()))))
+
+
+def solves_at_32768(device):
+  """cg on ``_sparse_spd`` and minres on the shifted Laplacian, both at
+  n = 32768 through K3a, against scipy in float64."""
+  rng = np.random.default_rng(191)
+  spd = spd_system()
+  indef, w = indefinite_system()
+  b_spd = rng.standard_normal(SOLVE_N).astype(np.float32)
+  b_ind = rng.standard_normal(SOLVE_N).astype(np.float32)
+  lin = sp.sparse.linalg
+  S_spd = sparse.from_scipy(spd, dtype=np.float32)
+  S_ind = sparse.from_scipy(indef, dtype=np.float32)
+  for S in (S_spd, S_ind):
+    fmt = sparse.spmv_expr(S, sp.ones((SOLVE_N,), dtype=np.float32)).fmt
+    check(fmt == "ell", f"a {SOLVE_N} system routed to {fmt!r}, not K3a")
+  b1, b2 = sp.from_numpy(b_spd), sp.from_numpy(b_ind)
+
+  def spd_cg(**limit):
+    return lin.cg(S_spd, b1, rtol=RTOL["cg"], **limit)
+
+  def ind_minres(**limit):
+    return lin.minres(S_ind, b2, rtol=RTOL["minres"], **limit)
+
+  x1, res1, it1, l1 = counted_solve(f"_sparse_spd {SOLVE_N}", "cg", spd_cg,
+                                    "ell")
+  x2, res2, it2, l2 = counted_solve(f"shifted Laplacian {SOLVE_N}", "minres",
+                                    ind_minres, "ell")
+  check(res1[0] == 0 and res2[0] == 0, "a solve at 32768 did not converge")
+  # _sparse_spd: SPD with margin 1, so its eigenvalues are >= 1
+  x64 = ssl.cg(spd, b_spd.astype(np.float64), rtol=ORACLE_RTOL,
+               maxiter=ORACLE_ITERS)[0]
+  a_norm = norm2_bound(spd)
+  hold_solve(f"cg _sparse_spd {SOLVE_N}", csr64(spd, device), x1,
+             torch.from_numpy(b_spd).to(device).double(), RTOL["cg"], it1,
+             a_norm, 1.0, (x64, oracle_bound(ORACLE_RTOL, a_norm, 1.0)))
+  # scipy's minres stops at |r| <= rtol (|A| |x| + |b|) with |A| its
+  # estimate, the Frobenius norm of the Lanczos T_k: at most sqrt(3k) |A|_2
+  m64, sigma = minres_oracle(indef, w, b_ind.astype(np.float64))
+  a_norm = norm2_bound(indef)
+  hold_solve(f"minres shifted Laplacian {SOLVE_N} (min|eig| {sigma:.4f})",
+             csr64(indef, device), x2,
+             torch.from_numpy(b_ind).to(device).double(), RTOL["minres"],
+             it2, a_norm, 1.0 / sigma,
+             (m64, oracle_bound(MINRES_ORACLE_RTOL * (
+                 1.0 + (3 * ORACLE_ITERS) ** 0.5 * a_norm / sigma),
+                 a_norm, 1.0 / sigma)))
+  timing = {f"{SOLVE_N} cg": ("cg", spd_cg, it1, "spmv_ell"),
+            f"{SOLVE_N} minres": ("minres", ind_minres, it2, "spmv_ell")}
+  return l1 + l2, timing
+
+
+def cgls64(a64, at64, b64, tol: float = 1e-10, maxiter: int = 1000):
+  """The float64 least-squares oracle on the card: CGLS over torch's
+  float64 sparse products (cuSPARSE), to |A'r| <= tol |A'b|; returns x,
+  |b - A x| and its iterations."""
+  x = torch.zeros(a64.shape[1], dtype=torch.float64, device=b64.device)
+  r = b64.clone()
+  s = matvec64(at64, r)
+  p, g = s.clone(), float(s @ s)
+  stop = tol ** 2 * g
+  for k in range(1, maxiter + 1):
+    q = matvec64(a64, p)
+    alpha = g / float(q @ q)
+    x += alpha * p
+    r -= alpha * q
+    s = matvec64(at64, r)
+    g_new = float(s @ s)
+    if g_new <= stop:
+      break
+    p = s + (g_new / g) * p
+    g = g_new
+  return x, norm64(b64 - matvec64(a64, x)), k
+
+
+def least_squares(device):
+  """lsqr and lsmr on the tall 2^22 x 2^20 system, A and A.T through K3b,
+  held in float64 on the card to the normal-equations residual bound that
+  their stopping rule, their iterations and |A|_2 fix, and to a float64
+  CGLS's least-squares residual norm (scipy's lsqr of this system takes
+  about a minute of the host)."""
+  with Timer() as t_build:
+    tall, b_host = tall_system(TALL_M, TALL_N, TALL_K)
+    S = sparse.from_scipy(tall)
+    b = sp.from_numpy(b_host)
+    a64 = csr64(tall, device)
+    at64 = csr64(tall.T.tocsr(), device)
+    b64 = torch.from_numpy(b_host).to(device).double()
+    atb = norm64(matvec64(at64, b64))
+    torch.cuda.synchronize()
+  a_norm, b_norm = norm2_bound(tall), norm64(b64)
+  print(f"  built the tall system ({TALL_M} x {TALL_N}, {tall.nnz} entries, "
+        f"|A|_2 <= {a_norm:.4g}) and took it in in {t_build.elapsed:.2f} s")
+  with Timer() as t_oracle:
+    x_opt, rnorm64, it64 = cgls64(a64, at64, b64)
+  x_norm = norm64(x_opt)
+  normal64 = norm64(matvec64(at64, b64 - matvec64(a64, x_opt))) / atb
+  bound64 = spl._normal_bound(1e-10, it64, a_norm, x_norm, b_norm, atb,
+                              eps=EPS64)
+  print(f"  the float64 CGLS oracle: {it64} iterations in "
+        f"{t_oracle.elapsed:.2f} s, |A'(b - A x)| / |A'b| {normal64:.3g} <= "
+        f"{bound64:.3g}, |b - A x| {rnorm64:.8g}")
+  check(normal64 <= bound64, "the float64 CGLS oracle did not converge")
+  for M in (S, S.T):
+    fmt = sparse.spmv_expr(M, sp.ones((M.shape[1],), dtype=np.float32)).fmt
+    check(fmt == "win", f"the tall system routed to {fmt!r}, not K3b")
+  lin = sp.sparse.linalg
+  launches, timing = 0, {}
+  for name in ("lsqr", "lsmr"):
+    def solve(name=name, **limit):
+      if name == "lsqr":
+        return lin.lsqr(S, b, atol=LS_TOL, **limit)
+      return lin.lsmr(S, b, atol=LS_TOL, btol=LS_TOL, **limit)
+
+    x, res, iters, count = counted_solve(f"tall {TALL_M} x {TALL_N}", name,
+                                         solve, "csr")
+    launches += count
+    timing[f"tall {name}"] = (name, solve, iters, "spmv_csr")
+    # the stopping rules: lsqr |A'r| <= atol |A'b|; lsmr istop 2 |A'r| <=
+    # atol |A| |r|, its |A| estimate after k steps at most sqrt(2k + 1)
+    # |A|_2 and |r| <= |b|
+    atol = LS_TOL if name == "lsqr" else (
+        LS_TOL * (2 * iters + 1) ** 0.5 * a_norm * b_norm / atb)
+    limit = spl._normal_bound(atol, iters, a_norm, x_norm, b_norm, atb)
+    r = b64 - matvec64(a64, x)
+    normal = norm64(matvec64(at64, r)) / atb
+    rel = abs(norm64(r) - rnorm64) / rnorm64
+    print(f"  {name}: istop {res[0]}, |A'(b - A x)| / |A'b| {normal:.3g} <= "
+          f"{limit:.3g} (float64 on the card); |b - A x| {norm64(r):.8g} "
+          f"against the oracle's optimum: {rel:.3g} (<= 1e-6: second order "
+          "in x's error)")
+    check(res[0] == (1 if name == "lsqr" else 2) and normal <= limit,
+          f"{name} did not converge to its stated istop")
+    check(rel <= 1e-6, f"{name}: the residual norm is not the optimum's")
+  del x_opt
+  return launches, timing
+
+
+def loops_on_pagerank(device):
+  """scan_iters over 50 PageRank steps on phase 6's 32768-node graph
+  (K3a), its final carry against make_fori's bits and its collected
+  change per step against the carries; cond on a predicate computed on
+  the card, both ways.  Returns the scan's K3a launches."""
+  n = PR_SMALL_N
+  S = sparse.from_scipy(urand_graph(n, 2))
+
+  def step(r):
+    return sparse.spmv_expr(S, r) * DAMPING + (1.0 - DAMPING) / n
+
+  r0 = sp.ones((n,), dtype=S.dtype) / n
+  KS.reset_counts()
+  with Timer() as t:
+    final, deltas = sp.scan_iters(
+        SCAN_STEPS, step, r0,
+        collect=lambda r: sp.sum(sp.abs(step(r) - r)))
+    torch.cuda.synchronize()
+  launches = KS.counts["ell_launches"]
+  check(launches == 2 * SCAN_STEPS and KS.counts["ell_plain_runs"] == 0,
+        f"scan_iters launched K3a {launches} times, not {2 * SCAN_STEPS}")
+  run = sp.make_fori(step, r0)
+  same = bool(torch.equal(final.data, run(SCAN_STEPS).data))
+  # the first step's change from make_fori's carries (the graph mixes
+  # fast: the last steps' changes reach 0 in float32)
+  first = float((run(1).data - sp.lazify(r0).evaluate().data
+                 ).abs().double().sum())
+  d = deltas.data
+  rel = abs(float(d[0]) - first) / first
+  print(f"  scan_iters: {SCAN_STEPS} steps in {t.elapsed:.3f} s ("
+        f"{t.elapsed * 1e3 / SCAN_STEPS:.4f} ms a step, host), K3a "
+        f"{launches} launches (the body's step and collect's), the final "
+        f"carry bit for bit make_fori's: {same}; |r1 - r0|_1 "
+        f"{float(d[0]):.6g} against {first:.6g} from make_fori's carries "
+        f"({rel:.3g}); the change per step falls to {float(d[-1]):.4g}")
+  check(same and d.shape == (SCAN_STEPS,) and rel <= 1e-9
+        and bool(torch.isfinite(d).all()) and float(d[-1]) < float(d[0]),
+        "scan_iters disagrees with make_fori")
+  for limit, scale in ((0.5, 2.0), (1.5, 0.5)):
+    got = sp.cond(sp.sum(final) > limit, lambda x: x * 2.0,
+                  lambda x: x * 0.5, final)
+    ok = bool(torch.equal(got.data, final.data * scale))
+    print(f"  cond(sum(r) > {limit}) took the {'true' if scale == 2.0 else
+          'false'} branch: {ok}")
+    check(ok, "cond took the wrong branch")
+  return launches
+
+
+def phase_solvers(device, card: str) -> dict:
+  """Phase 19: the loops and solvers at full size in float32; returns the
+  SpMV launches of its counted runs by counts key.  scipy's float64 cg of
+  the heat step runs in a worker process while the card works."""
+  launches = {"ell": 0, "csr": 0, "sharded_csr": 0}
+  t0 = time.perf_counter()
+
+  def since(what: str) -> None:
+    print(f"  [{time.perf_counter() - t0:.2f} s into phase 19: {what}]")
+
+  with concurrent.futures.ProcessPoolExecutor(
+      max_workers=1, mp_context=multiprocessing.get_context("spawn")) as procs:
+    grid, timing = solves_on_the_grid(device, procs)
+    launches["csr"] += grid["csr"]
+    launches["sharded_csr"] += grid["sharded_csr"]
+    since("the grid's solves done")
+    ell, more = solves_at_32768(device)
+    launches["ell"] += ell
+    timing.update(more)
+    since(f"the {SOLVE_N} solves done")
+    csr, more = least_squares(device)
+    launches["csr"] += csr
+    timing.update(more)
+    since("the least-squares solves done")
+    launches["ell"] += loops_on_pagerank(device)
+    heat, heat64, b64, x, iters = grid["heat"]
+    x64 = grid["oracle"].result()
+  since("the oracle's process ended")
+  a_norm = norm2_bound(heat)
+  hold_solve(f"cg heat step {GRID_SIDE}^2", heat64, x, b64, RTOL["cg"], iters,
+             a_norm, 1.0, (x64, oracle_bound(HEAT_ORACLE_RTOL, a_norm, 1.0)))
+  del grid, heat, heat64, x, x64
+  print(f"  per iteration, on {card} (the oracle's process ended):")
+  for label, (name, solve, iters, kernel) in timing.items():
+    timed_solve(label, name, solve, iters, kernel)
+  since("timed")
+  torch.cuda.empty_cache()
+  return launches
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -3822,6 +4384,17 @@ def main() -> None:
         "permutation, a logaddexp scan_fn")
   phase_sorts(device, card)
   print_host_spans(18, done(18))
+  print("phase 19: while_loop, scan_iters and cond; the Krylov solvers of "
+        "sp.sparse.linalg in float32 with their matvecs on K3a/K3b: cg on "
+        "a 2048^2 heat step (and on 8 shards through K3d), bicgstab and "
+        "gmres(20) on convection-diffusion, cg and minres at 32768, lsqr "
+        "and lsmr on a 2^22 x 2^20 system")
+  solver_launches = phase_solvers(device, card)
+  k3["spmv_ell"]["launches"] += solver_launches["ell"]
+  k3["spmv_csr"]["launches"] += solver_launches["csr"]
+  sharded["sharded_windowed_spmv"]["launches"] += solver_launches[
+      "sharded_csr"]
+  done(19)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

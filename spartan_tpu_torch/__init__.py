@@ -59,15 +59,19 @@ from spartan_tpu_torch.expr.base import (DictExpr, Expr,  # noqa: E402
                                          Val, evaluate, force, lazify)
 from spartan_tpu_torch.expr.map import map  # noqa: E402,A004
 from spartan_tpu_torch.expr.reduce import reduce  # noqa: E402,A004
-from spartan_tpu_torch.expr.loop import fori_loop, make_fori  # noqa: E402
+from spartan_tpu_torch.expr.loop import (cond, fori_loop,  # noqa: E402
+                                         make_fori, scan_iters, while_loop)
 from spartan_tpu_torch import interop  # noqa: E402
 from spartan_tpu_torch.backend import sparse  # noqa: E402
 from spartan_tpu_torch.backend.sparse import (SparseArray,  # noqa: E402
                                               sparse_diagonal, sprandn)
+from spartan_tpu_torch import sparse_linalg  # noqa: E402
+sparse.linalg = sparse_linalg  # the scipy idiom: sp.sparse.linalg.cg(...)
 
 __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "Mesh", "SpartanArray", "get_mesh", "make_mesh", "with_mesh",
            "Expr", "ListExpr", "TupleExpr", "DictExpr", "NotShapeable", "Val", "evaluate", "force",
            "lazify", "map",
-           "reduce", "fori_loop", "make_fori", "interop", "sparse",
+           "reduce", "fori_loop", "make_fori", "while_loop", "scan_iters",
+           "cond", "interop", "sparse", "sparse_linalg",
            "SparseArray", "sparse_diagonal", "sprandn"] + list(_builtin_all)

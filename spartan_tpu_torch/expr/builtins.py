@@ -200,8 +200,14 @@ def _where_fn(cond, x, y):
     cond = torch.tensor(bool(cond))
   ref = next(v for v in (x, y, cond) if isinstance(v, torch.Tensor))
   device = ref.device
-  return torch.where(cond.to(device).bool(), map_mod._lift(x, device),
-                     map_mod._lift(y, device))
+  xl, yl = map_mod._lift(x, device), map_mod._lift(y, device)
+  if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+    # a weak scalar beside a tensor takes NumPy's result dtype of the two
+    # (torch would promote a 0-d tensor pair to the scalar's own dtype)
+    t, s = (x, y) if isinstance(x, torch.Tensor) else (y, x)
+    dt = torch.result_type(t, s)
+    xl, yl = xl.to(dt), yl.to(dt)
+  return torch.where(cond.to(device).bool(), xl, yl)
 
 
 def _nonzero_part(i, x):
@@ -2187,6 +2193,20 @@ def polydiv(u, v):
           map([u, v], _polydiv_fn, fn_kw={"part": 1, "nr": nr}))
 
 
+def _lstsq_svd(a: torch.Tensor, b: torch.Tensor,
+               rcond: float) -> torch.Tensor:
+  """The minimum-norm least-squares solution of ``a x = b`` through the
+  SVD, singular values below ``rcond · s_max`` dropped (the mask of
+  ``jnp.linalg.lstsq``), the same code on every device: torch's CUDA
+  least-squares solver has only the QR driver, which assumes full rank."""
+  u, s, vt = torch.linalg.svd(a, full_matrices=False)
+  mask = (s > 0) & (s >= rcond * s[:1])
+  s_inv = torch.where(mask, 1 / torch.where(mask, s, 1), 0)
+  if b.ndim == 1:
+    return vt.mT @ (s_inv * (u.mT @ b))
+  return vt.mT @ (s_inv[:, None] * (u.mT @ b))
+
+
 @map_mod.structural
 def _polyfit_fn(x, y, deg):
   x, y = _tensors(x, y)
@@ -2198,12 +2218,9 @@ def _polyfit_fn(x, y, deg):
   scale = torch.sqrt((lhs * lhs).sum(dim=0))
   lhs = lhs / scale
   rhs = y.to(lhs.dtype).reshape(y.shape[0], -1)
-  if x.device.type == "cpu":  # NumPy's SVD solver and cut-off
-    sol = torch.linalg.lstsq(lhs, rhs, driver="gelsd",
-                             rcond=len(x) * float(torch.finfo(x.dtype).eps))
-  else:  # the card has the QR driver only
-    sol = torch.linalg.lstsq(lhs, rhs)
-  c = sol.solution.reshape((order,) + tuple(y.shape[1:]))
+  # NumPy's SVD solve and cut-off, on every device
+  sol = _lstsq_svd(lhs, rhs, len(x) * float(torch.finfo(x.dtype).eps))
+  c = sol.reshape((order,) + tuple(y.shape[1:]))
   return c / scale.reshape((-1,) + (1,) * (c.ndim - 1))
 
 

@@ -200,8 +200,10 @@ def true_divide(x, y):
   if (isinstance(x, (int, float)) and isinstance(y, torch.Tensor)
       and y.is_floating_point()):
     # torch divides a real Python scalar by a float tensor as a reciprocal
-    # and a product, off by an ulp; a 0-d tensor divides IEEE-rounded
-    x = torch.tensor(x, dtype=y.dtype, device=y.device)
+    # and a product, off by an ulp; a 0-d tensor divides IEEE-rounded.
+    # torch.full fills it on the device: torch.tensor would copy it from
+    # pageable host memory, which waits for the stream
+    x = torch.full((), x, dtype=y.dtype, device=y.device)
   return x / y
 
 
@@ -273,7 +275,9 @@ def _lift(v, device=None) -> torch.Tensor:
   dimensioned operand's dtype wins within a kind)."""
   if isinstance(v, torch.Tensor):
     return v
-  return torch.tensor(v, dtype=_PY_DTYPES[type(v)], device=device)
+  # filled on the device, not copied from pageable host memory (a copy that
+  # waits for the stream)
+  return torch.full((), v, dtype=_PY_DTYPES[type(v)], device=device)
 
 
 _PY_DTYPES = {bool: torch.bool, int: torch.int64, float: torch.float64,

@@ -14,7 +14,7 @@
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -47,8 +47,12 @@ def _rebuild(expr: Expr, child_map: Dict[int, Expr]) -> Expr:
   return expr.replace(**updates)
 
 
-def rewrite_bottom_up(root: Expr, fn: Callable[[Expr], Expr]) -> Expr:
-  """Apply ``fn`` to every node after its children have been rewritten."""
+def rewrite_bottom_up(root: Expr, fn: Callable[[Expr], Expr],
+                      refs: Optional[Dict[int, int]] = None) -> Expr:
+  """Apply ``fn`` to every node after its children have been rewritten.
+  With ``refs`` (``count_refs`` of ``root``), a node's rebuilt and
+  rewritten forms inherit its reference count, so that ``fn`` sees a
+  shared node as shared after its children were rewritten."""
   memo: Dict[int, Expr] = {}
 
   def go(e: Expr) -> Expr:
@@ -58,7 +62,11 @@ def rewrite_bottom_up(root: Expr, fn: Callable[[Expr], Expr]) -> Expr:
     for c in e.children():
       go(c)
     rebuilt = _rebuild(e, {c.expr_id: memo[c.expr_id] for c in e.children()})
+    if refs is not None and e.expr_id in refs:
+      refs[rebuilt.expr_id] = refs[e.expr_id]
     out = fn(rebuilt)
+    if refs is not None and e.expr_id in refs:
+      refs[out.expr_id] = refs[e.expr_id]
     memo[e.expr_id] = out
     return out
 
@@ -143,7 +151,9 @@ class MapMapFusion:
 
     out = root
     for _ in range(16):  # to fixpoint over chains (a+b+c+d)
-      new = rewrite_bottom_up(out, fuse)
+      # refs follow the rebuilt nodes: a shared map whose own inputs were
+      # fused is still shared, and is computed once, not once a consumer
+      new = rewrite_bottom_up(out, fuse, refs)
       if new is out:
         break
       out = new

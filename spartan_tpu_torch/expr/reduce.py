@@ -338,10 +338,12 @@ def reduce(v, op=None, axis=None, keepdims=False, out_dtype=None,
   whole input.  ``dtype_fn`` and ``accumulate_fn`` are accepted as the
   reference accepts them: there is no per-tile merge, so the function
   must give the whole reduction itself."""
+  # ``v`` is the one input: an array, tensor or list is not a list of
+  # inputs (the reference reduces such a ``v``'s first element alone)
   if local_reduce_fn is not None:
     del accumulate_fn, dtype_fn
-    return CustomReduceExpr(v, fn=local_reduce_fn, axis=axis, fn_kw=fn_kw)
+    return CustomReduceExpr([v], fn=local_reduce_fn, axis=axis, fn_kw=fn_kw)
   if not isinstance(op, str):
     raise TypeError("reduce needs op=<str> or local_reduce_fn=<callable>")
-  return ReduceExpr(v, op=op, axis=axis, keepdims=keepdims,
+  return ReduceExpr([v], op=op, axis=axis, keepdims=keepdims,
                     out_dtype=out_dtype, ddof=ddof)

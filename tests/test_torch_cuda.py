@@ -6,8 +6,10 @@ tensors; the sharded entry points (K3a sharded, K3d, K5b, K6b) against
 their unsharded kernels; the expression layer's, PageRank's, ALS's, the
 stencil examples' and make_spmv_windowed's kernel paths; shuffle, integer
 dot, k-means, logistic regression and the linear-algebra, statistics and
-shape builtins (integer einsum's exact route among them), and the sorts,
-searches, order statistics and scans on the card.  Run on a machine with
+shape builtins (integer einsum's exact route among them), the sorts,
+searches, order statistics and scans, and the loops (``while_loop``,
+``scan_iters``, ``cond``) and the Krylov solvers of ``sp.sparse.linalg``
+with their matvecs on K3a/K3b/K3d on the card.  Run on a machine with
 an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1837,3 +1839,161 @@ def test_sort_method_sample_raises_on_card(device):
       sp.sort(np.arange(8.0)).glom()
   finally:
     FLAGS.sort_method = "auto"
+
+
+# -- the loops and the Krylov solvers (sp.sparse.linalg) ----------------------
+# Tolerances: a float32 solve's float64 true residual on the host against
+# the bound that its rtol (atol for lsqr/lsmr), its iterations and the
+# system's norms fix (sparse_linalg._residual_bound and _normal_bound), and
+# its x against the drawn xt at the bound those give through |A^-1|_2.  The
+# square systems are strictly diagonally dominant with margin 1 by rows and
+# by columns, so |A^-1|_2 <= 1 and |x|_2 <= |b|_2; the tall ones are
+# [A; I], whose smallest singular value is at least sqrt(2).  b is rounded
+# to float32, which moves the exact solution off xt by at most
+# |A^-1|_2 eps32 |b|_2.  lstsq on the card against its CPU run at 1e-4 of
+# max|y| (two float32 SVDs).
+
+from spartan_tpu_torch import sparse_linalg as spl  # noqa: E402
+
+EPS32 = 2.0 ** -24
+
+
+def _solver_system(n, seed=2):
+  """A float64 scipy matrix, diagonally dominant with margin 1: the
+  reference test's ``_sparse_spd`` with a superdiagonal for the
+  nonsymmetric solvers' use."""
+  import scipy.sparse as ss
+  g = ss.random(n, n, density=8.0 / n, random_state=np.random.default_rng(seed),
+                format="csr")
+  a = (g + g.T).tocsr()
+  return (a + ss.diags(np.asarray(np.abs(a).sum(axis=1)).ravel() + 1.0)
+          ).tocsr()
+
+
+def _norm2_bound(a) -> float:
+  """sqrt(|A|_1 |A|_inf), an upper bound of |A|_2."""
+  a = abs(a)
+  return float(np.sqrt(a.sum(axis=0).max() * a.sum(axis=1).max()))
+
+
+def _hold_solve(name, A, b, xt, x, out, iters, kw):
+  """x (float64 numpy) of a float32 solve of A x = b against the bounds
+  fixed by the stopping rule in ``kw``, the iterations and A's norms."""
+  a_norm, b_norm = _norm2_bound(A), np.linalg.norm(b)
+  if name in ("lsqr", "lsmr"):
+    atb = np.linalg.norm(A.T @ b)
+    x_norm = np.linalg.norm(xt) + EPS32 * b_norm
+    atol = kw["atol"]
+    if name == "lsmr":
+      # lsmr's |A| estimate after k steps is at most sqrt(2k + 1) |A|_2;
+      # istop 1: |r| <= btol |b| + atol |A| |x|; istop 2: |A'r| <= atol |A|
+      # |r|, with |r| <= |b|
+      a_est = (2 * iters + 1) ** 0.5 * a_norm
+      if out[1] == 1:
+        atol = a_norm * (kw["btol"] * b_norm + atol * a_est * x_norm) / atb
+      else:
+        atol = atol * a_est * b_norm / atb
+    bound = spl._normal_bound(atol, iters, a_norm, x_norm, b_norm, atb)
+    normal = np.linalg.norm(A.T @ (b - A @ x)) / atb
+    assert normal <= bound, (normal, bound)
+    # |x - x_opt| <= |A'r| / s_min^2, |x_opt - xt| <= eps32 |b| / s_min
+    err_bound = bound * atb / 2 + EPS32 * b_norm / 2 ** 0.5
+  else:
+    bound = spl._residual_bound(kw["rtol"], iters, a_norm, b_norm, b_norm)
+    rel = np.linalg.norm(b - A @ x) / b_norm
+    assert rel <= bound, (rel, bound)
+    err_bound = (bound + EPS32) * b_norm
+  assert np.linalg.norm(x - xt) <= err_bound * (1 + 1e-9)
+
+
+def _run_counted(fn):
+  """``fn()`` with the SpMV counts set to 0 before it; its result, the
+  last while_loop's final carry and the counts after it."""
+  KS.reset_counts()
+  with spl._loops_run() as runs:
+    out = fn()
+    torch.cuda.synchronize()
+  return out, runs[-1][0], dict(KS.counts)
+
+
+@pytest.mark.parametrize("n, route", [(4096, "ell"), (40000, "csr")])
+@pytest.mark.parametrize("name", sorted(spl._MATVECS))
+def test_solver_matvecs_launch_the_kernels_on_card(device, name, n, route):
+  import scipy.sparse as ss
+  A = _solver_system(n)
+  if name not in ("cg", "minres"):  # nonsymmetric, still margin 1
+    A = (A + ss.diags([np.full(n, 0.5), np.full(n - 1, 0.5)], [0, 1])
+         ).tocsr()
+  xt = np.random.default_rng(5).standard_normal(A.shape[1])
+  tall = name in ("lsqr", "lsmr")
+  if tall:
+    A = ss.vstack([A, ss.identity(n)]).tocsr()
+  b = (A @ xt).astype(np.float32)
+  S = sps.from_scipy(A.astype(np.float32))
+  lin = sp.sparse.linalg
+  if name in ("lsqr", "lsmr"):
+    kw = {"atol": 1e-6} if name == "lsqr" else {"atol": 1e-6, "btol": 1e-6}
+  else:
+    kw = {"rtol": 1e-5}
+  out, final, counts = _run_counted(lambda: getattr(lin, name)(S, b, **kw))
+  iters = spl._iterations(name, final)
+  per, extra = spl._MATVECS[name]
+  assert counts[f"{route}_launches"] == per * iters + extra
+  assert counts["ell_plain_runs"] == counts["csr_plain_runs"] == 0
+  assert out[1] in ((1, 2) if name in ("lsqr", "lsmr") else (0,))
+  x = out[0].data
+  assert x.device.type == "cuda" and x.dtype == torch.float32
+  _hold_solve(name, A, b.astype(np.float64), xt,
+              x.cpu().numpy().astype(np.float64), out, iters, kw)
+
+
+def test_sharded_cg_equals_unsharded_on_card(device):
+  A = _solver_system(40000)
+  b = (A @ np.ones(40000)).astype(np.float32)
+  S = sps.from_scipy(A.astype(np.float32))
+  x1, info1 = sp.sparse.linalg.cg(S, b, rtol=1e-5)
+  with sp.with_mesh(sp.make_mesh(shape=(8,))):
+    (x8, info8), _, counts = _run_counted(
+        lambda: sp.sparse.linalg.cg(S, b, rtol=1e-5))
+  assert counts["sharded_csr_launches"] > 0 and counts["csr_launches"] == 0
+  assert info1 == info8 == 0
+  assert torch.equal(x1.data, x8.data)
+
+
+def test_loops_on_card(device):
+  out = sp.while_loop(lambda c: sp.sum(c) < 10.0, lambda c: c + 1.0,
+                      sp.zeros((2,)))
+  assert out.data.device.type == "cuda"
+  np.testing.assert_array_equal(out.glom(), [5.0, 5.0])
+  assert float(sp.while_loop(lambda c: sp.sum(c) < 1e9, lambda c: c + 1.0,
+                             sp.zeros(()), max_iters=7).glom()) == 7.0
+  none = sp.while_loop(lambda c: sp.sum(c) > 1e9, lambda c: c + 1.0,
+                       sp.ones((3,)))
+  np.testing.assert_array_equal(none.glom(), [1.0, 1.0, 1.0])
+  final, curve = sp.scan_iters(5, lambda c: c * 2.0, sp.ones(()))
+  assert curve.data.device.type == "cuda"
+  np.testing.assert_array_equal(curve.glom(), [2, 4, 8, 16, 32])
+  a = sp.from_numpy(np.arange(4.0, dtype=np.float32))
+  for limit, want in ((1.0, np.arange(4.0) * 2), (100.0, np.arange(4.0) / 2)):
+    got = sp.cond(sp.sum(a) > limit, lambda x: x * 2.0, lambda x: x * 0.5, a)
+    assert got.data.device.type == "cuda" and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.glom(), want)
+
+
+@pytest.mark.parametrize("rank", [7, 20])
+def test_gmres_least_squares_on_card(device, rank):
+  """The (21, 20) Hessenberg solve of a restart cycle, rank-deficient
+  (columns past j zero) and full: finite, and the CPU's answer."""
+  rng = np.random.default_rng(rank)
+  H = np.zeros((21, 20), np.float32)
+  for c in range(rank):
+    H[:c + 2, c] = rng.standard_normal(c + 2)
+  g = np.zeros(21, np.float32)
+  g[0] = 2.0
+  got = spl._lstsq_kernel(torch.from_numpy(H).to(device),
+                          torch.from_numpy(g).to(device)).cpu().numpy()
+  want = spl._lstsq_kernel(torch.from_numpy(H), torch.from_numpy(g)).numpy()
+  assert np.isfinite(got).all()
+  assert np.abs(got[rank:]).max(initial=0.0) == 0.0
+  np.testing.assert_allclose(got, want, rtol=0,
+                             atol=1e-4 * np.abs(want).max())

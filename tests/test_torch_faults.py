@@ -220,3 +220,114 @@ def test_complex_scalar_divides_a_real_array(dtype, scalar):
     assert got.dtype == want.dtype and np.iscomplexobj(got)
     eps = np.finfo(want.dtype).eps
     np.testing.assert_allclose(got, want, rtol=4 * eps, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "float64"])
+@pytest.mark.parametrize("shape", [(), (5,)], ids=["0-d", "1-d"])
+def test_where_with_a_weak_scalar_keeps_the_arrays_float_dtype(dtype, shape):
+  """``where(c, x, 1.0)`` with a float x has x's dtype, as NumPy 2's and the
+  reference's: the weak Python float takes the array's dtype.  The port
+  gave float64 for a 0-d x (torch promotes a pair of 0-d tensors to the
+  wider dtype), which turned a float32 solver's 0-d carry into float64."""
+  host = np.full(shape, 2.5, dtype)
+  x = sp.from_numpy(host)
+  for got, want in ((sp.where(x > 1.0, x, 1.0), np.where(host > 1.0, host, 1.0)),
+                    (sp.where(x > 1.0, 1.0, x), np.where(host > 1.0, 1.0, host))):
+    assert got.dtype == getattr(torch, dtype)
+    assert np.asarray(got.glom()).dtype == want.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got.glom(), want)
+  r = ref.where(ref.from_numpy(host) > 1.0, ref.from_numpy(host), 1.0)
+  assert np.asarray(r.glom()).dtype == np.dtype(dtype)
+
+
+@pytest.mark.parametrize("shape", [(), (4,)], ids=["0-d", "1-d"])
+def test_where_with_a_weak_scalar_follows_numpy_across_kinds(shape):
+  """An int32 array beside a weak float gives float64 and beside a weak int
+  int32; a bool array beside a weak int int64; a float32 array beside a
+  weak complex complex64: NumPy 2's result types."""
+  for host, scalar in ((np.full(shape, 3, np.int32), 0.5),
+                       (np.full(shape, 3, np.int32), 7),
+                       (np.full(shape, True), 7),
+                       (np.full(shape, 1.5, np.float32), 2j)):
+    got = sp.where(sp.from_numpy(host) != 0, sp.from_numpy(host), scalar)
+    want = np.where(host != 0, host, scalar)
+    assert np.asarray(got.glom()).dtype == want.dtype
+    np.testing.assert_array_equal(got.glom(), want)
+
+
+@pytest.mark.parametrize("op", ["add", "multiply"])
+def test_a_weak_int_out_of_an_integer_arrays_range_wraps(op):
+  """Pinned: a Python int outside an integer array's range wraps in the
+  port, as it does in the reference (JAX casts the weak int to the array's
+  dtype); NumPy 2 raises ``OverflowError``.  ``uint8 + 300`` is
+  ``(x + 44) % 256`` and an int8 array times 1000 wraps modulo 256."""
+  if op == "add":
+    host, scalar = np.arange(0, 256, 17, dtype=np.uint8), 300
+    want = ((host.astype(np.int64) + 44) % 256).astype(np.uint8)
+  else:
+    host, scalar = np.array([-128, -3, 0, 5, 100, 127], np.int8), 1000
+    want = (host.astype(np.int64) * 1000).astype(np.int8)
+  fn = getattr(np, op)
+  got = getattr(sp, op)(sp.from_numpy(host), scalar)
+  assert got.dtype == getattr(torch, host.dtype.name)
+  np.testing.assert_array_equal(got.glom(), want)
+  np.testing.assert_array_equal(
+      np.asarray(getattr(ref, op)(ref.from_numpy(host), scalar).glom()), want)
+  with pytest.raises(OverflowError):
+    fn(host, scalar)
+
+
+@pytest.mark.parametrize("kind", ["SpartanArray", "ndarray", "tensor", "list"])
+@pytest.mark.parametrize("name", ["sum", "mean", "max", "var", "any",
+                                  "argmax", "nansum", "ptp"])
+def test_a_reduction_of_an_array_that_is_not_an_expr_reduces_all_of_it(
+    kind, name):
+  """``sp.sum(v)`` with ``v`` an evaluated array, a numpy array, a tensor or
+  a list reduces all of ``v``, as NumPy's does.  The port took such a ``v``
+  for a list of inputs and reduced its first element alone; the reference
+  still does (``ref.sum(np.arange(8.0))`` is 0.0)."""
+  host = np.array([3.0, -1.0, 7.5, 2.0, 0.0, 4.0], np.float32)
+  v = {"SpartanArray": sp.lazify(sp.from_numpy(host)).evaluate(),
+       "ndarray": host, "tensor": torch.from_numpy(host),
+       "list": host.tolist()}[kind]
+  got = np.asarray(getattr(sp, name)(v).glom())
+  np.testing.assert_allclose(got, getattr(np, name)(host), rtol=1e-6)
+  if name == "sum":
+    assert float(ref.sum(host).glom()) == host[0]
+
+
+def test_a_shared_map_is_computed_once_after_its_inputs_fuse():
+  """Map fusion splices a map into its consumer only when it has one.
+  The port (as the reference) counted consumers on the DAG before the
+  pass, so a shared map rebuilt because its own input fused took a fresh
+  id, looked unshared, and was spliced into every consumer: computed once
+  a consumer (the reference's XLA merges the copies again; the port ran
+  them, most of lsmr's scalar recurrences several times a step).
+  Tolerance: exact (the same ops, run once)."""
+  from spartan_tpu_torch.expr import optimize as opt
+  from spartan_tpu_torch.expr.local import FnCallExpr
+  calls = []
+
+  def traced(t):
+    if t.device.type != "meta":
+      calls.append(1)
+    return t * 2.0
+
+  host = np.arange(6.0)
+  x = sp.map([sp.from_numpy(host) + 1.0], traced)  # its input fuses into it
+  pair = sp.ListExpr([x * 3.0, x + 4.0])
+  fused = opt.optimize(pair)
+  ops = set()
+
+  def walk(node):
+    if isinstance(node, FnCallExpr) and id(node) not in ops:
+      ops.add(id(node))
+      for d in node.deps:
+        walk(d)
+
+  fused.visit(lambda e: walk(e.op) if hasattr(e, "op") else None)
+  assert len(ops) == 4  # + 1, traced, * 3, + 4
+  y1, y2 = pair.evaluate()
+  assert len(calls) == 1
+  np.testing.assert_array_equal(y1.glom(), (host + 1.0) * 2.0 * 3.0)
+  np.testing.assert_array_equal(y2.glom(), (host + 1.0) * 2.0 + 4.0)

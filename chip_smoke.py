@@ -162,7 +162,29 @@ raises on any failure:
      matvec count; then each solve's host and device ms an iteration (the
      sync an iteration of while_loop's host-read condition included);
      scan_iters over 50 PageRank steps on phase 6's 32768-node graph
-     against make_fori, and cond both ways.
+     against make_fori, and cond both ways;
+ 20. sp.sparse's builders, sp.linalg, sp.fft, sp.random and array files:
+     the 5-point Laplacian of a 2048^2 grid (n = 2^22) and of a 128 x 256
+     grid (n = 32768) by sp.sparse.kronsum of two sp.sparse.diags, each
+     equal to scipy's kronsum, and sp.linalg.eigvalsh_lanczos(L, k=6) on
+     each through K3b and K3a (one launch a Lanczos step), within
+     lanczos_tol of a float64 run and at most the closed-form top
+     eigenvalues, then (outside the counted run) K3b on the 2^22
+     Laplacian's CSR and K3a on the 32768 one's ELL against their plain
+     versions on a seeded x; K3b's wrapper timed on the 32768 Laplacian beside K3a's
+     (the ELL/CSR crossover); sp.sparse.random at 2^22 x 2^22 with 16
+     entries a row (exactly round(density m n) distinct positions) and
+     its sp.sparse.linalg.norm through K1; at config 3's X (2^20 x 64
+     float64) lstsq, qr('tsqr'), svd_lowrank and pca.fit, cholesky of an
+     8192^2 SPD matrix and solve('cholesky'), eigh, svd, inv and slogdet
+     at 4096^2 (a first call and a second one timed), each against NumPy's float64 result on six host threads;
+     sp.fft at config 1's 16384^2 float32 (fft2/ifft2 and rfft2/irfft2
+     round trips, Parseval), NumPy's FFT at 4096^2, Poisson's spectral
+     solve at 16384^2 by its residual through laplacian and at 4096^2
+     against NumPy; 2^28 normals and 2^24 draws each of gamma, beta,
+     poisson and binomial held to their first two moments; save/load of
+     a 16384^2 float32 array bit for bit, a checkpoint inside a DAG and
+     from_file; the phase's host seconds printed by kind.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
@@ -170,8 +192,10 @@ K5a, phase 10 for K6a, phase 11's full-size matmul calls and phase 16's
 for K2, phase 12's
 make_spmv_windowed calls for K3c, phase 14's path at each p for the
 sharded kernels, summed over the three meshes, and each counted solve and
-the scan of phase 19 for K3a, K3b and K3d) and read just after.  K4 has no caller
-in the package: its count is the launches of phase 9's checks.  The
+the scan of phase 19 for K3a, K3b and K3d, and phase 20's two Lanczos
+runs for K3b and K3a and its sparse norm for K1) and read just after.  K4
+has no caller in the package: its count is the launches of phase 9's
+checks.  The
 last two lines are a JSON object describing each kernel (its launches on
 its path, its worst disagreement with the plain version, its time, the
 plain version's, one library call's, and the card's bound for the same
@@ -207,8 +231,8 @@ from spartan_tpu_torch.backend.kernels import spmm as K5
 from spartan_tpu_torch.backend.kernels import spmv as KS
 from spartan_tpu_torch.backend.kernels import stencil as K6
 from spartan_tpu_torch.examples import (als, convnet, heat, kmeans,
-                                        linear_reg, logistic_reg, pagerank,
-                                        poisson)
+                                        lanczos, linear_reg, logistic_reg,
+                                        pagerank, pca, poisson)
 from spartan_tpu_torch.expr.local import FnCallExpr, LocalConst, LocalInput
 from spartan_tpu_torch.expr.map import UFUNCS
 from spartan_tpu_torch.util import Timer
@@ -4218,6 +4242,518 @@ def phase_solvers(device, card: str) -> dict:
   return launches
 
 
+
+# phase 20: sp.sparse's builders, sp.linalg with the examples it wraps,
+# sp.fft with Poisson's spectral solver, sp.random and array files
+LAP_SIDE = 2048  # the 5-point Laplacian of a 2048^2 grid, n = 2^22: K3b
+LAP_SMALL = (128, 256)  # n = 32768: K3a
+LANCZOS_K = 6
+LANCZOS_M = max(2 * LANCZOS_K + 8, 24)  # eigvalsh_lanczos's default m
+SPRAND_N = 1 << 22
+SPRAND_PER_ROW = 16
+TALL = (1 << 20, 64)  # config 3's X
+SSVD_K = 6
+CHOL_N = 8192
+DENSE_N = 4096
+FFT_N = 16384  # config 1's shape
+FFT_ORACLE_N = 4096
+NORMAL_DRAWS = 1 << 28
+DIST_DRAWS = 1 << 24
+Z_BOUND = 6.0  # standard errors a sample moment may stray
+EPS32 = 2.0 ** -24
+
+
+def _agreed(label, got, want, tol, why):
+  """The relative error of ``got`` to ``want`` (of max|want|), printed;
+  fails past ``tol``."""
+  got, want = np.asarray(got), np.asarray(want)
+  err = float(np.abs(got.astype(want.dtype) - want).max()
+              / max(float(np.abs(want).max()), 1e-300))
+  print(f"  {label}: max err of max|oracle| {err:.3g} (tolerance {tol:g}: "
+        f"{why})")
+  check(got.shape == want.shape and bool(np.isfinite(got).all())
+        and err <= tol, f"phase 20: {label} strays {err:.3g} > {tol:g}")
+  return err
+
+
+def _timed(label, fn, warm: bool = False):
+  """``fn()`` evaluated once between CUDA events (device time with the
+  host's gaps) and on the host clock; returns its result.  ``warm``: a
+  first call before it, timed apart (a new FFT size builds its cuFFT
+  plan; a factorization's first call in a process pays torch's first use
+  of its solver)."""
+  first = ""
+  with Timer() as t:
+    if warm:
+      first_ms, out = events_ms(fn)
+      del out
+      first = f" (first call {first_ms:.3f} ms)"
+    ms, out = events_ms(fn)
+  print(f"  {label}: {ms:.3f} ms between events{first}, wall "
+        f"{t.elapsed:.3f} s")
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  return out
+
+
+def kronsum_laplacian(nx: int, ny: int, dtype):
+  """The 5-point Laplacian of an nx x ny grid through ``sp.sparse``:
+  ``kronsum`` of two ``diags`` (a Dirichlet boundary)."""
+  d = [-1.0, 2.0, -1.0]
+  return sp.sparse.kronsum(
+      sp.sparse.diags(d, [-1, 0, 1], shape=(nx, nx), dtype=dtype),
+      sp.sparse.diags(d, [-1, 0, 1], shape=(ny, ny), dtype=dtype))
+
+
+def grid_top_eigenvalues(nx: int, ny: int, k: int) -> np.ndarray:
+  """The k largest eigenvalues of that Laplacian, closed form, ascending."""
+  lx = 2 - 2 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+  ly = 2 - 2 * np.cos(np.arange(1, ny + 1) * np.pi / (ny + 1))
+  return np.sort((lx[:, None] + ly[None, :]).ravel())[-k:]
+
+
+def _scipy_kronsum(nx: int, ny: int):
+  d = [-1.0, 2.0, -1.0]
+  return ss.kronsum(ss.diags(d, [-1, 0, 1], shape=(nx, nx)),
+                    ss.diags(d, [-1, 0, 1], shape=(ny, ny))).tocsr()
+
+
+def lanczos_on_grid(nx: int, ny: int, kernel: str, pool, card: str):
+  """The float32 Laplacian of the nx x ny grid by ``sp.sparse.kronsum``,
+  equal to scipy's; ``sp.linalg.eigvalsh_lanczos(L, k=6)`` with the SpMV
+  counts set to 0 just before it (one ``kernel`` launch a Lanczos step,
+  no plain run), within ``lanczos_tol`` of a float64 run on the card and
+  at most the closed-form top 6 (Cauchy interlacing).  Returns the
+  launches and the Laplacian."""
+  n = nx * ny
+  oracle = pool.submit(_scipy_kronsum, nx, ny)
+  L = _timed(f"sp.sparse.kronsum of two diags, {nx} x {ny} grid (n = {n})",
+             lambda: kronsum_laplacian(nx, ny, np.float32))
+  with host_span("waiting for the oracles"):
+    want = oracle.result()
+  got = L.to_scipy()
+  same = got.shape == want.shape and (got != want).nnz == 0
+  print(f"  its CSR form equals scipy's kronsum: {same} ({got.nnz} entries, "
+        f"ELL width {L.max_nnz_per_row}, nnz {L.nnz} with the two stored "
+        "diagonals of a row)")
+  check(same, f"kronsum Laplacian at {nx} x {ny} is not scipy's")
+  KS.reset_counts()
+  vals = _timed(f"sp.linalg.eigvalsh_lanczos(L, k={LANCZOS_K}) at n = {n}",
+                lambda: sp.linalg.eigvalsh_lanczos(L, k=LANCZOS_K))
+  launches = KS.counts[f"{kernel}_launches"]
+  plain = KS.counts[f"{kernel}_plain_runs"]
+  print(f"  {kernel} launches {launches} (one a step of {LANCZOS_M}), plain "
+        f"runs {plain}")
+  check(launches == LANCZOS_M and plain == 0,
+        f"Lanczos at n = {n}: {launches} {kernel} launches, {plain} plain")
+  vals64 = sp.linalg.eigvalsh_lanczos(L.astype(np.float64), k=LANCZOS_K)
+  top = grid_top_eigenvalues(nx, ny, LANCZOS_K)
+  slack = lanczos.lanczos_tol(LANCZOS_M, 8.0)
+  dev = float(np.abs(vals - vals64).max())
+  below = bool((vals <= top + slack).all() and (vals64 <= top + 1e-12).all())
+  print(f"  Ritz values {np.array2string(vals, precision=6)}; float64 run "
+        f"{np.array2string(vals64, precision=6)}: apart {dev:.3g} "
+        f"(tolerance {slack:.3g}, lanczos_tol); closed-form top "
+        f"{np.array2string(top, precision=6)}: each at most its eigenvalue "
+        f"{below}, the top one {top[-1] - vals[-1]:.3g} below")
+  check(dev <= slack and below, f"Lanczos at n = {n} disagrees")
+  held_against_plain(L, kernel)
+  return launches, L
+
+
+def held_against_plain(L, kernel: str) -> None:
+  """After the counted run: ``kernel``'s wrapper on the operands the
+  Lanczos run gave it (L's CSR form for K3b, its ELL for K3a) and a seeded
+  x, against its plain version on the same inputs."""
+  x = torch.randn(L.shape[1], generator=torch.Generator(L.cols.device)
+                  .manual_seed(21), device=L.cols.device)
+  if kernel == "csr":
+    ops = L.to_csr()
+    got, want = KS.spmv_csr(*ops, x), KS.spmv_csr_plain(*ops, x)
+  else:
+    got = KS.spmv_ell(L.cols, L.vals, x)
+    want = KS.spmv_ell_plain(L.cols, L.vals, x)
+  err = float((got - want).abs().max() / want.abs().max())
+  name = {"csr": "K3b spmv_csr", "ell": "K3a spmv_ell"}[kernel]
+  print(f"  {name} on L ({L.shape[0]} rows) against its plain version: max "
+        f"err of max|y| {err:.3g} (tolerance 1e-6: float32 sums of "
+        f"{L.max_nnz_per_row} products in another order)")
+  check(got.shape == want.shape and bool(torch.isfinite(got).all())
+        and err <= 1e-6, f"{name} disagrees with its plain version on the "
+        f"Laplacian at n = {L.shape[0]}")
+
+
+def ell_csr_crossover(L, card: str) -> None:
+  """K3b's wrapper on the n = 32768 Laplacian beside K3a's: the ELL/CSR
+  crossover ``sparse.ONEHOT_MAX_M`` sets (no route changes here)."""
+  x = torch.randn(L.shape[1], generator=torch.Generator(L.cols.device)
+                  .manual_seed(20), device=L.cols.device)
+  cols, vals = L.cols, L.vals
+  indptr, indices, data = L.to_csr()
+  y_ell = KS.spmv_ell(cols, vals, x)
+  y_csr = KS.spmv_csr(indptr, indices, data, x)
+  err = float((y_ell - y_csr).abs().max() / y_ell.abs().max())
+  t = time_in_turns({"K3a spmv_ell": lambda: KS.spmv_ell(cols, vals, x),
+                     "K3b spmv_csr": lambda: KS.spmv_csr(indptr, indices,
+                                                         data, x)})
+  nbytes = indptr.numel() * 8 + indices.numel() * 4 + data.numel() * 4 + (
+      2 * x.numel() * 4)
+  bound_ms, _ = bound(nbytes, 2 * indices.numel())
+  print(f"  ELL/CSR crossover at n = {L.shape[0]} on {card}: K3a "
+        f"{t['K3a spmv_ell']:.4f} ms (width {cols.shape[1]}), K3b "
+        f"{t['K3b spmv_csr']:.4f} ms (queued ahead "
+        f"{t['K3a spmv_ell ahead']}/{t['K3b spmv_csr ahead']}); the CSR "
+        f"form's byte bound {bound_ms:.4f} ms; results apart {err:.2g}")
+  check(err <= 1e-6, "K3a and K3b disagree on the Laplacian")
+
+
+def sparse_random_item(card: str) -> int:
+  """``sp.sparse.random`` at 2^22 x 2^22, 16 entries a row: exactly
+  round(density m n) distinct positions, values in [0, 1); its
+  ``sp.sparse.linalg.norm`` one K1 launch against a float64 sum of
+  squares.  Returns K1's launches."""
+  density = SPRAND_PER_ROW / SPRAND_N
+  with host_span("sparse.random (its host draw)"), Timer() as t:
+    S = sp.sparse.random(SPRAND_N, SPRAND_N, density=density,
+                         random_state=20, dtype=np.float32)
+    torch.cuda.synchronize()
+  want = int(round(density * SPRAND_N * SPRAND_N))
+  indptr, indices, _ = S.to_csr()
+  rows = torch.repeat_interleave(
+      torch.arange(SPRAND_N, device=indptr.device), indptr[1:] - indptr[:-1],
+      output_size=indices.numel())
+  keys = rows * SPRAND_N + indices.long()
+  distinct = int(keys.numel() - int((keys[1:] == keys[:-1]).sum()))
+  increasing = bool((keys[1:] > keys[:-1]).all())
+  # float32 values: NumPy's float64 draws in [0, 1) rounded, so 1.0 occurs
+  in_range = bool(((S.vals >= 0) & (S.vals <= 1)).all())
+  print(f"  sp.sparse.random({SPRAND_N}, {SPRAND_N}, density={density:.3g}) "
+        f"in {t.elapsed:.2f} s: nnz {S.nnz}, stored {indices.numel()}, "
+        f"distinct positions {distinct} (want {want}), sorted "
+        f"{increasing}, values in [0, 1] {in_range}")
+  check(S.nnz == indices.numel() == distinct == want and increasing
+        and in_range, "sp.sparse.random broke its contract")
+  del rows, keys
+  K.reset_counts()
+  got = _timed("sp.sparse.linalg.norm of its float32 values",
+               lambda: float(spl.norm(S).glom()))
+  launches, plain = K.counts["launches"], K.counts["plain_runs"]
+  want_norm = float(torch.sqrt((S.vals.double() ** 2).sum()))
+  rel = rel_err(got, want_norm)
+  print(f"  norm {got!r} against a float64 sum of squares {want_norm!r}: "
+        f"rel err {rel:.3g} (tolerance 1e-9: float32 squares summed in "
+        f"float64, where a float32 sum of 2^26 would err by about 1e-7); "
+        f"K1 launches {launches}, plain runs {plain}")
+  check(launches == 1 and plain == 0 and rel <= 1e-9,
+        "sp.sparse.linalg.norm did not take K1 or disagrees")
+  return launches
+
+
+def dense_linalg_items(device, pool, card: str) -> None:
+  """sp.linalg at config 3's X (2^20 x 64 float64): lstsq, qr('tsqr'),
+  svd_lowrank and pca.fit; cholesky at 8192^2 and solve('cholesky');
+  eigh, svd, inv and slogdet at 4096^2 — each against NumPy's float64
+  result on the pool's threads (their identities on the card)."""
+  gen = torch.Generator(device).manual_seed(200)
+  m, d = TALL
+  X = torch.randn(m, d, generator=gen, dtype=torch.float64, device=device)
+  y = torch.randn(m, generator=gen, dtype=torch.float64, device=device)
+  # a decaying spectrum for the randomized SVD and PCA: 2^-j, floored
+  scales = torch.clamp(0.5 ** torch.arange(d, dtype=torch.float64,
+                                           device=device), min=1e-3)
+  Xs = X * scales
+  with host_span("fetches"):
+    hX, hy, hXs = X.cpu().numpy(), y.cpu().numpy(), Xs.cpu().numpy()
+  ls = pool.submit(lambda: np.linalg.lstsq(hX, hy, rcond=None)[0])
+  sv = pool.submit(np.linalg.svd, hXs, False, False)
+  cov = pool.submit(lambda: np.linalg.eigvalsh(
+      np.cov(hXs, rowvar=False, bias=True))[::-1])
+  w = _timed("sp.linalg.lstsq(X, y), 2^20 x 64",
+             lambda: sp.evaluate(sp.linalg.lstsq(sp.Val(sp.SpartanArray(X)),
+                                                 sp.Val(sp.SpartanArray(y)))))
+  Q, R = _timed("sp.linalg.qr(X, method='tsqr')",
+                lambda: sp.linalg.qr(sp.Val(sp.SpartanArray(X)),
+                                     method="tsqr"))
+  q, r = sp.evaluate(Q).data, sp.evaluate(R).data
+  recon = float((q @ r - X).abs().max() / X.abs().max())
+  orth = float((q.T @ q - torch.eye(d, dtype=q.dtype, device=device))
+               .abs().max())
+  print(f"  tsqr on the card: |QR - X| / max|X| {recon:.3g}, |Q'Q - I| "
+        f"{orth:.3g} (tolerance 1e-12 each: CholeskyQR2 of a well "
+        "conditioned X)")
+  check(recon <= 1e-12 and orth <= 1e-12, "tsqr disagrees")
+  _, s, _ = _timed(f"sp.linalg.svd_lowrank(Xs, k={SSVD_K})",
+                   lambda: sp.linalg.svd_lowrank(sp.Val(sp.SpartanArray(Xs)),
+                                                 k=SSVD_K))
+  _, evals = _timed(f"pca.fit(Xs, k={SSVD_K})",
+                    lambda: pca.fit(sp.Val(sp.SpartanArray(Xs)), k=SSVD_K))
+  with host_span("waiting for the oracles"):
+    want_w, want_s, want_ev = ls.result(), sv.result(), cov.result()
+  _agreed("lstsq", w.data.cpu().numpy(), want_w, 1e-10,
+          "normal equations of a kappa ~ 1 X in float64")
+  _agreed("svd_lowrank's singular values", s, want_s[:SSVD_K], 1e-8,
+          "20 subspace iterations at a gap of 0.5 a value")
+  _agreed("pca.fit's eigenvalues", evals, want_ev[:SSVD_K], 1e-8,
+          "30 subspace iterations at a gap of 0.25 a value")
+  del X, y, Xs, w, Q, R, q, r, hX, hy, hXs
+  # cholesky and solve('cholesky') at 8192^2
+  n = CHOL_N
+  M = torch.randn(n, n, generator=gen, dtype=torch.float64, device=device)
+  A = M @ M.T + n * torch.eye(n, dtype=torch.float64, device=device)
+  b = torch.randn(n, generator=gen, dtype=torch.float64, device=device)
+  del M
+  with host_span("fetches"):
+    hA, hb = A.cpu().numpy(), b.cpu().numpy()
+  chol = pool.submit(np.linalg.cholesky, hA)
+  L = _timed(f"sp.linalg.cholesky at {n}^2 float64 (block 128)",
+             lambda: sp.linalg.cholesky(sp.Val(sp.SpartanArray(A))))
+  x = _timed("sp.linalg.solve(A, b, method='cholesky')",
+             lambda: sp.evaluate(sp.linalg.solve(
+                 sp.Val(sp.SpartanArray(A)), sp.Val(sp.SpartanArray(b)),
+                 method="cholesky")))
+  with host_span("waiting for the oracles"):
+    want_L = chol.result()
+  import scipy.linalg as sla
+  with host_span("oracles"):
+    want_x = sla.cho_solve((want_L, True), hb)
+  _agreed("cholesky", L.data.cpu().numpy(), want_L, 1e-10,
+          "kappa(A) about 5, float64")
+  _agreed("solve(method='cholesky')", x.data.cpu().numpy(), want_x, 1e-10,
+          "two blocked triangular solves, kappa about 5")
+  del A, b, L, x, hA, want_L
+  torch.cuda.empty_cache()
+  # eigh, svd, inv, slogdet at 4096^2
+  n = DENSE_N
+  G = torch.randn(n, n, generator=gen, dtype=torch.float64, device=device)
+  Sym = (G + G.T) / 2
+  P = G @ G.T / n + torch.eye(n, dtype=torch.float64, device=device)
+  with host_span("fetches"):
+    hG, hS, hP = G.cpu().numpy(), Sym.cpu().numpy(), P.cpu().numpy()
+  futs = {"eigvalsh": pool.submit(np.linalg.eigvalsh, hS),
+          "svdvals": pool.submit(np.linalg.svd, hG, False, False),
+          "inv": pool.submit(np.linalg.inv, hP),
+          "slogdet": pool.submit(np.linalg.slogdet, hP)}
+  w, v = _timed(f"sp.linalg.eigh at {n}^2 float64",
+                lambda: sp.evaluate(list(sp.linalg.eigh(
+                    sp.Val(sp.SpartanArray(Sym))))), warm=True)
+  res = float((Sym @ v.data - v.data * w.data).abs().max()
+              / w.data.abs().max())
+  u, s, vt = _timed(f"sp.linalg.svd at {n}^2 float64",
+                    lambda: sp.evaluate(list(sp.linalg.svd(
+                        sp.Val(sp.SpartanArray(G))))), warm=True)
+  rec = float(((u.data * s.data) @ vt.data - G).abs().max() / G.abs().max())
+  Pi = _timed(f"sp.linalg.inv at {n}^2 float64",
+              lambda: sp.linalg.inv(sp.Val(sp.SpartanArray(P))).evaluate(),
+              warm=True)
+  sign, logdet = _timed(f"sp.linalg.slogdet at {n}^2 float64",
+                        lambda: sp.evaluate(list(sp.linalg.slogdet(
+                            sp.Val(sp.SpartanArray(P))))), warm=True)
+  print(f"  eigh |A V - V W| / max|w| {res:.3g}, svd |U S Vt - G| / max|G| "
+        f"{rec:.3g} (tolerance 1e-11 each: cuSOLVER's residual)")
+  check(res <= 1e-11 and rec <= 1e-11, "eigh or svd residual too large")
+  with host_span("waiting for the oracles"):
+    want = {k: f.result() for k, f in futs.items()}
+  _agreed("eigh's eigenvalues", w.data.cpu().numpy(), want["eigvalsh"],
+          1e-10, "float64, both backward stable")
+  _agreed("svd's singular values", s.data.cpu().numpy(), want["svdvals"],
+          1e-10, "float64, both backward stable")
+  _agreed("inv", Pi.data.cpu().numpy(), want["inv"], 1e-10,
+          "kappa about 5, float64")
+  ok = float(sign.glom()) == want["slogdet"][0]
+  rel = rel_err(float(logdet.glom()), want["slogdet"][1])
+  print(f"  slogdet sign equal {ok}, logdet rel err {rel:.3g} (tolerance "
+        "1e-12)")
+  check(ok and rel <= 1e-12, "slogdet disagrees")
+  del G, Sym, P, w, v, u, s, vt, Pi, hG, hS, hP, want
+  torch.cuda.empty_cache()
+
+
+def _free_fft() -> None:
+  torch.backends.cuda.cufft_plan_cache.clear()
+  torch.cuda.empty_cache()
+
+
+def fft_items(device, pool, card: str) -> None:
+  """sp.fft at config 1's 16384^2 float32: fft2/ifft2 and rfft2/irfft2
+  round trips and Parseval's identity on the card; NumPy's float64 FFT as
+  the oracle at 4096^2; Poisson's spectral solve at 16384^2 by its own
+  residual through ``laplacian``, and against NumPy at 4096^2."""
+  gen = torch.Generator(device).manual_seed(201)
+  n = FFT_N
+  x = torch.randn(n, n, generator=gen, dtype=torch.float32, device=device)
+  X = sp.Val(sp.SpartanArray(x))
+  # a float32 FFT of N points errs by about log2(N) roundings of the
+  # largest coefficient; 8 of them of slack
+  tol = 8 * np.log2(n * n) * EPS32
+  F = _timed(f"sp.fft.fft2 at {n}^2 float32",
+             lambda: sp.fft.fft2(X).evaluate(), warm=True)
+  check(F.dtype == torch.complex64, f"fft2 of float32 gave {F.dtype}")
+  energy = float((F.data.abs().double() ** 2).sum()) / (n * n)
+  direct = float((x.double() ** 2).sum())
+  parseval = rel_err(energy, direct)
+  back = _timed("sp.fft.ifft2 of it", lambda: sp.fft.ifft2(sp.Val(F))
+                .evaluate(), warm=True)
+  trip = float((back.data.real - x).abs().max() / x.abs().max())
+  del F, back
+  _free_fft()
+  R = _timed(f"sp.fft.rfft2 at {n}^2 float32",
+             lambda: sp.fft.rfft2(X).evaluate(), warm=True)
+  back = _timed("sp.fft.irfft2 of it", lambda: sp.fft.irfft2(
+      sp.Val(R), s=(n, n)).evaluate(), warm=True)
+  rtrip = float((back.data - x).abs().max() / x.abs().max())
+  print(f"  Parseval: sum|F|^2 / N against sum|x|^2 rel err {parseval:.3g}; "
+        f"round trips |ifft2(fft2 x) - x| {trip:.3g}, |irfft2(rfft2 x) - x| "
+        f"{rtrip:.3g} of max|x| (tolerance {tol:.3g}: 8 log2 N float32 "
+        "roundings)")
+  check(max(parseval, trip, rtrip) <= tol, "an FFT round trip disagrees")
+  del R, back, X, x
+  _free_fft()
+  # NumPy's FFT at 4096^2
+  m = FFT_ORACLE_N
+  h = np.random.default_rng(202).standard_normal((m, m), dtype=np.float32)
+  oracle = pool.submit(np.fft.fft2, h.astype(np.float64))
+  roracle = pool.submit(np.fft.rfft2, h.astype(np.float64))
+  H = sp.from_numpy(h)
+  got = sp.fft.fft2(H).glom()
+  rgot = sp.fft.rfft2(H).glom()
+  tol_m = 8 * np.log2(m * m) * EPS32
+  with host_span("waiting for the oracles"):
+    want, rwant = oracle.result(), roracle.result()
+  _agreed(f"fft2 at {m}^2 against NumPy's float64", got, want, tol_m,
+          "8 log2 N float32 roundings")
+  _agreed(f"rfft2 at {m}^2 against NumPy's float64", rgot, rwant, tol_m,
+          "8 log2 N float32 roundings")
+  del got, rgot, want, rwant
+  _free_fft()
+  # Poisson's spectral solve at 16384^2
+  f = torch.randn(n, n, generator=gen, dtype=torch.float64, device=device)
+  f = (f - f.mean()).to(torch.float32)
+  Fv = sp.Val(sp.SpartanArray(f))
+  u = _timed(f"poisson.solve at {n}^2 (float32 f)",
+             lambda: poisson.solve(Fv).evaluate(), warm=True)
+  _free_fft()
+  res = float(sp.max(sp.abs(poisson.laplacian(sp.Val(u)) - Fv)).glom())
+  ptol = 64 * np.log2(n * n) * EPS32 * float(f.abs().max())
+  print(f"  its residual max|laplacian(u) - f| {res:.3g} (tolerance "
+        f"{ptol:.3g}: the complex64 forward transform's roundings, 64 "
+        "log2 N of max|f|)")
+  check(res <= ptol, "the spectral Poisson solve's residual is too large")
+  del f, Fv, u
+  _free_fft()
+  h = np.random.default_rng(203).standard_normal((m, m))
+  h -= h.mean()
+
+  def numpy_solve():
+    k = 2.0 * np.pi * np.fft.fftfreq(m)
+    lam = 2.0 * np.cos(k[:, None]) + 2.0 * np.cos(k[None, :]) - 4.0
+    inv = np.where(lam == 0, 0.0, 1.0 / np.where(lam == 0, 1.0, lam))
+    return np.real(np.fft.ifft2(np.fft.fft2(h) * inv))
+
+  oracle = pool.submit(numpy_solve)
+  got = poisson.solve(sp.from_numpy(h)).glom()
+  with host_span("waiting for the oracles"):
+    want = oracle.result()
+  _agreed(f"poisson.solve at {m}^2 float64 against NumPy's", got, want,
+          1e-12, "float64 FFTs, log2 N roundings amplified by 1/lambda")
+  _free_fft()
+
+
+def draw_items(device) -> None:
+  """sp.random on the card: 2^28 standard normals and 2^24 draws each of
+  gamma, beta, poisson and binomial, each held to its first two moments at
+  Z_BOUND standard errors (the moments on the card in float64)."""
+  cases = [("normal", lambda g: g.standard_normal(NORMAL_DRAWS), {}),
+           ("gamma", lambda g: g.gamma(2.5, 1.5, size=DIST_DRAWS),
+            {"shape": 2.5, "scale": 1.5}),
+           ("gamma", lambda g: g.gamma(0.3, size=DIST_DRAWS),
+            {"shape": 0.3}),
+           ("beta", lambda g: g.beta(0.5, 2.0, size=DIST_DRAWS),
+            {"a": 0.5, "b": 2.0}),
+           ("poisson", lambda g: g.poisson(3.0, size=DIST_DRAWS),
+            {"lam": 3.0}),
+           ("binomial", lambda g: g.binomial(10, 0.3, size=DIST_DRAWS),
+            {"n": 10, "p": 0.3})]
+  for i, (op, draw, params) in enumerate(cases):
+    t = _timed(f"sp.random {op}{tuple(params.values())}",
+               lambda: draw(sp.random.default_rng(2000 + i)).evaluate()).data
+    check(t.device == device, f"{op} drew off the card")
+    x = t.double()
+    k = x.numel()
+    mean, var, mu4 = sp.random.moments(op, **params)
+    zm = abs(float(x.mean()) - mean) / np.sqrt(var / k)
+    zv = abs(float(x.var(correction=0)) - var) / np.sqrt((mu4 - var * var)
+                                                         / k)
+    print(f"    {k} draws, {t.dtype}: mean z {zm:.2f}, variance z {zv:.2f} "
+          f"(bound {Z_BOUND})")
+    check(zm < Z_BOUND and zv < Z_BOUND, f"{op} draws miss their moments")
+    del t, x
+  torch.cuda.empty_cache()
+
+
+def file_items(device) -> None:
+  """Array files on the card: ``save``/``load`` of a 16384^2 float32 array
+  (1 GiB) bit for bit, a ``checkpoint`` inside a DAG and its restore, and
+  ``from_file`` of a ``.npy`` file."""
+  import tempfile
+  gen = torch.Generator(device).manual_seed(204)
+  x = torch.randn(FFT_N, FFT_N, generator=gen, device=device)
+  B = sp.Val(sp.SpartanArray(x))
+  with tempfile.TemporaryDirectory() as tmp:
+    with host_span("files"), Timer() as t_save:
+      sp.save(B, f"{tmp}/b")
+    with host_span("files"), Timer() as t_load:
+      back = sp.load(f"{tmp}/b")
+      torch.cuda.synchronize()
+    same = bool(torch.equal(back.data, x))
+    print(f"  sp.save of {x.numel() * 4 / 2 ** 30:.2f} GiB in "
+          f"{t_save.elapsed:.2f} s, sp.load in {t_load.elapsed:.2f} s (warm "
+          f"page cache): bit for bit {same}")
+    check(same and back.data.device == device, "save/load changed the bits")
+    del back
+    with host_span("files"):
+      total = float((sp.checkpoint(B * 2.0, f"{tmp}/ck") + 1.0).sum().glom())
+      again = sp.checkpoint(sp.zeros(x.shape, dtype=np.float32),
+                            f"{tmp}/ck").evaluate()
+    want = float((x.double() * 2.0 + 1.0).sum())
+    restored = bool(torch.equal(again.data, x * 2.0))
+    print(f"  checkpoint in a DAG: (ck + 1).sum() rel err "
+          f"{rel_err(total, want):.3g} (tolerance 1e-9: float64 sums); a "
+          f"fresh expr over its path restores it bit for bit {restored}")
+    check(rel_err(total, want) <= 1e-9 and restored,
+          "the checkpoint path disagrees")
+    del again
+    small = x[:FFT_ORACLE_N].cpu().numpy()
+    np.save(f"{tmp}/x.npy", small)
+    got = sp.from_file(f"{tmp}/x.npy").evaluate()
+    ok = bool(torch.equal(got.data.cpu(), torch.from_numpy(small)))
+    print(f"  sp.from_file of a {small.nbytes / 2 ** 20:.0f} MiB .npy: bit "
+          f"for bit {ok}")
+    check(ok, "from_file changed the bits")
+  del x, B
+  torch.cuda.empty_cache()
+
+
+def phase_namespaces(device, card: str) -> dict:
+  """Phase 20: sp.sparse's builders, sp.linalg, sp.fft with Poisson's
+  spectral solver, sp.random and array files at full size.  Returns the
+  launches of its counted runs: K3b and K3a by Lanczos, K1 by
+  ``sp.sparse.linalg.norm``."""
+  pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
+  with pool:
+    csr, _ = lanczos_on_grid(LAP_SIDE, LAP_SIDE, "csr", pool, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ell, small = lanczos_on_grid(*LAP_SMALL, "ell", pool, card)
+    ell_csr_crossover(small, card)
+    del small
+    k1 = sparse_random_item(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_linalg_items(device, pool, card)
+    fft_items(device, pool, card)
+  draw_items(device)
+  file_items(device)
+  return {"csr": csr, "ell": ell, "k1": k1}
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -4395,6 +4931,18 @@ def main() -> None:
   sharded["sharded_windowed_spmv"]["launches"] += solver_launches[
       "sharded_csr"]
   done(19)
+  print("phase 20: sp.sparse's builders (the 5-point Laplacian of a 2048^2 "
+        "and a 128 x 256 grid by kronsum of diags, Lanczos on them through "
+        "K3b and K3a, sparse.random at 2^22 x 2^22 and its norm through "
+        "K1), sp.linalg at config 3's X, cholesky at 8192^2 and eigh/svd/"
+        "inv/slogdet at 4096^2, sp.fft and Poisson's spectral solve at "
+        "16384^2, sp.random's distributions, array files")
+  HOST_SPANS.clear()
+  counted = phase_namespaces(device, card)
+  k3["spmv_csr"]["launches"] += counted["csr"]
+  k3["spmv_ell"]["launches"] += counted["ell"]
+  k1["launches"] += counted["k1"]
+  print_host_spans(20, done(20))
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

@@ -12,8 +12,11 @@ reference the port is tested against; this package never imports jax.
     b = sp.from_numpy(host_array)
     print(abs(1 + b * 2).sum().glom())   # fused map+reduce, one kernel
 
-Only the first slices of the reference surface are here (see ROADMAP.md);
-names they lack are absent rather than stubbed.
+The slices of the reference surface ported so far are here (see
+ROADMAP.md): the builtins, the loops, the sparse arrays with
+``sp.sparse``'s builders and ``sp.sparse.linalg``'s solvers, ``sp.linalg``,
+``sp.fft``, ``sp.random`` and array files; names not yet ported are absent
+rather than stubbed.
 """
 
 from __future__ import annotations
@@ -65,13 +68,23 @@ from spartan_tpu_torch import interop  # noqa: E402
 from spartan_tpu_torch.backend import sparse  # noqa: E402
 from spartan_tpu_torch.backend.sparse import (SparseArray,  # noqa: E402
                                               sparse_diagonal, sprandn)
+from spartan_tpu_torch.expr.fio import (checkpoint, from_file,  # noqa: E402
+                                        load, save)
+from spartan_tpu_torch import linalg  # noqa: E402  (np.linalg surface)
+from spartan_tpu_torch import fft  # noqa: E402  (np.fft / scipy.fft surface)
+from spartan_tpu_torch import random  # noqa: E402,A004  (np.random surface)
 from spartan_tpu_torch import sparse_linalg  # noqa: E402
 sparse.linalg = sparse_linalg  # the scipy idiom: sp.sparse.linalg.cg(...)
+from spartan_tpu_torch import sparse_construct  # noqa: E402
+for _name in sparse_construct.__all__:  # the scipy.sparse builders
+  setattr(sparse, _name, getattr(sparse_construct, _name))
+del _name
 
 __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "Mesh", "SpartanArray", "get_mesh", "make_mesh", "with_mesh",
            "Expr", "ListExpr", "TupleExpr", "DictExpr", "NotShapeable", "Val", "evaluate", "force",
            "lazify", "map",
            "reduce", "fori_loop", "make_fori", "while_loop", "scan_iters",
-           "cond", "interop", "sparse", "sparse_linalg",
+           "cond", "checkpoint", "from_file", "load", "save", "interop",
+           "sparse", "linalg", "fft", "random", "sparse_linalg",
            "SparseArray", "sparse_diagonal", "sprandn"] + list(_builtin_all)

@@ -173,11 +173,16 @@ def _wrap(kind: str, value, tiling: Tiling):
 
 def _materialize_unshapeable(expr: Expr) -> None:
   """Evaluate, children first, each node whose shape depends on its data
-  (its ``aval`` raises ``NotShapeable``: a boolean mask, a host op), so
-  that the region around it reads its result as a leaf."""
+  (its ``aval`` raises ``NotShapeable``: a boolean mask, a host op) and
+  each explicit boundary (``_eager_boundary``: a checkpoint, which must get
+  the chance to restore from disk), so that the region around it reads its
+  result as a leaf."""
 
   def visit(e: Expr):
     if e._cache is not None or not hasattr(e, "evaluate_eager"):
+      return
+    if getattr(e, "_eager_boundary", False):
+      e._cache = e.evaluate_eager()
       return
     try:
       e.aval()

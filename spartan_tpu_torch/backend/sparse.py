@@ -69,6 +69,12 @@ ONEHOT_MAX_M = 32768
 _KERNEL_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 
+def spmv_kernel_dtype(dtype: torch.dtype) -> bool:
+  """Whether the SpMV kernels take a matrix of ``dtype``: float32 and the
+  16-bit floats (float64 stays on the exact routes)."""
+  return dtype in _KERNEL_FLOATS
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
   """A tensor as numpy on the host (bfloat16, which numpy lacks, as
   float32)."""
@@ -153,13 +159,16 @@ class SparseArray:
   def density(self) -> float:
     return self.nnz / (self.shape[0] * self.shape[1])
 
-  def todense(self) -> np.ndarray:
+  def dense_tensor(self) -> torch.Tensor:
+    """The dense matrix on the array's device, duplicates summed."""
     out = torch.zeros(self.shape, dtype=self.vals.dtype,
                       device=self.vals.device)
-    out.index_put_((_row_ids(self.cols).reshape(-1),
-                    self.cols.reshape(-1).long()),
-                   self.vals.reshape(-1), accumulate=True)
-    return _host(out)
+    return out.index_put_((_row_ids(self.cols).reshape(-1),
+                           self.cols.reshape(-1).long()),
+                          self.vals.reshape(-1), accumulate=True)
+
+  def todense(self) -> np.ndarray:
+    return _host(self.dense_tensor())
 
   toarray = todense
 

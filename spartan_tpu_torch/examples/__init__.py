@@ -1,3 +1,3 @@
 """Example workloads ported so far: ``linear_reg``, ``logistic_reg``,
 ``kmeans``, ``pagerank``, ``als``, ``heat``, ``poisson``, ``convnet``,
-``cg``."""
+``cg``, ``cholesky``, ``qr``, ``lanczos``, ``pca``, ``spectral``."""

@@ -18,9 +18,14 @@ products, as in the reference.  Inner products are
 rounds once, so a float32 solve keeps every carry in float32 (the
 reference's float32 solve under x64 changes a carry's dtype and raises).
 
+``norm`` and ``spsolve`` come with ``sp.linalg``: a ``SparseArray``'s
+Frobenius norm is ``sqrt(sum(square(v)))`` over its stored values (a
+float32 one's sum plans onto K1), and ``spsolve`` densifies a system of at most
+``--spsolve_dense_max`` rows and solves it by LU on the device.
+
 The reference's spectral solvers (``eigsh``, ``eigs``, ``svds``,
-``expm_multiply``), ``norm``, ``spsolve`` and its densified and host
-functions are not ported yet.
+``expm_multiply``) and its densified and host functions are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -33,14 +38,21 @@ import numpy as np
 import torch
 
 import spartan_tpu_torch as sp
-from spartan_tpu_torch.core.array import to_numpy_dtype
+from spartan_tpu_torch.config import FLAGS, IntFlag
+from spartan_tpu_torch.core.array import SpartanArray, to_numpy_dtype
 from spartan_tpu_torch.expr.base import Expr
 from spartan_tpu_torch.expr.builtins import _lstsq_svd
 from spartan_tpu_torch.expr.map import result_type, structural
 
+FLAGS.add(IntFlag(
+    "spsolve_dense_max", 8192,
+    "spsolve densifies and LU-factorizes up to this many rows; larger "
+    "systems raise (use cg/gmres/lsqr)"))
+
 __all__ = [
     "LinearOperator", "aslinearoperator", "cg", "bicgstab", "gmres",
-    "minres", "lsqr", "bicg", "cgs", "tfqmr", "qmr", "lsmr",
+    "minres", "lsqr", "bicg", "cgs", "tfqmr", "qmr", "lsmr", "norm",
+    "spsolve",
 ]
 
 _TINY = 1e-30
@@ -824,6 +836,42 @@ def lsmr(A, b, damp: float = 0.0, atol: float = 1e-6, btol: float = 1e-6,
   else:
     istop = 7
   return x, istop, k, normr, normar, normA, condA, normx
+
+
+def norm(A, ord="fro"):
+  """Sparse matrix norm: ``'fro'`` is ``sqrt(sum(square(v)))`` over the
+  stored values (pads are 0; duplicates count apart, as in the reference),
+  one reduction over one operand, which plans onto K1 for float32 values
+  (``v * v`` of a leaf would be two operands).  Anything but a sparse
+  array goes to ``sp.linalg.norm``."""
+  from spartan_tpu_torch.backend import sparse as sps
+  if not isinstance(A, (sps.SparseArray, sps.BlockSparseArray)):
+    return sp.linalg.norm(A, ord=ord)
+  if ord not in ("fro", None):
+    raise ValueError("sparse norm supports ord='fro' only (pads make "
+                     "signed element iteration ambiguous); densify for "
+                     "ord=1/inf")
+  v = sp.lazify(A.block_vals if isinstance(A, sps.BlockSparseArray)
+                else A.vals)
+  return sp.sqrt(sp.sum(sp.square(v)))
+
+
+def spsolve(A, b):
+  """Direct sparse solve, gated by size: densifies and solves by LU on the
+  device when ``n <= --spsolve_dense_max``, raises with the iterative
+  solvers named above it."""
+  from spartan_tpu_torch.backend import sparse as sps
+  if not isinstance(A, (sps.SparseArray, sps.BlockSparseArray)):
+    return sp.linalg.solve(A, b)
+  n = A.shape[0]
+  if n > int(FLAGS.spsolve_dense_max):
+    raise ValueError(
+        f"spsolve densifies (n={n} > --spsolve_dense_max="
+        f"{int(FLAGS.spsolve_dense_max)}); use sparse_linalg.cg (SPD), "
+        "gmres/bicgstab (general), or raise the flag")
+  dense = (sp.Val(SpartanArray(A.dense_tensor()))
+           if isinstance(A, sps.SparseArray) else sp.from_numpy(A.todense()))
+  return sp.linalg.solve(dense, b)
 
 
 # -- what one solve of a SparseArray runs, and what it may leave --------------

@@ -2,8 +2,9 @@
 item 1.5): the exact sorted list of ``spartan_tpu.__all__`` names that
 ``spartan_tpu_torch`` does not export yet, and of
 ``spartan_tpu.sparse_linalg.__all__`` names that
-``spartan_tpu_torch.sparse_linalg`` lacks.  A PR that ports a name must
-take it off its list; the round ends when both lists are empty."""
+``spartan_tpu_torch.sparse_linalg`` lacks; and ``sp.sparse``'s builders.
+A change that ports a name must take it off its list; the port is whole
+when both lists are empty."""
 
 import spartan_tpu as ref
 import spartan_tpu.sparse_linalg as ref_spl
@@ -12,38 +13,47 @@ import spartan_tpu_torch as sp
 import spartan_tpu_torch.sparse_linalg as spl
 
 MISSING = sorted("""
-checkpoint cluster compile fft from_file grad hessian hvp integrate
-interpolate jvp linalg load minimize ndimage optimize random remat save
-scipy_linalg sgd_train signal smart_tile spatial special stats tiling_plan
-value_and_grad
+cluster compile grad hessian hvp integrate interpolate jvp minimize
+ndimage optimize remat scipy_linalg sgd_train signal smart_tile spatial
+special stats tiling_plan value_and_grad
 """.split())
 
-# the spectral solvers, the functions that need sp.linalg, and the
-# densified or host functions, structure probes and host-boundary classes
+# the spectral solvers, and the densified or host functions, structure
+# probes and host-boundary classes
 MISSING_SPARSE_LINALG = sorted("""
 ArpackError ArpackNoConvergence LaplacianNd MatrixRankWarning SuperLU eigs
 eigsh expm expm_multiply factorized funm_multiply_krylov gcrotmk inv
-is_sptriangular lgmres lobpcg matrix_power norm onenormest spbandwidth
-spilu splu spsolve spsolve_triangular svds use_solver
+is_sptriangular lgmres lobpcg matrix_power onenormest spbandwidth spilu
+splu spsolve_triangular svds use_solver
 """.split())
 
 
 def test_the_names_the_port_still_lacks():
   lacking = sorted(set(ref.__all__) - set(sp.__all__))
   assert lacking == MISSING
-  assert len(MISSING) == 28
+  assert len(MISSING) == 21
 
 
 def test_every_exported_name_is_defined():
   for name in sp.__all__:
     assert hasattr(sp, name), name
-  assert len(set(sp.__all__)) == 374
+  assert len(set(sp.__all__)) == 381
 
 
 def test_the_sparse_linalg_names_the_port_still_lacks():
   lacking = sorted(set(ref_spl.__all__) - set(spl.__all__))
   assert lacking == MISSING_SPARSE_LINALG
-  assert len(MISSING_SPARSE_LINALG) == 26
+  assert len(MISSING_SPARSE_LINALG) == 24
   assert set(spl.__all__) <= set(ref_spl.__all__)
   for name in spl.__all__:
     assert hasattr(spl, name), name
+
+
+def test_sp_sparse_has_every_builder_of_the_reference():
+  """``sp.sparse`` carries every name of the reference's
+  ``sparse_construct.__all__``, the port's own builders."""
+  import spartan_tpu.sparse_construct as ref_sc
+
+  import spartan_tpu_torch.sparse_construct as sc
+  for name in ref_sc.__all__:
+    assert getattr(sp.sparse, name) is getattr(sc, name), name

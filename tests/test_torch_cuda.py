@@ -1997,3 +1997,216 @@ def test_gmres_least_squares_on_card(device, rank):
   assert np.abs(got[rank:]).max(initial=0.0) == 0.0
   np.testing.assert_allclose(got, want, rtol=0,
                              atol=1e-4 * np.abs(want).max())
+
+
+# -- sp.sparse's builders, sp.linalg, sp.fft, sp.random and array files ----
+# (the slice of ROADMAP Queue 1 items 4 and 7).  Tolerances: float64 dense
+# factorizations against NumPy at 1e-10 of the result's largest entry
+# (cuSOLVER and LAPACK sum in other orders; condition numbers below 1e3
+# here); float32 FFTs at 1e-5 of the largest coefficient (log2 N · 2^-24
+# with margin); float32 Lanczos within ``lanczos.lanczos_tol`` of a
+# float64 run; draws at 6 standard errors of their first two moments.
+
+from spartan_tpu_torch.examples import lanczos as LAN  # noqa: E402
+from spartan_tpu_torch.examples import poisson as POISSON  # noqa: E402
+
+
+def _grid_laplacian_on(nx, ny, dtype):
+  d = [-1.0, 2.0, -1.0]
+  return sp.sparse.kronsum(
+      sp.sparse.diags(d, [-1, 0, 1], shape=(nx, nx), dtype=dtype),
+      sp.sparse.diags(d, [-1, 0, 1], shape=(ny, ny), dtype=dtype))
+
+
+def _close_on(got, want, tol):
+  got, want = np.asarray(got), np.asarray(want)
+  assert got.shape == want.shape
+  scale = max(float(np.abs(want).max()), 1e-300)
+  assert float(np.abs(got - want).max()) <= tol * scale
+
+
+def test_sparse_builders_on_card(device):
+  import scipy.sparse as ss
+  L = _grid_laplacian_on(64, 96, np.float32)
+  assert L.cols.device == device and L.vals.dtype == torch.float32
+  d = ss.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(64, 64))
+  e = ss.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(96, 96))
+  assert (L.to_scipy() != ss.kronsum(d, e).tocsr()).nnz == 0
+  indptr, indices, data = L.to_csr()
+  assert indptr.device == device and data.dtype == torch.float32
+  R = sp.sparse.random(3000, 2000, density=0.01, random_state=4,
+                       dtype=np.float32)
+  cpu = sp.make_mesh("cpu")
+  with sp.with_mesh(cpu):
+    Rc = sp.sparse.random(3000, 2000, density=0.01, random_state=4,
+                          dtype=np.float32)
+  assert torch.equal(R.cols.cpu(), Rc.cols)
+  assert torch.equal(R.vals.cpu(), Rc.vals)
+  K = sp.sparse.kron(sp.sparse.eye(3), L)
+  x = torch.randn(K.shape[1], device=device)
+  y = sp.sparse.spmv(K, x)
+  want = ss.kron(ss.eye(3), ss.kronsum(d, e)) @ x.cpu().double().numpy()
+  _close_on(y.cpu().numpy(), want, 1e-5)
+
+
+@pytest.mark.parametrize("nx, ny, kernel", [(64, 64, "ell"),
+                                            (200, 200, "csr")])
+def test_lanczos_launches_the_spmv_kernels_on_card(device, nx, ny, kernel):
+  """float32 Lanczos of a grid Laplacian: one K3a (n = 4096) or K3b
+  (n = 40000) launch a step, no plain run; within ``lanczos_tol`` of the
+  float64 run (plain gathers) and at most the closed-form top k."""
+  m, k = 24, 6
+  L32 = _grid_laplacian_on(nx, ny, np.float32)
+  KS.reset_counts()
+  got = sp.linalg.eigvalsh_lanczos(L32, k=k, m=m)
+  assert KS.counts[f"{kernel}_launches"] == m
+  assert KS.counts["ell_plain_runs"] == KS.counts["csr_plain_runs"] == 0
+  got64 = sp.linalg.eigvalsh_lanczos(_grid_laplacian_on(nx, ny, np.float64),
+                                     k=k, m=m)
+  slack = LAN.lanczos_tol(m, 8.0)
+  assert np.abs(got - got64).max() <= slack
+  lx = 2 - 2 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+  ly = 2 - 2 * np.cos(np.arange(1, ny + 1) * np.pi / (ny + 1))
+  top = np.sort((lx[:, None] + ly[None, :]).ravel())[-k:]
+  assert (got <= top + slack).all()
+
+
+def test_sparse_norm_launches_k1_on_card(device):
+  import scipy.sparse as ss
+  M = ss.random(5000, 5000, density=0.002, random_state=np.random
+                .RandomState(1), dtype=np.float32).tocsr()
+  S = sps.from_scipy(M)
+  K.reset_counts()
+  got = float(sp.sparse.linalg.norm(S).glom())
+  assert K.counts["launches"] == 1 and K.counts["plain_runs"] == 0
+  np.testing.assert_allclose(got, ss.linalg.norm(M.astype(np.float64)),
+                             rtol=1e-6)
+
+
+def test_dense_linalg_on_card(device):
+  rng = np.random.default_rng(3)
+  n = 256
+  m = rng.standard_normal((n, n))
+  a = m @ m.T + n * np.eye(n)
+  b = rng.standard_normal(n)
+  A = sp.from_numpy(a)
+  L = sp.linalg.cholesky(A, block=64)
+  assert L.data.device == device
+  _close_on(L.glom(), np.linalg.cholesky(a), 1e-10)
+  _close_on(sp.linalg.solve(A, b, method="cholesky", block=64).glom(),
+            np.linalg.solve(a, b), 1e-10)
+  _close_on(sp.linalg.solve(A, b).glom(), np.linalg.solve(a, b), 1e-10)
+  _close_on(sp.linalg.inv(A).glom(), np.linalg.inv(a), 1e-10)
+  sign, logdet = sp.linalg.slogdet(A)
+  assert float(sign.glom()) == 1.0
+  np.testing.assert_allclose(float(logdet.glom()), np.linalg.slogdet(a)[1],
+                             rtol=1e-12)
+  w, v = sp.linalg.eigh(A)
+  _close_on(w.glom(), np.linalg.eigvalsh(a), 1e-10)
+  vn = v.glom()
+  _close_on(a @ vn, vn * w.glom(), 1e-10)
+  u, s, vt = sp.linalg.svd(sp.from_numpy(m))
+  _close_on((u.glom() * s.glom()) @ vt.glom(), m, 1e-10)
+  _close_on(s.glom(), np.linalg.svd(m, compute_uv=False), 1e-10)
+  X = rng.standard_normal((4096, 16))
+  Q, R = sp.linalg.qr(sp.from_numpy(X), method="tsqr")
+  _close_on(Q.glom() @ R.glom(), X, 1e-12)
+  y = rng.standard_normal(4096)
+  _close_on(sp.linalg.lstsq(X, y).glom(),
+            np.linalg.lstsq(X, y, rcond=None)[0], 1e-10)
+  assert int(sp.linalg.matrix_rank(np.outer(b, b)).glom()) == 1
+
+
+@pytest.mark.parametrize("name, fn", [("svd", "svd"), ("eigh", "eigh"),
+                                      ("slogdet", "slogdet")])
+def test_linalg_outputs_factor_once_on_card(device, monkeypatch, name, fn):
+  """The outputs of one factorization, evaluated one by one on the card,
+  factor the matrix once."""
+  rng = np.random.default_rng(4)
+  m = rng.standard_normal((128, 128))
+  a = m @ m.T + 128 * np.eye(128)
+  calls = []
+  real = getattr(torch.linalg, fn)
+
+  def counted(t, *args, **kw):
+    if t.device.type == "cuda":
+      calls.append(fn)
+    return real(t, *args, **kw)
+
+  monkeypatch.setattr(torch.linalg, fn, counted)
+  outs = [o.evaluate() for o in getattr(sp.linalg, name)(sp.from_numpy(a))]
+  assert calls == [fn] and all(o.data.device == device for o in outs)
+
+
+def test_a_singular_matrix_does_not_raise_on_card(device):
+  a = np.array([[1.0, 2.0], [2.0, 4.0]])
+  got = sp.linalg.inv(a).glom()
+  assert not np.isfinite(got).all()
+  assert not np.isfinite(sp.linalg.solve(a, np.ones(2)).glom()).all()
+
+
+def test_fft_on_card(device):
+  rng = np.random.default_rng(4)
+  x = rng.standard_normal((256, 384)).astype(np.float32)
+  X = sp.from_numpy(x)
+  F = sp.fft.fft2(X)
+  assert F.dtype == torch.complex64
+  _close_on(F.glom(), np.fft.fft2(x.astype(np.float64)), 1e-5)
+  _close_on(sp.fft.rfft2(X).glom(), np.fft.rfft2(x.astype(np.float64)), 1e-5)
+  _close_on(sp.fft.irfft2(sp.fft.rfft2(X), s=x.shape).glom(), x, 1e-5)
+  z = x.astype(np.float64)
+  import scipy.fft as sfft
+  for t in (1, 2, 3, 4):
+    _close_on(sp.fft.dct(z, type=t).glom(), sfft.dct(z, type=t), 1e-12)
+    _close_on(sp.fft.idst(z, type=t, norm="ortho").glom(),
+              sfft.idst(z, type=t, norm="ortho"), 1e-12)
+  _close_on(sp.fft.hfftn(np.fft.rfftn(z), norm="ortho").glom(),
+            sfft.hfftn(np.fft.rfftn(z), norm="ortho"), 1e-12)
+  a = rng.standard_normal(64) * np.exp(-0.1 * np.arange(64))
+  _close_on(sp.fft.fht(a, 0.05, 1.0, bias=0.1).glom(),
+            sfft.fht(a, 0.05, 1.0, bias=0.1), 1e-11)
+
+
+def test_poisson_spectral_solve_on_card(device):
+  rng = np.random.default_rng(5)
+  n = 512
+  f = rng.standard_normal((n, n))
+  f -= f.mean()
+  u = POISSON.solve(sp.from_numpy(f))
+  res = float(sp.max(sp.abs(POISSON.laplacian(u) - sp.from_numpy(f)))
+              .glom())
+  assert res <= 1e-12 * np.abs(f).max()
+  k = 2.0 * np.pi * np.fft.fftfreq(n)
+  lam = 2.0 * np.cos(k[:, None]) + 2.0 * np.cos(k[None, :]) - 4.0
+  inv = np.where(lam == 0, 0.0, 1.0 / np.where(lam == 0, 1.0, lam))
+  _close_on(u.glom(), np.real(np.fft.ifft2(np.fft.fft2(f) * inv)), 1e-12)
+
+
+@pytest.mark.parametrize("op, params", [
+    ("gamma", {"shape": 2.5, "scale": 1.5}), ("gamma", {"shape": 0.3}),
+    ("beta", {"a": 0.5, "b": 2.0}), ("poisson", {"lam": 3.0}),
+    ("binomial", {"n": 10, "p": 0.3}), ("exponential", {"scale": 2.0})])
+def test_distributions_on_card(device, op, params):
+  n = 1 << 20
+  e = getattr(sp.random.default_rng(11), op)(*params.values(), size=n)
+  t = e.evaluate().data
+  assert t.device == device
+  x = t.double().cpu().numpy()
+  mean, var, mu4 = sp.random.moments(op, **params)
+  assert abs(x.mean() - mean) < 6 * np.sqrt(var / n)
+  assert abs(x.var() - var) < 6 * np.sqrt((mu4 - var * var) / n)
+
+
+def test_files_on_card(device, tmp_path):
+  x = torch.randn(300, 200, device=device)
+  path = str(tmp_path / "a")
+  sp.save(sp.Val(sp.SpartanArray(x)), path)
+  back = sp.load(path)
+  assert back.data.device == device and torch.equal(back.data, x)
+  ck = sp.checkpoint(sp.Val(sp.SpartanArray(x)) * 2.0, str(tmp_path / "c"))
+  got = float((ck + 1.0).sum().glom())
+  np.testing.assert_allclose(got, float((x.double() * 2 + 1).sum()),
+                             rtol=1e-6)
+  again = sp.checkpoint(sp.zeros((300, 200), dtype=np.float32),
+                        str(tmp_path / "c")).evaluate()
+  assert torch.equal(again.data, x * 2.0)

@@ -595,6 +595,7 @@ def test_sparse_linalg_is_sp_sparse_linalg():
   assert sp.sparse.linalg is spl is sp.sparse_linalg
   assert sorted(spl.__all__) == sorted(
       ["LinearOperator", "aslinearoperator", "cg", "bicgstab", "gmres",
-       "minres", "lsqr", "bicg", "cgs", "tfqmr", "qmr", "lsmr"])
+       "minres", "lsqr", "bicg", "cgs", "tfqmr", "qmr", "lsmr", "norm",
+       "spsolve"])
   for name in spl.__all__:
     assert getattr(spl, name) is not getattr(rspl, name)

@@ -184,7 +184,27 @@ raises on any failure:
      against NumPy; 2^28 normals and 2^24 draws each of gamma, beta,
      poisson and binomial held to their first two moments; save/load of
      a 16384^2 float32 array bit for bit, a checkpoint inside a DAG and
-     from_file; the phase's host seconds printed by kind.
+     from_file; the phase's host seconds printed by kind;
+ 21. the spectral solvers of sp.sparse.linalg in float32, each Arnoldi
+     step one K3a or K3b launch: eigsh(k=6, 'LA') on the 2048^2 grid's
+     Laplacian (K3b, 20 fused restart cycles: a budget, held by Weyl's
+     bound and Cauchy's interlacing against the closed-form spectrum) and
+     on the 128 x 256 grid's (K3a, to convergence, against the closed
+     form), eigsh by shift-invert at sigma = 1e-3 there (each matvec a
+     minres solve, its K3a launches counted), each eigsh's host and device
+     ms a restart cycle; eigs on an upwind convection-diffusion operator of
+     the 128 x 256 grid against its closed form (Bauer-Fike) and ARPACK;
+     svds(k=10) of ratings of MovieLens 20M's shape (A x on K3a, A.T y on
+     K3b) against scipy's float64 svds on the host; expm_multiply of the
+     2^22 Laplacian at t = 1 against its DST-I sine modes; LaplacianNd's
+     matvec at 2048^2 against the kronsum Laplacian through K3b, eigsh on
+     LaplacianNd((128, 256)) against its eigenvalues(), the periodic
+     matvec timed; sp.scipy_linalg at 4096^2 float64 (expm against eigh,
+     the backward errors of lu_factor/lu_solve and cho_factor/cho_solve,
+     sqrtm, logm and signm with no gate fallback, polar, orth and
+     null_space of a rank-4000 matrix) and at 1024^2 against scipy on
+     six host threads; the densified expm, inv, matrix_power and
+     spsolve_triangular at n = 4096; each host boundary once, counted.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
@@ -192,8 +212,9 @@ K5a, phase 10 for K6a, phase 11's full-size matmul calls and phase 16's
 for K2, phase 12's
 make_spmv_windowed calls for K3c, phase 14's path at each p for the
 sharded kernels, summed over the three meshes, and each counted solve and
-the scan of phase 19 for K3a, K3b and K3d, and phase 20's two Lanczos
-runs for K3b and K3a and its sparse norm for K1) and read just after.  K4
+the scan of phase 19 for K3a, K3b and K3d, phase 20's two Lanczos
+runs for K3b and K3a and its sparse norm for K1, and each counted solve of
+phase 21 for K3a and K3b) and read just after.  K4
 has no caller in the package: its count is the launches of phase 9's
 checks.  The
 last two lines are a JSON object describing each kernel (its launches on
@@ -4754,6 +4775,693 @@ def phase_namespaces(device, card: str) -> dict:
   file_items(device)
   return {"csr": csr, "ell": ell, "k1": k1}
 
+
+# phase 21: the spectral solvers of sp.sparse.linalg on the SpMV kernels,
+# LaplacianNd, the densified and host functions, and sp.scipy_linalg
+BIG_K, BIG_NCV, BIG_MAXITER = 6, 32, 20  # 2^22: a budget of 336 steps
+SMALL_K, SMALL_NCV, SMALL_MAXITER = 6, 64, 120  # 128 x 256: converges
+SI_SIGMA, SI_K, SI_NCV = 1e-3, 2, 6  # between the two lowest eigenvalues
+CONV_UPWIND = 0.02  # eigs' operator L + c D_x: kappa(D) = 1.02^63.5
+EIGS_K, EIGS_NCV, EIGS_MAXITER = 4, 40, 80
+SVDS_K, SVDS_NCV = 10, 40  # ncv 21, svds's default, leaves the lowest
+# of the 10 unconverged after 20 cycles (their gaps against the 11th)
+EXPM_T = 1.0
+LND_K, LND_NCV, LND_MAXITER = 4, 64, 150
+SCIPY_N = 4096  # scipy_linalg's float64 items
+SCIPY_ORACLE_N = 1024  # the same functions against scipy on the host
+ORTH_RANK = 4000  # of SCIPY_N: the rank-deficient matrix's rank
+GRID_FN = (64, 64)  # the densified functions' Laplacian: n = 4096
+HOST_N = 48  # the host boundaries' matrices
+F32_TOL = 1e-5  # eigsh/eigs's float32 residual tolerance of the scale
+EPS64 = 2.0 ** -53
+
+
+def grid_spectrum(nx: int, ny: int) -> np.ndarray:
+  """Every eigenvalue of the nx x ny 5-point Laplacian, ascending."""
+  lx = 2 - 2 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+  ly = 2 - 2 * np.cos(np.arange(1, ny + 1) * np.pi / (ny + 1))
+  return np.sort((lx[:, None] + ly[None, :]).ravel())
+
+
+def ritz_checks(label, a64, spectrum, w, v, scale, converged: bool,
+                distinct: bool):
+  """The Ritz pairs ``(w, v)`` of a symmetric operator held to its closed-
+  form ``spectrum`` (ascending), in float64 on the card: each vector's
+  Rayleigh quotient rho and residual r = |A v - rho v| / |v|; Weyl's bound
+  (an eigenvalue lies within r of rho, for any vector); Cauchy's
+  interlacing for the k largest (the i-th largest Ritz value at most the
+  i-th largest eigenvalue, up to the float32 rounding of the Ritz values,
+  64 eps32 |A|); the Ritz values within that rounding of their vectors'
+  Rayleigh quotients (a basis that lost its orthonormality breaks it);
+  and, where the solve met its own tolerance, the largest
+  Ritz value within it of the top eigenvalue and, for a spectrum whose top
+  k are ``distinct`` (a rectangular grid), each within it of its own (a
+  square grid's repeated eigenvalues give a Krylov space one vector of
+  each, so a converged solve may hold a lower eigenvalue instead of a
+  copy)."""
+  V = v.data.double()
+  AV = a64 @ V
+  vv = (V * V).sum(0)
+  rho = ((V * AV).sum(0) / vv).cpu().numpy()
+  res = (torch.linalg.vector_norm(AV - V * torch.from_numpy(rho).to(
+      V.device), dim=0) / vv.sqrt()).cpu().numpy()
+  pos = np.clip(np.searchsorted(spectrum, rho), 1, len(spectrum) - 1)
+  near = np.minimum(np.abs(spectrum[pos] - rho), np.abs(spectrum[pos - 1]
+                                                        - rho))
+  slack = 64 * EPS32 * scale
+  weyl = bool((near <= res * (1 + 1e-9) + 1e-12 * scale).all())
+  apart = float(np.abs(np.sort(w) - np.sort(rho)).max())
+  top = spectrum[-len(w):]
+  interlaced = bool((np.sort(w) <= top + slack).all())
+  err = float(np.abs(np.sort(w) - top).max() if distinct
+              else abs(float(np.max(w)) - float(top[-1])))
+  at = "" if distinct else " at the top one"
+  print(f"  {label}: Ritz values {np.array2string(np.sort(w), precision=7)}"
+        f"; closed-form top {np.array2string(top, precision=7)} (apart "
+        f"{err:.3g}{at}); residuals |Lv - rho v|/|v| in float64 "
+        f"{np.array2string(res, precision=3)}; |w - rho| {apart:.3g} "
+        f"(tolerance {slack:.3g}); Weyl (an eigenvalue within r of rho) "
+        f"{weyl}; interlacing (<= top + {slack:.3g}) {interlaced}")
+  check(weyl and interlaced and apart <= slack,
+        f"{label}: the Ritz values stray from their vectors' Rayleigh "
+        "quotients, or break Weyl's bound or the interlacing")
+  if converged:
+    tol = F32_TOL * scale + slack
+    check(err <= tol and float(res.max()) <= tol,
+          f"{label}: converged, yet {err:.3g} from the closed form or a "
+          f"residual {float(res.max()):.3g} past {tol:.3g}")
+
+
+def counted_eigsh(label, kernel, call):
+  """``call()`` with the SpMV counts set to 0 just before it: one
+  ``kernel`` launch an Arnoldi step, no plain run; returns its result,
+  launches and cycles."""
+  KS.reset_counts()
+  with Timer() as t:
+    out = call()
+    torch.cuda.synchronize()
+  st = dict(spl.stats)
+  launches = KS.counts[f"{kernel}_launches"]
+  plain = KS.counts["ell_plain_runs"] + KS.counts["csr_plain_runs"]
+  print(f"  {label}: {st['cycles']} restart cycles, {st['steps']} Arnoldi "
+        f"steps, fused {st['fused']}; {kernel} launches {launches} (one a "
+        f"step), plain runs {plain}; {t.elapsed:.3f} s")
+  check(launches == st["steps"] > 0 and plain == 0,
+        f"{label}: {launches} {kernel} launches, {plain} plain runs for "
+        f"{st['steps']} steps")
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  return out, launches, st["cycles"]
+
+
+def cycle_times(label, solve, card: str):
+  """Host and device ms a steady restart cycle: ``solve(c)`` runs c
+  cycles (the counted call built the step, whatever c); each of 1 and 3
+  cycles is called once on the host clock and once under torch.profiler,
+  and the two are differenced over the 2 cycles between them (which takes
+  out the set-up and the first cycle's longer run of steps).  Short
+  profiles: the profiler's post-processing grows with the ops it
+  recorded."""
+  walls, devs = [], []
+  for c in (1, 3):
+    with Timer() as t:
+      solve(c)
+      torch.cuda.synchronize()
+    walls.append(t.elapsed * 1e3)
+    devs.append(device_share(lambda: solve(c))[1])
+  host = (walls[1] - walls[0]) / 2
+  if None in devs:
+    print(f"  {label} on {card}: host {host:.3f} ms a cycle; device time "
+          "not measured")
+    return
+  dev = (devs[1] - devs[0]) / 2
+  print(f"  {label} on {card}: host {host:.3f} ms, device {dev:.3f} ms a "
+        f"steady cycle (3 cycles less 1, host clock and torch.profiler), "
+        f"1 - device / host {1 - dev / host:.3f}")
+
+
+def eigsh_on_grids(device, pool, card: str) -> dict:
+  """eigsh on the float32 Laplacians of the 2048^2 grid (K3b) and of the
+  128 x 256 grid (K3a, plain and by shift-invert with minres inside),
+  against the closed form.  Returns the launches."""
+  oracle_big = pool.submit(_scipy_kronsum, LAP_SIDE, LAP_SIDE)
+  Lb = kronsum_laplacian(LAP_SIDE, LAP_SIDE, np.float32)
+  spec_big = grid_spectrum(LAP_SIDE, LAP_SIDE)
+
+  def big(maxiter=BIG_MAXITER):
+    return spl.eigsh(Lb, k=BIG_K, which="LA", ncv=BIG_NCV, maxiter=maxiter)
+
+  (w, v), csr, cycles = counted_eigsh(
+      f"eigsh(L, k={BIG_K}, 'LA', ncv={BIG_NCV}, maxiter={BIG_MAXITER}) "
+      f"at n = {Lb.shape[0]}", "csr", big)
+  with host_span("waiting for the oracles"):
+    a64 = csr64(oracle_big.result(), device)
+  ritz_checks("2^22 grid", a64, spec_big, w, v, 8.0,
+              cycles < BIG_MAXITER, distinct=False)
+  cycle_times("eigsh at 2^22", big, card)
+  del a64, v
+  nx, ny = LAP_SMALL
+  Ls = kronsum_laplacian(nx, ny, np.float32)
+  a64 = csr64(_scipy_kronsum(nx, ny), device)
+  spec = grid_spectrum(nx, ny)
+
+  def small(maxiter=SMALL_MAXITER):
+    return spl.eigsh(Ls, k=SMALL_K, which="LA", ncv=SMALL_NCV,
+                     maxiter=maxiter)
+
+  (w, v), ell, cycles = counted_eigsh(
+      f"eigsh(L, k={SMALL_K}, 'LA', ncv={SMALL_NCV}) at n = {nx * ny}",
+      "ell", small)
+  ritz_checks(f"{nx} x {ny} grid", a64, spec, w, v, 8.0,
+              cycles < SMALL_MAXITER, distinct=True)
+  check(cycles < SMALL_MAXITER, f"eigsh at n = {nx * ny} did not converge "
+        f"in {SMALL_MAXITER} cycles")
+  cycle_times(f"eigsh at {nx * ny}", small, card)
+  # shift-invert: each matvec one minres solve of L - sigma I (n > 4096)
+  KS.reset_counts()
+  with spl._loops_run() as runs, Timer() as t:
+    w, v = spl.eigsh(Ls, k=SI_K, sigma=SI_SIGMA, ncv=SI_NCV)
+    torch.cuda.synchronize()
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  inner = [spl._iterations("minres", c) for c, _ in runs]
+  per, extra = spl._MATVECS["minres"]
+  want = sum(per * i + extra for i in inner)
+  si_ell = KS.counts["ell_launches"]
+  plain = KS.counts["ell_plain_runs"] + KS.counts["csr_plain_runs"]
+  nearest = np.sort(spec[np.argsort(np.abs(spec - SI_SIGMA))[:SI_K]])
+  V = v.data.double()
+  AV = a64 @ V
+  res = (torch.linalg.vector_norm(AV - V * torch.from_numpy(w).to(device),
+                                  dim=0)
+         / torch.linalg.vector_norm(V, dim=0)).cpu().numpy()
+  err = float(np.abs(w - nearest).max())
+  tol = 16 * EPS32 * 8.0
+  print(f"  eigsh(L, k={SI_K}, sigma={SI_SIGMA}, ncv={SI_NCV}) at n = "
+        f"{nx * ny}: {len(inner)} minres solves of {min(inner)}-{max(inner)}"
+        f" iterations ({sum(inner)} in all), K3a launches {si_ell} = the "
+        f"solves' matvecs {want}, plain runs {plain}; {t.elapsed:.2f} s, "
+        f"{t.elapsed * 1e3 / max(sum(inner), 1):.3f} ms a minres iteration;"
+        f" eigenvalues {np.array2string(w, precision=8)} against the "
+        f"closed form's nearest sigma {np.array2string(nearest, precision=8)}"
+        f" (apart {err:.3g}, tolerance 16 eps32 |L| = {tol:.3g}); residuals "
+        f"|L v - w v| / |v| {np.array2string(res, precision=3)} (the "
+        f"float32 inner solves')")
+  check(si_ell == want and plain == 0 and err <= tol,
+        "shift-invert eigsh missed its launches or its eigenvalues")
+  del a64, v, V, AV, Lb
+  return {"csr": csr, "ell": ell + si_ell}
+
+
+def convection_eigs(device, pool, card: str) -> int:
+  """eigs on the float32 upwind convection-diffusion operator L + c D_x of
+  the 128 x 256 grid (K3a a step) against its closed form (a similarity
+  D = diag((1+c)^(i/2)) makes it symmetric: the 1-D spectra (2+c) -
+  2 sqrt(1+c) cos and 2 - 2 cos summed) and scipy's ARPACK in float64 on
+  the host.  Bauer-Fike: each Ritz value lies within kappa(D) r of an
+  eigenvalue, r its residual.  Returns K3a's launches."""
+  nx, ny = LAP_SMALL
+  c = CONV_UPWIND
+  dx = ss.diags([-1.0, 1.0], [-1, 0], shape=(nx, nx))
+  C = (_scipy_kronsum(nx, ny)
+       + c * ss.kronsum(dx, ss.csr_matrix((ny, ny)))).tocsr()
+  arpack = pool.submit(lambda: ssl.eigs(C, k=EIGS_K, which="LM")[0])
+  lx = (2 + c) - 2 * np.sqrt(1 + c) * np.cos(np.arange(1, nx + 1) * np.pi
+                                              / (nx + 1))
+  ly = 2 - 2 * np.cos(np.arange(1, ny + 1) * np.pi / (ny + 1))
+  spec = np.sort((lx[:, None] + ly[None, :]).ravel())
+  S = sparse.from_scipy(C.astype(np.float32))
+  (w, v), ell, cycles, wall = counted_eigs(S)
+  res = (np.linalg.norm(C @ v - v * w, axis=0)
+         / np.linalg.norm(v, axis=0))  # float64, on the host (n = 32768)
+  kappa = (1 + c) ** ((nx - 1) / 2)
+  pos = np.clip(np.searchsorted(spec, w.real), 1, len(spec) - 1)
+  near = np.minimum(np.abs(spec[pos] - w), np.abs(spec[pos - 1] - w))
+  with host_span("waiting for the oracles"):
+    ww = arpack.result()
+  scale = float(np.abs(ww).max())
+  apart = float(np.abs(np.sort(np.abs(w)) - np.sort(np.abs(ww))).max())
+  tol = kappa * F32_TOL * scale + 64 * EPS32 * scale
+  print(f"  eigs(C, k={EIGS_K}, 'LM', ncv={EIGS_NCV}) at n = {nx * ny}, "
+        f"c = {c}: {cycles} Krylov-Schur cycles, K3a launches {ell}; "
+        f"{wall:.2f} s; |w| {np.array2string(np.sort(np.abs(w)), precision=7)}"
+        f" against ARPACK's {np.array2string(np.sort(np.abs(ww)), precision=7)}"
+        f" (apart {apart:.3g}); residuals {np.array2string(res, precision=3)}"
+        f"; nearest closed-form eigenvalue within kappa(D) r "
+        f"({kappa:.3g} r): {bool((near <= kappa * res + 1e-12).all())}; "
+        f"tolerance {tol:.3g} (kappa(D) tol scale + 64 eps32 scale)")
+  check(bool((near <= kappa * res + 1e-12).all()) and apart <= tol
+        and float(res.max()) <= F32_TOL * scale + 64 * EPS32 * scale,
+        "eigs disagrees with the closed form or ARPACK")
+  return ell
+
+
+def counted_eigs(S):
+  KS.reset_counts()
+  with Timer() as t:
+    out = spl.eigs(S, k=EIGS_K, which="LM", ncv=EIGS_NCV,
+                   maxiter=EIGS_MAXITER)
+    torch.cuda.synchronize()
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  st = dict(spl.stats)
+  launches = KS.counts["ell_launches"]
+  plain = KS.counts["ell_plain_runs"] + KS.counts["csr_plain_runs"]
+  check(launches == st["steps"] > 0 and plain == 0
+        and st["cycles"] < EIGS_MAXITER,
+        f"eigs: {launches} K3a launches, {plain} plain, {st}")
+  return out, launches, st["cycles"], t.elapsed
+
+
+def dst_heat(v: np.ndarray, side: int, t: float) -> np.ndarray:
+  """exp(-t L) v for the side x side Dirichlet 5-point Laplacian, through
+  its sine modes: scipy's orthonormal DST-I along both axes, float64."""
+  from scipy.fft import dstn, idstn
+  lam = 2 - 2 * np.cos(np.arange(1, side + 1) * np.pi / (side + 1))
+  coef = dstn(v.reshape(side, side), type=1, norm="ortho")
+  coef *= np.exp(-t * (lam[:, None] + lam[None, :]))
+  return idstn(coef, type=1, norm="ortho").ravel()
+
+
+def laplacian_items(device, pool, card: str) -> int:
+  """expm_multiply of -L at 2^22 (K3b a step) against the sine modes;
+  LaplacianNd's matvec at 2048^2 against -(L x) through K3b, eigsh on
+  LaplacianNd((128, 256)) against its eigenvalues(), the periodic matvec
+  timed.  Returns K3b's launches."""
+  side = LAP_SIDE
+  Lneg = kronsum_laplacian(side, side, np.float32) * -1.0
+  x = np.random.default_rng(210).standard_normal(side * side).astype(
+      np.float32)
+  oracle = pool.submit(dst_heat, x.astype(np.float64), side, EXPM_T)
+  KS.reset_counts()
+  with Timer() as t:
+    y = spl.expm_multiply(Lneg, x, t=EXPM_T)
+    torch.cuda.synchronize()
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  csr = KS.counts["csr_launches"]
+  plain = KS.counts["csr_plain_runs"] + KS.counts["ell_plain_runs"]
+  with host_span("waiting for the oracles"):
+    want = oracle.result()
+  err = float(np.abs(y.glom().astype(np.float64) - want).max()
+              / np.abs(want).max())
+  print(f"  expm_multiply(-L, x, t={EXPM_T}) at n = {side * side}: K3b "
+        f"launches {csr} (ncv 30), plain runs {plain}; {t.elapsed:.3f} s; "
+        f"max err of max|y| against the DST-I sine modes {err:.3g} "
+        "(tolerance 1e-5: float32 Gram-Schmidt over 30 steps; the Krylov "
+        "truncation at t |L| = 8 is below 1e-20)")
+  check(csr == 30 and plain == 0 and err <= 1e-5,
+        "expm_multiply missed its launches or the closed form")
+  xt = torch.from_numpy(x).to(device)
+  lnd = spl.LaplacianNd((side, side), boundary_conditions="dirichlet",
+                        dtype=np.float32)
+  KS.reset_counts()
+  via_k3b = sp.dot(Lneg, sp.Val(sp.SpartanArray(xt))).evaluate().data
+  csr += KS.counts["csr_launches"]
+  got = lnd.matvec(sp.Val(sp.SpartanArray(xt))).evaluate().data
+  ax = xt.abs().reshape(side, side)
+  nb = 4 * ax
+  nb[1:] += ax[:-1]
+  nb[:-1] += ax[1:]
+  nb[:, 1:] += ax[:, :-1]
+  nb[:, :-1] += ax[:, 1:]
+  diff = (got - via_k3b).abs().reshape(side, side)
+  ok = bool((diff <= 8 * EPS32 * nb).all())
+  print(f"  LaplacianNd(({side}, {side}), 'dirichlet') matvec against -(L x) "
+        f"through K3b ({KS.counts['csr_launches']} launch): max |diff| "
+        f"{float(diff.max()):.3g}, within 8 eps32 (|L| |x|) elementwise: "
+        f"{ok}")
+  check(ok and KS.counts["csr_launches"] == 1,
+        "LaplacianNd's matvec disagrees with the kronsum Laplacian")
+  per = spl.LaplacianNd((side, side), boundary_conditions="periodic",
+                        dtype=np.float32)
+  xv = sp.Val(sp.SpartanArray(xt))
+  ms = time_in_turns({"periodic": lambda: per.matvec(xv).evaluate()})
+  bound_ms, _ = bound(2 * xt.numel() * 4, 6 * xt.numel())
+  print(f"  LaplacianNd(({side}, {side}), 'periodic') matvec on {card}: "
+        f"{ms['periodic']:.4f} ms (two slices and a concatenate an axis "
+        f"side; queued ahead {ms['periodic ahead']}), its byte bound "
+        f"{bound_ms:.4f} ms")
+  L = spl.LaplacianNd(LAP_SMALL, boundary_conditions="dirichlet")
+  with Timer() as t:
+    w, _ = spl.eigsh(L, k=LND_K, which="LA", ncv=LND_NCV,
+                     maxiter=LND_MAXITER)
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  err = float(np.abs(w - L.eigenvalues(LND_K)).max())
+  print(f"  eigsh(LaplacianNd({LAP_SMALL}), k={LND_K}, 'LA', ncv={LND_NCV}) "
+        f"in float64 (the operator's int8 dtype): {spl.stats['cycles']} "
+        f"cycles, {t.elapsed:.2f} s; against eigenvalues() {err:.3g} "
+        "(tolerance 1e-10: the solve's 1e-13 of the scale 8, times the "
+        "top gap ratio)")
+  check(err <= 1e-10, "eigsh on LaplacianNd disagrees with eigenvalues()")
+  return csr
+
+
+def draw_ratings(device, pool):
+  """Phase 7's MovieLens-20M-shaped ratings (host CSR), and scipy's
+  float64 svds of them submitted to the pool at once, so that the host
+  computes it while the card runs the items before and after svds."""
+  with Timer() as t_draw:
+    R = movielens_shaped(device)
+  print(f"  drew the ratings in {t_draw.elapsed:.2f} s; scipy's float64 "
+        "svds of them started on the pool")
+  R64 = R.astype(np.float64)
+  return R, pool.submit(lambda: np.sort(
+      ssl.svds(R64, k=SVDS_K, return_singular_vectors=False)))
+
+
+def svds_on_ratings(device, R, card: str):
+  """svds(R, k=10) of the ratings in float32: A x on K3a (26,744
+  columns), A.T y on K3b (138,493), held by its residuals and
+  orthonormality in float64 on the card; the ratings freed after.  Returns
+  the launches and s, for :func:`hold_svds`."""
+  print(f"  device memory allocated before the ratings: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+  S = ingest_ratings(R)
+  fmt_a = sparse._route(S, torch.float32, on_accel=True)[0]
+  fmt_t = sparse._route(S.T, torch.float32, on_accel=True)[0]
+  KS.reset_counts()
+  with Timer() as t:
+    u, s, vt = spl.svds(S, k=SVDS_K, ncv=SVDS_NCV)
+    torch.cuda.synchronize()
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  st = dict(spl.stats)
+  ell, csr = KS.counts["ell_launches"], KS.counts["csr_launches"]
+  plain = KS.counts["ell_plain_runs"] + KS.counts["csr_plain_runs"]
+  print(f"  svds(R, k={SVDS_K}, ncv={SVDS_NCV}) of {S.shape[0]} x "
+        f"{S.shape[1]} ({S.nnz} entries): A x on {fmt_a} (K3a), A.T y on "
+        f"{fmt_t} (K3b); {st['cycles']} cycles, {st['steps']} Lanczos steps "
+        f"on the Gram operator; K3a launches {ell} (a step, and {SVDS_K} "
+        f"for u), K3b {csr} (a step), plain runs {plain}; {t.elapsed:.3f} s")
+  check(fmt_a == "ell" and fmt_t == "win" and plain == 0
+        and ell == st["steps"] + SVDS_K and csr == st["steps"],
+        "svds did not put its products on K3a and K3b")
+  a64 = csr64(R, device)
+  U, V = u.data.double(), vt.data.double().T
+  sv = torch.from_numpy(s).to(device)
+  r1 = float(torch.linalg.vector_norm(a64 @ V - U * sv, dim=0).max())
+  del a64
+  at64 = csr64(R.T, device)
+  r2 = float(torch.linalg.vector_norm(at64 @ U - V * sv, dim=0).max())
+  del at64
+  eye = torch.eye(SVDS_K, device=device, dtype=torch.float64)
+  o1 = float((U.T @ U - eye).abs().max())
+  o2 = float((V.T @ V - eye).abs().max())
+  smax = float(s.max())
+  print(f"  |A v - s u| / s_max {r1 / smax:.3g}, |A.T u - s v| / s_max "
+        f"{r2 / smax:.3g} (tolerance tol s_max / s_min: the Gram "
+        f"operator's float32 residual tolerance over s); orthonormality "
+        f"{o1:.3g} (u), {o2:.3g} (v)")
+  check(r1 / smax <= 1e-5
+        and r2 / smax <= 2 * F32_TOL * smax / float(s.min())
+        and max(o1, o2) <= 1e-4, "svds fails its residuals")
+  del u, vt, U, V, S
+  held = torch.cuda.memory_allocated()
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"  device memory allocated: {held / 1e9:.2f} GB once the ratings "
+        f"are dropped, {torch.cuda.memory_allocated() / 1e9:.2f} GB after "
+        "gc.collect()")
+  return {"ell": ell, "csr": csr}, s
+
+
+def hold_svds(s, oracle) -> None:
+  """svds's singular values against scipy's float64 svds from the pool:
+  within tol s_max^2 / s (the Gram eigenvalues' float32 residual
+  tolerance, halved into s)."""
+  with host_span("waiting for the oracles"):
+    want = oracle.result()
+  smax = float(s.max())
+  tol = F32_TOL * smax ** 2 / s + 64 * EPS32 * smax
+  apart = np.abs(s - want)
+  print(f"  svds's s {np.array2string(s, precision=6)}; scipy's float64 "
+        f"svds {np.array2string(want, precision=6)}: apart "
+        f"{np.array2string(apart, precision=3)} (tolerance tol s_max^2 / s)")
+  check(bool((apart <= tol).all()), "svds disagrees with scipy's")
+
+
+def _rel_fro(a: torch.Tensor, b: torch.Tensor) -> float:
+  return float(torch.linalg.matrix_norm(a - b) / torch.linalg.matrix_norm(b))
+
+
+def scipy_linalg_items(device, pool, card: str) -> None:
+  """sp.scipy_linalg at SCIPY_N^2 float64 on the card, each held by an
+  identity; then at SCIPY_ORACLE_N^2 against scipy on the host; zero gate
+  fallbacks on these inputs."""
+  from spartan_tpu_torch import scipy_linalg as SL
+  n = SCIPY_N
+  gen = torch.Generator(device).manual_seed(211)
+  M = torch.randn(n, n, generator=gen, dtype=torch.float64, device=device)
+  Q, _ = torch.linalg.qr(torch.randn(n, n, generator=gen,
+                                     dtype=torch.float64, device=device))
+  lam = torch.linspace(1.0, 10.0, n, dtype=torch.float64, device=device)
+  P = (Q * lam) @ Q.T
+  P = (P + P.T) / 2
+  Sym = (M + M.T) / (2 * n ** 0.5)
+
+  def as_val(t):
+    return sp.Val(sp.SpartanArray(t))
+
+  w, V = torch.linalg.eigh(Sym)
+  X = _timed(f"expm of a symmetric {n}^2", lambda: SL.expm(
+      as_val(Sym)).evaluate())
+  want = (V * torch.exp(w)) @ V.T
+  e = _rel_fro(X.data, want)
+  print(f"  expm against eigh's V e^w V^T: {e:.3g} (tolerance 1e-12)")
+  check(e <= 1e-12, "expm disagrees with eigh's exponential")
+  b = torch.randn(n, 2, generator=gen, dtype=torch.float64, device=device)
+  lu_, piv = SL.lu_factor(as_val(M))
+  x = _timed("lu_factor/lu_solve", lambda: SL.lu_solve((lu_, piv),
+                                                        as_val(b)).evaluate())
+  pv = piv.evaluate().data
+  be = float(((M @ x.data - b).abs().max() / (M.abs().sum(1).max()
+                                               * x.data.abs().max())))
+  c = SL.cho_factor(as_val(P))
+  xc = _timed("cho_factor/cho_solve", lambda: SL.cho_solve(
+      c, as_val(b)).evaluate())
+  bc = float(((P @ xc.data - b).abs().max() / (P.abs().sum(1).max()
+                                               * xc.data.abs().max())))
+  print(f"  backward errors |A x - b| / (|A| |x|): LU {be:.3g}, Cholesky "
+        f"{bc:.3g} (tolerance n eps64 = {n * EPS64:.3g}); pivots 0-based in "
+        f"[{int(pv.min())}, {int(pv.max())}]")
+  check(be <= n * EPS64 and bc <= n * EPS64 and int(pv.min()) >= 0
+        and int(pv.max()) < n, "lu/cho solves fail their backward errors")
+  SL.reset_counts()
+  Xs = _timed("sqrtm of a well-conditioned SPD", lambda: SL.sqrtm(
+      as_val(P)).evaluate())
+  es = _rel_fro(Xs.data @ Xs.data, P)
+  Xl = _timed("logm", lambda: SL.logm(as_val(P)).evaluate())
+  el = _rel_fro(torch.linalg.matrix_exp(Xl.data), P)
+  lam_s = torch.where(torch.arange(n, device=device) % 2 == 0, lam, -lam)
+  Ind = (Q * lam_s) @ Q.T
+  Xg = _timed("signm of an indefinite symmetric", lambda: SL.signm(
+      as_val((Ind + Ind.T) / 2)).evaluate())
+  eg = _rel_fro(Xg.data, (Q * torch.sign(lam_s)) @ Q.T)
+  print(f"  |X X - A| / |A| {es:.3g}, |expm(logm A) - A| / |A| {el:.3g}, "
+        f"signm against Q sign(lambda) Q^T {eg:.3g} (tolerance 1e-10); gate "
+        f"counts {SL.counts}")
+  check(max(es, el, eg) <= 1e-10 and SL.counts == {
+      "matfun_device": 3, "matfun_host_fallbacks": 0,
+      "matfun_complex_host": 0}, "a matrix function failed or fell back")
+  u, p = SL.polar(as_val(M))
+  U = _timed("polar", lambda: u.evaluate())
+  ep = _rel_fro(U.data @ p.evaluate().data, M)
+  eo = float((U.data.T @ U.data - torch.eye(n, dtype=torch.float64,
+                                             device=device)).abs().max())
+  r = ORTH_RANK
+  D = (torch.randn(n, r, generator=gen, dtype=torch.float64, device=device)
+       @ torch.randn(r, n, generator=gen, dtype=torch.float64, device=device))
+  O = _timed("orth of a rank-deficient matrix", lambda: SL.orth(
+      as_val(D)).evaluate())
+  N = _timed("null_space", lambda: SL.null_space(as_val(D)).evaluate())
+  en = float((D @ N.data).abs().max() / D.abs().max())
+  print(f"  polar: |u p - A| / |A| {ep:.3g}, |u^T u - I| {eo:.3g}; orth "
+        f"{tuple(O.shape)}, null_space {tuple(N.shape)} of a rank-{r} "
+        f"matrix, |A N| / max|A| {en:.3g} (tolerance 1e-10)")
+  check(ep <= 1e-10 and eo <= 1e-10 and O.shape == (n, r)
+        and N.shape == (n, n - r) and en <= 1e-10, "polar/orth/null_space")
+  del M, Q, P, Sym, V, X, want, Xs, Xl, Xg, Ind, U, D, O, N, u, p
+  torch.cuda.empty_cache()
+  m = SCIPY_ORACLE_N
+  rng = np.random.default_rng(212)
+  A = rng.standard_normal((m, m)) / m ** 0.5
+  Pm = A @ A.T + np.eye(m)
+  import scipy.linalg as sla
+  futures = {name: pool.submit(fn) for name, fn in (
+      ("expm", lambda: sla.expm(A)), ("sqrtm", lambda: sla.sqrtm(Pm)),
+      ("logm", lambda: sla.logm(Pm)), ("lu_factor", lambda: sla.lu_factor(A)),
+      ("cosm", lambda: sla.cosm(A)))}
+  got = {"expm": SL.expm(A), "sqrtm": SL.sqrtm(Pm), "logm": SL.logm(Pm),
+         "cosm": SL.cosm(A)}
+  for name, g in got.items():
+    with host_span("waiting for the oracles"):
+      ref = np.real(futures[name].result())
+    err = float(np.abs(g.glom() - ref).max() / np.abs(ref).max())
+    print(f"  {name} at {m}^2 against scipy on the host: {err:.3g} "
+          "(tolerance 1e-10)")
+    check(err <= 1e-10, f"{name} disagrees with scipy at {m}^2")
+  lu_, piv = SL.lu_factor(A)
+  wlu, wpiv = futures["lu_factor"].result()
+  same = bool((piv.glom() == wpiv).all())
+  e = float(np.abs(lu_.glom() - wlu).max() / np.abs(wlu).max())
+  print(f"  lu_factor at {m}^2: pivots equal scipy's (0-based) {same}, "
+        f"factors apart {e:.3g}")
+  check(same and e <= 1e-10, "lu_factor disagrees with scipy")
+
+
+def densified_items(device) -> None:
+  """Sparse expm, inv and matrix_power of the 64 x 64 grid's float64
+  Laplacian (n = 4096) densified on the card, and spsolve_triangular of
+  its lower triangle, each against a dense identity on the card."""
+  nx, ny = GRID_FN
+  L = kronsum_laplacian(nx, ny, np.float64)
+  Ld = L.dense_tensor()
+  n = Ld.shape[0]
+  w, V = torch.linalg.eigh(Ld)
+  E = _timed(f"sparse_linalg.expm(-0.1 L) at n = {n}",
+             lambda: spl.expm(L * -0.1).evaluate())
+  e1 = _rel_fro(E.data, (V * torch.exp(-0.1 * w)) @ V.T)
+  Li = _timed("sparse_linalg.inv(L)", lambda: spl.inv(L).evaluate())
+  eye = torch.eye(n, dtype=torch.float64, device=device)
+  e2 = float((Ld @ Li.data - eye).abs().max())
+  P3 = _timed("sparse_linalg.matrix_power(L, 3)",
+              lambda: spl.matrix_power(L, 3).evaluate())
+  e3 = _rel_fro(P3.data, Ld @ Ld @ Ld)
+  T = sparse.from_scipy(ss.tril(_scipy_kronsum(nx, ny)).tocsr())
+  b = torch.randn(n, generator=torch.Generator(device).manual_seed(213),
+                  dtype=torch.float64, device=device)
+  xt = _timed("spsolve_triangular", lambda: spl.spsolve_triangular(
+      T, sp.Val(sp.SpartanArray(b))).evaluate())
+  e4 = float((T.dense_tensor() @ xt.data - b).abs().max() / b.abs().max())
+  print(f"  expm against eigh {e1:.3g}, |L inv(L) - I| {e2:.3g}, L^3 "
+        f"{e3:.3g}, triangular residual {e4:.3g} (tolerance 1e-10; cond(L) "
+        f"{float(w.max() / w.min()):.3g})")
+  check(max(e1, e2, e3, e4) <= 1e-10, "a densified function disagrees")
+
+
+def host_boundary_items() -> None:
+  """Each host boundary of both modules once at a small size: equal to
+  scipy's own call on the same inputs and counted, one host run each."""
+  import scipy.linalg as sla
+  from spartan_tpu_torch import scipy_linalg as SL
+  from spartan_tpu_torch.expr import fio
+  rng = np.random.default_rng(214)
+  n = HOST_N
+  A = rng.standard_normal((n, n))
+  B = rng.standard_normal((n, n))
+  Pd = A @ A.T + n * np.eye(n)
+  b = rng.standard_normal(n)
+  band = np.vstack([np.r_[0, 0.5 * rng.standard_normal(n - 1)],
+                    4 + rng.random(n)])
+  ab3 = np.vstack([np.r_[0, rng.standard_normal(n - 1)],
+                   6 + rng.random(n), np.r_[rng.standard_normal(n - 1), 0]])
+  Q, Rq = np.linalg.qr(A)
+  a4, b2 = A[:4, :4] - 3 * np.eye(4), A[:4, 4:6]
+  Sp = ss.csr_matrix(Pd * (np.abs(Pd) > 1.0))
+  S = sparse.from_scipy(Sp)
+  c, r = A[:, 0], A[0, :]
+  cases = [
+      ("schur", lambda: SL.schur(A)[0], lambda: sla.schur(A)[0]),
+      ("hessenberg", lambda: SL.hessenberg(A), lambda: sla.hessenberg(A)),
+      ("funm", lambda: SL.funm(0.1 * A, np.exp),
+       lambda: sla.funm(0.1 * A, np.exp)),
+      ("solve_sylvester", lambda: SL.solve_sylvester(A, B, Pd),
+       lambda: sla.solve_sylvester(A, B, Pd)),
+      ("solve_continuous_lyapunov",
+       lambda: SL.solve_continuous_lyapunov(A - n * np.eye(n), Pd),
+       lambda: sla.solve_continuous_lyapunov(A - n * np.eye(n), Pd)),
+      ("solve_discrete_lyapunov",
+       lambda: SL.solve_discrete_lyapunov(A / (2 * n), Pd),
+       lambda: sla.solve_discrete_lyapunov(A / (2 * n), Pd)),
+      ("ldl", lambda: SL.ldl(Pd)[1], lambda: sla.ldl(Pd)[1]),
+      ("solve_banded", lambda: SL.solve_banded((1, 1), ab3, b),
+       lambda: sla.solve_banded((1, 1), ab3, b)),
+      ("solveh_banded", lambda: SL.solveh_banded(band, b),
+       lambda: sla.solveh_banded(band, b)),
+      ("subspace_angles", lambda: SL.subspace_angles(A[:, :3], B[:, :3]),
+       lambda: sla.subspace_angles(A[:, :3], B[:, :3])),
+      ("matrix_balance", lambda: SL.matrix_balance(A)[0],
+       lambda: sla.matrix_balance(A)[0]),
+      ("qz", lambda: SL.qz(A, B)[0], lambda: sla.qz(A, B)[0]),
+      ("eig_banded", lambda: SL.eig_banded(band)[0],
+       lambda: sla.eig_banded(band)[0]),
+      ("cholesky_banded", lambda: SL.cholesky_banded(band),
+       lambda: sla.cholesky_banded(band)),
+      ("solve_continuous_are",
+       lambda: SL.solve_continuous_are(a4, b2, np.eye(4), np.eye(2)),
+       lambda: sla.solve_continuous_are(a4, b2, np.eye(4), np.eye(2))),
+      ("solve_discrete_are",
+       lambda: SL.solve_discrete_are(0.1 * a4, b2, np.eye(4), np.eye(2)),
+       lambda: sla.solve_discrete_are(0.1 * a4, b2, np.eye(4), np.eye(2))),
+      ("solve_toeplitz", lambda: SL.solve_toeplitz((c + 3 * n, r), b),
+       lambda: sla.solve_toeplitz((c + 3 * n, r), b)),
+      ("expm_cond", lambda: SL.expm_cond(0.1 * A[:6, :6]),
+       lambda: sla.expm_cond(0.1 * A[:6, :6])),
+      ("qr_update", lambda: SL.qr_update(Q, Rq, b, b)[1],
+       lambda: sla.qr_update(Q, Rq, b, b)[1]),
+      ("splu", lambda: spl.splu(S).solve(b),
+       lambda: ssl.splu(Sp.tocsc()).solve(b)),
+      ("spilu", lambda: spl.spilu(S).solve(b),
+       lambda: ssl.spilu(Sp.tocsc()).solve(b)),
+      ("factorized", lambda: spl.factorized(S)(b),
+       lambda: ssl.factorized(Sp.tocsc())(b)),
+      # the estimator draws its sign vectors from NumPy's global stream
+      ("onenormest", lambda: (np.random.seed(215), spl.onenormest(S))[1],
+       lambda: (np.random.seed(215), ssl.onenormest(Sp))[1]),
+      ("lgmres", lambda: spl.lgmres(S, b, rtol=1e-10)[0],
+       lambda: ssl.lgmres(Sp, b, rtol=1e-10)[0]),
+      ("gcrotmk", lambda: spl.gcrotmk(S, b, rtol=1e-10)[0],
+       lambda: ssl.gcrotmk(Sp, b, rtol=1e-10)[0])]
+  if hasattr(ssl, "funm_multiply_krylov"):
+    cases.append(("funm_multiply_krylov",
+                  lambda: spl.funm_multiply_krylov(sla.expm, S * 0.001, b),
+                  lambda: ssl.funm_multiply_krylov(sla.expm, Sp * 0.001, b)))
+  else:
+    try:
+      spl.funm_multiply_krylov(sla.expm, S, b)
+      raise RuntimeError("funm_multiply_krylov ran without scipy's")
+    except AttributeError as exc:
+      print(f"  funm_multiply_krylov: this scipy lacks it; scipy's own "
+            f"AttributeError ({exc})")
+  worst = []
+  with Timer() as t:
+    for name, ours, theirs in cases:
+      before = fio.counts["host_runs"]
+      got = ours()
+      got = np.asarray(got.glom() if hasattr(got, "glom") else got)
+      runs = fio.counts["host_runs"] - before
+      want = np.asarray(theirs())
+      err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+      worst.append((err, name))
+      check(runs == 1 and err <= 1e-10,
+            f"host boundary {name}: {runs} host runs, {err:.3g} from scipy")
+  HOST_SPANS["items"] = HOST_SPANS.get("items", 0.0) + t.elapsed
+  print(f"  {len(cases)} host boundaries at n = {n}, each one host run and "
+        f"equal to scipy's own call (worst {max(worst)[0]:.3g}, "
+        f"{max(worst)[1]}; tolerance 1e-10) in {t.elapsed:.2f} s")
+
+
+def phase_spectral(device, card: str) -> dict:
+  """Phase 21: the spectral solvers at full width through K3a/K3b,
+  LaplacianNd, the densified and host functions, and sp.scipy_linalg at
+  4096^2 float64.  Returns the counted launches of K3a and K3b."""
+  pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
+  with pool:
+    launches = eigsh_on_grids(device, pool, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["ell"] += convection_eigs(device, pool, card)
+    launches["csr"] += laplacian_items(device, pool, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    R, oracle = draw_ratings(device, pool)
+    rat, s = svds_on_ratings(device, R, card)
+    del R
+    launches["ell"] += rat["ell"]
+    launches["csr"] += rat["csr"]
+    scipy_linalg_items(device, pool, card)
+    hold_svds(s, oracle)
+  densified_items(device)
+  host_boundary_items()
+  return launches
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -4761,8 +5469,9 @@ def main() -> None:
                        "needs an NVIDIA GPU")
   card = card_line()
   print(card)
+  import scipy
   print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}, scipy {scipy.__version__}")
   sp.initialize([f"--device={DEVICE}"])
   device = sp.get_mesh().device
   t_start = time.perf_counter()
@@ -4943,6 +5652,16 @@ def main() -> None:
   k3["spmv_ell"]["launches"] += counted["ell"]
   k1["launches"] += counted["k1"]
   print_host_spans(20, done(20))
+  print("phase 21: the spectral solvers of sp.sparse.linalg through K3a/K3b "
+        "(eigsh on the 2048^2 and 128 x 256 grids' Laplacians, by shift-"
+        "invert too, eigs on convection-diffusion, svds of MovieLens 20M's "
+        "shape, expm_multiply at 2^22), LaplacianNd, the densified and host "
+        "functions, and sp.scipy_linalg at 4096^2 float64")
+  HOST_SPANS.clear()
+  spectral = phase_spectral(device, card)
+  k3["spmv_ell"]["launches"] += spectral["ell"]
+  k3["spmv_csr"]["launches"] += spectral["csr"]
+  print_host_spans(21, done(21))
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

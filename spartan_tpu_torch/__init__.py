@@ -15,7 +15,7 @@ reference the port is tested against; this package never imports jax.
 The slices of the reference surface ported so far are here (see
 ROADMAP.md): the builtins, the loops, the sparse arrays with
 ``sp.sparse``'s builders and ``sp.sparse.linalg``'s solvers, ``sp.linalg``,
-``sp.fft``, ``sp.random`` and array files; names not yet ported are absent
+``sp.fft``, ``sp.random``, ``sp.scipy_linalg`` and array files; names not yet ported are absent
 rather than stubbed.
 """
 
@@ -78,6 +78,12 @@ sparse.linalg = sparse_linalg  # the scipy idiom: sp.sparse.linalg.cg(...)
 from spartan_tpu_torch import sparse_construct  # noqa: E402
 for _name in sparse_construct.__all__:  # the scipy.sparse builders
   setattr(sparse, _name, getattr(sparse_construct, _name))
+from spartan_tpu_torch import scipy_linalg  # noqa: E402  (scipy.linalg)
+for _name in scipy_linalg.__all__:
+  # merge the non-conflicting names into sp.linalg; an overlapping name
+  # (cholesky, qr, solve, solve_triangular, ...) keeps sp.linalg's own
+  if not hasattr(linalg, _name):
+    setattr(linalg, _name, getattr(scipy_linalg, _name))
 del _name
 
 __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
@@ -86,5 +92,5 @@ __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "lazify", "map",
            "reduce", "fori_loop", "make_fori", "while_loop", "scan_iters",
            "cond", "checkpoint", "from_file", "load", "save", "interop",
-           "sparse", "linalg", "fft", "random", "sparse_linalg",
+           "sparse", "linalg", "fft", "random", "sparse_linalg", "scipy_linalg",
            "SparseArray", "sparse_diagonal", "sprandn"] + list(_builtin_all)

@@ -23,9 +23,44 @@ Frobenius norm is ``sqrt(sum(square(v)))`` over its stored values (a
 float32 one's sum plans onto K1), and ``spsolve`` densifies a system of at most
 ``--spsolve_dense_max`` rows and solves it by LU on the device.
 
-The reference's spectral solvers (``eigsh``, ``eigs``, ``svds``,
-``expm_multiply``) and its densified and host functions are not ported
-yet.
+The spectral solvers run Krylov cycles over the same ``(m+1, n)`` basis
+block, their matvecs the SpMV kernels for a float32 ``SparseArray`` (the
+basis keeps the operator's float dtype, so that the product stays on the
+kernels; the reference under x64 computes ``eigs`` and ``expm_multiply`` in
+float64 whatever the operator):
+
+* ``eigsh``: thick-restart Lanczos.  By default (``--eigsh_fused_restart``)
+  the whole restarted solve is one loop over the compiled Arnoldi step of
+  ``expr/loop.py`` (the step holds the matvec, so a sparse operator
+  launches K3a/K3b a step), with the small Ritz problem solved by
+  ``torch.linalg.eigh`` in float64 on the device and the basis compressed
+  by one product a cycle, accumulated in float64; the host reads the Ritz residual once a cycle (and
+  torch's ``eigh`` checks its result once a cycle).  With the flag off,
+  and for the inexact shift-invert route, the cycles are paced from the
+  host with NumPy Ritz solves, as in the reference; both give the same
+  pairs.  Shift-invert (``sigma``) factors ``A − σI`` on the device by
+  :func:`scipy_linalg.lu_factor` up to ``_DENSE_SI_MAX`` rows, else each
+  matvec is one ``minres`` (``gmres`` for ``eigs``) solve.
+* ``eigs``: Krylov–Schur restarts; the small Schur and eigen problems run
+  on the host (scipy), the basis compressions and the Ritz vectors are
+  products on the device.
+* ``svds``: Lanczos on the Gram operator of the smaller side (``A`` and
+  ``A.T``, the transpose built once and kept with ``A``); ``'SM'`` by
+  shift-invert at a small negative shift.
+* ``expm_multiply``: one Arnoldi cycle a column, scipy's ``expm`` of the
+  small ``H`` on the host, one product.
+
+``expm``, ``inv``, ``matrix_power`` and ``spsolve_triangular`` densify a
+``SparseArray`` on the device (duplicates summed) and call
+``torch.linalg``; ``is_sptriangular`` and ``spbandwidth`` reduce over the
+ELL tensors.  ``LaplacianNd``'s matvec is a map of slices and
+concatenates axis by axis (the periodic boundary too: two slices and a
+concatenate, not ``torch.roll``), its eigenvalues the closed form, its
+``toarray`` one batched application to the identity.  ``splu``, ``spilu``,
+``factorized``, ``lobpcg``, ``lgmres``, ``gcrotmk``, ``onenormest`` and
+``funm_multiply_krylov`` are scipy on the host, each noticed once a process
+and counted in ``expr.fio.counts["host_runs"]``; a name the installed scipy
+lacks raises scipy's own ``AttributeError``.
 """
 
 from __future__ import annotations
@@ -38,8 +73,9 @@ import numpy as np
 import torch
 
 import spartan_tpu_torch as sp
-from spartan_tpu_torch.config import FLAGS, IntFlag
-from spartan_tpu_torch.core.array import SpartanArray, to_numpy_dtype
+from spartan_tpu_torch.config import FLAGS, BoolFlag, IntFlag
+from spartan_tpu_torch.core.array import (SpartanArray, to_numpy_dtype,
+                                          to_torch_dtype)
 from spartan_tpu_torch.expr.base import Expr
 from spartan_tpu_torch.expr.builtins import _lstsq_svd
 from spartan_tpu_torch.expr.map import result_type, structural
@@ -51,8 +87,8 @@ FLAGS.add(IntFlag(
 
 __all__ = [
     "LinearOperator", "aslinearoperator", "cg", "bicgstab", "gmres",
-    "minres", "lsqr", "bicg", "cgs", "tfqmr", "qmr", "lsmr", "norm",
-    "spsolve",
+    "minres", "lsqr", "eigsh", "eigs", "svds", "norm", "spsolve",
+    "expm_multiply",
 ]
 
 _TINY = 1e-30
@@ -937,3 +973,967 @@ def _normal_bound(atol, iters, a_norm, x_norm, b_norm, atb_norm,
   ``sqrt(iters) eps |A|_2 (|A|_2 |x|_2 + |b|_2) / |A'b|_2``."""
   return atol + (iters ** 0.5 * eps * a_norm * (a_norm * x_norm + b_norm)
                  / atb_norm)
+
+
+# -- the spectral solvers ------------------------------------------------------
+
+def _op_float(op) -> np.dtype:
+  """The dtype a Krylov basis of ``op`` keeps: the operator's own float
+  dtype (so a float32 sparse operator's matvec stays on the SpMV kernels),
+  else the default float."""
+  dt = op.dtype
+  if dt is None:
+    return _default_float()
+  dt = to_numpy_dtype(dt) if isinstance(dt, torch.dtype) else np.dtype(dt)
+  return dt if dt.kind == "f" else _default_float()
+
+
+def _arnoldi_body(matvec, m: int, dt):
+  """One Arnoldi step over the (m+1, n) basis block at carried position j:
+  one matvec, classical Gram–Schmidt twice against the whole block
+  (unfilled rows are zero and project to nothing), rank-1 one-hot updates
+  of V and of the projected matrix H."""
+  def body(V, H, vj, j):
+    w = matvec(vj)
+    h = _hi_dot(V, w)
+    w = w - _hi_dot(h, V)
+    h2 = _hi_dot(V, w)
+    w = w - _hi_dot(h2, V)
+    h = h + h2
+    beta = sp.sqrt(_hi_dot(w, w))
+    vnext = sp.where(beta > 1e-12, w / sp.maximum(beta, _TINY), 0.0)
+    V2 = V + sp.outer(_onehot(j + 1, m + 1, dt), vnext)
+    H2 = H + sp.outer(h + beta * _onehot(j + 1, m + 1, dt),
+                      _onehot(j, m, dt))
+    return V2, H2, vnext, _i32(j + 1)
+  return body
+
+
+def _arnoldi_cycle(matvec, V0, H0, j0: int, m: int, dt):
+  """Positions j0 .. m-1 as one ``fori_loop`` over the compiled step; the
+  current basis vector rides the carry (selected from V0 once here).
+  Returns (V, H)."""
+  vj0 = _hi_dot(_onehot(j0, m + 1, dt), sp.lazify(V0))
+  V, H, _, _ = sp.fori_loop(m - j0, _arnoldi_body(matvec, m, dt),
+                            (V0, H0, vj0, _i32(j0)))
+  return V, H
+
+
+def _arnoldi_cycle_eager(matvec, V0, H0, j0: int, m: int, dt):
+  """The same cycle paced from the host, one evaluated step a position:
+  for a matvec that is itself a solver call (the inexact shift-invert's
+  minres/gmres), which runs its own loop and cannot sit inside a step."""
+  V = sp.lazify(V0)
+  H = sp.lazify(H0)
+  vj = sp.Val(_hi_dot(_onehot(j0, m + 1, dt), V).evaluate())
+  body = _arnoldi_body(matvec, m, dt)
+  j = int(j0)
+  for _ in range(m - j0):
+    V, H, vj, j = body(V, H, vj, j)
+    V = sp.Val(sp.lazify(V).evaluate())
+    H = sp.Val(sp.lazify(H).evaluate())
+    vj = sp.Val(sp.lazify(vj).evaluate())
+    j = int(j)
+  return V, H
+
+
+FLAGS.add(BoolFlag(
+    "eigsh_fused_restart", True,
+    "run eigsh's whole thick-restart loop (Arnoldi cycles over the compiled "
+    "step, the Ritz solves by torch.linalg.eigh and the basis compression "
+    "on the device, one host read of the residual a cycle); off = "
+    "host-paced restarts with NumPy Ritz solves between the cycles"))
+
+# the last eigsh/eigs call: its restart cycles, the Arnoldi steps they ran
+# (one matvec each) and whether the restarts ran fused
+stats = {"cycles": 0, "steps": 0, "fused": False}
+
+
+def _ritz_device(Hh: torch.Tensor, m: int, k: int, l: int, which: str):
+  """The host path's breakdown guard, selection, residual and TRLan
+  compression (:func:`_ritz_host`, the restart in :func:`eigsh`) on the
+  device over the (m+1, m) projected matrix: ``(res / scale, Hn, P)``.
+  The small eigenproblem is solved in float64 whatever the basis's dtype:
+  cuSOLVER's float32 ``eigh`` returns vectors orthonormal to about 5e-6
+  only (LAPACK's to 6e-7), and the compression ``P`` carries that loss
+  into the basis every restart (a float32 solve's Ritz values then strayed
+  4e-4 from its vectors' Rayleigh quotients at n = 2^22 on an NVIDIA H100
+  80GB HBM3 at 700 W, ``tools/torch_spectral_probe.py``).  ``P``
+  comes back in float64 for the compression's float64 accumulation."""
+  dt = Hh.dtype
+  H = Hh.double()
+  Hm = (H[:m, :m] + H[:m, :m].mT) * 0.5
+  scale0 = torch.clamp(H.abs().max(), min=1.0)
+  dead = H.abs().amax(0) < 1e-12 * scale0
+  alive = torch.cumsum(dead.to(torch.int32), 0) == 0
+  alive = alive | (alive.sum() < k)
+  mask = alive[:, None] & alive[None, :]
+  w, Y = torch.linalg.eigh(torch.where(mask, Hm, torch.zeros_like(Hm)))
+  # spurious pairs (the dead block's zeros) live on dead coordinates
+  genuine = ((Y * Y) * alive[:, None].to(Y.dtype)).sum(0) > 0.5
+  genuine = genuine | (genuine.sum() < k)
+  keyv = {"LM": w.abs(), "SM": -w.abs(), "LA": w, "SA": -w}[which]
+  order = torch.argsort(torch.where(genuine, -keyv, torch.inf), stable=True)
+  beta_last = torch.where(alive.all(), H[m, m - 1], torch.zeros_like(w[0]))
+  res = (beta_last * Y[m - 1, order[:k]]).abs().max()
+  wsc = torch.clamp(torch.where(genuine, w, torch.zeros_like(w)).abs().max(),
+                    min=1e-30)
+  keep = order[:l]
+  P = torch.zeros((m + 1, m + 1), dtype=torch.float64, device=Hh.device)
+  P[:l, :m] = Y[:, keep].mT
+  P[l, m] = 1
+  Hn = torch.zeros((m + 1, m), dtype=dt, device=Hh.device)
+  ar = torch.arange(l, device=Hh.device)
+  Hn[ar, ar] = w[keep].to(dt)
+  Hn[l, :l] = (beta_last * Y[m - 1, keep]).to(dt)
+  return res / wsc, Hn, P
+
+
+def _eigsh_fused_solve(matvec, v0n, m: int, k: int, l: int, which: str,
+                       dt, maxiter: int, tol_eff: float):
+  """The whole thick-restart Lanczos solve as one loop of cycles: each
+  cycle runs the compiled Arnoldi step (built once and cached under
+  ``"eigsh_tr"`` by ``expr/loop.py``, its matvec inside, so a sparse
+  operator launches its SpMV kernel a step) from position l to m with no
+  host read, then :func:`_ritz_device` on the device; the host reads the
+  Ritz residual once a cycle to decide the next.  Returns ``(V
+  SpartanArray (m+1, n), H numpy (m+1, m), cycles, res_rel)``; the final
+  selection runs on the host (:func:`_ritz_host`), as on the host-paced
+  path."""
+  from spartan_tpu_torch.core.mesh import get_mesh
+  from spartan_tpu_torch.expr import loop as L
+  which = which.upper()
+  V0 = sp.outer(_onehot(0, m + 1, dt), v0n)
+  _, init_arrs, syms = L._symbolic_carry(
+      (V0, sp.zeros((m + 1, m), dtype=dt), v0n, np.int32(0)))
+  body_exprs = L._as_exprs(_arnoldi_body(matvec, m, dt)(*syms))
+  L._check_carry(body_exprs, init_arrs)
+  # the step depends on the body's structure and the carries' avals only
+  (step,), (consts,) = L._steps("eigsh_tr", [body_exprs], syms, init_arrs)
+  device = get_mesh().device
+
+  def cycle(carry, j_lo):
+    for _ in range(j_lo, m):
+      carry = step(carry, consts)
+    return carry
+
+  V, H, _, _ = cycle(tuple(a.data for a in init_arrs), 0)
+  res, Hn, P = _ritz_device(H, m, k, l, which)
+  cycles = 1
+  while cycles < maxiter and float(res) > tol_eff:  # one host read a cycle
+    Vn = (P @ V.double()).to(V.dtype)  # accumulated in float64, as _hi_dot
+    V, H, _, _ = cycle(
+        (Vn, Hn, Vn[l], torch.tensor(l, dtype=torch.int32, device=device)), l)
+    res, Hn, P = _ritz_device(H, m, k, l, which)
+    cycles += 1
+  return SpartanArray(V), H.cpu().numpy(), cycles, float(res)
+
+
+_DENSE_SI_MAX = 4096  # densified-LU shift-invert size bound (n² memory)
+
+
+def _dense_operand(A) -> torch.Tensor:
+  """A sparse array or dense operand as a dense tensor on the device."""
+  from spartan_tpu_torch.backend import sparse as sps
+  if isinstance(A, sps.SparseArray):
+    return A.dense_tensor()
+  if isinstance(A, sps.BlockSparseArray):
+    return sp.from_numpy(A.todense()).data
+  return sp.lazify(A).evaluate().data
+
+
+def _shift_invert_op(A, sigma: float, OPinv, mode: str, sym: bool, dt,
+                     n: int):
+  """``(A − σI)⁻¹`` as a matvec, ARPACK's mode 3.  Returns ``(matvec,
+  fused)``:
+
+  * ``OPinv`` given: the user's operator, inside the fused cycle;
+  * the dense path (a materializable A of at most ``_DENSE_SI_MAX`` rows
+    if sparse, or ``mode='dense'``): one ``lu_factor`` of the shifted
+    matrix on the device, matvec a lazy ``lu_solve``, inside the fused
+    cycle;
+  * the iterative path (a LinearOperator, a larger sparse A, or
+    ``mode='iterative'``): each matvec one :func:`minres` (symmetric) or
+    :func:`gmres` (general) solve of the shifted operator, the cycle paced
+    from the host (``fused=False``)."""
+  if OPinv is not None:
+    return aslinearoperator(OPinv).matvec, True
+  if mode in ("auto", "normal"):
+    mode = "auto"
+  if mode not in ("auto", "dense", "iterative"):
+    raise ValueError(f"mode must be auto/dense/iterative, got {mode!r}")
+  from spartan_tpu_torch import scipy_linalg as sla
+  from spartan_tpu_torch.backend import sparse as sps
+  is_sparse = isinstance(A, (sps.SparseArray, sps.BlockSparseArray))
+  is_lo = isinstance(A, LinearOperator)
+  dense_ok = (not is_lo) and (not is_sparse or n <= _DENSE_SI_MAX)
+  if mode == "dense" and not dense_ok:
+    raise ValueError("mode='dense' needs a materializable operator "
+                     f"(got {type(A).__name__}, n={n})")
+  if mode == "dense" or (mode == "auto" and dense_ok):
+    tdt = to_torch_dtype(np.dtype(dt))
+    Ad = _dense_operand(A).to(tdt)
+    As = Ad - float(sigma) * torch.eye(n, dtype=tdt, device=Ad.device)
+    lu_, piv = sla.lu_factor(sp.Val(SpartanArray(As)))
+    lu_v = sp.Val(sp.lazify(lu_).evaluate())
+    piv_v = sp.Val(sp.lazify(piv).evaluate())
+    return (lambda x: sla.lu_solve((lu_v, piv_v), x)), True
+  op = aslinearoperator(A)
+  sig = np.asarray(sigma, dtype=dt)
+  shifted = LinearOperator(
+      op.shape, lambda x: op.matvec(x) - sig * sp.lazify(x), dtype=dt)
+  inner_rtol = 1e-11 if np.dtype(dt) == np.float64 else 1e-6
+  solver = minres if sym else gmres
+
+  def mv(x):
+    y, info = solver(shifted, x, rtol=inner_rtol)
+    if info != 0:
+      from spartan_tpu_torch.util import log_warn
+      log_warn("shift-invert inner solve did not fully converge "
+               "(info=%s) — eigenpair accuracy is bounded by the inner "
+               "residual; raise its budget or use mode='dense'", info)
+    return y
+
+  return mv, False
+
+
+def _ritz_host(Hh: np.ndarray, m: int, k: int, which: str):
+  """The Ritz solve on a fetched (m+1, m) projected matrix on the host:
+  the breakdown guard (a zero column means an invariant subspace), the
+  symmetrized eigenproblem, the selection by ``which`` and the Ritz
+  residual bound."""
+  dead = np.nonzero(np.abs(Hh).max(axis=0)
+                    < 1e-12 * max(np.abs(Hh).max(), 1.0))[0]
+  m_eff = int(dead[0]) if dead.size else m
+  if m_eff < k:
+    m_eff = m
+  Hm = (Hh[:m_eff, :m_eff] + Hh[:m_eff, :m_eff].T) / 2
+  beta_last = float(Hh[m_eff, m_eff - 1]) if m_eff == m else 0.0
+  w_all, Y = np.linalg.eigh(Hm)
+  idx = _pick(w_all, min(k, m_eff), which)
+  scale = max(float(np.abs(w_all).max()), 1e-30)
+  res = np.abs(beta_last * Y[m_eff - 1, idx])
+  return w_all, Y, idx, m_eff, beta_last, res, scale
+
+
+def _pick(vals: np.ndarray, k: int, which: str) -> np.ndarray:
+  order = {
+      "LM": np.argsort(np.abs(vals))[-k:],
+      "SM": np.argsort(np.abs(vals))[:k],
+      "LA": np.argsort(vals.real)[-k:],
+      "SA": np.argsort(vals.real)[:k],
+  }.get(which.upper())
+  if order is None:
+    raise ValueError(f"which={which!r} not in LM/SM/LA/SA")
+  return order[np.argsort(vals[order].real)]  # ascending, scipy's order
+
+
+def _start_vector(n: int, v0, dt):
+  """The starting vector: ``v0``, or the reference's seeded draw
+  (``np.random.default_rng(0)``), so that both packages start alike."""
+  if v0 is None:
+    v0 = np.random.default_rng(0).standard_normal(n)
+  return sp.lazify(v0).astype(dt)
+
+
+def _not_converged(name, res, tol, cycles, m):
+  from spartan_tpu_torch.util import log_warn
+  log_warn("%s: Ritz residual %.2e > tol %.2e after %d restart cycles "
+           "(ncv=%d) — returned pairs are NOT fully converged; raise ncv "
+           "or maxiter", name, res, tol, cycles, m)
+
+
+def eigsh(A, k: int = 6, *, which: str = "LM", ncv: int = None, v0=None,
+          maxiter: int = None, tol: float = 0.0, sigma=None, OPinv=None,
+          mode: str = "auto"):
+  """k eigenpairs of a symmetric ``A`` by thick-restart Lanczos: ``ncv``-step
+  Arnoldi cycles (full reorthogonalization, twice, against the ``(ncv+1,
+  n)`` block) with TRLan restarts, which keep the ``k``-plus-a-buffer best
+  Ritz vectors and the residual direction and re-enter the same cycle at
+  position l.  By default the whole restarted solve runs fused
+  (:func:`_eigsh_fused_solve`); ``--eigsh_fused_restart=0`` paces the
+  cycles from the host with NumPy Ritz solves, and the inexact
+  shift-invert route always does.  Returns ``(w (k,) numpy ascending, v
+  (n, k) SpartanArray)``; ``maxiter`` counts restart cycles (default 20);
+  ``tol`` bounds the Ritz residual relative to the spectral scale (0: 1e-13
+  in float64, 1e-5 in float32).
+
+  Shift-invert (``sigma=σ``, ARPACK's mode 3): Lanczos on ``(A − σI)⁻¹``
+  (:func:`_shift_invert_op`), eigenvalues mapped back by ``λ = σ + 1/ν``;
+  with the default ``which='LM'`` the k eigenvalues nearest σ (``which``
+  selects in the transformed spectrum, as in scipy).  ``OPinv`` (an
+  operator applying ``(A − σI)⁻¹``) overrides the routing."""
+  op = aslinearoperator(A)
+  n = op.shape[1]
+  if op.shape[0] != n:
+    raise ValueError("eigsh needs a square operator")
+  k = int(k)
+  m = min(n, int(ncv) if ncv else max(2 * k + 1, 20))
+  if not 0 < k < m:
+    raise ValueError(f"need 0 < k={k} < ncv={m}")
+  if which.upper() not in ("LM", "SM", "LA", "SA"):
+    raise ValueError(f"which={which!r} not in LM/SM/LA/SA")
+  dt = _op_float(op)
+  maxiter = int(maxiter) if maxiter else 20
+  tol_eff = float(tol) if tol else (1e-13 if dt == np.float64 else 1e-5)
+  v0 = _start_vector(n, v0, dt)
+  if sigma is not None:
+    matvec, fused = _shift_invert_op(A, float(sigma), OPinv, mode,
+                                     sym=True, dt=dt, n=n)
+  else:
+    matvec, fused = op.matvec, True
+  nrm = sp.sqrt(_hi_dot(v0, v0))
+  # the Ritz vectors kept a restart: a buffer of the next-closest pairs
+  # (about ncv/2, TRLan/ARPACK practice) speeds convergence and keeps the
+  # restart off the wrong member of a near-tied cluster
+  l = min(max(k + min(k, 8), m // 2), m - 2)
+  if fused and FLAGS.eigsh_fused_restart:
+    maxiter_eff = 1 if (m >= n or l < 1) else maxiter
+    v0n = sp.Val(((v0 / sp.maximum(nrm, _TINY)).astype(dt)).evaluate())
+    V, Hh, cycles, _ = _eigsh_fused_solve(
+        matvec, v0n, m, k, l, which, dt, maxiter_eff, tol_eff)
+    V = sp.Val(V)
+    w_all, Y, idx, m_eff, beta_last, res, scale = _ritz_host(
+        Hh, m, k, which)
+    if res.max() > tol_eff * scale and m < n and m_eff == m:
+      _not_converged("eigsh", float(res.max()), tol_eff * scale, cycles, m)
+    stats.update(cycles=cycles, steps=m + (cycles - 1) * (m - l),
+                 fused=True)
+  else:
+    cycle_fn = _arnoldi_cycle if fused else _arnoldi_cycle_eager
+    V = sp.outer(_onehot(0, m + 1, dt), v0 / sp.maximum(nrm, _TINY))
+    H = sp.zeros((m + 1, m), dtype=dt)
+    j0 = steps = 0
+    for cycle in range(maxiter):
+      V, H = cycle_fn(matvec, V, H, j0, m, dt)
+      steps += m - j0
+      Hh = np.asarray(sp.lazify(H).glom())
+      w_all, Y, idx, m_eff, beta_last, res, scale = _ritz_host(
+          Hh, m, k, which)
+      converged = res.max() <= tol_eff * scale
+      if (converged or m >= n or m_eff < m or l < 1
+          or cycle == maxiter - 1):
+        if not converged and m < n and m_eff == m:
+          _not_converged("eigsh", float(res.max()), tol_eff * scale,
+                         cycle + 1, m)
+        break
+      keep = _pick(w_all, l, which)
+      Yk = np.ascontiguousarray(Y[:, keep].T.astype(dt))        # (l, m)
+      Wnew = _hi_dot(sp.lazify(Yk), sp.lazify(V)[:m])           # (l, n)
+      vres = sp.lazify(V)[m:m + 1]                              # (1, n)
+      Vn = sp.concatenate(
+          [Wnew, vres, sp.zeros((m - l, n), dtype=dt)], axis=0)
+      Hn = np.zeros((m + 1, m), dtype=dt)
+      Hn[np.arange(l), np.arange(l)] = w_all[keep].astype(dt)
+      Hn[l, :l] = (beta_last * Y[m - 1, keep]).astype(dt)
+      V = sp.Val(Vn.evaluate())
+      H = sp.lazify(Hn)
+      j0 = l
+    stats.update(cycles=cycle + 1, steps=steps, fused=False)
+  w = w_all[idx]
+  if sigma is not None:
+    # back from the shift-inverted spectrum, re-sorted ascending
+    lam = float(sigma) + 1.0 / w
+    order = np.argsort(lam)
+    w = lam[order]
+    idx = idx[order]
+  # Ritz vectors: Yᵀ (k, m_eff) · V's rows (m_eff, n) -> (k, n) -> (n, k)
+  coef = np.ascontiguousarray(Y[:, idx].T.astype(dt))
+  pad = np.zeros((coef.shape[0], m + 1 - m_eff), dtype=dt)
+  v = sp.transpose(_hi_dot(sp.lazify(np.hstack([coef, pad])), V)).evaluate()
+  return w, v
+
+
+def eigs(A, k: int = 6, *, which: str = "LM", ncv: int = None, v0=None,
+         maxiter: int = None, tol: float = 0.0, sigma=None, OPinv=None,
+         mode: str = "auto"):
+  """k eigenpairs of a general (nonsymmetric) operator by Krylov–Schur
+  restarted Arnoldi: ``ncv``-step cycles over the compiled step; a restart
+  keeps the leading (``which``-ordered) real Schur vectors of the small
+  Hessenberg matrix, a real product on the device, and re-enters the cycle
+  at position l.  The small Schur and eigen problems run on the host
+  (scipy).  Returns ``(w, v)`` as complex NumPy arrays ((k,), (n, k)), the
+  Ritz vectors from two real products on the device.  ``maxiter`` counts
+  restart cycles (default 20); ``tol`` bounds the Ritz residual relative to
+  the spectral scale.
+
+  Shift-invert (``sigma=σ``, real): Arnoldi on ``(A − σI)⁻¹`` (an LU on the
+  device, or ``gmres`` inner solves for a matrix-free operator,
+  :func:`_shift_invert_op`), eigenvalues mapped back by ``λ = σ + 1/ν``."""
+  op = aslinearoperator(A)
+  n = op.shape[1]
+  if op.shape[0] != n:
+    raise ValueError("eigs needs a square operator")
+  if sigma is not None and np.iscomplexobj(sigma):
+    raise ValueError("complex sigma is not supported (the device path "
+                     "is real)")
+  k = int(k)
+  m = min(n, int(ncv) if ncv else max(2 * k + 1, 20))
+  if not 0 < k < m:
+    raise ValueError(f"need 0 < k={k} < ncv={m}")
+  dt = _op_float(op)
+  maxiter = int(maxiter) if maxiter else 20
+  tol_eff = float(tol) if tol else (1e-12 if dt == np.float64 else 1e-5)
+  v0e = _start_vector(n, v0, dt)
+  if sigma is not None:
+    matvec, fused = _shift_invert_op(A, float(sigma), OPinv, mode,
+                                     sym=False, dt=dt, n=n)
+  else:
+    matvec, fused = op.matvec, True
+  cycle_fn = _arnoldi_cycle if fused else _arnoldi_cycle_eager
+  nrm = sp.sqrt(_hi_dot(v0e, v0e))
+  V = sp.outer(_onehot(0, m + 1, dt), v0e / sp.maximum(nrm, _TINY))
+  H = sp.zeros((m + 1, m), dtype=dt)
+  j0 = 0
+  # about ncv/2 kept: near-tied |w| clusters (the common case for LM on
+  # real random spectra) need the buffer, or the restart locks onto
+  # interior members
+  l = min(max(k + min(k, 8), m // 2), m - 2)
+
+  def _crit(wr, wi):
+    if which.upper() in ("LM", "SM"):
+      return np.hypot(wr, wi)
+    return np.asarray(wr)
+
+  bigger_is_better = which.upper() in ("LM", "LA")
+  steps = 0
+  for cycle in range(maxiter):
+    V, H = cycle_fn(matvec, V, H, j0, m, dt)
+    steps += m - j0
+    Hh = np.asarray(sp.lazify(H).glom())
+    Hm = Hh[:m, :m]
+    beta_last = float(Hh[m, m - 1])
+    w_all, S = np.linalg.eig(Hm)
+    idx = _pick(w_all, k, which)
+    scale = max(float(np.abs(w_all).max()), 1e-30)
+    res = np.abs(beta_last * S[m - 1, idx])
+    converged = res.max() <= tol_eff * scale
+    if converged or m >= n or l < 1 or cycle == maxiter - 1:
+      if not converged and m < n:
+        _not_converged("eigs", float(res.max() / scale), tol_eff,
+                       cycle + 1, m)
+      break
+    # Krylov–Schur restart: order the real Schur form so the l best
+    # eigenvalues lead (a cutoff predicate keeps 2x2 conjugate blocks
+    # together: a pair's members share |w| and Re w)
+    from scipy.linalg import LinAlgError, schur
+    crit_all = _crit(w_all.real, w_all.imag)
+    order = (np.sort(crit_all)[::-1] if bigger_is_better
+             else np.sort(crit_all))
+    cutoff = order[min(l, m) - 1]
+    # reordering moves a 2x2 block's eigenvalues by about eps(dt); a cutoff
+    # too tight fails LAPACK's check after the reordering (seen in float32):
+    # retry with a wider fuzz, away from the kept set whatever the
+    # cutoff's sign
+    base_fuzz = 1e-12 if dt == np.float64 else 1e-6
+    T = Z = None
+    for fuzz in (base_fuzz, base_fuzz * 1e2, base_fuzz * 1e4):
+      slack = fuzz * (abs(cutoff) + 1.0)
+      if bigger_is_better:
+        pred = lambda wr, wi, s=slack: _crit(wr, wi) >= cutoff - s  # noqa
+      else:
+        pred = lambda wr, wi, s=slack: _crit(wr, wi) <= cutoff + s  # noqa
+      try:
+        T, Z, sdim = schur(Hm, output="real", sort=pred)
+        break
+      except LinAlgError:
+        continue
+    from spartan_tpu_torch.util import log_warn
+    if T is None:
+      log_warn("eigs: Schur reordering unstable at this cutoff — "
+               "returning the current cycle's Ritz pairs")
+      break
+    l_eff = int(sdim)
+    if not 0 < l_eff <= m - 2:
+      log_warn("eigs: Krylov-Schur restart degenerate (kept %d of %d) "
+               "— returning the current cycle's Ritz pairs", l_eff, m)
+      break
+    Qk = np.ascontiguousarray(Z[:, :l_eff].T.astype(dt))      # (l, m)
+    Wnew = _hi_dot(sp.lazify(Qk), sp.lazify(V)[:m])           # (l, n)
+    vres = sp.lazify(V)[m:m + 1]
+    Vn = sp.concatenate(
+        [Wnew, vres, sp.zeros((m - l_eff, n), dtype=dt)], axis=0)
+    Hn = np.zeros((m + 1, m), dtype=dt)
+    Hn[:l_eff, :l_eff] = T[:l_eff, :l_eff].astype(dt)
+    Hn[l_eff, :l_eff] = (beta_last * Z[m - 1, :l_eff]).astype(dt)
+    V = sp.Val(Vn.evaluate())
+    H = sp.lazify(Hn)
+    j0 = l_eff
+  stats.update(cycles=cycle + 1, steps=steps, fused=False)
+  w = w_all[idx]
+  if sigma is not None:
+    w = sigma + 1.0 / w  # the columns of S[:, idx] are unchanged
+  cr = np.ascontiguousarray(S[:, idx].T.real.astype(dt))
+  ci = np.ascontiguousarray(S[:, idx].T.imag.astype(dt))
+  Vr = np.asarray(_hi_dot(sp.lazify(cr), sp.lazify(V)[:m]).glom())  # (k, n)
+  Vi = np.asarray(_hi_dot(sp.lazify(ci), sp.lazify(V)[:m]).glom())
+  return w, (Vr + 1j * Vi).T
+
+
+def svds(A, k: int = 6, *, ncv: int = None, which: str = "LM"):
+  """The top-k (``which='LM'``) or bottom-k (``'SM'``) singular triplets by
+  Lanczos on the Gram operator of the smaller side (``AᵀA`` or ``AAᵀ``).
+  Returns ``(u (p, k), s (k,) ascending, vt (k, q))``, scipy's shapes and
+  order.  A sparse ``A``'s transpose is built once, on the first
+  ``rmatvec``, and the operator keeps ``A`` itself for the whole solve
+  (the transpose holds it weakly).
+
+  ``'SM'`` runs shift-invert Lanczos on the Gram operator at a small
+  negative shift ``σ = −δ`` (δ from an estimate of the spectral scale):
+  the eigenvalues nearest −δ are the smallest, and ``G + δI`` stays
+  positive definite, so the LU or the inner minres never meets a singular
+  shifted operator, even for a rank-deficient ``A``."""
+  op = aslinearoperator(A)
+  p, q = op.shape
+  if op._rmatvec is None:
+    raise ValueError("svds needs rmatvec")
+  small_right = q <= p
+  if small_right:
+    gram = LinearOperator((q, q), lambda x: op.rmatvec(op.matvec(x)),
+                          dtype=op.dtype)
+  else:
+    gram = LinearOperator((p, p), lambda x: op.matvec(op.rmatvec(x)),
+                          dtype=op.dtype)
+  which = which.upper()
+  if which == "LM":
+    w, y = eigsh(gram, k, which="LM", ncv=ncv)
+  elif which == "SM":
+    if isinstance(A, LinearOperator):
+      G_si, mode = gram, "iterative"
+      # the spectral scale: two host-driven power steps on G
+      v = np.random.default_rng(0).standard_normal(gram.shape[1])
+      v /= np.linalg.norm(v)
+      for _ in range(2):
+        gv = np.asarray(sp.lazify(gram.matvec(sp.lazify(v))).glom())
+        scale = float(np.linalg.norm(gv))
+        v = gv / max(scale, _TINY)
+    else:
+      Ad = _dense_operand(A)
+      G = Ad.mT @ Ad if small_right else Ad @ Ad.mT
+      scale = float(G.abs().sum(1).max())  # ≥ λmax
+      G_si, mode = sp.Val(SpartanArray(G)), "auto"
+    delta = max(1e-6 * scale, 1e-30)
+    w, y = eigsh(G_si, k, which="LM", ncv=ncv, sigma=-delta, mode=mode)
+  else:
+    raise ValueError(f"which={which!r} not in LM/SM")
+  s = np.sqrt(np.clip(w, 0.0, None))
+  ye = sp.lazify(y)
+  # the small side's basis through A (or Aᵀ), normalized
+  other = []
+  for i in range(k):
+    z = op.matvec(ye[:, i]) if small_right else op.rmatvec(ye[:, i])
+    other.append(z / max(float(s[i]), _TINY))
+  oth = sp.transpose(sp.stack([sp.lazify(o) for o in other])).evaluate()
+  if small_right:
+    u, vt = oth, sp.transpose(ye).evaluate()
+  else:
+    u, vt = y, sp.transpose(sp.lazify(oth)).evaluate()
+  return u, s, vt
+
+
+def expm_multiply(A, B, t: float = 1.0, *, ncv: int = None):
+  """``exp(t·A) @ B`` without forming the exponential: one ``ncv``-step
+  Arnoldi cycle a column over the compiled step, scipy's ``expm`` of the
+  small ``t·H`` on the host, and one product ``V[:m]ᵀ (e^{tH} β e₁)`` on
+  the device.  The Krylov error decays factorially in ``ncv`` (default
+  ``min(n, 30)``) while ``t·‖A‖`` is within its reach; a posterior
+  estimate warns past 1e-10 (float64) or 1e-5 (float32)."""
+  from scipy.linalg import expm as _small_expm
+  op = aslinearoperator(A)
+  n = op.shape[1]
+  if op.shape[0] != n:
+    raise ValueError("expm_multiply needs a square operator")
+  Be = sp.lazify(B)
+  if Be.ndim not in (1, 2) or Be.shape[0] != n:
+    raise ValueError(f"B shape {Be.shape} incompatible with operator "
+                     f"{op.shape}")
+  one_d = Be.ndim == 1
+  cols = [Be] if one_d else [Be[:, i] for i in range(Be.shape[1])]
+  dt = _op_float(op)
+  m = min(n, int(ncv) if ncv else 30)
+  outs = []
+  for c in cols:
+    ce = sp.lazify(c).astype(dt)
+    beta = sp.sqrt(_hi_dot(ce, ce))
+    beta_f = float(beta.glom())
+    if beta_f == 0.0:
+      outs.append(sp.zeros((n,), dtype=dt))
+      continue
+    V0 = sp.outer(_onehot(0, m + 1, dt), ce / beta)
+    H0 = sp.zeros((m + 1, m), dtype=dt)
+    V, H = _arnoldi_cycle(op.matvec, V0, H0, 0, m, dt)
+    Hh = np.asarray(sp.lazify(H).glom())
+    eH = _small_expm(float(t) * Hh[:m, :m].astype(np.float64))
+    y = (beta_f * eH[:, 0]).astype(dt)
+    # the discarded next-basis coupling |beta_m e_mᵀ e^{tH} e_1| bounds
+    # the leading truncation term
+    ynorm = max(float(np.linalg.norm(y)), 1e-300)
+    rel_est = abs(float(Hh[m, m - 1]) * beta_f * eH[m - 1, 0]) / ynorm
+    warn_tol = 1e-10 if dt == np.float64 else 1e-5
+    if m < n and rel_est > warn_tol:
+      from spartan_tpu_torch.util import log_warn
+      log_warn("expm_multiply: Krylov truncation estimate %.2e at "
+               "ncv=%d — raise ncv (or split t) for t*||A|| this large",
+               rel_est, m)
+    outs.append(_hi_dot(sp.lazify(y), sp.lazify(V)[:m]))
+  if one_d:
+    return outs[0].evaluate()
+  return sp.transpose(sp.stack([sp.lazify(o) for o in outs])).evaluate()
+
+
+# -- the error classes and the host boundaries ----------------------------------
+
+class ArpackError(RuntimeError):
+  """ARPACK's error class (scipy.sparse.linalg's)."""
+
+  def __init__(self, info, infodict=None):
+    self.info = info
+    super().__init__(f"ARPACK error {info}")
+
+
+class ArpackNoConvergence(ArpackError):
+  """An eigensolver that did not converge, with its partial results (as
+  scipy's)."""
+
+  def __init__(self, msg, eigenvalues, eigenvectors):
+    RuntimeError.__init__(self, msg)
+    self.info = -1
+    self.eigenvalues = eigenvalues
+    self.eigenvectors = eigenvectors
+
+
+class MatrixRankWarning(UserWarning):
+  """scipy.sparse.linalg.MatrixRankWarning."""
+
+
+def use_solver(**kwargs):
+  """scipy switches its UMFPACK backend here; the port has one solve path,
+  so this does nothing."""
+  del kwargs
+
+
+_host_noticed: set = set()
+
+
+def _host_notice(name, why):
+  """Say once a process that ``name`` runs on the host, and count the run
+  in ``expr.fio.counts["host_runs"]``."""
+  from spartan_tpu_torch.expr import fio
+  fio.counts["host_runs"] += 1
+  if name in _host_noticed:
+    return
+  _host_noticed.add(name)
+  from spartan_tpu_torch.util import log_info
+  log_info("sp.sparse.linalg.%s: %s — runs EAGERLY on the host "
+           "(scipy.sparse.linalg), the sp.linalg.eig convention.",
+           name, why)
+
+
+def _to_scipy_sparse(A):
+  from spartan_tpu_torch.backend import sparse as sps
+  if isinstance(A, sps.SparseArray):
+    return A.to_scipy()
+  import scipy.sparse as ss
+  if ss.issparse(A):
+    return A
+  return ss.csr_matrix(np.asarray(sp.lazify(A).glom()))
+
+
+def _densified_leaf(A):
+  """A SparseArray as a dense leaf on its device in its own dtype
+  (duplicates summed, no host round trip); anything else lazified."""
+  from spartan_tpu_torch.backend import sparse as sps
+  if isinstance(A, sps.SparseArray):
+    return sp.Val(SpartanArray(A.dense_tensor()))
+  return sp.lazify(A)
+
+
+# -- the densified device matrix functions --------------------------------------
+
+def expm(A):
+  """Sparse ``e^A``: densified on the device, then
+  ``scipy_linalg.expm``; a dense lazy expr (``e^A`` is dense; for the
+  action at scale, :func:`expm_multiply`)."""
+  from spartan_tpu_torch import scipy_linalg as _sl
+  return _sl.expm(_densified_leaf(A))
+
+
+@structural
+def _inv_k(a):
+  a = a if a.dtype in (torch.float64, torch.float32) else a.to(torch.float32)
+  return torch.linalg.inv_ex(a).inverse
+
+
+def inv(A):
+  """Sparse inverse: densified, then ``torch.linalg.inv_ex`` on the device
+  (a dense lazy expr; prefer :func:`spsolve`/:func:`cg` for a solve)."""
+  return sp.map([_densified_leaf(A)], _inv_k)
+
+
+def matrix_power(A, power: int):
+  """``A**power``: densified, then ``torch.linalg.matrix_power`` on the
+  device (a dense lazy expr; sparse powers fill in fast)."""
+  from spartan_tpu_torch.scipy_linalg import _matrix_power_k
+  return sp.map([_densified_leaf(A)], _matrix_power_k,
+                fn_kw={"n": int(power)})
+
+
+@structural
+def _trsv_k(a, b, lower=True, unit=False):
+  dt = torch.promote_types(a.dtype, b.dtype)
+  if dt not in (torch.float64, torch.float32):
+    dt = torch.float32
+  vec = b.ndim == 1
+  x = torch.linalg.solve_triangular(a.to(dt), (b[:, None] if vec else b)
+                                    .to(dt), upper=not lower,
+                                    unitriangular=unit)
+  return x[:, 0] if vec else x
+
+
+def spsolve_triangular(A, b, lower: bool = True,
+                       overwrite_A=False, overwrite_b=False,
+                       unit_diagonal: bool = False):
+  """Triangular solve: densified, then ``torch.linalg.solve_triangular``
+  on the device (level scheduling of a sparse triangle is a sequential
+  host algorithm)."""
+  del overwrite_A, overwrite_b
+  return sp.map([_densified_leaf(A), sp.lazify(b)], _trsv_k,
+                fn_kw={"lower": bool(lower), "unit": bool(unit_diagonal)})
+
+
+def _ell_offsets(A):
+  """Signed column − row offsets of the stored entries, and which of them
+  are nonzero, on the device."""
+  rows = torch.arange(A.shape[0], device=A.cols.device)[:, None]
+  return A.cols.long() - rows, A.vals != 0
+
+
+def _as_sparse(A):
+  from spartan_tpu_torch.backend import sparse as sps
+  if isinstance(A, sps.SparseArray):
+    return A
+  return sps.from_scipy(_to_scipy_sparse(A))
+
+
+def is_sptriangular(A):
+  """``(lower, upper)``: two masked reductions over the ELL tensors on the
+  device (scipy walks indptr on the host)."""
+  off, live = _ell_offsets(_as_sparse(A))
+  above = bool((live & (off > 0)).any())
+  below = bool((live & (off < 0)).any())
+  return (not above, not below)
+
+
+def spbandwidth(A):
+  """``(below, above)`` bandwidths: masked max-reductions on the
+  device."""
+  off, live = _ell_offsets(_as_sparse(A))
+  zero = torch.zeros_like(off)
+  lo = int(torch.where(live, -off, zero).max()) if off.numel() else 0
+  hi = int(torch.where(live, off, zero).max()) if off.numel() else 0
+  return lo, hi
+
+
+@structural
+def _laplacian_nd(x, grid_shape=(), bc="neumann"):
+  """The grid Laplacian of ``x`` (its last axis the raveled grid, any
+  leading axes a batch), axis by axis: the neighbours above and below are
+  a slice and a concatenate (with a zero face, or the opposite face for the
+  periodic boundary), minus each point's degree times itself."""
+  dt = x.dtype if x.dtype in (torch.float32, torch.float64) else torch.float32
+  lead = x.shape[:-1]
+  g = x.to(dt).reshape(lead + tuple(grid_shape))
+  out = torch.zeros_like(g)
+  deg = torch.zeros((), dtype=dt, device=x.device)
+  for i, size in enumerate(grid_shape):
+    ax = len(lead) + i
+    if bc == "periodic":
+      up = torch.cat([g.narrow(ax, 1, size - 1), g.narrow(ax, 0, 1)], ax)
+      dn = torch.cat([g.narrow(ax, size - 1, 1), g.narrow(ax, 0, size - 1)],
+                     ax)
+      deg = deg + 2.0
+    else:
+      zshape = list(g.shape)
+      zshape[ax] = 1
+      z = torch.zeros(zshape, dtype=dt, device=x.device)
+      up = torch.cat([g.narrow(ax, 1, size - 1), z], ax)
+      dn = torch.cat([z, g.narrow(ax, 0, size - 1)], ax)
+      if bc == "neumann":
+        nb = torch.full((size,), 2.0, dtype=dt, device=x.device)
+        nb[0] -= 1.0
+        nb[-1] -= 1.0
+        view = [1] * g.ndim
+        view[ax] = size
+        deg = deg + nb.reshape(view)
+      else:
+        deg = deg + 2.0
+    out = out + up + dn
+  return (out - deg * g).reshape(x.shape)
+
+
+class LaplacianNd(LinearOperator):
+  """The N-D grid Laplacian (scipy.sparse.linalg.LaplacianNd): its matvec
+  is a map of slices and concatenates on the device (no matrix is formed),
+  its eigenvalues the closed-form sums of the per-axis spectra.
+  ``boundary_conditions`` is one of 'neumann', 'dirichlet', 'periodic'."""
+
+  def __init__(self, grid_shape, *, boundary_conditions: str = "neumann",
+               dtype=np.int8):
+    self.grid_shape = tuple(int(g) for g in grid_shape)
+    if boundary_conditions not in ("neumann", "dirichlet", "periodic"):
+      raise ValueError(f"unknown boundary_conditions "
+                       f"{boundary_conditions!r}")
+    self.boundary_conditions = boundary_conditions
+    n = int(np.prod(self.grid_shape))
+    self._kw = {"grid_shape": self.grid_shape, "bc": boundary_conditions}
+    mv = self._apply
+    super().__init__((n, n), mv, mv, dtype=dtype)  # symmetric
+
+  def _apply(self, v):
+    return sp.map([sp.lazify(v)], _laplacian_nd, fn_kw=self._kw)
+
+  def _axis_eigs(self, m: int) -> np.ndarray:
+    k = np.arange(m)
+    if self.boundary_conditions == "dirichlet":
+      return -4.0 * np.sin(np.pi * (k + 1) / (2 * (m + 1))) ** 2
+    if self.boundary_conditions == "neumann":
+      return -4.0 * np.sin(np.pi * k / (2 * m)) ** 2
+    return -4.0 * np.sin(np.pi * np.floor((k + 1) / 2) / m) ** 2
+
+  def eigenvalues(self, m: int = None) -> np.ndarray:
+    """All (or the ``m`` largest) eigenvalues, ascending: the per-axis
+    spectra summed over the grid on the host, O(N)."""
+    grids = np.meshgrid(*[self._axis_eigs(g) for g in self.grid_shape],
+                        indexing="ij")
+    lam = np.sort(sum(grids).ravel())
+    return lam if m is None else lam[-m:]
+
+  def toarray(self) -> np.ndarray:
+    """The dense form: one application of the map to the identity's rows
+    as a batch (never column by column)."""
+    n = self.shape[0]
+    rows = np.asarray(self._apply(sp.eye(n, dtype=np.float64)).glom())
+    return rows.T
+
+  def tosparse(self):
+    from spartan_tpu_torch.backend.sparse import from_dense
+    return from_dense(self.toarray())
+
+
+# -- the host boundaries (SuperLU, ARPACK's neighbours) --------------------------
+
+def splu(A, **kw):
+  """Sparse LU (SuperLU) on the host: sequential pivoting has no device
+  kernel.  Returns scipy's SuperLU (its ``solve`` runs on the host)."""
+  import scipy.sparse.linalg as ssl
+  _host_notice("splu", "sequential sparse pivoting (SuperLU)")
+  return ssl.splu(_to_scipy_sparse(A).tocsc(), **kw)
+
+
+def spilu(A, **kw):
+  """Incomplete LU on the host; its ``.solve`` in a device solver pays a
+  host round trip an iteration."""
+  import scipy.sparse.linalg as ssl
+  _host_notice("spilu", "sequential incomplete factorization (SuperLU)")
+  return ssl.spilu(_to_scipy_sparse(A).tocsc(), **kw)
+
+
+def factorized(A):
+  """A pre-factorized solve closure on the host (SuperLU)."""
+  import scipy.sparse.linalg as ssl
+  _host_notice("factorized", "sequential sparse pivoting (SuperLU)")
+  return ssl.factorized(_to_scipy_sparse(A).tocsc())
+
+
+# splu/spilu return scipy's SuperLU objects; the class itself keeps
+# isinstance checks working
+from scipy.sparse.linalg import SuperLU  # noqa: E402
+
+
+def _host_operand(op):
+  if op is None:
+    return None
+  if hasattr(op, "to_scipy"):
+    return op.to_scipy()
+  if isinstance(op, (Expr, np.ndarray)):
+    return np.asarray(sp.lazify(op).glom())
+  return op  # a scipy operator or a callable
+
+
+def lobpcg(A, X, B=None, M=None, Y=None, tol=None, maxiter=20,
+           largest=True, verbosityLevel=0, retLambdaHistory=False,
+           retResidualNormsHistory=False, restartControl=20):
+  """LOBPCG on the host (scipy's adaptive driver); for eigenproblems on
+  the device, :func:`eigsh`."""
+  import scipy.sparse.linalg as ssl
+  _host_notice("lobpcg", "adaptive host driver")
+  return ssl.lobpcg(_to_scipy_sparse(A), np.asarray(sp.lazify(X).glom()),
+                    B=_host_operand(B), M=_host_operand(M),
+                    Y=None if Y is None else np.asarray(sp.lazify(Y).glom()),
+                    tol=tol, maxiter=maxiter, largest=largest,
+                    verbosityLevel=verbosityLevel,
+                    retLambdaHistory=retLambdaHistory,
+                    retResidualNormsHistory=retResidualNormsHistory,
+                    restartControl=restartControl)
+
+
+def _host_vec(x):
+  return None if x is None else np.asarray(sp.lazify(x).glom())
+
+
+def lgmres(A, b, x0=None, *, rtol=1e-5, atol=0.0, maxiter=1000, M=None,
+           inner_m=30, outer_k=3, outer_v=None, store_outer_Av=True,
+           prepend_outer_v=False):
+  """LGMRES (augmented restarts) on the host; :func:`gmres` runs
+  restarted GMRES on the device."""
+  import scipy.sparse.linalg as ssl
+  _host_notice("lgmres", "adaptive augmented-restart host driver")
+  return ssl.lgmres(_to_scipy_sparse(A), _host_vec(b), x0=_host_vec(x0),
+                    rtol=rtol, atol=atol, maxiter=maxiter, M=M,
+                    inner_m=inner_m, outer_k=outer_k, outer_v=outer_v,
+                    store_outer_Av=store_outer_Av,
+                    prepend_outer_v=prepend_outer_v)
+
+
+def gcrotmk(A, b, x0=None, *, rtol=1e-5, atol=0.0, maxiter=1000,
+            M=None, callback=None, m=20, k=None, CU=None,
+            discard_C=False, truncate="oldest"):
+  """GCROT(m,k) on the host (a recycling-subspace driver)."""
+  import scipy.sparse.linalg as ssl
+  _host_notice("gcrotmk", "recycling-subspace host driver")
+  return ssl.gcrotmk(_to_scipy_sparse(A), _host_vec(b), x0=_host_vec(x0),
+                     rtol=rtol, atol=atol, maxiter=maxiter, M=M,
+                     callback=callback, m=m, k=k, CU=CU,
+                     discard_C=discard_C, truncate=truncate)
+
+
+def onenormest(A, t: int = 2, itmax: int = 5, compute_v=False,
+               compute_w=False):
+  """The Higham–Tisseur 1-norm estimate on the host (sign-vector matvecs
+  steered by host argmaxes)."""
+  import scipy.sparse.linalg as ssl
+  _host_notice("onenormest", "host argmax-steered estimator")
+  return ssl.onenormest(_to_scipy_sparse(A), t=t, itmax=itmax,
+                        compute_v=compute_v, compute_w=compute_w)
+
+
+def funm_multiply_krylov(f, A, b, **kw):
+  """Krylov ``f(A) b`` on the host (scipy's adaptive restart driver; for
+  ``f = exp``, :func:`expm_multiply` on the device).  The keywords go to
+  scipy as given (its names moved between releases: ``restart_every_m``
+  in 1.17, where the reference passes ``restart_every_n``); an older scipy
+  lacks the function and raises its own ``AttributeError``."""
+  import scipy.sparse.linalg as ssl
+  _host_notice("funm_multiply_krylov", "adaptive host restart driver")
+  return ssl.funm_multiply_krylov(f, _to_scipy_sparse(A), _host_vec(b), **kw)
+
+
+__all__ += [
+    "bicg", "cgs", "tfqmr", "qmr", "lsmr",
+    "expm", "inv", "matrix_power", "spsolve_triangular",
+    "is_sptriangular", "spbandwidth", "LaplacianNd",
+    "ArpackError", "ArpackNoConvergence", "MatrixRankWarning",
+    "use_solver", "splu", "spilu", "factorized", "SuperLU",
+    "lobpcg", "lgmres", "gcrotmk", "onenormest",
+    "funm_multiply_krylov",
+]

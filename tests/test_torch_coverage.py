@@ -14,36 +14,30 @@ import spartan_tpu_torch.sparse_linalg as spl
 
 MISSING = sorted("""
 cluster compile grad hessian hvp integrate interpolate jvp minimize
-ndimage optimize remat scipy_linalg sgd_train signal smart_tile spatial
-special stats tiling_plan value_and_grad
+ndimage optimize remat sgd_train signal smart_tile spatial special stats
+tiling_plan value_and_grad
 """.split())
 
-# the spectral solvers, and the densified or host functions, structure
-# probes and host-boundary classes
-MISSING_SPARSE_LINALG = sorted("""
-ArpackError ArpackNoConvergence LaplacianNd MatrixRankWarning SuperLU eigs
-eigsh expm expm_multiply factorized funm_multiply_krylov gcrotmk inv
-is_sptriangular lgmres lobpcg matrix_power onenormest spbandwidth spilu
-splu spsolve_triangular svds use_solver
-""".split())
+# every name of the reference's sparse_linalg is ported
+MISSING_SPARSE_LINALG = []
 
 
 def test_the_names_the_port_still_lacks():
   lacking = sorted(set(ref.__all__) - set(sp.__all__))
   assert lacking == MISSING
-  assert len(MISSING) == 21
+  assert len(MISSING) == 20
 
 
 def test_every_exported_name_is_defined():
   for name in sp.__all__:
     assert hasattr(sp, name), name
-  assert len(set(sp.__all__)) == 381
+  assert len(set(sp.__all__)) == 382
 
 
 def test_the_sparse_linalg_names_the_port_still_lacks():
   lacking = sorted(set(ref_spl.__all__) - set(spl.__all__))
   assert lacking == MISSING_SPARSE_LINALG
-  assert len(MISSING_SPARSE_LINALG) == 24
+  assert len(MISSING_SPARSE_LINALG) == 0
   assert set(spl.__all__) <= set(ref_spl.__all__)
   for name in spl.__all__:
     assert hasattr(spl, name), name

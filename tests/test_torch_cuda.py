@@ -2210,3 +2210,149 @@ def test_files_on_card(device, tmp_path):
   again = sp.checkpoint(sp.zeros((300, 200), dtype=np.float32),
                         str(tmp_path / "c")).evaluate()
   assert torch.equal(again.data, x * 2.0)
+
+
+# -- the spectral solvers and scipy_linalg on the card: eigsh, eigs, svds and
+# expm_multiply with their steps' SpMVs on K3a/K3b (no plain run), the
+# 0-based pivots of lu_factor, the matrix-function gate and its counts.
+# Tolerances: float32 eigenvalues within 10 · 1e-5 of the spectral scale
+# (eigsh's float32 residual tolerance, on a spectrum whose top gaps are
+# wider than it); float64 factorizations 1e-10 of max|want|.
+
+from spartan_tpu_torch import scipy_linalg as SL  # noqa: E402
+
+SPECTRAL_F32 = 1e-5
+
+
+def _grid_top(nx, ny, k):
+  lx = 2 - 2 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+  ly = 2 - 2 * np.cos(np.arange(1, ny + 1) * np.pi / (ny + 1))
+  return np.sort((lx[:, None] + ly[None, :]).ravel())[-k:]
+
+
+@pytest.mark.parametrize("nx, ny, kernel", [(50, 70, "ell"),
+                                            (180, 230, "csr")])
+def test_eigsh_launches_the_spmv_kernels_on_card(device, nx, ny, kernel):
+  """eigsh(L, k=3, 'LA') of a float32 rectangular grid's Laplacian: one
+  K3a (n = 3500) or K3b (n = 41400) launch an Arnoldi step, fused restarts,
+  no plain run; the Ritz values at the closed form's top 3 and at their
+  vectors' Rayleigh quotients, the vectors' residuals in float64 small."""
+  import scipy.sparse as ss
+  L32 = _grid_laplacian_on(nx, ny, np.float32)
+  KS.reset_counts()
+  w, v = spl.eigsh(L32, k=3, which="LA", ncv=32, maxiter=80)
+  st = dict(spl.stats)
+  assert st["fused"] and v.data.device == device
+  assert v.dtype == torch.float32
+  assert KS.counts[f"{kernel}_launches"] == st["steps"] > 0
+  assert KS.counts["ell_plain_runs"] == KS.counts["csr_plain_runs"] == 0
+  top = _grid_top(nx, ny, 3)
+  np.testing.assert_allclose(w, top, rtol=0,
+                             atol=10 * SPECTRAL_F32 * top[-1])
+  d = [-1.0, 2.0, -1.0]
+  A = ss.kronsum(ss.diags(d, [-1, 0, 1], shape=(nx, nx)),
+                 ss.diags(d, [-1, 0, 1], shape=(ny, ny))).tocsr()
+  vv = v.glom().astype(np.float64)
+  res = np.linalg.norm(A @ vv - vv * w, axis=0) / np.linalg.norm(vv, axis=0)
+  assert res.max() <= 10 * SPECTRAL_F32 * top[-1]
+  # the Ritz values are their vectors' Rayleigh quotients to float32
+  # rounding (the restart's small eigh in float64: cuSOLVER's float32 one
+  # let the basis lose its orthonormality)
+  rho = (vv * (A @ vv)).sum(0) / (vv * vv).sum(0)
+  assert np.abs(np.sort(w) - np.sort(rho)).max() <= 64 * 2.0 ** -24 * 8.0
+
+
+def test_eigs_svds_expm_multiply_launch_the_kernels_on_card(device):
+  """eigs on a float32 convection-diffusion operator (K3a a step), svds of
+  a float32 sparse matrix with more than 32768 rows (A x on K3a, Aᵀ y on
+  K3b), expm_multiply of a float32 Laplacian (K3b a step), each with no
+  plain SpMV, against scipy in float64."""
+  import scipy.linalg as sla
+  import scipy.sparse as ss
+  import scipy.sparse.linalg as ssl
+  nx, ny = 40, 60
+  d = [-1.0, 2.0, -1.0]
+  Lg = ss.kronsum(ss.diags(d, [-1, 0, 1], shape=(nx, nx)),
+                  ss.diags(d, [-1, 0, 1], shape=(ny, ny))).tocsr()
+  C = (Lg + 0.3 * ss.kronsum(ss.diags([-1.0, 1.0], [-1, 0], shape=(nx, nx)),
+                             ss.csr_matrix((ny, ny)))).tocsr()
+  KS.reset_counts()
+  w, v = spl.eigs(sps.from_scipy(C.astype(np.float32)), k=3, which="LM",
+                  ncv=30, maxiter=80)
+  assert KS.counts["ell_launches"] == spl.stats["steps"] > 0
+  assert KS.counts["ell_plain_runs"] == 0
+  ww = ssl.eigs(C, k=3, which="LM")[0]
+  scale = np.abs(ww).max()
+  np.testing.assert_allclose(np.sort(np.abs(w)), np.sort(np.abs(ww)),
+                             atol=10 * SPECTRAL_F32 * scale)
+  R = ss.random(40000, 3000, density=4e-3,
+                random_state=np.random.RandomState(5), format="csr")
+  S = sps.from_scipy(R.astype(np.float32))
+  KS.reset_counts()
+  u, s, vt = spl.svds(S, k=4)
+  steps = spl.stats["steps"]
+  assert KS.counts["ell_launches"] == steps + 4  # A x, and A v for u
+  assert KS.counts["csr_launches"] == steps      # Aᵀ y
+  assert KS.counts["ell_plain_runs"] == KS.counts["csr_plain_runs"] == 0
+  sw = np.sort(ssl.svds(R, k=4, return_singular_vectors=False))
+  np.testing.assert_allclose(s, sw, atol=10 * SPECTRAL_F32 * sw[-1])
+  big = _grid_laplacian_on(190, 200, np.float32)   # n = 38000: K3b
+  x = np.random.default_rng(6).standard_normal(38000).astype(np.float32)
+  KS.reset_counts()
+  y = spl.expm_multiply(big * -1.0, x, t=0.5, ncv=20)
+  assert KS.counts["csr_launches"] == 20 and KS.counts["csr_plain_runs"] == 0
+  Lb = ss.kronsum(ss.diags(d, [-1, 0, 1], shape=(190, 190)),
+                  ss.diags(d, [-1, 0, 1], shape=(200, 200))).tocsc()
+  want = ssl.expm_multiply(-0.5 * Lb, x.astype(np.float64))
+  _close_on(y.glom(), want, 1e-5)
+  del sla
+
+
+def test_lu_factor_pivots_and_solves_on_card(device):
+  """lu_factor on the card returns scipy's 0-based pivots (cuSOLVER's are
+  1-based), and lu_solve/cho_solve solve with them."""
+  import scipy.linalg as sla
+  rng = np.random.default_rng(12)
+  a = rng.standard_normal((300, 300))
+  b = rng.standard_normal((300, 2))
+  lu_, piv = SL.lu_factor(a)
+  pv = piv.evaluate()
+  assert pv.data.device == device
+  wlu, wpiv = sla.lu_factor(a)
+  np.testing.assert_array_equal(pv.glom(), wpiv)
+  _close_on(lu_.glom(), wlu, 1e-10)
+  _close_on(SL.lu_solve((lu_, piv), b).glom(), np.linalg.solve(a, b), 1e-10)
+  _close_on(SL.lu_solve((lu_, piv), b, trans=1).glom(),
+            np.linalg.solve(a.T, b), 1e-10)
+  spd = a @ a.T + 300 * np.eye(300)
+  c = SL.cho_factor(spd)
+  _close_on(SL.cho_solve(c, b).glom(), np.linalg.solve(spd, b), 1e-10)
+  _close_on(SL.expm(0.01 * a).glom(), sla.expm(0.01 * a), 1e-10)
+
+
+def test_matrix_function_gate_on_card(device):
+  """sqrtm/logm/signm of an SPD matrix come from the card's iteration
+  (counted in ``matfun_device``); a matrix with negative eigenvalues fails
+  the gate and takes scipy's host path, counted in
+  ``matfun_host_fallbacks``; a complex input goes to the host, counted in
+  ``matfun_complex_host``."""
+  import scipy.linalg as sla
+  rng = np.random.default_rng(13)
+  m = rng.standard_normal((64, 64))
+  spd = m @ m.T + 64 * np.eye(64)
+  SL.reset_counts()
+  X = SL.sqrtm(spd)
+  _close_on(X.glom(), sla.sqrtm(spd), 1e-10)
+  _close_on(SL.logm(spd).glom(), sla.logm(spd), 1e-10)
+  _close_on(SL.signm(spd - 80 * np.eye(64)).glom(),
+            sla.signm(spd - 80 * np.eye(64)), 1e-8)
+  assert SL.counts == {"matfun_device": 3, "matfun_host_fallbacks": 0,
+                       "matfun_complex_host": 0}
+  N = m @ np.diag(np.concatenate([[-2.0, -0.5], 3 + np.arange(62.)])) \
+      @ np.linalg.inv(m)
+  got = SL.sqrtm(N).glom()
+  assert np.iscomplexobj(got)
+  _close_on(got, sla.sqrtm(N), 1e-8)
+  SL.sqrtm(N.astype(complex)).glom()
+  assert SL.counts == {"matfun_device": 3, "matfun_host_fallbacks": 1,
+                       "matfun_complex_host": 1}

@@ -44,7 +44,9 @@ raises on any failure:
      "urand" graph (uniform random targets, 16 out-edges a node) at
      n = 2^22 (CSR kernel) and n = 32768 (ELL kernel), and the
      block-structured shape of the reference's benchmark config 5 (block
-     route, no kernel), each against a float64 scipy power iteration;
+     route, no kernel), each against a float64 scipy power iteration (the
+     2^22 graph's in a worker process, started with phase 22's oracles
+     before the build);
   7. a ratings matrix of MovieLens 20M's shape (138,493 users, 26,744
      movies, 20,000,263 ratings, the heaviest user and the most-rated movie
      near the dataset's), drawn on the card from a seed and ingested through
@@ -204,7 +206,25 @@ raises on any failure:
      sqrtm, logm and signm with no gate fallback, polar, orth and
      null_space of a rank-4000 matrix) and at 1024^2 against scipy on
      six host threads; the densified expm, inv, matrix_power and
-     spsolve_triangular at n = 4096; each host boundary once, counted.
+     spsolve_triangular at n = 4096; each host boundary once, counted;
+ 22. autodiff and sp.sparse.csgraph: sp.compile of config 1's
+     sum(abs(1 + 2b)) called on 5 fresh b's (5 K1 launches, each held to
+     NumPy's float64) and of one PageRank step on phase 6's urand 2^22
+     graph called 30 times (30 K3b launches, held to phase 6's float64
+     ranks); grad, value_and_grad, hvp, hessian and jvp of a least-squares
+     loss at config 3's 2^20 x 64 float64 against their hand forms, grad
+     through SpMV on urand 2^22 against A.T c (K3b on the transpose) and
+     through SpMM at ML-20M's shape against 2 R.T (R B), none of them moving
+     a kernel's count; sp.minimize of a logistic loss there against
+     scipy's BFGS; convnet's fit_fused and train at MNIST's test-set shape
+     and sgd_train with remat around the first block, with the peak device
+     memory of each; dijkstra (unweighted and weighted) from 4 sources,
+     weak components and the normed Laplacian of urand 2^22, the
+     components of a 1024^2 grid cut in two (1535 rounds) and
+     floyd_warshall at n = 4096, each against scipy.sparse.csgraph (the
+     2^22 graph's and minimize's oracles in worker processes since the
+     build; the compiled sums' NumPy oracles on six threads while the
+     card works), with each loop's rounds and host and device ms a round.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
@@ -213,8 +233,9 @@ for K2, phase 12's
 make_spmv_windowed calls for K3c, phase 14's path at each p for the
 sharded kernels, summed over the three meshes, and each counted solve and
 the scan of phase 19 for K3a, K3b and K3d, phase 20's two Lanczos
-runs for K3b and K3a and its sparse norm for K1, and each counted solve of
-phase 21 for K3a and K3b) and read just after.  K4
+runs for K3b and K3a and its sparse norm for K1, each counted solve of
+phase 21 for K3a and K3b, and phase 22's compiled calls for K1 and K3b)
+and read just after.  K4
 has no caller in the package: its count is the launches of phase 9's
 checks.  The
 last two lines are a JSON object describing each kernel (its launches on
@@ -243,6 +264,7 @@ import torch
 import torch.nn.functional as F
 
 import spartan_tpu_torch as sp
+from spartan_tpu_torch import csgraph as CG
 from spartan_tpu_torch import sparse_linalg as spl
 from spartan_tpu_torch.backend import sparse
 from spartan_tpu_torch.backend.kernels import build
@@ -922,8 +944,9 @@ def scipy_pagerank(A) -> np.ndarray:
 
 
 def pagerank_case(label: str, A, want_fmt: str, kernel_count,
-                  stochastic: bool = True):
-  """fit_sparse(from_scipy(A)) against scipy in float64; returns the
+                  stochastic: bool = True, oracle=None):
+  """fit_sparse(from_scipy(A)) against scipy in float64 (``oracle``: a
+  worker's future of it, else computed here); returns the
   SparseArray and the float64 ranks (phase 14 runs them again on sharded
   meshes).  ``kernel_count`` is the counts key that must
   rise by at least PR_ITERS, or None for the block route (no kernel).  A
@@ -949,7 +972,7 @@ def pagerank_case(label: str, A, want_fmt: str, kernel_count,
     check(rose["ell_plain_runs"] == rose["csr_plain_runs"] == 0,
           f"{label}: a card tensor reached a plain SpMV ({rose})")
   with Timer() as t_oracle:
-    want = scipy_pagerank(A)
+    want = scipy_pagerank(A) if oracle is None else oracle.result()
   err = float(np.abs(r.astype(np.float64) - want).max())
   total = float(r.sum(dtype=np.float64))
   print(f"  PageRank {label} (n={n}, nnz={S.nnz}, fmt {fmt!r}): "
@@ -957,7 +980,7 @@ def pagerank_case(label: str, A, want_fmt: str, kernel_count,
         f"{1e-5 * want.max():.3g}), |sum r - 1| {abs(total - 1):.3g} "
         f"({'<= 1e-4' if stochastic else 'dangling columns'}); launches {rose}; from_scipy {t_ingest.elapsed:.2f} s, "
         f"fit_sparse {t_fit.elapsed:.3f} s, scipy oracle "
-        f"{t_oracle.elapsed:.2f} s")
+        f"{t_oracle.elapsed:.2f} s{' (waited for its worker)' if oracle else ''}")
   check(r.shape == (n,) and r.dtype == np.float32
         and bool(np.isfinite(r).all()), f"{label}: bad ranks")
   check(err <= 1e-5 * want.max(), f"{label}: disagrees with scipy")
@@ -976,11 +999,18 @@ def pagerank_case(label: str, A, want_fmt: str, kernel_count,
   return S, want
 
 
-def phase_pagerank(big, small, cfg5):
+def urand_pagerank_oracle(n: int, seed: int) -> np.ndarray:
+  """scipy's float64 PageRank of urand_graph(n, seed), in a worker
+  process (45 s of one core at 2^22)."""
+  return scipy_pagerank(urand_graph(n, seed))
+
+
+def phase_pagerank(big, small, cfg5, big_oracle=None):
   """The three PageRank cases; returns the two urand graphs' SparseArrays
-  and float64 ranks, by label."""
+  and float64 ranks, by label.  ``big_oracle``: a worker's future of the
+  2^22 graph's float64 ranks."""
   held = {"urand 2^22": pagerank_case("urand 2^22", big, "win",
-                                      "csr_launches"),
+                                      "csr_launches", oracle=big_oracle),
           "urand 32768": pagerank_case("urand 32768", small, "ell",
                                        "ell_launches")}
   pagerank_case("config-5 blocks", cfg5, "bsr", None, stochastic=False)
@@ -5462,6 +5492,564 @@ def phase_spectral(device, card: str) -> dict:
   return launches
 
 
+# phase 22: autodiff (sp.compile, grad and its kin, minimize, sgd_train,
+# remat) with convnet's training, and sp.sparse.csgraph
+COMPILE_CALLS = 5
+AD_SEED = 22  # config 3's X for the gradients and minimize
+AD_L2 = 1e-3  # the reference test's logistic loss's ridge term
+# scipy's BFGS oracle runs to this gradient: at its default 1e-5 the mean
+# loss over 2^20 rows is so flat that it stopped 3.9e-8 above the optimum
+# and 9.2e-4 from it in x, past the check's 5e-4 (on the H100's host)
+ORACLE_GTOL = 1e-10
+MNIST_CLASSES, CONVNET_EPOCHS, CONVNET_LR = 10, 3, 0.05
+CSG_SOURCES = (0, 1 << 20, 2 << 20, (1 << 22) - 1)  # dijkstra's k = 4
+CSG_WEIGHT_SEED = 23  # the urand graph's edge weights, from (0, 1]
+CUT_SIDE = 1024  # the 5-point grid graph cut in two: O(diameter) rounds
+FW_N, FW_DEGREE, FW_SAMPLES = 4096, 8, 64
+LAP_PROBES = 2  # random vectors the Laplacians are held by
+
+
+def config3_data(seed: int = AD_SEED):
+  """(X, least-squares targets, logistic labels, w_true) at config 3's
+  2^20 x 64 float64, drawn on the host from ``seed`` (the oracle workers
+  draw the same)."""
+  rng = np.random.default_rng(seed)
+  X = rng.standard_normal((LINREG_N, LINREG_D))
+  w_true = rng.standard_normal(LINREG_D)
+  z = X @ w_true
+  y = z + 0.01 * rng.standard_normal(LINREG_N)
+  labels = (z + 0.3 * rng.standard_normal(LINREG_N) > 0).astype(np.float64)
+  return X, y, labels, w_true
+
+
+def logreg_bfgs_oracle(seed: int):
+  """scipy's BFGS on the logistic loss of :func:`config3_data`, with its
+  analytic gradient, to an infinity norm of the gradient below
+  ORACLE_GTOL: (x, fun, nit, that norm), in a worker process."""
+  import scipy.optimize as sopt
+  X, _, y, _ = config3_data(seed)
+
+  def fun(w):
+    z = X @ w
+    return (np.log1p(np.exp(-z)) + (1 - y) * z).mean() + AD_L2 * (w @ w)
+
+  def jac(w):
+    z = X @ w
+    return X.T @ (1.0 / (1.0 + np.exp(-z)) - y) / X.shape[0] + 2 * AD_L2 * w
+
+  res = sopt.minimize(fun, np.zeros(X.shape[1]), jac=jac, method="BFGS",
+                      options={"gtol": ORACLE_GTOL})
+  return res.x, float(res.fun), int(res.nit), float(np.abs(res.jac).max())
+
+
+def urand_weights(nnz: int) -> np.ndarray:
+  """The urand graph's edge weights, from (0, 1], in its canonical CSR
+  order."""
+  return 1.0 - np.random.default_rng(CSG_WEIGHT_SEED).random(nnz)
+
+
+def urand_csgraph(weighted: bool):
+  """The canonical float64 CSR of phase 6's urand 2^22 graph as
+  sparse.from_scipy reads it, weighted by :func:`urand_weights` or not."""
+  G = ss.csr_matrix(urand_graph(PR_BIG_N, 1), dtype=np.float64)
+  G.sum_duplicates()
+  if weighted:
+    G.data = urand_weights(G.nnz)
+  return G
+
+
+def dijkstra_oracle(sources):
+  """scipy's dijkstra on the weighted urand graph from each of
+  ``sources`` (a worker process: scipy's graph searches hold the
+  interpreter lock)."""
+  import scipy.sparse.csgraph as cs
+  return cs.dijkstra(urand_csgraph(True), indices=list(sources))
+
+
+def bfs_oracle(sources):
+  """Hop counts on the urand graph from each of ``sources`` by scipy's
+  breadth-first tree: a vertex's count is its tree parent's plus one
+  (a worker process)."""
+  import scipy.sparse.csgraph as cs
+  G = urand_csgraph(False)
+  out = np.full((len(sources), G.shape[0]), np.inf)
+  for row, src in zip(out, sources):
+    order, pred = cs.breadth_first_order(G, src, return_predecessors=True)
+    row[src] = 0.0
+    for _ in range(G.shape[0]):  # one pass a level of the tree
+      step = row[pred[order[1:]]] + 1.0
+      if np.array_equal(step, row[order[1:]]):
+        break
+      row[order[1:]] = step
+  return out
+
+
+def structure_oracle(probes):
+  """scipy's weak components of the urand graph, its normed Laplacian's
+  diagonal and the Laplacian times each of ``probes`` (float64)."""
+  import scipy.sparse.csgraph as cs
+  G = urand_csgraph(False)
+  n_comp, labels = cs.connected_components(G, directed=True,
+                                           connection="weak")
+  L, d = cs.laplacian(G, normed=True, return_diag=True)
+  L = L.tocsr()
+  return n_comp, labels, d, [L @ v for v in probes]
+
+
+def submit_phase22_oracles(procs) -> dict:
+  """Submit phase 22's host oracles to the worker processes ``procs``:
+  scipy on the urand 2^22 graph (weighted and unweighted distances from
+  CSG_SOURCES, weak components, the normed Laplacian) and scipy's BFGS.
+  ``main`` submits them before the build, so that they run during phases
+  1-21 (minutes of scipy on one core each)."""
+  probes = [np.random.default_rng(28 + i).standard_normal(PR_BIG_N)
+            for i in range(LAP_PROBES)]
+  return {"weighted": procs.submit(dijkstra_oracle, CSG_SOURCES),
+          "unweighted": procs.submit(bfs_oracle, CSG_SOURCES),
+          "structure": procs.submit(structure_oracle, probes),
+          "bfgs": procs.submit(logreg_bfgs_oracle, AD_SEED)}
+
+
+def oracle_processes():
+  """The two spawned worker processes the oracles of phases 6 and 22 run
+  in."""
+  return concurrent.futures.ProcessPoolExecutor(
+      max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+
+
+def cut_grid_graph(side: int):
+  """The 5-point grid graph of side^2 vertices (unit weights, both
+  directions) without the edges between rows side/2 - 1 and side/2: two
+  components, each of diameter 3 side / 2 - 2."""
+  n = side * side
+  idx = np.arange(n).reshape(side, side)
+  right = (idx[:, :-1].ravel(), idx[:, 1:].ravel())
+  keep = np.arange(side - 1) != side // 2 - 1
+  down = (idx[:-1][keep].ravel(), idx[1:][keep].ravel())
+  rows = np.concatenate([right[0], down[0], right[1], down[1]])
+  cols = np.concatenate([right[1], down[1], right[0], down[0]])
+  return ss.csr_matrix((np.ones(rows.shape[0]), (rows, cols)), shape=(n, n))
+
+
+def fw_graph():
+  """A random directed graph of FW_N vertices, FW_DEGREE out-edges a
+  vertex with weights from (0, 1] (a repeated edge adds up)."""
+  rng = np.random.default_rng(24)
+  rows = np.repeat(np.arange(FW_N), FW_DEGREE)
+  cols = rng.integers(0, FW_N, FW_N * FW_DEGREE)
+  w = 1.0 - rng.random(FW_N * FW_DEGREE)
+  keep = rows != cols
+  G = ss.csr_matrix((w[keep], (rows[keep], cols[keep])), shape=(FW_N, FW_N))
+  G.sum_duplicates()
+  return G
+
+
+ORACLE_WAIT = [0.0]  # seconds phase 22 waited for its oracle processes
+
+
+def oracle_result(future):
+  """``future.result()``, its wait added to ORACLE_WAIT."""
+  t0 = time.perf_counter()
+  out = future.result()
+  ORACLE_WAIT[0] += time.perf_counter() - t0
+  return out
+
+
+def per_round(label, run, rounds_of):
+  """Run ``run()`` once for its result and rounds, then once timed on the
+  host (synced) and once under torch.profiler: prints the rounds and the
+  host and device ms a round; returns the result."""
+  out = run()
+  rounds = rounds_of()
+  torch.cuda.synchronize()
+  with Timer() as t:
+    run()
+    torch.cuda.synchronize()
+  _, dev_ms, _ = device_share(run)
+  host = t.elapsed * 1e3 / max(rounds, 1)
+  dev = ("not measured" if dev_ms is None
+         else f"{dev_ms / max(rounds, 1):.4f} ms")
+  print(f"  {label}: {rounds} rounds; host {host:.4f} ms a round (wall "
+        f"{t.elapsed:.3f} s), device {dev} a round")
+  return out
+
+
+def _abs_sum64(blk) -> float:
+  """sum(|1 + 2 v|) of a float32 block in float64 (NumPy, in place)."""
+  y = blk.astype(np.float64)
+  y *= 2
+  y += 1
+  return float(np.abs(y, out=y).sum())
+
+
+def compile_items(device, card: str, k1_ms: float, pool):
+  """sp.compile of config 1's sum(abs(1 + 2b)) (K1) on fresh b's; returns
+  the launches counted over the calls and each call's result beside its
+  NumPy float64 oracle, running on the threads of ``pool`` meanwhile
+  (held by :func:`hold_compiled`)."""
+  gen = torch.Generator(device=device).manual_seed(22)
+  b0 = torch.randn(TIMED_SHAPE, generator=gen, device=device)
+  b = sp.lazify(sp.SpartanArray(b0))
+  f = sp.compile(sp.sum(sp.abs(1 + 2 * b)), wrt=[b])
+  K.reset_counts()
+  pending = []
+  for _ in range(COMPILE_CALLS):
+    fresh = torch.randn(TIMED_SHAPE, generator=gen, device=device)
+    got = float(f(fresh).glom())
+    blocks = np.array_split(fresh.cpu().numpy(), 64)
+    pending.append((got, [pool.submit(_abs_sum64, blk) for blk in blocks]))
+  launches = K.counts["launches"]
+  plain = K.counts["plain_runs"] + K.counts["routed_plain"]
+  ms, host, ahead = event_ms(lambda: f(b0))
+  print(f"  sp.compile(sum(abs(1 + 2b)), wrt=[b]) at {TIMED_SHAPE[0]}^2 "
+        f"float32: {COMPILE_CALLS} fresh b's, K1 launches {launches}, plain "
+        f"runs {plain}; a call {ms:.4f} ms of device (host issue "
+        f"{host:.4f} ms, queued ahead {ahead}) beside K1's {k1_ms:.4f} ms "
+        f"(phase 2) on {card}")
+  check(launches == COMPILE_CALLS and plain == 0,
+        f"sp.compile launched K1 {launches} times ({K.counts})")
+  return {"k1": launches}, pending
+
+
+def hold_compiled(pending) -> None:
+  """Each compiled sum against its NumPy float64 oracle."""
+  worst = max(rel_err(got, sum(f.result() for f in blocks))
+              for got, blocks in pending)
+  print(f"  the {len(pending)} compiled sums against NumPy's float64: max "
+        f"rel err {worst:.3g} (rtol 1e-6: float32 terms summed in float64)")
+  check(worst <= 1e-6, "sp.compile's sum disagrees with NumPy")
+
+
+def compiled_pagerank(S, want) -> int:
+  """One PageRank step through sp.compile (wrt the rank), called PR_ITERS
+  times from the uniform rank: held to phase 6's float64 ranks; returns
+  K3b's launches over the calls."""
+  n = S.shape[0]
+  r = sp.from_numpy(np.full(n, 1.0 / n, dtype=np.float32))
+  step = sp.compile(sparse.spmv_expr(S, r) * DAMPING + (1.0 - DAMPING) / n,
+                    wrt=[r])
+  KS.reset_counts()
+  torch.cuda.synchronize()
+  with Timer() as t:
+    rank = torch.full((n,), 1.0 / n, dtype=torch.float32, device=S.cols.device)
+    for _ in range(PR_ITERS):
+      rank = step(rank).data
+    got = rank.double().cpu().numpy()
+  err = float(np.abs(got - want).max())
+  launches, plain = KS.counts["csr_launches"], KS.counts["csr_plain_runs"]
+  print(f"  sp.compile(PageRank step, wrt=[r]) on urand 2^22, {PR_ITERS} "
+        f"calls: max|r - r64| {err:.3g} (<= 1e-5 max r64 = "
+        f"{1e-5 * want.max():.3g}), K3b launches {launches}, plain runs "
+        f"{plain}; {t.elapsed / PR_ITERS * 1e3:.4f} ms a call (host clock)")
+  check(err <= 1e-5 * want.max(), "the compiled PageRank disagrees")
+  check(launches == PR_ITERS and plain == 0,
+        f"the compiled PageRank launched K3b {launches} times")
+  return launches
+
+
+def kernel_counts():
+  return (K.counts["launches"], K.counts["plain_runs"], KS.counts["csr_launches"],
+          KS.counts["ell_launches"], K5.counts["launches"])
+
+
+def gradient_items(device, X_host, y_host):
+  """grad, value_and_grad, hvp, hessian and jvp of sum((X w - y)^2)/n at
+  config 3's shape against the hand forms on the card (float64)."""
+  n, d = X_host.shape
+  X, y = sp.from_numpy(X_host), sp.from_numpy(y_host)
+  rng = np.random.default_rng(25)
+  w_np, v_np = rng.standard_normal(d), rng.standard_normal(d)
+  w = sp.from_numpy(w_np)
+  loss = sp.sum((sp.dot(X, w) - y) ** 2) / n
+  Xd, yd, wd, vd = (t.evaluate().data for t in (X, y, w, sp.from_numpy(v_np)))
+  # the hand gradient of linear_reg.gradient_step
+  hand = (2.0 / n) * (Xd.T @ (Xd @ wd - yd))
+  hv_want = (2.0 / n) * (Xd.T @ (Xd @ vd))
+  H_want = (2.0 / n) * (Xd.T @ Xd)
+  before = kernel_counts()
+  with Timer() as t:
+    (g,) = sp.grad(loss, [w])
+    val, (g2,) = sp.value_and_grad(loss, [w])
+    (hv,) = sp.hvp(loss, [w], [v_np])
+    H = sp.hessian(loss, [w])
+    primal, tangent = sp.jvp(loss, [w], [v_np])
+    torch.cuda.synchronize()
+  moved = [a - b for a, b in zip(kernel_counts(), before)]
+
+  def err(got, want):
+    return float((got.data - want).abs().max() / want.abs().max())
+
+  errs = {"grad": err(g, hand), "value_and_grad": err(g2, hand),
+          "hvp": err(hv, hv_want), "hessian": err(H, H_want),
+          "jvp": rel_err(float(tangent.glom()), float(hand @ vd)),
+          "value": rel_err(float(val.glom()),
+                           float(((Xd @ wd - yd) ** 2).sum() / n))}
+  print(f"  grad, value_and_grad, hvp, hessian ({d} x {d}) and jvp of "
+        f"sum((X w - y)^2)/n at {n} x {d} float64: relative errors "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (1e-10: float64 sums of {n} terms in another order); "
+        f"{t.elapsed:.2f} s in all; kernel launches moved {moved}")
+  check(max(errs.values()) <= 1e-10, f"a derivative disagrees ({errs})")
+  check(not any(moved), f"a derivative moved a kernel's count ({moved})")
+
+
+def sparse_gradient_items(device, S) -> int:
+  """grad through SpMV on the urand 2^22 graph against A.T c (K3b on the
+  transpose) and through SpMM at ML-20M's shape, k = 64, against
+  2 R.T (R B) in float64 (cuSPARSE); returns K3b's launch for A.T c."""
+  n = S.shape[0]
+  gen = torch.Generator(device=device).manual_seed(26)
+  x = sp.lazify(sp.SpartanArray(torch.randn(n, generator=gen, device=device)))
+  c = torch.randn(n, generator=gen, device=device)
+  before = kernel_counts()
+  (g,) = sp.grad(sp.sum(sparse.spmv_expr(S, x) * sp.SpartanArray(c)), [x])
+  moved = [a - b for a, b in zip(kernel_counts(), before)]
+  KS.reset_counts()
+  want = sparse.spmv(S.transpose(), c)
+  launched = KS.counts["csr_launches"]
+  e1 = float((g.data - want).abs().max() / want.abs().max())
+  print(f"  grad of sum(spmv(A, x) * c) on urand 2^22 (fmt "
+        f"{sparse.spmv_expr(S, x).fmt!r}): max|g - A.T c| / max|A.T c| "
+        f"{e1:.3g} (1e-5: float32 sums of about 16 terms in another order; "
+        f"A.T c by K3b, {launched} launch); launches moved {moved}")
+  check(e1 <= 1e-5 and not any(moved) and launched == 1,
+        "the SpMV gradient disagrees or moved a count")
+  with Timer() as t_draw:
+    R = movielens_shaped(device, seed=22)
+    Sr = sparse.from_scipy(R, dtype=np.float32)
+  B = torch.randn((ML_MOVIES, ALS_K), generator=gen, device=device)
+  Bl = sp.lazify(sp.SpartanArray(B))
+  before = kernel_counts()
+  with Timer() as t_grad:
+    (gB,) = sp.grad(sp.sum(sparse.spmm_expr(Sr, Bl) ** 2), [Bl])
+    torch.cuda.synchronize()
+  moved = [a - b for a, b in zip(kernel_counts(), before)]
+  fmt = sparse.spmm_expr(Sr, Bl).fmt
+  del Sr
+
+  def csr64(m):
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(m.indptr.astype(np.int64)),
+        torch.from_numpy(m.indices.astype(np.int64)),
+        torch.from_numpy(m.data.astype(np.float64)), m.shape).to(device)
+
+  Y = csr64(R) @ B.double()
+  want = 2 * (csr64(R.T.tocsr()) @ Y)
+  e2 = float((gB.data.double() - want).abs().max() / want.abs().max())
+  print(f"  grad of sum(spmm(R, B)^2) at ML-20M's shape, k = {ALS_K} (fmt "
+        f"{fmt!r}): max|g - 2 R.T (R B)| / max {e2:.3g} (1e-4: float32 "
+        f"products summed over up to {ML_MAX_USER} terms, squared); "
+        f"grad {t_grad.elapsed:.2f} s, ratings drawn and ingested in "
+        f"{t_draw.elapsed:.2f} s; launches moved {moved}")
+  check(e2 <= 1e-4 and not any(moved),
+        "the SpMM gradient disagrees or moved a count")
+  del R, Y, want, gB
+  return launched
+
+
+def minimize_item(device, X_host, labels, oracle):
+  """sp.minimize of the reference test's logistic loss at config 3's
+  shape, held to scipy's BFGS (``oracle``, a worker's future)."""
+  w = sp.from_numpy(np.zeros(X_host.shape[1]))
+  z = sp.dot(sp.from_numpy(X_host), w)
+  loss = sp.mean(sp.log1p(sp.exp(-z)) + (1.0 - sp.from_numpy(labels)) * z) \
+      + AD_L2 * sp.sum(w * w)
+  torch.cuda.synchronize()
+  with Timer() as t:
+    (w_opt,), info = sp.minimize(loss, [w])
+    torch.cuda.synchronize()
+  Xd = torch.from_numpy(X_host).to(device)
+  wd = w_opt.data
+  gfin = float((Xd.T @ (torch.sigmoid(Xd @ wd) - torch.from_numpy(
+      labels).to(device)) / X_host.shape[0] + 2 * AD_L2 * wd).norm())
+  del Xd
+  x_ref, fun_ref, nit_ref, g_ref = oracle_result(oracle)
+  err = float(np.abs(w_opt.glom() - x_ref).max())
+  print(f"  sp.minimize (BFGS) of the logistic loss at {X_host.shape[0]} x "
+        f"{X_host.shape[1]} float64: {info['nit']} iterations (scipy's BFGS "
+        f"{nit_ref} to |grad|_inf {g_ref:.3g}), status {info['status']}, success {info['success']}, "
+        f"wall {t.elapsed:.2f} s, final |grad|_2 "
+        f"{gfin:.3g}; max|w - w_scipy| {err:.3g} (atol "
+        f"5e-4), fun {info['fun']:.12g} vs scipy's {fun_ref:.12g} (<= + 1e-10)")
+  check(info["success"] and err <= 5e-4 and info["fun"] <= fun_ref + 1e-10,
+        "sp.minimize missed scipy's optimum")
+
+
+def convnet_items(device, card: str):
+  """convnet's training at MNIST's test-set shape: fit_fused and train,
+  CONVNET_EPOCHS full-batch steps each, then sgd_train with remat around
+  the first conv block; peak device memory with and without it."""
+  rng = np.random.default_rng(27)
+  images = rng.standard_normal(MNIST_SHAPE)
+  labels = rng.integers(0, MNIST_CLASSES, MNIST_SHAPE[0])
+  torch.cuda.synchronize()
+  with Timer() as t_fused:
+    _, losses_f = convnet.fit_fused(images, labels, MNIST_CLASSES,
+                                    CONVNET_EPOCHS, CONVNET_LR)
+  with Timer() as t_train:
+    _, losses_e = convnet.train(images, labels, MNIST_CLASSES,
+                                CONVNET_EPOCHS, CONVNET_LR)
+  err = float(np.abs(np.asarray(losses_f) - losses_e).max()
+              / np.abs(losses_e).max())
+  onehot = np.eye(MNIST_CLASSES)[labels]
+  params = convnet.init_params(n_classes=MNIST_CLASSES)
+  peaks, curves = {}, {}
+  for remat in (False, True):
+    leaves = {k: sp.lazify(v) for k, v in params.items()}
+    loss = convnet.loss_expr(sp.lazify(images), onehot, leaves,
+                             remat_first=remat)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, losses = sp.sgd_train(loss, list(leaves.values()), CONVNET_LR,
+                             CONVNET_EPOCHS, collect_losses=True)
+    curves[remat] = losses.glom()
+    peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+  err_remat = float(np.abs(curves[True] - curves[False]).max()
+                    / np.abs(curves[False]).max())
+  print(f"  convnet on {MNIST_SHAPE[0]} images of {MNIST_SHAPE[1:]}, "
+        f"{MNIST_CLASSES} classes, {CONVNET_EPOCHS} full-batch steps: losses "
+        f"{np.round(losses_f, 6).tolist()}; fit_fused vs train max rel "
+        f"{err:.3g}, sgd_train with remat vs without {err_remat:.3g} (1e-10: "
+        f"float64, cuDNN's convolution backward may sum in another order "
+        f"from one call to the next); fit_fused "
+        f"{t_fused.elapsed / CONVNET_EPOCHS * 1e3:.1f} ms a step, train "
+        f"{t_train.elapsed / CONVNET_EPOCHS * 1e3:.1f} ms a step (host "
+        f"clock, the first step's set-up in both); peak device memory above "
+        f"the leaves {peaks[False]:.3f} GB without remat, {peaks[True]:.3f} "
+        f"GB with it, on {card}")
+  check(err <= 1e-10 and err_remat <= 1e-10 and losses_f[-1] < losses_f[0],
+        "convnet's training curves disagree or do not fall")
+
+
+def csgraph_items(device, S, oracles):
+  """sp.sparse.csgraph at full width: dijkstra (unweighted and weighted)
+  from CSG_SOURCES, weak components and the normed Laplacian of the urand
+  2^22 graph against scipy (``oracles``: worker futures); components of
+  the cut grid and Floyd-Warshall at FW_N against scipy on this host."""
+  C = sp.sparse.csgraph
+  k = len(CSG_SOURCES)
+  dist = per_round(f"dijkstra unweighted, {k} sources, urand 2^22",
+                   lambda: C.dijkstra(S, indices=list(CSG_SOURCES),
+                                      unweighted=True),
+                   lambda: CG.stats["rounds"])
+  vals = torch.zeros_like(S.vals, dtype=torch.float64)
+  mask = S.vals != 0
+  check(int(mask.sum()) == S.nnz, "the urand graph stores a zero")
+  vals[mask] = torch.from_numpy(urand_weights(S.nnz)).to(device)
+  Sw = sparse.SparseArray(S.cols, vals, S.shape, S.nnz)
+  del vals, mask
+  dist_w = per_round(f"dijkstra weighted (0, 1], {k} sources, urand 2^22",
+                     lambda: C.dijkstra(Sw, indices=list(CSG_SOURCES)),
+                     lambda: CG.stats["rounds"])
+  del Sw
+  n_comp, labels = per_round(
+      "connected_components (weak), urand 2^22",
+      lambda: C.connected_components(S, directed=True, connection="weak"),
+      lambda: CG.stats["rounds"])
+  probes = [np.random.default_rng(28 + i).standard_normal(S.shape[0])
+            for i in range(LAP_PROBES)]
+  with Timer() as t_lap:
+    L, d = C.laplacian(S, normed=True, return_diag=True)
+    Lv = [sparse.spmv(L, torch.from_numpy(v).to(device)).cpu().numpy()
+          for v in probes]
+  del L
+  want_u = oracle_result(oracles["unweighted"])
+  want_w = oracle_result(oracles["weighted"])
+  check(np.array_equal(dist, want_u), "unweighted dijkstra disagrees")
+  finite = np.isfinite(want_w)
+  err_w = float(np.abs(dist_w[finite] - want_w[finite]).max()
+                / want_w[finite].max())
+  check(np.array_equal(np.isfinite(dist_w), finite) and err_w <= 1e-12,
+        f"weighted dijkstra disagrees ({err_w:.3g})")
+  want_nc, want_labels, want_d, want_Lv = oracle_result(oracles["structure"])
+  same = n_comp == want_nc and same_partition(labels, want_labels, n_comp)
+  err_d = float(np.abs(d - want_d).max())
+  err_L = max(float(np.abs(a - b).max() / np.abs(b).max())
+              for a, b in zip(Lv, want_Lv))
+  print(f"  held to scipy.sparse.csgraph on the host: unweighted distances "
+        f"equal (max {np.nanmax(np.where(np.isfinite(dist), dist, np.nan)):.0f}"
+        f" hops), weighted max rel err {err_w:.3g} (1e-12: the same path "
+        f"sums), {n_comp} weak components ({want_nc}), the normed Laplacian's "
+        f"diagonal max err {err_d:.3g} and L v max rel err {err_L:.3g} (1e-12)"
+        f" over {LAP_PROBES} probes; laplacian and its products "
+        f"{t_lap.elapsed:.2f} s")
+  check(same and err_d <= 1e-12 and err_L <= 1e-12,
+        "the components or the Laplacian disagree")
+  G = cut_grid_graph(CUT_SIDE)
+  Gs = sparse.from_scipy(G)
+  nc, lab = per_round(f"connected_components of the {CUT_SIDE}^2 grid cut "
+                      "in two", lambda: C.connected_components(
+                          Gs, directed=False), lambda: CG.stats["rounds"])
+  import scipy.sparse.csgraph as cs
+  want_nc, want_lab = cs.connected_components(G, directed=False)
+  check(nc == want_nc == 2 and same_partition(lab, want_lab, 2),
+        "the cut grid's components disagree")
+  Gf = fw_graph()
+  with Timer() as t_fw:
+    D = C.floyd_warshall(sparse.from_scipy(Gf))
+  rows = np.random.default_rng(29).choice(FW_N, FW_SAMPLES, replace=False)
+  want = cs.dijkstra(Gf, indices=rows)
+  reach = np.isfinite(want)
+  err_fw = float(np.abs(D[rows][reach] - want[reach]).max()
+                 / want[reach].max())
+  print(f"  floyd_warshall at n = {FW_N} ({Gf.nnz} edges): {t_fw.elapsed:.2f}"
+        f" s, {t_fw.elapsed / FW_N * 1e3:.4f} ms a pivot (host clock); "
+        f"{FW_SAMPLES} rows vs scipy's dijkstra max rel err {err_fw:.3g} "
+        f"(1e-12)")
+  check(np.array_equal(np.isfinite(D[rows]), reach) and err_fw <= 1e-12,
+        "floyd_warshall disagrees with dijkstra")
+
+
+def same_partition(a, b, count: int) -> bool:
+  """Whether two labelings of the vertices, ``count`` classes each, put
+  the same vertices together."""
+  pairs = a.astype(np.int64) * (int(b.max()) + 1) + b
+  return len(np.unique(pairs)) == count
+
+
+def phase_autodiff_csgraph(device, card: str, S, want, k1_ms: float,
+                           oracles: dict) -> dict:
+  """Phase 22: sp.compile through K1 and K3b, the derivatives at config
+  3's shape, through SpMV and SpMM, sp.minimize, convnet's training with
+  remat, and sp.sparse.csgraph at full width, held to the scipy oracles
+  of :func:`submit_phase22_oracles` (worker futures).  Returns the counted
+  launches of K1 and K3b."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  ORACLE_WAIT[0] = 0.0
+
+  def since(what: str) -> None:
+    print(f"  [{time.perf_counter() - t0:.2f} s into phase 22: {what}]")
+
+  with concurrent.futures.ThreadPoolExecutor(max_workers=6) as pool:
+    counted, pending = compile_items(device, card, k1_ms, pool)
+    counted["csr"] = compiled_pagerank(S, want)
+    since("the compiled calls")
+    X_host, y_host, labels, _ = config3_data()
+    gradient_items(device, X_host, y_host)
+    counted["csr"] += sparse_gradient_items(device, S)
+    gc.collect()
+    torch.cuda.empty_cache()
+    since("the gradients")
+    minimize_item(device, X_host, labels, oracles["bfgs"])
+    del X_host, y_host, labels
+    convnet_items(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    since("minimize and convnet")
+    hold_compiled(pending)
+  csgraph_items(device, S, oracles)
+  print(f"  phase 22 peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"{time.perf_counter() - t0:.2f} s, {ORACLE_WAIT[0]:.2f} s of it waiting "
+        "for the oracle processes")
+  return counted
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -5483,6 +6071,12 @@ def main() -> None:
     print(f"  phase {phase} wall {wall:.2f} s")
     t_phase[0] = now
     return wall
+
+  # scipy's float64 oracles of phase 6's 2^22 PageRank and of phase 22 run
+  # in worker processes from here on, beside the build
+  procs = oracle_processes()
+  pagerank_oracle = procs.submit(urand_pagerank_oracle, PR_BIG_N, 1)
+  oracles22 = submit_phase22_oracles(procs)
 
   print("phase 1: build the kernels, one nvcc per source, in parallel")
   build.load_all(KERNELS)
@@ -5517,7 +6111,7 @@ def main() -> None:
 
   KS.reset_counts()  # count the PageRank path's launches only
   print("phase 6: PageRank through pagerank.fit_sparse at full width")
-  graphs = phase_pagerank(big, small, cfg5)  # held for phase 14
+  graphs = phase_pagerank(big, small, cfg5, pagerank_oracle)  # for 14
   k3["spmv_ell"]["launches"] = KS.counts["ell_launches"]
   k3["spmv_csr"]["launches"] = KS.counts["csr_launches"]
   done(6)
@@ -5589,6 +6183,7 @@ def main() -> None:
   print("phase 14: the sharded kernels on meshes of 2, 4 and 8 shards of the "
         "card: PageRank, ALS and stencil sweeps against phases 6, 8 and 10")
   sharded = phase_sharded(device, card, graphs, R, als_ref, heat_ref)
+  urand, urand_ranks = graphs["urand 2^22"]  # held for phase 22
   del big, small, cfg5, R, graphs, als_ref, heat_ref
   done(14)
   gc.collect()
@@ -5662,6 +6257,18 @@ def main() -> None:
   k3["spmv_ell"]["launches"] += spectral["ell"]
   k3["spmv_csr"]["launches"] += spectral["csr"]
   print_host_spans(21, done(21))
+  print("phase 22: autodiff and sp.sparse.csgraph at full width: sp.compile "
+        "through K1 (config 1) and K3b (a PageRank step at 2^22), grad/"
+        "value_and_grad/hvp/hessian/jvp at config 3's shape, through SpMV "
+        "and SpMM, minimize, convnet's training with remat, dijkstra/"
+        "components/laplacian on urand 2^22, floyd_warshall")
+  autodiff = phase_autodiff_csgraph(device, card, urand, urand_ranks,
+                                    k1["ms"], oracles22)
+  procs.shutdown()
+  del urand, urand_ranks
+  k1["launches"] += autodiff["k1"]
+  k3["spmv_csr"]["launches"] += autodiff["csr"]
+  done(22)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

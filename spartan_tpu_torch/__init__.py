@@ -13,8 +13,10 @@ reference the port is tested against; this package never imports jax.
     print(abs(1 + b * 2).sum().glom())   # fused map+reduce, one kernel
 
 The slices of the reference surface ported so far are here (see
-ROADMAP.md): the builtins, the loops, the sparse arrays with
-``sp.sparse``'s builders and ``sp.sparse.linalg``'s solvers, ``sp.linalg``,
+ROADMAP.md): the builtins, the loops, autodiff (``sp.grad`` and its kin,
+``sp.compile``, ``sp.minimize``, ``sp.sgd_train``, ``sp.remat``), the sparse
+arrays with ``sp.sparse``'s builders, ``sp.sparse.linalg``'s solvers and
+``sp.sparse.csgraph``, ``sp.linalg``,
 ``sp.fft``, ``sp.random``, ``sp.scipy_linalg`` and array files; names not yet ported are absent
 rather than stubbed.
 """
@@ -64,6 +66,11 @@ from spartan_tpu_torch.expr.map import map  # noqa: E402,A004
 from spartan_tpu_torch.expr.reduce import reduce  # noqa: E402,A004
 from spartan_tpu_torch.expr.loop import (cond, fori_loop,  # noqa: E402
                                          make_fori, scan_iters, while_loop)
+from spartan_tpu_torch.expr.remat import remat  # noqa: E402
+from spartan_tpu_torch.autodiff import compile_fn as compile  # noqa: E402,A001
+from spartan_tpu_torch.autodiff import (grad, hessian, hvp,  # noqa: E402
+                                        jvp, minimize, sgd_train,
+                                        value_and_grad)
 from spartan_tpu_torch import interop  # noqa: E402
 from spartan_tpu_torch.backend import sparse  # noqa: E402
 from spartan_tpu_torch.backend.sparse import (SparseArray,  # noqa: E402
@@ -78,6 +85,8 @@ sparse.linalg = sparse_linalg  # the scipy idiom: sp.sparse.linalg.cg(...)
 from spartan_tpu_torch import sparse_construct  # noqa: E402
 for _name in sparse_construct.__all__:  # the scipy.sparse builders
   setattr(sparse, _name, getattr(sparse_construct, _name))
+from spartan_tpu_torch import csgraph  # noqa: E402  (scipy.sparse.csgraph)
+sparse.csgraph = csgraph  # the scipy idiom: sp.sparse.csgraph.dijkstra(...)
 from spartan_tpu_torch import scipy_linalg  # noqa: E402  (scipy.linalg)
 for _name in scipy_linalg.__all__:
   # merge the non-conflicting names into sp.linalg; an overlapping name
@@ -91,6 +100,7 @@ __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "Expr", "ListExpr", "TupleExpr", "DictExpr", "NotShapeable", "Val", "evaluate", "force",
            "lazify", "map",
            "reduce", "fori_loop", "make_fori", "while_loop", "scan_iters",
-           "cond", "checkpoint", "from_file", "load", "save", "interop",
+           "cond", "remat", "compile", "grad", "value_and_grad", "jvp",
+           "hessian", "hvp", "minimize", "sgd_train", "checkpoint", "from_file", "load", "save", "interop",
            "sparse", "linalg", "fft", "random", "sparse_linalg", "scipy_linalg",
            "SparseArray", "sparse_diagonal", "sprandn"] + list(_builtin_all)

@@ -103,10 +103,23 @@ def _strip_leaf_values(root: Expr, leaves: List[Val]):
   stubs = {l.expr_id: _StubVal(l.aval()) for l in leaves}
   memo: Dict[int, Expr] = {}
 
+  def keep(e: Expr) -> None:
+    # a node that embeds a DAG in its params (RematExpr) binds its leaf
+    # inputs by identity: it and its leaves stay as they are, also where
+    # another node shares such a leaf
+    if getattr(e, "_holds_subdag", False):
+      for leaf in e.children():
+        stubs.pop(leaf.expr_id, None)
+
+  root.visit(keep)
+
   def go(e: Expr) -> Expr:
     hit = memo.get(e.expr_id)
     if hit is not None:
       return hit
+    if getattr(e, "_holds_subdag", False):
+      memo[e.expr_id] = e
+      return e
     if isinstance(e, Val):
       out = stubs.get(e.expr_id, e)
     else:
@@ -123,7 +136,8 @@ def _strip_leaf_values(root: Expr, leaves: List[Val]):
 
   stripped = go(root)
   del go  # break go's cycle through its own cell (see _make_runner)
-  return stripped, [stubs[l.expr_id] for l in leaves]
+  # the leaves under a ``_holds_subdag`` node stay themselves
+  return stripped, [stubs.get(l.expr_id, l) for l in leaves]
 
 
 def _make_runner(root: Expr, leaf_index: Dict[int, int],

@@ -113,14 +113,20 @@ def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
   return {name: _libs[name] for name in names}
 
 
-def one_device(*tensors: torch.Tensor) -> None:
-  """Raise unless every operand of a kernel wrapper lies on one device
-  (checked before the wrapper picks kernel or plain version by that
-  device)."""
+def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
+  """Raise unless every operand of the wrapper ``kernel`` lies on one
+  device and none requires grad (checked before the wrapper picks kernel
+  or plain version by that device).  A kernel reads raw pointers and its
+  output has no ``grad_fn``, so a gradient through it would come out cut;
+  a route that autograd runs takes the plain version up front instead."""
   devices = {t.device for t in tensors}
   if len(devices) != 1:
     raise ValueError(f"kernel operands must share one device, got "
                      f"{sorted(map(str, devices))}")
+  if any(t.requires_grad for t in tensors):
+    raise RuntimeError(f"{kernel} got an operand that requires grad: the "
+                       "kernel has no autograd rule, so it would cut the "
+                       "gradient; differentiate through the plain version")
 
 
 # The C signature of each ``spartan_<name>`` launched through :func:`launch`,

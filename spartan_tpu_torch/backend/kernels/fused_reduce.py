@@ -507,6 +507,9 @@ def fused_sum(x: torch.Tensor, program: Program, scalars: Sequence[Any] = (),
 
   A CUDA ``x`` launches the kernel (or raises); a CPU or meta ``x`` runs
   :func:`fused_sum_plain`."""
+  from spartan_tpu_torch.backend.kernels import build
+  build.check_operands("fused_reduce.fused_sum", x,
+                       *[s for s in scalars if isinstance(s, torch.Tensor)])
   if x.device.type != "cuda":
     counts["plain_runs"] += 1
     return fused_sum_plain(x, program, scalars, acc_dtype)

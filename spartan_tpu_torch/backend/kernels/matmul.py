@@ -297,7 +297,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, bm: int = 512, bn: int = 512,
   if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[0]:
     raise ValueError(f"matmul needs x (M, K) and y (K, N), got "
                      f"{tuple(x.shape)} and {tuple(y.shape)}")
-  build.one_device(x, y)
+  build.check_operands("matmul.matmul", x, y)
   if x.device.type != "cuda":
     counts["plain_runs"] += 1
     return matmul_plain(x, y, epilogue)

@@ -136,7 +136,7 @@ def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
                     f"float B, not {data.dtype} and {B.dtype}")
   if B.shape[1] > MAX_K:
     raise ValueError(f"spmm_csr takes k <= {MAX_K} columns, got {B.shape[1]}")
-  build.one_device(indptr, indices, data, B)
+  build.check_operands("spmm.spmm_csr", indptr, indices, data, B)
   if B.device.type != "cuda":
     counts["plain_runs"] += 1
     return spmm_csr_plain(indptr, indices, data, B)
@@ -244,7 +244,8 @@ def sharded_windowed_spmm_traced(packed: ShardedWindowedSpMM, B: torch.Tensor,
     raise TypeError(f"sharded_windowed_spmm_traced reads float data and a "
                     f"float B of at most {MAX_K} columns, not {data_dtype} "
                     f"and {B.dtype} {tuple(B.shape)}")
-  build.one_device(B, *packed.tensors())
+  build.check_operands("spmm.sharded_windowed_spmm_traced", B,
+                       *packed.tensors())
   n, k = packed.shape[0], B.shape[1]
   out_dtype = torch.promote_types(data_dtype, B.dtype)
   Y = torch.empty((n, k), dtype=torch.float32, device=B.device)

@@ -160,7 +160,7 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
     raise TypeError(f"spmv_ell needs int32 cols, not {cols.dtype}")
   _check_float("vals", vals)
   _check_float("x", x)
-  build.one_device(cols, vals, x)
+  build.check_operands("spmv.spmv_ell", cols, vals, x)
   if x.device.type != "cuda":
     counts["ell_plain_runs"] += 1
     return spmv_ell_plain(cols, vals, x)
@@ -192,7 +192,7 @@ def spmv_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor,
                     f"{indptr.dtype} and {indices.dtype}")
   _check_float("data", data)
   _check_float("x", x)
-  build.one_device(indptr, indices, data, x)
+  build.check_operands("spmv.spmv_csr", indptr, indices, data, x)
   if x.device.type != "cuda":
     counts["csr_plain_runs"] += 1
     return spmv_csr_plain(indptr, indices, data, x)
@@ -364,9 +364,11 @@ def spmv_chunked(indptr: torch.Tensor, indices: torch.Tensor,
       raise ValueError(f"the windows ({windows}, indptr "
                        f"{tuple(windows.indptr.shape)}) are not of a matrix "
                        f"of {n} rows and {m} columns")
-    build.one_device(indptr, indices, data, chunk_row, x, *windows.tensors())
+    build.check_operands("spmv.spmv_chunked", indptr, indices, data,
+                         chunk_row, x, *windows.tensors())
   else:
-    build.one_device(indptr, indices, data, chunk_row, x)
+    build.check_operands("spmv.spmv_chunked", indptr, indices, data,
+                         chunk_row, x)
   if x.device.type != "cuda":
     counts["chunked_plain_runs"] += 1
     return spmv_chunked_plain(indptr, indices, data, chunk_row, x)
@@ -551,7 +553,7 @@ def sharded_onehot_spmv(cols: torch.Tensor, vals: torch.Tensor,
     raise TypeError(f"sharded_onehot_spmv needs int32 cols, not {cols.dtype}")
   _check_float("vals", vals)
   _check_float("x", x)
-  build.one_device(cols, vals, x)
+  build.check_operands("spmv.sharded_onehot_spmv", cols, vals, x)
   n, k = cols.shape
   out_dtype = vals.dtype
   if n == 0 or k == 0:
@@ -736,7 +738,8 @@ def sharded_windowed_spmv_traced(packed: ShardedWindowedELL, x: torch.Tensor,
                      f"shape {packed.shape}")
   _check_float("x", x)
   _check_float("data", packed.bands[0][2])
-  build.one_device(x, *packed.tensors())
+  build.check_operands("spmv.sharded_windowed_spmv_traced", x,
+                       *packed.tensors())
   y = torch.empty(packed.shape[0], dtype=torch.float32, device=x.device)
   xf = x.float().contiguous()
   bands = csr_bands(packed, y)

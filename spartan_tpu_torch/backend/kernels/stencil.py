@@ -131,6 +131,7 @@ def stencil3x3(x: torch.Tensor, coeffs: Sequence[float]) -> torch.Tensor:
     raise ValueError(f"stencil3x3 takes an (n, m) array, got shape "
                      f"{tuple(x.shape)}")
   _check_float(x)
+  build.check_operands("stencil.stencil3x3", x)
   if _plain_route(x):
     return stencil3x3_plain(x, cs)
   n, m = x.shape
@@ -210,7 +211,7 @@ def stencil3x3_padded(xp: torch.Tensor, buf: torch.Tensor,
     if buf.data_ptr() in {t.data_ptr() for t in halos}:
       raise ValueError("a halo row may not be buf, which is written")
   _check_float(xp)
-  build.one_device(*operands, *halos)
+  build.check_operands("stencil.stencil3x3_padded", *operands, *halos)
   if _plain_route(xp):
     return stencil3x3_padded_plain(xp, buf, cs, steps, add, top, bot)
   if not all(t.is_contiguous() for t in operands + halos):
@@ -262,6 +263,8 @@ def stencil3x3_padded_sharded(x: torch.Tensor, coeffs: Sequence[float],
   cs = _coeffs(coeffs)
   x, add = (None if v is None else torch.as_tensor(v, device=mesh.device)
             for v in (x, add))
+  build.check_operands("stencil.stencil3x3_padded_sharded",
+                       *[t for t in (x, add) if t is not None])
   if x.dim() != 2 or (add is not None and add.shape != x.shape):
     raise ValueError(f"stencil3x3_padded_sharded takes (n, m) fields, got "
                      f"{tuple(x.shape)}"

@@ -30,6 +30,17 @@ def fit(X, y, iterations: int = 50, alpha: float = 0.05):
   return w.evaluate()
 
 
+def fit_fused(X, y, iterations: int = 50, alpha: float = 0.05):
+  """The same training as :func:`fit` in one device loop
+  (``sp.fori_loop`` over :func:`gradient_step`, the hand gradient): the
+  step is optimized once and replayed, with no host read inside the loop.
+  Starts from zeros of X's dtype."""
+  X, y = sp.lazify(X), sp.lazify(y)
+  w0 = sp.zeros((X.shape[1],), dtype=X.dtype)
+  return sp.fori_loop(iterations,
+                      lambda w: gradient_step(X, y, w, alpha), w0)
+
+
 def make_data(n: int = 4096, d: int = 16, seed: int = 0, tile_hint=None):
   rng = np.random.default_rng(seed)
   X = rng.standard_normal((n, d))

@@ -309,16 +309,21 @@ class Expr:
         if n._aval is None:
           n.aval()
       dep_avals = [c.aval() for c in self.children()]
-      parts: List[Any] = [type(self).__name__]
-      for name in self._params:
-        v = getattr(self, name)
-        sig_fn = getattr(v, "signature", None)
-        if sig_fn is not None and not isinstance(v, Expr):
-          parts.append(sig_fn())
-        else:
-          parts.append(_safe_repr(v))
-      key = (tuple(parts), tuple(a.key for a in dep_avals),
-             semantic_flags_fingerprint())
+      if getattr(self, "_holds_subdag", False):
+        # a node that bakes a whole DAG into a param (remat) keys by its
+        # full structural signature, not by the param's identity
+        key = (self.signature({}), semantic_flags_fingerprint())
+      else:
+        parts: List[Any] = [type(self).__name__]
+        for name in self._params:
+          v = getattr(self, name)
+          sig_fn = getattr(v, "signature", None)
+          if sig_fn is not None and not isinstance(v, Expr):
+            parts.append(sig_fn())
+          else:
+            parts.append(_safe_repr(v))
+        key = (tuple(parts), tuple(a.key for a in dep_avals),
+               semantic_flags_fingerprint())
       hit = _aval_cache.get(key)
       if hit is not None:
         self._aval = hit

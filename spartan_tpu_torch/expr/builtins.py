@@ -401,7 +401,12 @@ def _take_fn(x, idx, axis):
     x, axis = x.reshape(-1), 0
   from spartan_tpu_torch.expr.slice import _clamped
   idx = _clamped(torch.as_tensor(idx, device=x.device), x.shape[axis])
-  return x[(slice(None),) * (axis % x.ndim) + (idx,)]
+  axis %= x.ndim
+  if idx.ndim == 0:
+    # a 0-d tensor index would be read on the host (``.item()``), which a
+    # device index (a loop's counter) or a meta tensor cannot give
+    return x.index_select(axis, idx.reshape(1)).squeeze(axis)
+  return x[(slice(None),) * axis + (idx,)]
 
 
 def take(v, indices, axis=None) -> Expr:

@@ -2,7 +2,8 @@
 item 1.5): the exact sorted list of ``spartan_tpu.__all__`` names that
 ``spartan_tpu_torch`` does not export yet, and of
 ``spartan_tpu.sparse_linalg.__all__`` names that
-``spartan_tpu_torch.sparse_linalg`` lacks; and ``sp.sparse``'s builders.
+``spartan_tpu_torch.sparse_linalg`` lacks; ``sp.sparse``'s builders and
+``sp.sparse.csgraph``.
 A change that ports a name must take it off its list; the port is whole
 when both lists are empty."""
 
@@ -13,9 +14,8 @@ import spartan_tpu_torch as sp
 import spartan_tpu_torch.sparse_linalg as spl
 
 MISSING = sorted("""
-cluster compile grad hessian hvp integrate interpolate jvp minimize
-ndimage optimize remat sgd_train signal smart_tile spatial special stats
-tiling_plan value_and_grad
+cluster integrate interpolate ndimage optimize signal smart_tile spatial
+special stats tiling_plan
 """.split())
 
 # every name of the reference's sparse_linalg is ported
@@ -25,13 +25,13 @@ MISSING_SPARSE_LINALG = []
 def test_the_names_the_port_still_lacks():
   lacking = sorted(set(ref.__all__) - set(sp.__all__))
   assert lacking == MISSING
-  assert len(MISSING) == 20
+  assert len(MISSING) == 11
 
 
 def test_every_exported_name_is_defined():
   for name in sp.__all__:
     assert hasattr(sp, name), name
-  assert len(set(sp.__all__)) == 382
+  assert len(set(sp.__all__)) == 391
 
 
 def test_the_sparse_linalg_names_the_port_still_lacks():
@@ -51,3 +51,16 @@ def test_sp_sparse_has_every_builder_of_the_reference():
   import spartan_tpu_torch.sparse_construct as sc
   for name in ref_sc.__all__:
     assert getattr(sp.sparse, name) is getattr(sc, name), name
+
+
+def test_sp_sparse_csgraph_has_every_name_of_the_reference():
+  """``sp.sparse.csgraph`` is the port's ``csgraph`` and carries every name
+  of the reference's ``csgraph.__all__`` (23), and no other."""
+  import spartan_tpu.csgraph as ref_cg
+
+  import spartan_tpu_torch.csgraph as cg
+  assert sp.sparse.csgraph is cg
+  assert sorted(cg.__all__) == sorted(ref_cg.__all__)
+  assert len(ref_cg.__all__) == 23
+  for name in ref_cg.__all__:
+    assert hasattr(sp.sparse.csgraph, name), name

@@ -2356,3 +2356,86 @@ def test_matrix_function_gate_on_card(device):
   SL.sqrtm(N.astype(complex)).glom()
   assert SL.counts == {"matfun_device": 3, "matfun_host_fallbacks": 1,
                        "matfun_complex_host": 1}
+
+
+# -- autodiff and sp.sparse.csgraph on the card --------------------------------
+# Tolerances: float32 terms summed in float64 by K1 against NumPy's float64
+# at rtol 1e-6 (each term rounds once, 6e-8); the sum's gradient at rtol
+# 1e-6 (exact signs times 2); float64 graphs at
+# 1e-12 (the same path sums); the SpMV gradient at 1e-5 of max|g|.
+
+
+def test_grad_through_a_float32_sum_takes_the_plain_path_on_card(device):
+  """sp.grad of a float32 full sum is right and launches nothing: the
+  differentiable emit skips K1, whose wrapper refuses a tensor that
+  requires grad."""
+  b_np = np.random.default_rng(30).standard_normal((512, 384)).astype(
+      np.float32)
+  b = sp.from_numpy(b_np)
+  K.reset_counts()
+  v, (g,) = sp.value_and_grad(sp.sum(sp.abs(1 + 2 * b)), [b])
+  assert K.counts["launches"] == 0
+  np.testing.assert_allclose(float(v.glom()),
+                             np.abs(1 + 2 * b_np.astype(np.float64)).sum(),
+                             rtol=1e-6)
+  np.testing.assert_allclose(g.glom(), 2 * np.sign(1 + 2 * b_np), rtol=1e-6)
+  x = torch.randn(1000, device=device, requires_grad=True)
+  with pytest.raises(RuntimeError, match="fused_reduce.fused_sum"):
+    K.fused_sum(x, K.plan(None, 0, torch.float32, {}))
+
+
+def test_compile_launches_k1_on_card(device):
+  """sp.compile emits without autograd: one K1 launch a call."""
+  rng = np.random.default_rng(31)
+  b = sp.from_numpy(rng.standard_normal((1024, 1024)).astype(np.float32))
+  f = sp.compile(sp.sum(sp.abs(1 + 2 * b)), wrt=[b])
+  K.reset_counts()
+  for _ in range(3):
+    fresh = rng.standard_normal((1024, 1024)).astype(np.float32)
+    np.testing.assert_allclose(
+        float(f(fresh).glom()), np.abs(1 + 2 * fresh.astype(np.float64)).sum(),
+        rtol=1e-6)
+  assert K.counts["launches"] == 3 and K.counts["plain_runs"] == 0
+
+
+def test_spmv_grad_and_compiled_step_on_card(device):
+  """grad through the CSR kernel's route (its plain version) against
+  A.T c, and a compiled SpMV step launching K3b once a call."""
+  import scipy.sparse as ss
+  A = ss.random(40000, 40000, density=2e-4, random_state=32, format="csr",
+                dtype=np.float32)
+  S = sps.from_scipy(A)
+  rng = np.random.default_rng(33)
+  x = sp.from_numpy(rng.standard_normal(40000).astype(np.float32))
+  c = rng.standard_normal(40000).astype(np.float32)
+  KS.reset_counts()
+  (g,) = sp.grad(sp.sum(sps.spmv_expr(S, x) * sp.from_numpy(c)), [x])
+  assert KS.counts["csr_launches"] == KS.counts["csr_plain_runs"] == 0
+  want = A.T.astype(np.float64) @ c
+  # float32 products summed over about 8 entries a column in another order
+  assert np.abs(g.glom() - want).max() <= 1e-5 * np.abs(want).max()
+  f = sp.compile(sps.spmv_expr(S, x) * 0.5, wrt=[x])
+  KS.reset_counts()
+  for _ in range(2):
+    f(rng.standard_normal(40000).astype(np.float32))
+  assert KS.counts["csr_launches"] == 2
+
+
+def test_csgraph_on_card(device):
+  """dijkstra, weak components and Floyd-Warshall on the card against
+  scipy."""
+  import scipy.sparse as ss
+  import scipy.sparse.csgraph as cs
+  rng = np.random.default_rng(34)
+  W = rng.uniform(0.1, 5.0, (300, 300)) * (rng.random((300, 300)) < 0.02)
+  np.fill_diagonal(W, 0)
+  C = sp.sparse.csgraph
+  np.testing.assert_allclose(C.dijkstra(W, indices=[0, 7]),
+                             cs.dijkstra(ss.csr_matrix(W), indices=[0, 7]),
+                             rtol=1e-12)
+  nc, _ = C.connected_components(W, directed=True, connection="weak")
+  assert nc == cs.connected_components(ss.csr_matrix(W), directed=True,
+                                       connection="weak")[0]
+  np.testing.assert_allclose(C.floyd_warshall(W[:64, :64]),
+                             cs.floyd_warshall(ss.csr_matrix(W[:64, :64])),
+                             rtol=1e-12)

@@ -224,7 +224,29 @@ raises on any failure:
      floyd_warshall at n = 4096, each against scipy.sparse.csgraph (the
      2^22 graph's and minimize's oracles in worker processes since the
      build; the compiled sums' NumPy oracles on six threads while the
-     card works), with each loop's rounds and host and device ms a round.
+     card works), with each loop's rounds and host and device ms a round;
+ 23. sp.optimize and sp.integrate in float64 (no kernel: their objectives
+     lower with differentiable=True, onto the plain routes): curve_fit and
+     least_squares ('lm', then 'trf' with p1 <= 1.25 binding) of the
+     reference test's p0 exp(-p1 t) + p2 over 2^20 samples on the card,
+     each parameter within 1e-7 of scipy's least_squares; BFGS on the
+     64-parameter Rosenbrock function from zeros to the reference's
+     outcome (its line search fails after 95 iterations, status 3, where
+     scipy's BFGS converges) and the box solver in [-2, 0.8]^64 against
+     scipy's L-BFGS-B; root of a 256-unknown cubic system to its known
+     root; brentq, ridder, bisect and newton on 0-d tensors of the card
+     to their closed forms; differential_evolution on the 8-D Rastrigin
+     function to its global minimum and Nelder-Mead on the 4-D
+     Rosenbrock function; solve_ivp RK45 (about 1000 steps) and RK23 of
+     the method-of-lines heat equation with 65,536 unknowns from one sine
+     mode of its Laplacian, held to exp(-lambda t) y0 within the steps
+     times (atol + rtol); trapezoid, simpson, romb, cumulative_trapezoid
+     and cumulative_simpson over 2^24 + 1 samples against NumPy and scipy
+     (worst-case rounding of both sums); fixed_quad, tanhsinh and
+     qmc_quad against their closed forms; one host boundary of each
+     namespace, counted (scipy's oracles in the worker processes since
+     the build), with the host and device ms a turn of the least-squares
+     and RK45 loops.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
@@ -6050,6 +6072,430 @@ def phase_autodiff_csgraph(device, card: str, S, want, k1_ms: float,
   return counted
 
 
+# -- phase 23: sp.optimize and sp.integrate ------------------------------------
+
+FIT_M = 1 << 20  # the reference test's decay model over 2^20 samples
+FIT_TRUE, FIT_NOISE, FIT_SEED = (2.5, 1.3, 0.4), 1e-3, 31
+FIT_BOX = ([0.0, 0.0, 0.0], [5.0, 1.25, 1.0])  # p1 <= 1.25 binds (~1.3)
+FIT_TOL = 1e-7  # on each parameter, against scipy's tight least_squares
+ROSEN_N, ROSEN_BOX = 64, (-2.0, 0.8)
+# the reference's BFGS (jax.scipy.optimize's) from zeros on the 64-parameter
+# Rosenbrock function, run on the CPU (tests/test_torch_optimize.py): its
+# line search fails after 95 iterations (status 3) far from the minimum,
+# where scipy's BFGS converges; the port takes the same steps (f within
+# 1e-9 relative on the CPU)
+REF_BFGS = (95, 3, 55.7329477816631)
+ROOT_N = 256
+DE_DIM, DE_SEED = 8, 23
+ODE_N = 1 << 16  # the heat equation's method-of-lines unknowns
+ODE_MODE = ODE_N // 3  # the sine mode y0 is, of the discrete Laplacian
+ODE_DECAY = 15.0  # lambda_k T: about 1000 accepted RK45 steps at rtol 1e-12
+ODE_RTOL = {"RK45": 1e-12, "RK23": 1e-6}
+ODE_ATOL = 1e-20
+ODE_POINTS = 5  # t_eval
+ODE_SHORT = 250  # the steps of the cut run the loop's timing differences
+ODE_PROFILED = (60, 30)  # and of the two runs it profiles
+QUAD_N = (1 << 24) + 1
+CUBIC_ROOT = 2.0945514815423265  # x^3 - 2x - 5
+DOTTIE = 0.7390851332151607  # cos x = x
+
+
+def fit_data():
+  """The reference test's ``p0 exp(-p1 t) + p2`` with noise, at FIT_M."""
+  rng = np.random.default_rng(FIT_SEED)
+  t = np.linspace(0.0, 3.0, FIT_M)
+  y = (FIT_TRUE[0] * np.exp(-FIT_TRUE[1] * t) + FIT_TRUE[2]
+       + FIT_NOISE * rng.standard_normal(FIT_M))
+  return t, y
+
+
+def fit_oracles():
+  """scipy's least_squares at tolerances of 1e-14 with the exact
+  Jacobian: 'lm' unbounded and 'trf' in FIT_BOX."""
+  import scipy.optimize as so
+  t, y = fit_data()
+
+  def res(p):
+    return p[0] * np.exp(-p[1] * t) + p[2] - y
+
+  def jac(p):
+    e = np.exp(-p[1] * t)
+    return np.stack([e, -p[0] * t * e, np.ones_like(t)], axis=1)
+
+  tight = {"xtol": 1e-14, "ftol": 1e-14, "gtol": 1e-14}
+  lm = so.least_squares(res, np.ones(3), jac=jac, method="lm", **tight)
+  trf = so.least_squares(res, np.ones(3), jac=jac, method="trf",
+                         bounds=FIT_BOX, **tight)
+  return lm.x, trf.x
+
+
+def rosen_oracles():
+  """scipy's BFGS and L-BFGS-B (in ROSEN_BOX) on the ROSEN_N-parameter
+  Rosenbrock function from zeros, with its exact gradient."""
+  import scipy.optimize as so
+  x0 = np.zeros(ROSEN_N)
+  bfgs = so.minimize(so.rosen, x0, jac=so.rosen_der, method="BFGS",
+                     options={"gtol": 1e-10, "maxiter": 100_000})
+  box = so.minimize(so.rosen, x0, jac=so.rosen_der, method="L-BFGS-B",
+                    bounds=[ROSEN_BOX] * ROSEN_N,
+                    options={"ftol": 1e-15, "gtol": 1e-12,
+                             "maxiter": 100_000})
+  return bfgs.x, box.x, float(box.fun)
+
+
+def quad_samples() -> np.ndarray:
+  """QUAD_N samples of exp(x) sin(7x) on [0, 1]."""
+  x = np.linspace(0.0, 1.0, QUAD_N)
+  return np.exp(x) * np.sin(7.0 * x)
+
+
+def quad_oracles():
+  """NumPy's and scipy's rules on the samples, with their absolute sum."""
+  import scipy.integrate as si
+  y = quad_samples()
+  dx = 1.0 / (QUAD_N - 1)
+  return {"trapezoid": float(np.trapezoid(y, dx=dx)),
+          "simpson": float(si.simpson(y, dx=dx)),
+          "romb": float(si.romb(y, dx=dx)),
+          "cumulative_trapezoid": si.cumulative_trapezoid(y, dx=dx),
+          "cumulative_simpson": si.cumulative_simpson(y, dx=dx),
+          "abs": float(np.abs(y).sum() * dx)}
+
+
+def submit_phase23_oracles(procs) -> dict:
+  """Phase 23's host oracles, submitted to the worker processes before the
+  build (seconds of scipy and NumPy each)."""
+  return {"fit": procs.submit(fit_oracles),
+          "rosen": procs.submit(rosen_oracles),
+          "quad": procs.submit(quad_oracles)}
+
+
+def _turns():
+  return sp.optimize.counts["turns"]
+
+
+def timed_loop(label, card: str, run, full: int, short: int, prof):
+  """Host and device ms a turn of the loop ``run(limit)`` (``limit`` caps
+  its turns: ``max_nfev``, ``max_steps``).  Host: the synced walls of a
+  run of ``full`` and one of ``short`` turns, differenced (which takes out
+  the lowering, the entry and the final evaluations) over the difference
+  of their turns.  Device: the kernels of runs of ``prof[0]`` and
+  ``prof[1]`` turns under torch.profiler, differenced the same way (a
+  profile of a thousand turns takes the profiler minutes to fold), with
+  the three kernels that take most of it (each the smaller of two
+  profiles).  Returns the full run's result."""
+  walls, turns, devs, dturns, names = [], [], [], [], []
+  for limit in (full, short):
+    torch.cuda.synchronize()
+    before = _turns()
+    with Timer() as t_wall:
+      out = run(limit)
+      torch.cuda.synchronize()
+    turns.append(_turns() - before)
+    walls.append(t_wall.elapsed * 1e3)
+    if limit == full:
+      result = out
+  for limit in prof:
+    # the smaller of two profiles: a run's set-up (the lowering, its
+    # shape inference) is a few kernels whose time varies
+    best = None
+    for _ in range(2):
+      before = _turns()
+      by_name, dev_ms, _wall = device_share(lambda: run(limit))
+      if best is None or best[1] is None or (dev_ms is not None
+                                             and dev_ms < best[1]):
+        best = (by_name, dev_ms, _turns() - before)
+    names.append(best[0])
+    devs.append(best[1])
+    dturns.append(best[2])
+  host = (walls[0] - walls[1]) / (turns[0] - turns[1])
+  k = dturns[0] - dturns[1]
+  dev = ("not measured" if None in devs else
+         f"{(devs[0] - devs[1]) / k:.4f} ms")
+  print(f"  {label}: {turns[0]} and {turns[1]} turns in {walls[0]:.1f} and "
+        f"{walls[1]:.1f} ms: host {host:.4f} ms a turn, device {dev} a turn "
+        f"(profiles of {dturns[0]} and {dturns[1]} turns) ({card})")
+  if None not in devs:
+    top = sorted(((names[0].get(key, 0.0) - names[1].get(key, 0.0)) / k, key)
+                 for key in names[0])[-3:]
+    print("    most of a turn's device time: " + "; ".join(
+        f"{key[:60]} {ms:.4f} ms" for ms, key in reversed(top)))
+  return result
+
+
+def _on_card(seen: set, what: str, device) -> None:
+  check(seen == {device.type}, f"{what}'s function saw tensors on {seen}")
+
+
+def fit_items(device, card: str, oracle) -> None:
+  """curve_fit and least_squares ('lm', then 'trf' in FIT_BOX) over FIT_M
+  samples on the card, each parameter within FIT_TOL of scipy's."""
+  O = sp.optimize
+  t_host, y_host = fit_data()
+  t = torch.as_tensor(t_host, device=device)
+  y = torch.as_tensor(y_host, device=device)
+  seen = set()
+
+  def model(x, a, b, c):
+    seen.add(x.device.type)
+    return a * torch.exp(-b * x) + c
+
+  def resid(p):
+    seen.add(p.device.type)
+    return p[0] * torch.exp(-p[1] * t) + p[2] - y
+
+  before = dict(O.counts)
+  popt, pcov = O.curve_fit(model, t, y, p0=np.ones(3))
+  cols = O.counts["jacobian_columns"] - before["jacobian_columns"]
+  check(O.counts["jacobian_rows"] == before["jacobian_rows"] and cols > 0,
+        "the fit's Jacobian was not built by columns")
+  lm = timed_loop(f"least_squares 'lm' over {FIT_M} samples", card,
+                  lambda limit: O.least_squares(resid, np.ones(3),
+                                                method="lm",
+                                                max_nfev=limit),
+                  full=200, short=4, prof=(200, 1))
+  trf = O.least_squares(resid, np.ones(3), method="trf", bounds=FIT_BOX)
+  _on_card(seen, "the fit", device)
+  want_lm, want_trf = oracle_result(oracle)
+  for label, got, want in (("curve_fit", popt, want_lm),
+                           ("least_squares lm", lm.x, want_lm),
+                           ("least_squares trf", trf.x, want_trf)):
+    err = float(np.abs(np.asarray(got) - want).max())
+    print(f"  {label}: {np.array2string(np.asarray(got), precision=9)}, "
+          f"{err:.3e} from scipy's (bound {FIT_TOL})")
+    check(err <= FIT_TOL, f"{label} is {err:.3e} from scipy's optimum")
+  check(lm.success and trf.success, "a fit did not report success")
+  check(abs(trf.x[1] - FIT_BOX[1][1]) <= 1e-12,
+        f"the bound p1 <= {FIT_BOX[1][1]} does not bind ({trf.x[1]})")
+  check(np.all(np.isfinite(pcov)) and pcov.shape == (3, 3),
+        "curve_fit's covariance")
+
+
+def _rosen_torch(p):
+  return torch.sum(100.0 * (p[1:] - p[:-1] ** 2) ** 2 + (1.0 - p[:-1]) ** 2)
+
+
+def minimize_items(device, oracle) -> None:
+  """BFGS on the 64-parameter Rosenbrock function to the reference's
+  outcome (REF_BFGS: its iterations and status, f at 1e-6 relative); the
+  box solver there against scipy's L-BFGS-B (x at 1e-4 and f at 1e-6
+  relative, the reference test's); root of a 256-unknown cubic system to
+  its known root (1e-9: |F| <= 1e-10 and ||J^-1|| <= 1/2); the scalar
+  solvers on 0-d tensors of the card to their closed forms."""
+  O = sp.optimize
+  want_bfgs, want_box, want_fun = oracle_result(oracle)
+  with Timer() as t_b:
+    m = O.minimize(_rosen_torch, np.zeros(ROSEN_N))
+  err = float(np.abs(m.x - want_bfgs).max())
+  print(f"  minimize BFGS, {ROSEN_N} parameters: {m.nit} iterations in "
+        f"{t_b.elapsed:.2f} s, status {m.status}, f {m.fun!r} ({err:.3e} "
+        f"from scipy's BFGS, which converges; the reference stops at "
+        f"status {REF_BFGS[1]}, f {REF_BFGS[2]!r} after {REF_BFGS[0]})")
+  check((m.nit, m.status) == REF_BFGS[:2]
+        and abs(m.fun - REF_BFGS[2]) <= 1e-6 * REF_BFGS[2],
+        "BFGS on Rosenbrock left the reference's path")
+  with Timer() as t_b:
+    b = O.minimize(_rosen_torch, np.zeros(ROSEN_N),
+                   bounds=[ROSEN_BOX] * ROSEN_N)
+  err = float(np.abs(b.x - want_box).max())
+  print(f"  minimize in [{ROSEN_BOX[0]}, {ROSEN_BOX[1]}]^{ROSEN_N}: "
+        f"{b.nit} projected Newton steps in {t_b.elapsed:.2f} s, {err:.3e} "
+        f"from L-BFGS-B's x, f {b.fun:.12g} against {want_fun:.12g}")
+  check(b.success and err <= 1e-4
+        and abs(b.fun - want_fun) <= 1e-6 * abs(want_fun),
+        "the box solver against L-BFGS-B")
+  # root: T x + x^3 / 10 = b, T = tridiag(-1, 4, -1), at a known x*
+  xs = np.cos(np.linspace(0.0, np.pi, ROOT_N))
+  Tx = 4.0 * xs
+  Tx[1:] -= xs[:-1]
+  Tx[:-1] -= xs[1:]
+  bvec = torch.as_tensor(Tx + 0.1 * xs ** 3, device=device)
+  pad = torch.nn.functional.pad
+
+  def system(p):
+    return (4.0 * p - pad(p[:-1], (1, 0)) - pad(p[1:], (0, 1))
+            + 0.1 * p ** 3 - bvec)
+
+  with Timer() as t_r:
+    r = O.root(system, np.zeros(ROOT_N))
+  err = float(np.abs(r.x - xs).max())
+  print(f"  root, {ROOT_N} unknowns: {r.nit} Newton steps in "
+        f"{t_r.elapsed:.2f} s, {err:.3e} from the known root")
+  check(r.success and err <= 1e-9, f"root is {err:.3e} from x*")
+  seen = set()
+
+  def scalar(f):
+    def g(x):
+      seen.add(x.device.type)
+      return f(x)
+    return g
+
+  got = {"brentq": O.brentq(scalar(lambda x: torch.exp(x) - 10.0), 0.0, 5.0),
+         "ridder": O.ridder(scalar(lambda x: x ** 3 - 2 * x - 5), 2.0, 3.0),
+         "bisect": O.bisect(scalar(lambda x: x ** 3 - 2.0), 0.0, 2.0),
+         "newton": O.newton(scalar(lambda x: torch.cos(x) - x), 0.5)}
+  want = {"brentq": np.log(10.0), "ridder": CUBIC_ROOT,
+          "bisect": 2.0 ** (1.0 / 3.0), "newton": DOTTIE}
+  for name, v in got.items():
+    tol = 1e-8 if name == "newton" else 1e-10
+    print(f"  {name}: {v!r}, {abs(v - want[name]):.3e} from the root")
+    check(abs(v - want[name]) <= tol, f"{name} missed its root")
+  _on_card(seen, "the scalar solvers", device)
+
+
+def _rastrigin(p):
+  return 10.0 * p.shape[-1] + torch.sum(p * p - 10.0 * torch.cos(
+      2.0 * np.pi * p))
+
+
+def population_items(card: str) -> None:
+  """differential_evolution on the 8-D Rastrigin function to its global
+  minimum 0 at 0 (f below 1e-8, x within 1e-5); Nelder-Mead (fmin) of the
+  4-D Rosenbrock function to its minimum at ones (1e-3, the reference
+  test's)."""
+  O = sp.optimize
+  with Timer() as t_de:
+    de = O.differential_evolution(_rastrigin, [(-5.12, 5.12)] * DE_DIM,
+                                  seed=DE_SEED, tol=1e-8, popsize=20,
+                                  recombination=0.2)
+  print(f"  differential_evolution, {DE_DIM}-D Rastrigin: {de.nit} "
+        f"generations of {20 * DE_DIM} in {t_de.elapsed:.2f} s, f "
+        f"{de.fun:.3e}, max|x| {np.abs(de.x).max():.3e}")
+  check(de.fun <= 1e-8 and np.abs(de.x).max() <= 1e-5,
+        "differential_evolution missed Rastrigin's global minimum")
+  with Timer() as t_nm:
+    x, fx, it, _, flag = O.fmin(O.rosen, np.array([1.3, 0.7, 0.8, 1.9]),
+                                xtol=1e-8, ftol=1e-12, maxiter=4000,
+                                full_output=True)
+  print(f"  fmin (Nelder-Mead), 4-D Rosenbrock: {it} iterations in "
+        f"{t_nm.elapsed:.2f} s, {np.abs(x - 1.0).max():.3e} from ones")
+  check(flag == 0 and np.abs(x - 1.0).max() <= 1e-3, "fmin missed ones")
+
+
+def heat_ode(device):
+  """The method-of-lines heat equation y' = L y (Dirichlet, h = 1 /
+  (ODE_N + 1)), y0 the ODE_MODE-th sine mode of L, its eigenvalue."""
+  h = 1.0 / (ODE_N + 1)
+  x = torch.arange(1, ODE_N + 1, dtype=torch.float64, device=device) * h
+  lam = 4.0 / h ** 2 * np.sin(ODE_MODE * np.pi * h / 2.0) ** 2
+  y0 = torch.sin(ODE_MODE * np.pi * x)
+  seen = set()
+
+  def fun(t, y):
+    seen.add(y.device.type)
+    out = -2.0 * y
+    out[1:] += y[:-1]
+    out[:-1] += y[1:]
+    return out / h ** 2
+
+  return fun, y0, lam, seen
+
+
+def ode_items(device, card: str) -> None:
+  """solve_ivp RK45 and RK23 of the heat equation from one sine mode,
+  whose semi-discrete solution is exp(-lambda t) y0: at each t_eval point
+  the RMS error is held to the steps taken times (atol + rtol max|y0|),
+  the bound the local error control gives a decaying linear system."""
+  fun, y0, lam, seen = heat_ode(device)
+  T = ODE_DECAY / lam
+  te = np.linspace(0.0, T, ODE_POINTS)
+  want = np.exp(-lam * te)[None, :] * y0.cpu().numpy()[:, None]
+  for method in ("RK45", "RK23"):
+    rtol = ODE_RTOL[method]
+
+    def run(limit=100_000):
+      return sp.integrate.solve_ivp(fun, (0.0, T), y0, method=method,
+                                    t_eval=te, rtol=rtol, atol=ODE_ATOL,
+                                    max_steps=limit)
+
+    res = (timed_loop(f"solve_ivp {method}, {ODE_N} unknowns", card, run,
+                      full=100_000, short=ODE_SHORT, prof=ODE_PROFILED)
+           if method == "RK45" else run())
+    steps = res.nfev // (7 if method == "RK45" else 4)
+    rms = np.sqrt(np.mean((res.y - want) ** 2, axis=0))
+    limit = steps * (ODE_ATOL + rtol * 1.0)
+    print(f"  {method}: {steps} steps (accepted and rejected) to "
+          f"lambda T = {ODE_DECAY}, RMS error {rms.max():.3e} (bound "
+          f"{limit:.3e}), y(T) / y0 = {np.exp(-lam * T):.3e}")
+    check(res.success and res.y.shape == (ODE_N, ODE_POINTS)
+          and rms.max() <= limit, f"{method} on the heat equation")
+  _on_card(seen, "solve_ivp", device)
+
+
+def quad_items(device, oracle) -> None:
+  """trapezoid, simpson, romb and the cumulative rules over QUAD_N float64
+  samples on the card against NumPy's and scipy's, each held to the
+  worst-case rounding of both sums, 4 n eps sum|y| dx; fixed_quad,
+  tanhsinh and qmc_quad against their closed forms."""
+  import math
+  I = sp.integrate
+  host = quad_samples()
+  dx = 1.0 / (QUAD_N - 1)
+  yd = torch.as_tensor(host, device=device)
+  want = oracle_result(oracle)
+  limit = 4.0 * QUAD_N * np.finfo(np.float64).eps * want["abs"]
+  with Timer() as t_q:
+    got = {"trapezoid": I.trapezoid(yd, dx=dx),
+           "simpson": I.simpson(yd, dx=dx),
+           "romb": I.romb(yd, dx=dx),
+           "cumulative_trapezoid": I.cumulative_trapezoid(yd, dx=dx),
+           "cumulative_simpson": I.cumulative_simpson(yd, dx=dx)}
+    got = {k: v.evaluate().data for k, v in got.items()}
+    torch.cuda.synchronize()
+  for name, v in got.items():
+    check(v.device == device, f"{name} left the card")
+    v = v.cpu().numpy()
+    err = float(np.abs(v - want[name]).max())
+    print(f"  {name} of {QUAD_N} samples: {err:.3e} from the host's "
+          f"(bound {limit:.3e})")
+    check(v.shape == np.shape(want[name]) and err <= limit, name)
+  print(f"  the five rules in {t_q.elapsed:.3f} s")
+  fq, _ = I.fixed_quad(lambda x: torch.exp(-x) * torch.sin(3.0 * x), 0.0,
+                       2.0, n=12)
+  fq_want = (3.0 - np.exp(-2.0) * (np.sin(6.0) + 3.0 * np.cos(6.0))) / 10.0
+  ts = I.tanhsinh(lambda x: torch.exp(-x * x), -3.0, 3.0)
+  ts_want = math.sqrt(math.pi) * math.erf(3.0)
+  qm = I.qmc_quad(lambda x: torch.sum(x ** 2), np.zeros(4), np.ones(4),
+                  n_points=4096)
+  for label, v, w, tol in (("fixed_quad", fq, fq_want, 1e-12),
+                           ("tanhsinh", ts.integral, ts_want, 1e-11),
+                           ("qmc_quad", qm.integral, 4.0 / 3.0, 5e-3)):
+    print(f"  {label}: {v!r}, {abs(v - w):.3e} from the closed form "
+          f"(bound {tol})")
+    check(abs(v - w) <= tol, f"{label} against its closed form")
+
+
+def phase_optimize_integrate(device, card: str, oracles: dict) -> None:
+  """Phase 23: sp.optimize and sp.integrate on the card in float64."""
+  from spartan_tpu_torch.expr import fio
+  t0 = time.perf_counter()
+  runs = fio.counts["host_runs"]
+  ORACLE_WAIT[0] = 0.0
+
+  def since(what: str) -> None:
+    print(f"  [{time.perf_counter() - t0:.2f} s into phase 23: {what}]")
+
+  fit_items(device, card, oracles["fit"])
+  since("the fits")
+  minimize_items(device, oracles["rosen"])
+  since("the minimizers and root finders")
+  population_items(card)
+  since("the population methods")
+  ode_items(device, card)
+  since("the ODEs")
+  quad_items(device, oracles["quad"])
+  # one host boundary of each namespace, counted
+  v, _ = sp.integrate.quad(lambda x: np.exp(-x), 0.0, np.inf)
+  x, _ = sp.optimize.nnls(np.eye(3), np.array([1.0, -1.0, 2.0]))
+  check(abs(v - 1.0) <= 1e-10 and np.allclose(x, [1.0, 0.0, 2.0]),
+        "the host boundaries")
+  host_runs = fio.counts["host_runs"] - runs
+  print(f"  phase 23 host_runs {host_runs}; "
+        f"{time.perf_counter() - t0:.2f} s, {ORACLE_WAIT[0]:.2f} s of it "
+        "waiting for the oracle processes")
+  check(host_runs == 2, f"phase 23 counted {host_runs} host runs, not 2")
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -6076,6 +6522,7 @@ def main() -> None:
   # in worker processes from here on, beside the build
   procs = oracle_processes()
   pagerank_oracle = procs.submit(urand_pagerank_oracle, PR_BIG_N, 1)
+  oracles23 = submit_phase23_oracles(procs)
   oracles22 = submit_phase22_oracles(procs)
 
   print("phase 1: build the kernels, one nvcc per source, in parallel")
@@ -6264,11 +6711,22 @@ def main() -> None:
         "components/laplacian on urand 2^22, floyd_warshall")
   autodiff = phase_autodiff_csgraph(device, card, urand, urand_ranks,
                                     k1["ms"], oracles22)
-  procs.shutdown()
   del urand, urand_ranks
   k1["launches"] += autodiff["k1"]
   k3["spmv_csr"]["launches"] += autodiff["csr"]
   done(22)
+  gc.collect()
+  torch.cuda.empty_cache()
+  print("phase 23: sp.optimize and sp.integrate in float64: curve_fit and "
+        "least_squares (lm, trf in a box) over 2^20 samples, BFGS and the "
+        "box solver on a 64-parameter Rosenbrock, root of 256 unknowns, "
+        "brentq/ridder/bisect/newton on 0-d tensors, differential_evolution "
+        "on 8-D Rastrigin, Nelder-Mead, solve_ivp RK45/RK23 of a 65,536-"
+        "unknown heat equation, the sampled rules over 2^24 + 1 samples, "
+        "fixed_quad/tanhsinh/qmc_quad")
+  phase_optimize_integrate(device, card, oracles23)
+  procs.shutdown()
+  done(23)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

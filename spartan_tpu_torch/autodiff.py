@@ -87,7 +87,7 @@ def as_function(expr: Expr, wrt: Sequence[Expr],
       if isinstance(e, Val):
         v = args[pos[e.expr_id]] if e.expr_id in pos else consts[e.expr_id]
       else:
-        v = e._emit(ctx, [emit(c) for c in e.children()])
+        v = e.emit(ctx, [emit(c) for c in e.children()])
       env[e.expr_id] = v
       return v
 

@@ -28,6 +28,7 @@ from spartan_tpu_torch.core.tiling import Tiling
 from spartan_tpu_torch.expr import optimize as opt_mod
 from spartan_tpu_torch.expr.base import (Aval, DictExpr, EmitCtx, Expr,
                                          ListExpr, NotShapeable, Val,
+                                         scalar_array,
                                          semantic_flags_fingerprint)
 from spartan_tpu_torch.util import log_debug
 
@@ -153,7 +154,7 @@ def _make_runner(root: Expr, leaf_index: Dict[int, int],
       if isinstance(e, Val):
         v = args[leaf_index[e.expr_id]]
       else:
-        v = e._emit(ctx, [emit(c) for c in e.children()])
+        v = e.emit(ctx, [emit(c) for c in e.children()])
       env[e.expr_id] = v
       return v
 
@@ -168,8 +169,10 @@ def _make_runner(root: Expr, leaf_index: Dict[int, int],
 
 
 def as_device_tensor(v, device: torch.device) -> torch.Tensor:
-  """A region output as a tensor on the mesh's device (weak Python scalars
-  become 0-d tensors of their default dtype)."""
+  """A region output as a tensor on the mesh's device (a weak Python scalar
+  becomes NumPy's 0-d array of it: a float is float64, as ``np.asarray``
+  gives, not torch's default float32)."""
+  v = scalar_array(v, device)
   if not isinstance(v, torch.Tensor):
     v = torch.as_tensor(v)
   return v.to(device)

@@ -39,6 +39,16 @@ _WEAK_SAMPLES = {torch.bool: True, torch.int64: 1, torch.float64: 1.0,
                  torch.complex128: 1j}
 
 
+def scalar_array(v, device=None):
+  """A Python scalar as NumPy's 0-d array of it: float64, int64, bool or
+  complex128, filled on ``device`` (not copied from pageable host memory);
+  any other value unchanged."""
+  dtype = _PY_SCALAR_DTYPES.get(type(v))
+  if dtype is None:
+    return v
+  return torch.full((), v, dtype=dtype, device=device)
+
+
 class Aval:
   """Abstract value of a node: shape, dtype, and whether it is a weakly
   typed Python scalar."""
@@ -297,6 +307,19 @@ class Expr:
   def _emit(self, ctx: "EmitCtx", deps: List[Any]):
     raise NotImplementedError(type(self).__name__)
 
+  def _weak_operands(self) -> bool:
+    """Does ``_emit`` take a Python scalar operand as it is?  An
+    elementwise kernel does (NumPy's weak promotion, ``map._lift``); every
+    other emitter receives it as NumPy's 0-d array of it."""
+    return False
+
+  def emit(self, ctx: "EmitCtx", deps: List[Any]):
+    """``_emit`` with its operands as :meth:`_weak_operands` asks: the one
+    door every evaluation and shape inference goes through."""
+    if not self._weak_operands():
+      deps = [scalar_array(d, ctx.device) for d in deps]
+    return self._emit(ctx, deps)
+
   def aval(self) -> Aval:
     """Abstract value from the node's emitter over meta tensors; cached
     per node and globally by (node type, params, child avals)."""
@@ -330,7 +353,7 @@ class Expr:
         return hit
       ctx = EmitCtx(abstract=True, device=torch.device("meta"))
       self._aval = Aval.of(
-          self._emit(ctx, [a.abstract_value() for a in dep_avals]))
+          self.emit(ctx, [a.abstract_value() for a in dep_avals]))
       if len(_aval_cache) > 4096:
         _aval_cache.clear()
       _aval_cache[key] = self._aval
@@ -750,6 +773,9 @@ class ListExpr(Expr):
   def _emit(self, ctx, deps):
     return tuple(deps)
 
+  def _weak_operands(self) -> bool:
+    return True  # a container hands its values on as they are
+
   def aval(self):
     return tuple(v.aval() for v in self.vals)
 
@@ -777,6 +803,9 @@ class DictExpr(Expr):
 
   def _emit(self, ctx, deps):
     return dict(zip(self.keys, deps))
+
+  def _weak_operands(self) -> bool:
+    return True
 
   def aval(self):
     return {k: v.aval() for k, v in zip(self.keys, self.vals)}

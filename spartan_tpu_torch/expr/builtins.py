@@ -791,7 +791,9 @@ def ix_(*seqs):
 
 
 def diag_indices(n, ndim=2):
-  return tuple(arange(int(n)) for _ in _py.range(int(ndim)))
+  """NumPy's: ``ndim`` copies of ``arange(n)`` (a float ``n`` gives float64
+  indices, as NumPy's ``arange``)."""
+  return tuple(arange(n) for _ in _py.range(int(ndim)))
 
 
 def diag_indices_from(v):
@@ -802,17 +804,18 @@ def diag_indices_from(v):
 
 
 def _tri_indices(fn, n, k, m):
-  m = n if m is None else m
-  rows, cols = np.nonzero(fn(np.ones((int(n), int(m)), dtype=bool), int(k)))
+  """NumPy's own index pair, uploaded (a float ``n`` counts as NumPy's
+  ``tri`` counts it)."""
+  rows, cols = fn(n, k, m)
   return from_numpy(rows.astype(np.int64)), from_numpy(cols.astype(np.int64))
 
 
 def tril_indices(n, k=0, m=None):
-  return _tri_indices(np.tril, n, k, m)
+  return _tri_indices(np.tril_indices, n, k, m)
 
 
 def triu_indices(n, k=0, m=None):
-  return _tri_indices(np.triu, n, k, m)
+  return _tri_indices(np.triu_indices, n, k, m)
 
 
 def tril_indices_from(v, k=0):
@@ -1150,6 +1153,10 @@ def bincount(v, minlength=None, weights=None) -> Expr:
   reference's ``minlength`` gives exactly that many, dropping larger
   values), float64 with ``weights``."""
   ins = [lazify(v)] + ([lazify(weights)] if weights is not None else [])
+  if ins[0].ndim != 1:
+    raise ValueError("object of too small depth for desired array"
+                     if ins[0].ndim == 0 else "object too deep for desired "
+                     "array")
   return SelectExpr(ins, _bincount_fn, {"minlength": int(minlength or 0)})
 
 
@@ -1718,6 +1725,8 @@ def nanargmin(v, axis=None) -> Expr:
 
 
 def _nan_as_one(x):
+  if not isinstance(x, torch.Tensor):
+    return type(x)(1) if x != x else x
   return torch.where(torch.isnan(x), torch.ones((), dtype=x.dtype,
                                                 device=x.device), x)
 
@@ -2132,13 +2141,22 @@ def _polyder_fn(p, m):
   return p
 
 
+def _coefficients(p) -> Expr:
+  """A coefficient array: NumPy takes ``len(p)``, so a 0-d one raises."""
+  p = lazify(p)
+  if p.ndim == 0:
+    raise TypeError("len() of unsized object")
+  return p
+
+
 def polyder(p, m=1) -> Expr:
   """The m-th derivative's coefficients (int64 weights: float32
   coefficients give float64, as NumPy)."""
   m = int(m)
   if m < 0:
     raise ValueError("Order of derivative must be positive (see polyint)")
-  return map([lazify(p)], _polyder_fn, fn_kw={"m": m})
+  p = _coefficients(p)
+  return map([p], _polyder_fn, fn_kw={"m": m})
 
 
 @map_mod.structural
@@ -2165,7 +2183,7 @@ def polyint(p, m=1, k=None) -> Expr:
   if len(k) < m:
     raise ValueError("k must be a scalar or a rank-1 array of length 1 or "
                      ">m.")
-  return map([lazify(p)], _polyint_fn, fn_kw={"m": m, "k": np.array(k)})
+  return map([_coefficients(p)], _polyint_fn, fn_kw={"m": m, "k": np.array(k)})
 
 
 @map_mod.structural
@@ -3437,6 +3455,8 @@ scan = scan_mod.scan
 
 
 def _nan_as_zero(x):
+  if not isinstance(x, torch.Tensor):
+    return type(x)(0) if x != x else x  # a weak scalar stays weak
   return torch.where(torch.isnan(x), torch.zeros((), dtype=x.dtype,
                                                  device=x.device), x)
 
@@ -3502,7 +3522,12 @@ def sort(v, axis=-1) -> Expr:
 
 
 def argsort(v, axis=-1) -> Expr:
-  return SortExpr(lazify(v), axis, "argsort")
+  """NumPy's ``argsort``; of a 0-d array, ``[0]`` (NumPy sorts it as the
+  one-element vector it ravels to)."""
+  v = lazify(v)
+  if v.ndim == 0 and axis is not None:
+    v, axis = ravel(v), 0
+  return SortExpr(v, axis, "argsort")
 
 
 def msort(v) -> Expr:
@@ -3687,7 +3712,9 @@ def sort_complex(v) -> Expr:
   """NumPy's ``sort_complex``: sorted along the last axis by the real
   part, then the imaginary part, as complex (NumPy's complex64 for int8,
   int16 and uint8, complex128 for the other real dtypes)."""
-  return map([lazify(v)], _sort_complex_fn)
+  v = lazify(v)
+  _norm_axis(-1, v.ndim)
+  return map([v], _sort_complex_fn)
 
 
 def permutation(v) -> Expr:

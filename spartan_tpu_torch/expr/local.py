@@ -11,9 +11,11 @@ table key on.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from spartan_tpu_torch.expr.base import fn_key
+import torch
+
+from spartan_tpu_torch.expr.base import fn_key, scalar_array
 
 
 def _postorder(root: "LocalExpr", leaf_fn, call_fn):
@@ -44,7 +46,9 @@ def _postorder(root: "LocalExpr", leaf_fn, call_fn):
 class LocalExpr:
   """Base class for local-computation nodes."""
 
-  def evaluate(self, inputs: Sequence[Any]) -> Any:
+  def evaluate(self, inputs: Sequence[Any], device=None) -> Any:
+    """The tree's value over ``inputs``; ``device`` is where a structural
+    call with no tensor operand puts its lifted scalars."""
     raise NotImplementedError
 
   def signature(self) -> Tuple:
@@ -70,7 +74,7 @@ class LocalInput(LocalExpr):
   def __init__(self, idx: int):
     self.idx = idx
 
-  def evaluate(self, inputs):
+  def evaluate(self, inputs, device=None):
     return inputs[self.idx]
 
   def signature(self):
@@ -92,7 +96,7 @@ class LocalConst(LocalExpr):
   def __init__(self, value):
     self.value = value
 
-  def evaluate(self, inputs):
+  def evaluate(self, inputs, device=None):
     return self.value
 
   def signature(self):
@@ -122,10 +126,10 @@ class FnCallExpr(LocalExpr):
     # maintain, used only as a fusion-growth cap)
     self.approx_size = 1 + sum(d.approx_size for d in self.deps)
 
-  def evaluate(self, inputs):
+  def evaluate(self, inputs, device=None):
     return _postorder(
         self, lambda n: n.evaluate(inputs),
-        lambda n, args: n.fn(*args, **n.kw))
+        lambda n, args: n.fn(*_operands(n.fn, args, device), **n.kw))
 
   def signature(self):
     if self._sig is None:
@@ -153,6 +157,18 @@ class FnCallExpr(LocalExpr):
     return _postorder(
         self, lambda n: n.max_input(),
         lambda n, deps: max(deps, default=-1))
+
+
+def _operands(fn: Callable, args: List[Any], device) -> List[Any]:
+  """``fn``'s arguments: a structural function (``map.structural``: a
+  gather, a flip, a reshape) gets each Python scalar as NumPy's 0-d array
+  of it, on the device of its tensor operands; an elementwise one keeps
+  them weak."""
+  if not getattr(fn, "structural", False):
+    return args
+  like = next((a for a in args if isinstance(a, torch.Tensor)), None)
+  where = like.device if like is not None else device
+  return [scalar_array(a, where) for a in args]
 
 
 def substitute_inputs(node: LocalExpr,

@@ -131,7 +131,7 @@ def _compile_carry_body(body_out_exprs, syms, device):
       elif isinstance(e, Val):
         v = consts[const_pos[e.expr_id]]
       else:
-        v = e._emit(ctx, [emit(c) for c in e.children()])
+        v = e.emit(ctx, [emit(c) for c in e.children()])
       env[e.expr_id] = v
       return v
 

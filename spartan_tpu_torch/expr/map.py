@@ -40,7 +40,10 @@ class MapExpr(Expr):
     super().__init__(inputs=list(inputs), op=op)
 
   def _emit(self, ctx: EmitCtx, deps: List):
-    return self.op.evaluate(deps)
+    return self.op.evaluate(deps, device=ctx.device)
+
+  def _weak_operands(self) -> bool:
+    return True  # its structural calls lift them (``local.FnCallExpr``)
 
   def _sig_local(self, memo, result):
     return ("MapExpr", self.op.signature(),
@@ -66,6 +69,9 @@ class MapWithLocationExpr(Expr):
             (1,) * d + (n,) + (1,) * (len(shape) - d - 1)).expand(shape)
         for d, n in enumerate(shape))
     return self.fn(*deps, coords, **self.fn_kw)
+
+  def _weak_operands(self) -> bool:
+    return True
 
 
 def structural(fn: Callable) -> Callable:
@@ -307,10 +313,14 @@ def _zero_guarded(op: Callable, x, y):
 
 def floor_divide(x, y):
   """NumPy's ``floor_divide``; an integer ``x // 0`` is 0, a float one
-  ±inf or nan (torch's and NumPy's IEEE quotient)."""
+  ±inf or nan (torch's and NumPy's IEEE quotient).  Its derivative is 0
+  in both operands, as JAX's (a step function): torch has no formula for
+  it, so the quotient is taken of detached operands, a constant to
+  autograd (and to the double-vjp ``jvp``, ``hvp`` and ``hessian``)."""
   if _integral(x, y):
     return _zero_guarded(torch.floor_divide, x, y)
-  return torch.floor_divide(*_tensors(x, y))
+  x, y = _tensors(x, y)
+  return torch.floor_divide(x.detach(), y.detach())
 
 
 def remainder(x, y):

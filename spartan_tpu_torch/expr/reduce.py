@@ -22,7 +22,7 @@ import torch
 
 from spartan_tpu_torch.config import FLAGS
 from spartan_tpu_torch.core.array import dtype_kind, to_torch_dtype
-from spartan_tpu_torch.expr.base import EmitCtx, Expr, lazify
+from spartan_tpu_torch.expr.base import EmitCtx, Expr, lazify, scalar_array
 from spartan_tpu_torch.expr.local import LocalExpr
 
 
@@ -69,10 +69,13 @@ class ReduceExpr(Expr):
                                 if out_dtype is not None else None),
                      local_op=local_op, ddof=int(ddof))
 
-  def _value(self, deps: List[Any]):
+  def _value(self, deps: List[Any], device=None):
     if self.local_op is not None:
-      return self.local_op.evaluate(deps)
+      return self.local_op.evaluate(deps, device=device)
     return deps[0]
+
+  def _weak_operands(self) -> bool:
+    return self.local_op is not None  # the fused map promotes them
 
   def _try_affine_rewrite(self, deps: List[Any]):
     """Strength-reduce ``sum(a·x + b)`` to ``a·sum(x) + b·count`` (and the
@@ -149,9 +152,7 @@ class ReduceExpr(Expr):
         fast = self._try_kernel_full_sum(deps)
         if fast is not None:
           return fast
-    x = self._value(deps)
-    if not isinstance(x, torch.Tensor):
-      x = torch.as_tensor(x, device=ctx.device)
+    x = scalar_array(self._value(deps, ctx.device), ctx.device)
     op, keepdims = self.op, self.keepdims
     dims = self.axis
     if op in _MORE:

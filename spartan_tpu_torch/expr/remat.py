@@ -48,6 +48,9 @@ class RematExpr(Expr):
       stack.extend(reversed(e.children()))
     super().__init__(inputs=leaves, child=child)
 
+  def _weak_operands(self) -> bool:
+    return True  # the leaves of the DAG it replays, as they are
+
   def _emit(self, ctx: EmitCtx, deps: List[Any]):
     leaf_pos = {leaf.expr_id: i for i, leaf in enumerate(self.inputs)}
     child = self.child
@@ -61,7 +64,7 @@ class RematExpr(Expr):
         if isinstance(e, Val):
           v = leaf_vals[leaf_pos[e.expr_id]]
         else:
-          v = e._emit(ctx, [emit(c) for c in e.children()])
+          v = e.emit(ctx, [emit(c) for c in e.children()])
         env[e.expr_id] = v
         return v
 

@@ -28,7 +28,7 @@ import torch
 
 from spartan_tpu_torch.config import FLAGS
 from spartan_tpu_torch.core.array import dtype_kind
-from spartan_tpu_torch.expr.base import EmitCtx, Expr, lazify
+from spartan_tpu_torch.expr.base import EmitCtx, Expr, NotShapeable, lazify
 
 _METHODS = ("auto", "gather", "sample")
 
@@ -86,7 +86,14 @@ class SortExpr(Expr):
   def __init__(self, src, axis: Optional[int] = -1, kind: str = "sort"):
     if kind not in ("sort", "argsort"):
       raise ValueError(kind)
-    super().__init__(inputs=[lazify(src)], axis=axis, kind=kind)
+    src = lazify(src)
+    try:
+      ndim = src.ndim
+    except NotShapeable:  # its shape waits for its data
+      ndim = None
+    if axis is not None and ndim is not None and not -ndim <= axis < ndim:
+      raise np.exceptions.AxisError(axis, ndim)
+    super().__init__(inputs=[src], axis=axis, kind=kind)
 
   def _emit(self, ctx: EmitCtx, deps: List[Any]):
     x = deps[0]

@@ -2,8 +2,8 @@
 item 1.5): the exact sorted list of ``spartan_tpu.__all__`` names that
 ``spartan_tpu_torch`` does not export yet, and of
 ``spartan_tpu.sparse_linalg.__all__`` names that
-``spartan_tpu_torch.sparse_linalg`` lacks; ``sp.sparse``'s builders and
-``sp.sparse.csgraph``.
+``spartan_tpu_torch.sparse_linalg`` lacks; ``sp.sparse``'s constructors,
+``sp.sparse.csgraph``, ``sp.optimize`` and ``sp.integrate``.
 A change that ports a name must take it off its list; the port is whole
 when both lists are empty."""
 
@@ -14,8 +14,8 @@ import spartan_tpu_torch as sp
 import spartan_tpu_torch.sparse_linalg as spl
 
 MISSING = sorted("""
-cluster integrate interpolate ndimage optimize signal smart_tile spatial
-special stats tiling_plan
+cluster interpolate ndimage signal smart_tile spatial special stats
+tiling_plan
 """.split())
 
 # every name of the reference's sparse_linalg is ported
@@ -25,13 +25,13 @@ MISSING_SPARSE_LINALG = []
 def test_the_names_the_port_still_lacks():
   lacking = sorted(set(ref.__all__) - set(sp.__all__))
   assert lacking == MISSING
-  assert len(MISSING) == 11
+  assert len(MISSING) == 9
 
 
 def test_every_exported_name_is_defined():
   for name in sp.__all__:
     assert hasattr(sp, name), name
-  assert len(set(sp.__all__)) == 391
+  assert len(set(sp.__all__)) == 393
 
 
 def test_the_sparse_linalg_names_the_port_still_lacks():
@@ -64,3 +64,29 @@ def test_sp_sparse_csgraph_has_every_name_of_the_reference():
   assert len(ref_cg.__all__) == 23
   for name in ref_cg.__all__:
     assert hasattr(sp.sparse.csgraph, name), name
+
+
+def test_sp_optimize_has_every_name_of_the_reference():
+  """``sp.optimize`` carries the 69 names of the reference's
+  ``optimize.__all__``, and no other."""
+  import spartan_tpu.optimize as ref_opt
+
+  import spartan_tpu_torch.optimize as opt
+  assert sp.optimize is opt
+  assert sorted(opt.__all__) == sorted(ref_opt.__all__)
+  assert len(ref_opt.__all__) == 69
+  for name in ref_opt.__all__:
+    assert hasattr(sp.optimize, name), name
+
+
+def test_sp_integrate_has_every_name_of_the_reference():
+  """``sp.integrate`` carries the 34 names of the reference's
+  ``integrate.__all__``, and no other."""
+  import spartan_tpu.integrate as ref_int
+
+  import spartan_tpu_torch.integrate as integ
+  assert sp.integrate is integ
+  assert sorted(integ.__all__) == sorted(ref_int.__all__)
+  assert len(ref_int.__all__) == 34
+  for name in ref_int.__all__:
+    assert hasattr(sp.integrate, name), name

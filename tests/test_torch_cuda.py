@@ -9,7 +9,9 @@ dot, k-means, logistic regression and the linear-algebra, statistics and
 shape builtins (integer einsum's exact route among them), the sorts,
 searches, order statistics and scans, and the loops (``while_loop``,
 ``scan_iters``, ``cond``) and the Krylov solvers of ``sp.sparse.linalg``
-with their matvecs on K3a/K3b/K3d on the card.  Run on a machine with
+with their matvecs on K3a/K3b/K3d on the card; ``least_squares``,
+``solve_ivp`` and ``differential_evolution`` with every evaluation on
+cuda tensors and no host route.  Run on a machine with
 an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -2439,3 +2441,87 @@ def test_csgraph_on_card(device):
   np.testing.assert_allclose(C.floyd_warshall(W[:64, :64]),
                              cs.floyd_warshall(ss.csr_matrix(W[:64, :64])),
                              rtol=1e-12)
+
+
+# -- sp.optimize and sp.integrate on the card --------------------------------
+
+def _kept_on_card(seen, runs):
+  from spartan_tpu_torch.expr import fio
+  assert seen == {"cuda"}, seen
+  assert fio.counts["host_runs"] == runs  # no host route was taken
+
+
+def test_least_squares_on_card(device):
+  """The reference test's decay fit at 4096 samples: every residual and
+  Jacobian pass on cuda tensors, no host route, against scipy at 1e-8."""
+  import scipy.optimize as so
+  from spartan_tpu_torch.expr import fio
+  rng = np.random.default_rng(41)
+  t_host = np.linspace(0, 3, 4096)
+  y_host = 2.5 * np.exp(-1.3 * t_host) + 0.4 + 1e-3 * rng.normal(size=4096)
+  t, y = (torch.as_tensor(v, device=device) for v in (t_host, y_host))
+  seen, runs = set(), fio.counts["host_runs"]
+
+  def resid(p):
+    seen.add(p.device.type)
+    return p[0] * torch.exp(-p[1] * t) + p[2] - y
+
+  got = sp.optimize.least_squares(resid, np.ones(3))
+  bounded = sp.optimize.least_squares(resid, np.ones(3),
+                                      bounds=([0, 0, 0], [5, 1.25, 1]))
+  _kept_on_card(seen, runs)
+  tight = {"xtol": 1e-14, "ftol": 1e-14, "gtol": 1e-14}
+  want = so.least_squares(lambda p: p[0] * np.exp(-p[1] * t_host) + p[2]
+                          - y_host, np.ones(3), method="lm", **tight).x
+  want_b = so.least_squares(lambda p: p[0] * np.exp(-p[1] * t_host) + p[2]
+                            - y_host, np.ones(3), bounds=([0, 0, 0],
+                                                          [5, 1.25, 1]),
+                            **tight).x
+  assert got.success and np.abs(got.x - want).max() < 1e-8
+  assert bounded.success and np.abs(bounded.x - want_b).max() < 1e-8
+
+
+def test_solve_ivp_on_card(device):
+  """RK45 of a 1024-unknown heat equation from a sine mode, every stage on
+  cuda tensors, against exp(-lambda t) y0 within steps (atol + rtol)."""
+  from spartan_tpu_torch.expr import fio
+  n, k = 1024, 300
+  h = 1.0 / (n + 1)
+  x = torch.arange(1, n + 1, dtype=torch.float64, device=device) * h
+  lam = 4.0 / h ** 2 * np.sin(k * np.pi * h / 2.0) ** 2
+  y0 = torch.sin(k * np.pi * x)
+  seen, runs = set(), fio.counts["host_runs"]
+
+  def heat(t, y):
+    seen.add(y.device.type)
+    seen.add(t.device.type)
+    out = -2.0 * y
+    out[1:] += y[:-1]
+    out[:-1] += y[1:]
+    return out / h ** 2
+
+  te = np.linspace(0.0, 5.0 / lam, 4)
+  res = sp.integrate.solve_ivp(heat, (0.0, 5.0 / lam), y0, t_eval=te,
+                               rtol=1e-10, atol=1e-20)
+  _kept_on_card(seen, runs)
+  want = np.exp(-lam * te)[None, :] * y0.cpu().numpy()[:, None]
+  rms = np.sqrt(np.mean((res.y - want) ** 2, axis=0)).max()
+  assert res.success and rms <= (res.nfev // 7) * 1e-10
+
+
+def test_differential_evolution_on_card(device):
+  """Its population is drawn by a generator on the card and evaluated by
+  vmap there: the 4-D Rastrigin function to its global minimum."""
+  from spartan_tpu_torch.expr import fio
+  seen, runs = set(), fio.counts["host_runs"]
+
+  def rastrigin(p):
+    seen.add(p.device.type)
+    return 10.0 * p.shape[-1] + torch.sum(p * p - 10.0 * torch.cos(
+        2.0 * np.pi * p))
+
+  res = sp.optimize.differential_evolution(
+      rastrigin, [(-5.12, 5.12)] * 4, seed=5, tol=1e-8, popsize=20,
+      recombination=0.2)
+  _kept_on_card(seen, runs)
+  assert res.fun <= 1e-8 and np.abs(res.x).max() <= 1e-5

@@ -331,3 +331,179 @@ def test_a_shared_map_is_computed_once_after_its_inputs_fuse():
   assert len(calls) == 1
   np.testing.assert_array_equal(y1.glom(), (host + 1.0) * 2.0 * 3.0)
   np.testing.assert_array_equal(y2.glom(), (host + 1.0) * 2.0 + 4.0)
+
+
+# -- F1: ``//`` differentiates to zero, as JAX's floor_divide ----------------
+
+_F1_EXPRS = {
+    "floor_divide": lambda m, x: m.sum(m.floor_divide(x, 0.3) + x),
+    "remainder_by_hand": lambda m, x: m.sum(x - 0.3 * (x // 0.3)),
+    "product": lambda m, x: m.sum((x // 0.3) * x * x),
+}
+
+
+def _derivative(m, kind, build, host):
+  x = m.from_numpy(host)
+  e = build(m, x)
+  t = np.linspace(-1.0, 1.0, host.size)
+  if kind == "grad":
+    out = m.grad(e, [x])[0]
+  elif kind == "value_and_grad":
+    out = m.value_and_grad(e, [x])[1][0]
+  elif kind == "jvp":
+    out = m.jvp(e, [x], [t])[1]
+  elif kind == "hvp":
+    out = m.hvp(e, [x], [t])[0]
+  else:
+    out = m.hessian(e, [x])
+  return np.asarray(out.glom())
+
+
+@pytest.mark.parametrize("kind", ["grad", "value_and_grad", "jvp", "hvp",
+                                  "hessian"])
+@pytest.mark.parametrize("expr", sorted(_F1_EXPRS))
+def test_floor_divide_differentiates_to_zero(expr, kind):
+  """F1: ``x // c`` is a step function, and JAX gives it the derivative 0
+  in both operands, so the gradient of ``sum(x // 0.3 + x)`` is ones.  The
+  port raised ``RuntimeError: derivative for aten::floor_divide is not
+  implemented`` from every derivative.  Tolerance: the reference's values
+  to 1e-13 (the double-vjp ``jvp`` of the product sums in another order)."""
+  host = np.random.default_rng(0).standard_normal(16)
+  want = _derivative(ref, kind, _F1_EXPRS[expr], host)
+  got = _derivative(sp, kind, _F1_EXPRS[expr], host)
+  assert got.shape == want.shape and got.dtype == want.dtype
+  np.testing.assert_allclose(got, want, rtol=0, atol=1e-13)
+  if expr == "floor_divide" and kind == "grad":
+    np.testing.assert_array_equal(got, np.ones(16))
+
+
+def test_floor_divide_keeps_its_forward_bits():
+  """The derivative's fix leaves the quotient as it was: NumPy's bits for
+  floats (±inf for a zero divisor) and the zero guard for integers."""
+  host = np.random.default_rng(1).standard_normal(64) * 10
+  host[:3] = [0.0, -0.0, 7.0]
+  got = np.asarray((sp.from_numpy(host) // 0.3).glom())
+  np.testing.assert_array_equal(got, host // 0.3)
+  with np.errstate(divide="ignore", invalid="ignore"):
+    want = host // np.where(np.arange(64) % 5 == 0, 0.0, 1.5)
+  got = np.asarray(sp.floor_divide(
+      sp.from_numpy(host),
+      sp.from_numpy(np.where(np.arange(64) % 5 == 0, 0.0, 1.5))).glom())
+  np.testing.assert_array_equal(got, want)
+  ints = np.arange(-6, 6)
+  got = np.asarray((sp.from_numpy(ints) // sp.from_numpy(ints % 3)).glom())
+  np.testing.assert_array_equal(got, np.where(ints % 3 == 0, 0,
+                                              ints // np.maximum(ints % 3, 1)))
+
+
+# -- F2: a Python scalar as the array of a function that is not elementwise --
+
+# process state the sweep must not change: the mesh and the random seed
+_STATEFUL = {"initialize", "shutdown", "with_mesh", "set_random_seed"}
+# draws: torch's stream is not jax.random's (ROADMAP Watch list), so only
+# the shape and dtype are held
+_DRAWS = {"rand", "randn", "randint", "permutation", "choice", "sprandn"}
+# where the reference has a documented defect or follows JAX, the port is
+# held to NumPy:
+_NUMPY_HELD = {
+    # the reference iterates a non-expr and reduces its first element, or
+    # raises on a scalar
+    "all", "amax", "amin", "any", "argmax", "argmin", "average",
+    "count_nonzero", "max", "mean", "min", "nanmax", "nanmin", "nansum",
+    "prod", "ptp", "std", "sum", "var",
+    # NumPy 2's float64 rounding of integers (the reference keeps the
+    # integer dtype)
+    "ceil", "floor", "trunc", "fix",
+    # NumPy's integer reciprocal (the reference gives float64)
+    "reciprocal",
+    # NumPy sorts a 0-d array as the vector it ravels to (the reference
+    # raises an AxisError)
+    "argsort",
+    # the reference's gradient raises; NumPy's gives ()
+    "gradient",
+    # NumPy 2.0's clip needs a bound (the reference returns its input)
+    "clip",
+    # NumPy's ndarray(3) is (3,) float64, left uninitialized
+    "ndarray",
+}
+
+
+def _exported_functions():
+  import inspect
+
+  import spartan_tpu.scipy_linalg as ref_sl
+  out = []
+  for ns, mine, theirs in (("sp", sp, ref),
+                           ("scipy_linalg", sp.scipy_linalg, ref_sl)):
+    for name in sorted(set(mine.__all__) & set(theirs.__all__)):
+      f = getattr(mine, name)
+      if (name in _STATEFUL or not callable(f) or inspect.isclass(f)
+          or inspect.ismodule(f)):
+        continue
+      out.append((ns, name))
+  return out
+
+
+def _host(out):
+  if isinstance(out, (tuple, list)):
+    return tuple(_host(o) for o in out)
+  if hasattr(out, "glom"):
+    out = out.glom()
+  if isinstance(out, torch.Tensor):
+    out = out.cpu().numpy()
+  return np.asarray(out)
+
+
+def _outcome(fn, arg):
+  try:
+    return _host(fn(arg))
+  except Exception as e:  # the outcome compared is the raise itself
+    return e
+
+
+def _hold(got, want, values: bool):
+  if isinstance(want, tuple):
+    assert isinstance(got, tuple) and len(got) == len(want)
+    for g, w in zip(got, want):
+      _hold(g, w, values)
+    return
+  assert not isinstance(got, tuple)
+  assert got.shape == want.shape and got.dtype == want.dtype, (got, want)
+  if not values:
+    return
+  if want.dtype.kind in "fc":
+    np.testing.assert_allclose(got, want, rtol=5e-16, atol=0)
+  else:
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arg", [2.5, 3], ids=["float", "int"])
+@pytest.mark.parametrize("ns,name", _exported_functions(),
+                         ids=[f"{n}.{m}" for n, m in _exported_functions()])
+def test_every_exported_function_takes_a_python_scalar(ns, name, arg):
+  """F2: every exported function of ``sp`` and ``sp.scipy_linalg`` called
+  with a Python float and with an int gives the reference's outcome (its
+  value and dtype, or a raise where it raises), or NumPy's where the
+  reference is defective (``_NUMPY_HELD``).  The port handed the raw
+  scalar to every emitter, so 27 functions of ``sp`` (``cumsum``,
+  ``atleast_1d``, ``median``, ``flip``, …) and ``block_diag``,
+  ``issymmetric`` and ``ishermitian`` raised ``AttributeError`` or
+  ``TypeError``, and a scalar result came out float32
+  (``cholesky_banded(2.5)``, ``abs(2.5)``).  The functions that change
+  process state (``initialize``, ``shutdown``, ``with_mesh``,
+  ``set_random_seed``) and
+  the classes are left out.  Tolerance: 5e-16 relative (the reference's
+  XLA ``acosh``, ``cosh``, ``cbrt`` … of a scalar are an ulp from NumPy's,
+  which the port's equal), dtypes exact."""
+  import spartan_tpu.scipy_linalg as ref_sl
+  mine = getattr(sp if ns == "sp" else sp.scipy_linalg, name)
+  if ns == "sp" and name in _NUMPY_HELD:
+    want = _outcome(getattr(np, name), arg)
+  else:
+    want = _outcome(getattr(ref if ns == "sp" else ref_sl, name), arg)
+  got = _outcome(mine, arg)
+  if isinstance(want, Exception):
+    assert isinstance(got, Exception), (got, want)
+    return
+  assert not isinstance(got, Exception), (got, want)
+  _hold(got, want, values=name not in _DRAWS and name != "ndarray")

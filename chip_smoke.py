@@ -247,6 +247,29 @@ raises on any failure:
      namespace, counted (scipy's oracles in the worker processes since
      the build), with the host and device ms a turn of the least-squares
      and RK45 loops.
+ 24. the remaining examples through learn's 14 estimators at full width:
+     LinearRegression, LogisticRegression, SVC, Ridge and Lasso at config
+     3's 2^20 x 64 float64, each held to its example's stepwise fit on the
+     card (Ridge to a float64 solve, Lasso to lasso.fit_numpy in a worker),
+     PCA to eigvalsh of the covariance, one FISTA step's host and device
+     ms; GaussianMixture (to gmm.em_numpy from the same start in a
+     worker), FuzzyKMeans and KMeans at config 4's 2^19 x 64 with k = 64,
+     SpectralClustering on two rings of 4096 points; KNeighborsClassifier
+     on 2^16 x 64 with 2^12 queries against NumPy's argpartition (a
+     worker); NaiveBayes on 2^20 documents of 256 counts (drawn on the card
+     in one call), both routes against each other and NumPy; netflix SGD at
+     MovieLens 20M's shape (64 steps of 4096), fit against fit_compiled,
+     the one-hot step against the scatter step within 16 ulps, one
+     compiled step's host and device ms; learn.ALS (K5a) and
+     learn.TruncatedSVD (K3a/K3b) on phase 21's ratings against als.fit
+     and phase 21's svds; Black-Scholes on 2^26 options against
+     price_numpy on 2^20 of them; sp.special's 116 device names at 2^24
+     float64 points (the betainc and kolmogorov inverses at 2^18), each
+     held to scipy on 2^16 sampled points at the CPU test's bounds, the
+     direct core again in float32, four names timed, every host name once
+     through the counted boundary; every runner of the examples' CLI in
+     process, and ``python -m spartan_tpu_torch.examples knn`` as a
+     subprocess.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
@@ -256,7 +279,8 @@ make_spmv_windowed calls for K3c, phase 14's path at each p for the
 sharded kernels, summed over the three meshes, and each counted solve and
 the scan of phase 19 for K3a, K3b and K3d, phase 20's two Lanczos
 runs for K3b and K3a and its sparse norm for K1, each counted solve of
-phase 21 for K3a and K3b, and phase 22's compiled calls for K1 and K3b)
+phase 21 for K3a and K3b, phase 22's compiled calls for K1 and K3b, and
+phase 24's learn.ALS for K5a and learn.TruncatedSVD for K3a and K3b)
 and read just after.  K4
 has no caller in the package: its count is the launches of phase 9's
 checks.  The
@@ -274,6 +298,7 @@ import contextlib
 import gc
 import json
 import multiprocessing
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -5492,7 +5517,8 @@ def host_boundary_items() -> None:
 def phase_spectral(device, card: str) -> dict:
   """Phase 21: the spectral solvers at full width through K3a/K3b,
   LaplacianNd, the densified and host functions, and sp.scipy_linalg at
-  4096^2 float64.  Returns the counted launches of K3a and K3b."""
+  4096^2 float64.  Returns the counted launches of K3a and K3b, the host ratings and svds's
+  singular values (for phase 24)."""
   pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
   with pool:
     launches = eigsh_on_grids(device, pool, card)
@@ -5504,14 +5530,14 @@ def phase_spectral(device, card: str) -> dict:
     torch.cuda.empty_cache()
     R, oracle = draw_ratings(device, pool)
     rat, s = svds_on_ratings(device, R, card)
-    del R
     launches["ell"] += rat["ell"]
     launches["csr"] += rat["csr"]
     scipy_linalg_items(device, pool, card)
     hold_svds(s, oracle)
   densified_items(device)
   host_boundary_items()
-  return launches
+  # the host ratings (CSR, about 240 MB) and svds's values go on to phase 24
+  return launches, R, s
 
 
 # phase 22: autodiff (sp.compile, grad and its kin, minimize, sgd_train,
@@ -6496,6 +6522,885 @@ def phase_optimize_integrate(device, card: str, oracles: dict) -> None:
   check(host_runs == 2, f"phase 23 counted {host_runs} host runs, not 2")
 
 
+# phase 24: the remaining examples through learn's estimators at full
+# width, sp.special at 2^24 points, and the examples' CLI runner
+P24_SEED = 24
+REG_N, REG_D, REG_ITERS = 1 << 20, 64, 20      # config 3's shape
+LASSO_REG, LASSO_ITERS = 0.05, 30
+PCA_K, PCA_DECAY = 4, 0.8  # PCA's axes scaled by 0.8^i: a 0.64 eigen-ratio
+CL_N, CL_D, CL_K, CL_ITERS = 1 << 19, 64, 64, 5  # config 4's shape
+RINGS_N = 4096
+KNN_TRAIN, KNN_QUERIES, KNN_D, KNN_K, KNN_CLASSES = 1 << 16, 1 << 12, 64, 5, 16
+NB_DOCS, NB_WORDS, NB_CLASSES, NB_LEN = 1 << 20, 256, 20, 50
+NF_K, NF_BATCH, NF_RATINGS = 64, 4096, 1 << 18  # 64 steps at ML-20M's shape
+ALS24_ITERS = 2
+BS_N, BS_SAMPLE = 1 << 26, 1 << 20
+SPECIAL_N, SPECIAL_SAMPLE = 1 << 24, 1 << 16
+# the inverses whose bisection calls betainc's continued fraction (or
+# kolmogorov's 100 terms) at each of 2 x 90 halvings: about 10^5 launches
+# each, 1.9-6.5 s at 2^20 points on an H100 80GB HBM3 at 700 W, so they
+# run at 2^18
+SPECIAL_SLOW = ("betaincinv", "betainccinv", "stdtrit", "fdtri", "bdtri",
+                "nbdtri", "kolmogi")
+SPECIAL_SLOW_N = 1 << 18
+SPECIAL_TIMED = ("betainc", "gammaincinv", "hyp1f1", "ellipk")
+
+
+def regression_data():
+  """Config 3's X (2^20 x 64 float64), a linear target with noise, and its
+  sign (the classifiers' labels)."""
+  rng = np.random.default_rng(P24_SEED)
+  X = rng.standard_normal((REG_N, REG_D))
+  w = rng.standard_normal(REG_D)
+  w[REG_D // 2:] = 0.0  # a sparse truth for Lasso
+  y = X @ w + 0.1 * rng.standard_normal(REG_N)
+  return X, y
+
+
+def lasso_oracle():
+  """lasso.fit_numpy on regression_data (a worker process)."""
+  from spartan_tpu_torch.examples import lasso
+  X, y = regression_data()
+  return lasso.fit_numpy(X, y, LASSO_REG, LASSO_ITERS)
+
+
+def cluster_data():
+  """Config 4's shape: CL_K blobs at 6 sigma in CL_D dimensions, float64
+  (examples/kmeans.make_data's draw)."""
+  rng = np.random.default_rng(P24_SEED + 1)
+  true_centers = rng.standard_normal((CL_K, CL_D)) * 6.0
+  labels = rng.integers(0, CL_K, CL_N)
+  return true_centers[labels] + rng.standard_normal((CL_N, CL_D))
+
+
+def gmm_oracle(mu0, var0, pi0):
+  """gmm.em_numpy from the card's start (a worker process)."""
+  from spartan_tpu_torch.examples import gmm
+  return gmm.em_numpy(cluster_data(), mu0, var0, pi0, CL_ITERS)
+
+
+def knn_data():
+  """knn.make_blobs at KNN_CLASSES classes: the train set and the
+  queries."""
+  from spartan_tpu_torch.examples import knn
+  X, y = knn.make_blobs(KNN_TRAIN + KNN_QUERIES, KNN_D,
+                        n_classes=KNN_CLASSES, seed=P24_SEED + 2)
+  return X[:KNN_TRAIN], y[:KNN_TRAIN], X[KNN_TRAIN:]
+
+
+def knn_oracle():
+  """NumPy's k nearest by argpartition of the Gram-term distances, their
+  majority labels, and each query's gap between its k-th and (k+1)-th
+  distance (a worker process)."""
+  Xt, yt, Q = knn_data()
+  d2 = ((Q * Q).sum(1)[:, None] + (Xt * Xt).sum(1)[None, :]
+        - 2.0 * Q @ Xt.T)
+  part = np.partition(d2, KNN_K, axis=1)
+  gap = part[:, KNN_K] - part[:, KNN_K - 1]
+  idx = np.argpartition(d2, KNN_K, axis=1)[:, :KNN_K]
+  labels = np.array([np.bincount(yt[r], minlength=KNN_CLASSES).argmax()
+                     for r in idx])
+  return labels, gap, float(np.abs(d2).max())
+
+
+def submit_phase24_oracles(procs) -> dict:
+  """Phase 24's host oracles, submitted to the worker processes before the
+  build (the lasso loop and the k-NN distances, seconds each); GMM's
+  follows once the card has its start."""
+  return {"lasso": procs.submit(lasso_oracle),
+          "knn": procs.submit(knn_oracle)}
+
+
+def _rel(a, b) -> float:
+  a = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
+                      else a).double()
+  b = torch.as_tensor(np.asarray(b) if not isinstance(b, torch.Tensor)
+                      else b).double().to(a.device)
+  return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _held24(label: str, err: float, tol: float, why: str) -> None:
+  print(f"  {label}: {err:.3g} (bound {tol:.3g}: {why})")
+  check(err <= tol, f"phase 24: {label} {err:.3g} > {tol:.3g}")
+
+
+def step_ms(run, many: int, few: int):
+  """(host ms, device ms) a turn of ``run(turns)``: the synced walls of
+  ``many`` and ``few`` turns differenced, and the device-busy ms of both
+  under torch.profiler differenced (None when the profiler saw no device
+  event)."""
+  walls, devs = [], []
+  for turns in (many, few):
+    run(turns)  # warm: the step's first call pays its set-up
+    torch.cuda.synchronize()
+    with Timer() as t:
+      run(turns)
+      torch.cuda.synchronize()
+    walls.append(t.elapsed * 1e3)
+    devs.append(device_share(lambda: run(turns))[1])
+  host = (walls[0] - walls[1]) / (many - few)
+  dev = None if None in devs else (devs[0] - devs[1]) / (many - few)
+  return host, dev
+
+
+def regression_items(device, card: str, oracles) -> None:
+  """LinearRegression, LogisticRegression, SVC, Ridge and Lasso at config
+  3's shape, each held to its example's stepwise fit on the card (Ridge to
+  a float64 solve on the card, Lasso to lasso.fit_numpy in a worker), PCA
+  to eigvalsh of the covariance, and one FISTA step's host and device
+  ms."""
+  from spartan_tpu_torch import learn
+  from spartan_tpu_torch.examples import lasso, svm
+  X, y = regression_data()
+  yb = (y > 0).astype(np.float64)
+  ys = np.where(y > 0, 1.0, -1.0)
+  Xa = sp.from_numpy(X).value  # one upload, shared by the estimators
+  Xd = sp.lazify(Xa)
+  # same float64 operations as the stepwise loop in another grouping:
+  # a few ulps a step of the weights' size
+  fused = 1e-11
+  m = learn.LinearRegression(iterations=REG_ITERS, alpha=0.05).fit(Xa, y)
+  w = np.asarray(linear_reg.fit(Xd, sp.from_numpy(y), REG_ITERS,
+                                0.05).glom())
+  _held24("LinearRegression against linear_reg.fit", _rel(m.coef_, w),
+          fused, "fused and stepwise float64")
+  m = learn.LogisticRegression(iterations=REG_ITERS, alpha=1.0).fit(Xa, yb)
+  w = np.asarray(logistic_reg.fit(Xd, sp.from_numpy(yb), REG_ITERS,
+                                  1.0).glom())
+  _held24("LogisticRegression against logistic_reg.fit", _rel(m.coef_, w),
+          fused, "fused and stepwise float64")
+  m = learn.SVC(iterations=REG_ITERS, alpha=0.1, C=10.0).fit(Xa, ys)
+  w = np.asarray(svm.fit(Xd, sp.from_numpy(ys), REG_ITERS, 0.1,
+                         10.0).glom())
+  _held24("SVC against svm.fit", _rel(m.coef_, w), fused,
+          "fused and stepwise float64")
+  m = learn.Ridge(alpha=1.0).fit(Xa, y)
+  Xt = Xa.data
+  yt = torch.as_tensor(y, device=device)
+  want = torch.linalg.solve(Xt.T @ Xt + torch.eye(REG_D, device=device,
+                                                  dtype=torch.float64),
+                            Xt.T @ yt)
+  _held24("Ridge against a float64 solve on the card", _rel(m.coef_, want),
+          1e-12, "Gram condition ~1.1: the same float64 solve")
+  m = learn.Lasso(alpha=LASSO_REG, iterations=LASSO_ITERS).fit(Xa, y)
+  w_np = oracle_result(oracles["lasso"])
+  _held24("Lasso against lasso.fit_numpy (worker)", _rel(m.coef_, w_np),
+          1e-9, "2^20-term float64 sums in another order through 30 "
+          "FISTA steps")
+  scale = PCA_DECAY ** np.arange(REG_D)
+  p = learn.PCA(n_components=PCA_K, iterations=60).fit(
+      Xd * sp.from_numpy(scale))
+  Xs = Xt * torch.as_tensor(scale, device=device)
+  Xc = Xs - Xs.mean(0)
+  evals = torch.linalg.eigvalsh(Xc.T @ Xc / REG_N).flip(0)[:PCA_K]
+  _held24("PCA's explained variance against eigvalsh", _rel(
+      p.explained_variance_, evals), 1e-9, "60 subspace steps at an "
+      "eigen-ratio near 0.64: 0.64^60 of the subspace, squared in the "
+      "values")
+  check(p.transform(Xd * sp.from_numpy(scale)).shape == (REG_N, PCA_K),
+        "PCA.transform's shape")
+  del Xt, Xs, Xc
+  host, dev = step_ms(lambda n: lasso.fit_fused(Xd, sp.from_numpy(y),
+                                                LASSO_REG, n).glom(), 40, 10)
+  print(f"  one FISTA make_fori step at {REG_N} x {REG_D} float64: host "
+        f"{host:.4f} ms, device "
+        f"{'not measured' if dev is None else f'{dev:.4f} ms'} ({card})")
+
+
+def gmm_start(procs):
+  """Config 4's points on the card, GaussianMixture's start there (the
+  farthest-point seeding, the pooled variance, equal weights), and
+  gmm.em_numpy from it submitted to a worker: (X, its array, the
+  pending oracle)."""
+  X = cluster_data()
+  Xa = sp.from_numpy(X).value
+  Xd = sp.lazify(Xa)
+  mu0 = kmeans.farthest_init(Xd, CL_K, P24_SEED)
+  var0 = np.ones((CL_K, CL_D)) * float(
+      np.asarray(sp.var(Xd, axis=0).glom()).mean())
+  pi0 = np.full(CL_K, 1.0 / CL_K)
+  return X, Xa, procs.submit(gmm_oracle, mu0, var0, pi0)
+
+
+def clustering_items(device, card: str, start) -> None:
+  """GaussianMixture (held to gmm.em_numpy from the same start in a
+  worker, submitted by :func:`gmm_start`), FuzzyKMeans (to
+  fuzzy_kmeans.fit on the card) and KMeans (to kmeans.fit_fused from the
+  same centers) at config 4's shape; SpectralClustering on two rings of
+  RINGS_N points."""
+  from spartan_tpu_torch import learn
+  from spartan_tpu_torch.examples import fuzzy_kmeans
+  X, Xa, pending = start
+  Xd = sp.lazify(Xa)
+  g = learn.GaussianMixture(CL_K, iterations=CL_ITERS, seed=P24_SEED).fit(Xa)
+  fz = learn.FuzzyKMeans(CL_K, iterations=CL_ITERS, seed=P24_SEED).fit(Xa)
+  c_step, u_step = fuzzy_kmeans.fit(Xd, CL_K, CL_ITERS, seed=P24_SEED)
+  _held24("FuzzyKMeans against fuzzy_kmeans.fit", max(
+      _rel(fz.cluster_centers_, np.asarray(c_step.glom())),
+      _rel(fz.membership_, np.asarray(u_step.glom()))), 1e-9,
+          "fused and stepwise float64 over 5 steps")
+  km = learn.KMeans(CL_K, iterations=CL_ITERS, seed=P24_SEED).fit(Xa)
+  c0 = X[np.random.default_rng(P24_SEED).choice(CL_N, CL_K, replace=False)]
+  c_fused = kmeans.fit_fused(Xd, CL_K, CL_ITERS, centers=sp.from_numpy(c0))
+  _held24("KMeans against kmeans.fit_fused", _rel(
+      km.cluster_centers_, np.asarray(c_fused.glom())), 1e-12,
+          "one-hot sums in float64 in another order; labels equal")
+  rng = np.random.default_rng(P24_SEED)
+  th = rng.uniform(0, 2 * np.pi, RINGS_N)
+  r = np.concatenate([np.full(RINGS_N // 2, 1.0),
+                      np.full(RINGS_N - RINGS_N // 2, 3.0)])
+  r = r + 0.05 * rng.standard_normal(RINGS_N)
+  rings = np.stack([r * np.cos(th), r * np.sin(th)], axis=1)
+  truth = np.arange(RINGS_N) >= RINGS_N // 2
+  labels = learn.SpectralClustering(2, gamma=4.0).fit_predict(rings)
+  acc = max(float((labels == truth).mean()), float((labels != truth).mean()))
+  print(f"  SpectralClustering of two rings of {RINGS_N} points: accuracy "
+        f"{acc}")
+  check(acc == 1.0, "SpectralClustering did not separate the rings")
+  mo, vo, po = oracle_result(pending)
+  _held24("GaussianMixture against gmm.em_numpy (worker)", max(
+      _rel(g.means_, mo), _rel(g.variances_, vo), _rel(g.weights_, po)),
+          1e-9, "float64 EM, 2^19-term sums in another order, 5 steps")
+
+
+def knn_item(card: str, oracles) -> None:
+  """KNeighborsClassifier on a train set of 2^16 x 64 and 2^12 queries
+  (a 2 GB float64 distance matrix), its labels held to NumPy's
+  argpartition in a worker wherever the k-th and (k+1)-th distances are
+  apart by more than the distances' rounding."""
+  from spartan_tpu_torch import learn
+  Xt, yt, Q = knn_data()
+  with Timer() as t:
+    est = learn.KNeighborsClassifier(KNN_K).fit(Xt, yt)
+    pred = est.predict(Q)
+  want, gap, scale = oracle_result(oracles["knn"])
+  # the Gram-term distances of the card and of NumPy round apart by a few
+  # ulps of the largest term; a query whose k-th and (k+1)-th neighbours
+  # are nearer than that may order them either way
+  tied = gap <= 64 * EPS64 * scale
+  wrong = int(((pred != want) & ~tied).sum())
+  print(f"  KNeighborsClassifier k={KNN_K}: {KNN_QUERIES} queries against "
+        f"{KNN_TRAIN} x {KNN_D} in {t.elapsed:.2f} s (fit and predict, "
+        f"host clock); {int(tied.sum())} queries within rounding of a tie; "
+        f"{wrong} labels differ from NumPy's elsewhere; agreement "
+        f"{float((pred == want).mean())}")
+  check(wrong == 0, "k-NN labels differ from NumPy's argpartition")
+
+
+def naive_bayes_item(device, pool) -> None:
+  """NaiveBayes on 2^20 documents of 256 word counts and 20 classes,
+  drawn on the card in one vectorized call; the one-hot and the shuffle
+  routes against each other and against NumPy's per-class sums."""
+  from spartan_tpu_torch import learn
+  from spartan_tpu_torch.examples import naive_bayes
+  gen = torch.Generator(device=device).manual_seed(P24_SEED)
+  rng = np.random.default_rng(P24_SEED)
+  profiles = torch.as_tensor(rng.dirichlet(np.ones(NB_WORDS), NB_CLASSES),
+                             device=device)
+  labels = torch.randint(0, NB_CLASSES, (NB_DOCS,), device=device,
+                         generator=gen)
+  words = torch.multinomial(profiles[labels], NB_LEN, replacement=True,
+                            generator=gen)
+  counts = torch.zeros((NB_DOCS, NB_WORDS), dtype=torch.float64,
+                       device=device)
+  counts.scatter_add_(1, words, torch.ones_like(words, dtype=torch.float64))
+  del words
+  host_counts = counts.to(torch.uint8).cpu().numpy()
+  host_labels = labels.cpu().numpy()
+
+  def oracle():
+    feat = np.stack([np.bincount(host_labels, weights=host_counts[:, j],
+                                 minlength=NB_CLASSES)
+                     for j in range(NB_WORDS)], axis=1) + 1.0
+    cls = np.bincount(host_labels, minlength=NB_CLASSES)
+    return (np.log(cls / NB_DOCS),
+            np.log(feat) - np.log(feat.sum(1, keepdims=True)))
+  pending = pool.submit(oracle)
+  X = sp.SpartanArray(counts)
+  with Timer() as t:
+    est = learn.NaiveBayes().fit(X, host_labels)
+    pred = est.predict(X)
+  lp, ll = naive_bayes.fit(sp.lazify(X), sp.from_numpy(host_labels),
+                           NB_CLASSES, use_matmul=False)
+  lp, ll = np.asarray(lp.glom()), np.asarray(ll.glom())
+  want_lp, want_ll = pending.result()
+  # integer counts sum exactly in float64 on every route; the logs round
+  err = max(_rel(est.log_prior_, lp), _rel(est.log_likelihood_, ll))
+  _held24("NaiveBayes's one-hot route against its shuffle route", err,
+          1e-14, "exact integer sums, a few roundings of the logs")
+  err = max(_rel(est.log_prior_, want_lp), _rel(est.log_likelihood_,
+                                                want_ll))
+  _held24("NaiveBayes against NumPy's per-class sums", err, 1e-14,
+          "exact integer sums, a few roundings of the logs")
+  print(f"  NaiveBayes fit and predict of {NB_DOCS} x {NB_WORDS}: "
+        f"{t.elapsed:.2f} s (host clock); training accuracy "
+        f"{float((pred == host_labels).mean()):.4f}")
+
+
+def netflix_items(device, card: str) -> None:
+  """Netflix SGD at MovieLens 20M's shape (138,493 x 26,744, k = 64,
+  batches of 4096 over 2^18 ratings: 64 steps): fit against
+  fit_compiled, one step by the one-hot route against the scatter route,
+  and one compiled step's host and device ms.  The one-hot of a batch's
+  users is 4096 x 138,493 float64, 4.5 GB."""
+  from spartan_tpu_torch.examples import netflix_sgd as nf
+  rng = np.random.default_rng(P24_SEED)
+  users = rng.integers(0, ML_USERS, NF_RATINGS)
+  items = rng.integers(0, ML_MOVIES, NF_RATINGS)
+  ratings = rng.uniform(0.5, 5.0, NF_RATINGS)
+  with Timer() as t_fit:
+    U1, V1 = nf.fit(users, items, ratings, ML_USERS, ML_MOVIES, NF_K,
+                    epochs=1, batch=NF_BATCH)
+    U1, V1 = U1.data, V1.data
+    torch.cuda.synchronize()
+  with Timer() as t_comp:
+    U2, V2 = nf.fit_compiled(users, items, ratings, ML_USERS, ML_MOVIES,
+                             NF_K, epochs=1, batch=NF_BATCH)
+    U2, V2 = U2.data, V2.data
+    torch.cuda.synchronize()
+  print(f"  netflix_sgd.fit {t_fit.elapsed:.2f} s, fit_compiled "
+        f"{t_comp.elapsed:.2f} s for {NF_RATINGS // NF_BATCH} steps (host "
+        "clock, the first calls included)")
+  # the same float64 operations in both: a few ulps a step, 64 steps
+  _held24("netflix fit against fit_compiled", max(_rel(U1, U2),
+                                                   _rel(V1, V2)),
+          1e-12, "64 steps x 8 ulps")
+  U0 = torch.randn((ML_USERS, NF_K), dtype=torch.float64, device=device,
+                   generator=torch.Generator(device=device).manual_seed(1))
+  V0 = U0[:ML_MOVIES].clone()
+  sel = slice(0, NF_BATCH)
+  args = (sp.Val(sp.SpartanArray(U0)), sp.Val(sp.SpartanArray(V0)),
+          sp.from_numpy(users[sel]), sp.from_numpy(items[sel]),
+          sp.from_numpy(ratings[sel]))
+  a = sp.evaluate(sp.ListExpr(list(nf.sgd_step(*args, use_matmul=True))))
+  b = sp.evaluate(sp.ListExpr(list(nf.sgd_step(*args, use_matmul=False))))
+  # a row's sum of its updates in another order (atomics on the card):
+  # within 16 ulps of the row's absolute sum (a row takes at most 15
+  # updates a batch here)
+  ub, ib, rb = (torch.as_tensor(v[sel], device=device)
+                for v in (users, items, ratings))
+  Uu, Vi = U0[ub], V0[ib]
+  e = ((Uu * Vi).sum(1) - rb)[:, None]
+  lr, reg = 0.05, 0.02  # sgd_step's defaults
+  err = 0.0
+  for got, want, base, idx, g in (
+      (a[0].data, b[0].data, U0, ub, e * Vi + reg * Uu),
+      (a[1].data, b[1].data, V0, ib, e * Uu + reg * Vi)):
+    mass = base.abs().index_add(0, idx, (lr * g).abs())
+    err = max(err, float(((got - want).abs() / mass.clamp_min(1e-300))
+                         .max()) / EPS64)
+    dup = int(torch.bincount(idx).max())
+    check(dup <= 15, f"a row takes {dup} updates in the batch")
+  _held24("netflix one-hot step against the scatter step (ulps of the "
+          "row's absolute sum)", err, 16.0, "the same sums in another "
+          "order")
+  Ut = sp.from_numpy(np.zeros((ML_USERS, NF_K)))
+  Vt = sp.from_numpy(np.zeros((ML_MOVIES, NF_K)))
+  leaves = [Ut, Vt, sp.from_numpy(users[sel]), sp.from_numpy(items[sel]),
+            sp.from_numpy(ratings[sel])]
+  step = sp.compile(sp.ListExpr(list(nf.sgd_step(*leaves))), wrt=leaves)
+
+  def run(turns):
+    U, V = U0, V0
+    for _ in range(turns):
+      U, V = step(U, V, ub, ib, rb)
+      U, V = U.data, V.data
+  host, dev = step_ms(run, 8, 2)
+  print(f"  one compiled netflix step (batch {NF_BATCH}, k {NF_K}, the "
+        f"users' one-hot {NF_BATCH} x {ML_USERS} float64 = "
+        f"{NF_BATCH * ML_USERS * 8 / 1e9:.2f} GB): host {host:.3f} ms, "
+        f"device {'not measured' if dev is None else f'{dev:.3f} ms'} "
+        f"({card})")
+
+
+def ratings_items(R, s21) -> dict:
+  """learn.ALS (2 iterations, k = 64) on phase 21's ratings as a
+  SparseArray, held to examples.als.fit with the same seed, and
+  learn.TruncatedSVD(10) held to phase 21's svds values; returns the
+  launches of K5a (the ALS estimator's) and of K3a/K3b (TruncatedSVD's)."""
+  from spartan_tpu_torch import learn
+  S = ingest_ratings(R)
+  K5.reset_counts()
+  with Timer() as t:
+    est = learn.ALS(n_factors=ALS_K, iterations=ALS24_ITERS, reg=ALS_REG,
+                    seed=0).fit(S)
+  k5 = K5.counts["launches"]
+  check(k5 == 2 * ALS24_ITERS and K5.counts["plain_runs"] == 0,
+        f"learn.ALS launched K5a {k5} times, not {2 * ALS24_ITERS}")
+  U, V = als.fit(S, k=ALS_K, iterations=ALS24_ITERS, reg=ALS_REG, seed=0)
+  print(f"  learn.ALS k={ALS_K}, {ALS24_ITERS} iterations: {t.elapsed:.2f} s "
+        f"(host clock); K5a launches {k5}")
+  _held24("learn.ALS against als.fit", max(
+      _rel(est.user_factors_, U), _rel(est.item_factors_, V)), 1e-6,
+          "the same float32 products (bit-equal on repeat in phase 7)")
+  KS.reset_counts()
+  with Timer() as t:
+    ts = learn.TruncatedSVD(n_components=SVDS_K, ncv=SVDS_NCV).fit(S)
+  ell, csr = KS.counts["ell_launches"], KS.counts["csr_launches"]
+  check(ell > 0 and csr > 0 and KS.counts["ell_plain_runs"] == 0
+        and KS.counts["csr_plain_runs"] == 0,
+        f"TruncatedSVD did not put its products on K3a/K3b ({KS.counts})")
+  want = np.sort(s21)[::-1]
+  got = ts.singular_values_
+  smax = float(want.max())
+  tol = 2 * (F32_TOL * smax ** 2 / want + 64 * EPS32 * smax)
+  apart = np.abs(got - want)
+  print(f"  learn.TruncatedSVD({SVDS_K}) of the ratings in "
+        f"{t.elapsed:.2f} s: K3a {ell}, K3b {csr} launches; apart from "
+        f"phase 21's svds {np.array2string(apart, precision=3)} (bound "
+        "twice phase 21's tolerance: both lie within it of scipy's)")
+  check(bool((apart <= tol).all()) and bool(np.all(np.diff(got) <= 0)),
+        "TruncatedSVD disagrees with phase 21's svds")
+  check(ts.components_.shape == (SVDS_K, ML_MOVIES),
+        "TruncatedSVD's components' shape")
+  del S, est, ts
+  gc.collect()
+  torch.cuda.empty_cache()
+  return {"k5": k5, "ell": ell, "csr": csr}
+
+
+def black_scholes_item(device, card: str, pool) -> None:
+  """Black-Scholes on a book of 2^26 options drawn on the card, held to
+  price_numpy on a seeded sample of 2^20 of them, the chain timed."""
+  from spartan_tpu_torch.examples import black_scholes as bs
+  gen = torch.Generator(device=device).manual_seed(P24_SEED)
+
+  def uniform(lo, hi):
+    return lo + (hi - lo) * torch.rand(BS_N, dtype=torch.float64,
+                                       device=device, generator=gen)
+  spot, strike, t = uniform(10.0, 200.0), uniform(10.0, 200.0), uniform(
+      0.1, 2.0)
+  args = [sp.Val(sp.SpartanArray(v)) for v in (spot, strike, t)]
+
+  def price():
+    return sp.evaluate(sp.ListExpr(list(bs.price(*args))))
+  call, put = price()
+  pick = torch.as_tensor(np.random.default_rng(P24_SEED).choice(
+      BS_N, BS_SAMPLE, replace=False), device=device)
+  host = [v[pick].cpu().numpy() for v in (spot, strike, t)]
+  pending = pool.submit(bs.price_numpy, *host)
+  ms = event_ms(price)[0]
+  want_c, want_p = pending.result()
+  err = max(float(np.abs(call.data[pick].cpu().numpy() - want_c).max()),
+            float(np.abs(put.data[pick].cpu().numpy() - want_p).max()))
+  print(f"  Black-Scholes: {BS_N} options priced in {ms:.3f} ms on the "
+        f"card ({card}); the call and put of 5 float64 inputs and outputs "
+        f"a {5 * 8 * BS_N / HBM_BYTES_PER_S * 1e3:.3f} ms pass of HBM")
+  _held24("Black-Scholes against price_numpy on 2^20 options (absolute)",
+          err, 1e-9, "the reference test's bound")
+
+
+def _u(lo, hi):
+  return ("u", lo, hi)
+
+
+def _i(lo, hi):
+  return ("i", lo, hi)
+
+
+XP, XR, Y01 = _u(0.1, 5.0), _u(-4.0, 4.0), _u(0.01, 0.99)
+# sp.special's device names: (name, arguments, keywords, rtol, atol) on
+# the reference test's domains (``u``: uniform floats, ``i``: uniform
+# integers, a number: a scalar); rtol/atol are the CPU test's bounds
+SPECIAL_CASES = [
+    ("gammaln", (XP,), {}, 1e-12, 1e-13), ("gamma", (XR,), {}, 1e-10, 1e-13),
+    ("gammasgn", (XR,), {}, 0, 0), ("digamma", (XP,), {}, 1e-11, 1e-13),
+    ("psi", (XP,), {}, 1e-11, 1e-13),
+    ("rgamma", (XR,), {}, 1e-10, 1e-12),
+    ("gammainc", (2.5, XP), {}, 1e-12, 1e-13),
+    ("gammaincc", (2.5, XP), {}, 1e-12, 1e-13),
+    ("multigammaln", (_u(3.1, 8.0), 3), {}, 1e-12, 1e-13),
+    ("poch", (XP, 2.5), {}, 1e-11, 1e-13),
+    ("beta", (XP, 2.0), {}, 1e-11, 1e-13),
+    ("betaln", (XP, 2.0), {}, 1e-12, 1e-11),
+    ("betainc", (2.0, 3.5, Y01), {}, 1e-12, 1e-13),
+    ("erf", (XR,), {}, 1e-12, 1e-13), ("erfc", (XR,), {}, 1e-11, 1e-13),
+    ("erfinv", (_u(-0.98, 0.98),), {}, 1e-11, 1e-13),
+    ("erfcinv", (Y01,), {}, 1e-11, 1e-13),
+    ("erfcx", (_u(-5.0, 25.0),), {}, 1e-12, 1e-13),
+    ("ndtr", (XR,), {}, 1e-12, 1e-13), ("ndtri", (Y01,), {}, 1e-11, 1e-13),
+    ("log_ndtr", (XR,), {}, 1e-12, 1e-13),
+    ("gammaincinv", (2.5, Y01), {}, 1e-11, 1e-13),
+    ("gammainccinv", (1.5, Y01), {}, 1e-11, 1e-13),
+    ("betaincinv", (0.3, 8.0, Y01), {}, 1e-11, 1e-13),
+    ("betainccinv", (2.0, 3.5, Y01), {}, 1e-11, 1e-13),
+    # betainc's continued fraction over 2^16 points reaches 1.1e-12 (the
+    # CPU test's 49 points: below 1e-12)
+    ("stdtr", (4.0, _u(-6.0, 6.0)), {}, 1e-11, 1e-13),
+    # t = sqrt(df (1 - x) / x) from x = betaincinv near 1 as p nears 0.5:
+    # 1 - x cancels, an absolute error of about df eps / (2 |t|), the
+    # reference's own there (1e-9 covers |t| >= 3e-7)
+    ("stdtrit", (6.0, Y01), {}, 1e-11, 1e-9),
+    ("chdtr", (3.0, XP), {}, 1e-12, 1e-13),
+    ("chdtrc", (3.0, XP), {}, 1e-12, 1e-13),
+    ("chdtri", (3.0, Y01), {}, 1e-11, 1e-13),
+    ("fdtr", (3.0, 7.0, XP), {}, 1e-12, 1e-13),
+    ("fdtrc", (3.0, 7.0, XP), {}, 1e-12, 1e-13),
+    ("fdtri", (3.0, 7.0, Y01), {}, 1e-11, 1e-13),
+    ("pdtr", (3, XP), {}, 1e-12, 1e-13), ("pdtrc", (3, XP), {}, 1e-12, 1e-13),
+    ("pdtri", (3, Y01), {}, 1e-11, 1e-13),
+    ("bdtr", (3, 10, Y01), {}, 1e-11, 1e-13),
+    ("bdtrc", (3, 10, Y01), {}, 1e-11, 1e-13),
+    ("bdtri", (3, 10, Y01), {}, 1e-11, 1e-13),
+    ("nbdtr", (3, 5, Y01), {}, 1e-11, 1e-13),
+    ("nbdtrc", (3, 5, Y01), {}, 1e-11, 1e-13),
+    ("nbdtri", (3, 5, Y01), {}, 1e-11, 1e-13),
+    ("gdtr", (2.0, 3.0, XP), {}, 1e-12, 1e-13),
+    ("gdtrc", (2.0, 3.0, XP), {}, 1e-12, 1e-13),
+    ("gdtrix", (2.0, 3.0, Y01), {}, 1e-11, 1e-13),
+    ("kolmogorov", (_u(0.05, 2.5),), {}, 1e-12, 1e-14),
+    ("kolmogi", (Y01,), {}, 1e-11, 1e-13),
+    ("ellipk", (_u(-1.5, 0.99),), {}, 1e-12, 1e-13),
+    ("ellipe", (_u(-1.5, 0.99),), {}, 1e-12, 1e-13),
+    ("ellipkm1", (_u(1e-15, 0.8),), {}, 1e-12, 1e-13),
+    ("agm", (XP, XP), {}, 1e-12, 1e-13),
+    ("j0", (XP,), {}, 1e-10, 1e-13), ("j1", (XP,), {}, 1e-10, 1e-13),
+    ("jn", (4, XP), {}, 1e-9, 1e-13),
+    ("i0", (XR,), {}, 1e-11, 1e-13), ("i0e", (XR,), {}, 1e-11, 1e-13),
+    ("i1", (XR,), {}, 1e-11, 1e-13), ("i1e", (XR,), {}, 1e-11, 1e-13),
+    ("exp1", (XP,), {}, 1e-11, 1e-13), ("expi", (XR,), {}, 1e-11, 1e-13),
+    ("expn", (_i(0, 5), _u(0.1, 10.0)), {}, 1e-11, 1e-13),
+    ("sici", (XP,), {}, 1e-11, 1e-13),
+    ("fresnel", (XR,), {}, 0, 1e-12),
+    ("cosm1", (_u(-0.2, 0.2),), {}, 1e-12, 1e-13),
+    ("powm1", (XP, XR), {}, 1e-11, 1e-13),
+    ("exprel", (_u(-2.0, 2.0),), {}, 1e-12, 1e-13),
+    ("exp2", (XR,), {}, 1e-12, 1e-13), ("exp10", (XR,), {}, 1e-12, 1e-13),
+    ("cbrt", (XR,), {}, 1e-12, 1e-13), ("log1p", (XP,), {}, 1e-12, 1e-13),
+    ("expm1", (XR,), {}, 1e-12, 1e-13), ("expit", (XR,), {}, 1e-12, 1e-13),
+    ("logit", (Y01,), {}, 1e-12, 1e-13),
+    ("log_expit", (XR,), {}, 1e-12, 1e-13),
+    ("logaddexp", (XR, XP), {}, 1e-12, 1e-13),
+    ("softplus", (XR,), {}, 1e-12, 1e-13),
+    ("xlogy", (XR, XP), {}, 1e-12, 1e-13),
+    ("xlog1py", (XR, XP), {}, 1e-12, 1e-13),
+    ("entr", (XP,), {}, 1e-12, 1e-13),
+    ("rel_entr", (XP, XP), {}, 1e-12, 1e-13),
+    ("kl_div", (XP, XP), {}, 1e-12, 1e-13),
+    ("huber", (1.2, XR), {}, 1e-12, 1e-13),
+    ("pseudo_huber", (1.2, XR), {}, 1e-12, 1e-13),
+    ("boxcox", (XP, 0.37), {}, 1e-12, 1e-13),
+    ("boxcox1p", (XP, 0.37), {}, 1e-12, 1e-13),
+    ("inv_boxcox", (XP, 0.37), {}, 1e-11, 1e-13),
+    ("inv_boxcox1p", (XP, 0.37), {}, 1e-11, 1e-13),
+    ("sindg", (_u(-200.0, 200.0),), {}, 0, 1e-12),
+    ("cosdg", (_u(-200.0, 200.0),), {}, 0, 1e-12),
+    ("tandg", (_u(-80.0, 80.0),), {}, 1e-10, 1e-13),
+    ("cotdg", (_u(5.0, 175.0),), {}, 1e-10, 1e-13),
+    ("radian", (_u(0.0, 360.0), _u(0.0, 60.0), _u(0.0, 60.0)), {}, 1e-12,
+     1e-13),
+    ("diric", (_u(-7.0, 7.0), 6), {}, 0, 1e-12),
+    ("zetac", (_u(1.5, 30.0),), {}, 1e-10, 1e-13),
+    ("zeta", (_u(1.5, 10.0), 2.0), {}, 1e-11, 1e-13),
+    ("spence", (XP,), {}, 1e-11, 1e-13),
+    ("softmax", ("m",), {"axis": 1}, 1e-12, 1e-13),
+    ("log_softmax", ("m",), {"axis": 1}, 1e-12, 1e-13),
+    ("logsumexp", ("m",), {"axis": 1}, 1e-12, 1e-13),
+    ("comb", (_i(0, 30), 3), {}, 1e-12, 1e-13),
+    ("perm", (_i(0, 30), 3), {}, 1e-12, 1e-13),
+    ("binom", (_u(0.3, 15.0), XP), {}, 1e-11, 1e-13),
+    ("factorial", (_i(0, 20),), {}, 1e-12, 1e-13),
+    ("factorial2", (_i(0, 25),), {}, 1e-12, 1e-13),
+    ("eval_legendre", (7, _u(-1.0, 1.0)), {}, 0, 1e-13),
+    ("eval_chebyt", (7, _u(-1.0, 1.0)), {}, 0, 1e-12),
+    ("eval_chebyu", (7, _u(-1.0, 1.0)), {}, 0, 1e-12),
+    # near a root the recurrence keeps a few ulps of its largest term
+    # (about 2e7 for H_7 at |x| <= 4, 2e4 for He_7) and no relative digit
+    ("eval_hermite", (7, XR), {}, 1e-11, 1e-8),
+    ("eval_hermitenorm", (7, XR), {}, 1e-11, 1e-11),
+    ("eval_laguerre", (7, XP), {}, 1e-11, 1e-12),
+    ("eval_genlaguerre", (5, 1.3, XP), {}, 1e-10, 1e-12),
+    ("eval_gegenbauer", (5, 0.7, _u(-1.0, 1.0)), {}, 1e-10, 1e-12),
+    ("hyp1f1", (1.5, 2.5, XR), {}, 1e-3, 1e-13),
+    ("hyp2f1", (1.2, 0.7, 2.5, Y01), {}, 1e-3, 1e-13),
+    ("polygamma", (_i(0, 3), XP), {}, 1e-11, 1e-13),
+    ("sph_harm_y", (_i(0, 8), _i(-8, 8), _u(0.01, 3.13), _u(0.0, 6.28)), {},
+     1e-12, 1e-13),
+]
+SPECIAL_ORACLES = {"logaddexp": np.logaddexp}
+# inverses the reference's test checks by a round trip
+SPECIAL_ROUND_TRIPS = {"inv_boxcox": "boxcox", "inv_boxcox1p": "boxcox1p"}
+# the direct core's float32 pass: (name, arguments), held to scipy's float64
+# of the float32 inputs at 2e-4 relative with a floor of 2e-5 of the largest
+# value (float32's rounding through a few operations; the CPU test's bounds)
+SPECIAL_F32 = [("gamma", (XP,)), ("gammaln", (XP,)), ("digamma", (XP,)),
+               ("gammainc", (XP, XP)), ("beta", (XP, XP)),
+               ("betainc", (XP, XP, Y01)), ("erf", (XR,)), ("erfc", (XR,)),
+               ("erfinv", (_u(-0.98, 0.98),)), ("ndtr", (XR,)),
+               ("ndtri", (Y01,)), ("log_ndtr", (XR,)), ("expit", (XR,)),
+               ("logit", (Y01,)), ("entr", (XP,)), ("xlogy", (XR, XP)),
+               ("exp1", (XP,)), ("expi", (XP,)), ("i0", (XR,)),
+               ("i1e", (XR,)), ("zeta", (_u(1.6, 6.5), XP)),
+               ("poch", (XP, XP)), ("hyp1f1", (1.5, 2.5, XR)),
+               ("spence", (XP,))]
+
+
+def special_args(spec, n: int, dtype, gen, device):
+  """The card's arguments of a case: each ``u``/``i`` spec drawn at ``n``
+  points (``m``: a square matrix of n points), scalars as they are."""
+  out = []
+  side = int(round(n ** 0.5))
+  for a in spec:
+    if isinstance(a, tuple) and a[0] == "u":
+      out.append(a[1] + (a[2] - a[1]) * torch.rand(
+          n, dtype=dtype, device=device, generator=gen))
+    elif isinstance(a, tuple) and a[0] == "i":
+      out.append(torch.randint(a[1], a[2] + 1, (n,), device=device,
+                               generator=gen))
+    elif a == "m":
+      out.append(torch.randn((side, side), dtype=dtype, device=device,
+                             generator=gen))
+    else:
+      out.append(a)
+  return out
+
+
+def special_sample(args, pick, rows):
+  """The sampled host copies of a case's arguments (whole rows for a
+  matrix)."""
+  out = []
+  for a in args:
+    if isinstance(a, torch.Tensor):
+      out.append((a[rows] if a.ndim == 2 else a[pick]).cpu().numpy())
+    else:
+      out.append(a)
+  return out
+
+
+def special_scipy(name, host, kw):
+  import scipy.special as ssp
+  if name in SPECIAL_ROUND_TRIPS:
+    return host[0]
+  return getattr(ssp, name, SPECIAL_ORACLES.get(name))(*host, **kw)
+
+
+def _special_err(got, want, rtol, atol) -> float:
+  """The worst |got - want| over (atol + rtol |want|): <= 1 passes."""
+  got, want = np.asarray(got), np.asarray(want)
+  bad = np.isnan(got) != np.isnan(want)
+  g = np.nan_to_num(got, nan=0.0, posinf=0.0, neginf=0.0)
+  w = np.nan_to_num(want, nan=0.0, posinf=0.0, neginf=0.0)
+  inf_apart = np.isinf(got) != np.isinf(want)
+  if bad.any() or inf_apart.any():
+    return np.inf
+  lim = atol + rtol * np.abs(w)
+  diff = np.abs(g - w)
+  return float(np.max(np.where(lim > 0, diff / np.where(lim > 0, lim, 1),
+                               np.where(diff > 0, np.inf, 0.0))))
+
+
+def special_items(device, card: str, pool) -> None:
+  """Every device name of sp.special at 2^24 float64 points of its domain
+  (the betainc/kolmogorov inverses at 2^18), each held to scipy on a seeded
+  sample of 2^16 of those points (whole rows of the 4096 x 4096 matrix for
+  the reductions), scipy computed on host threads; the direct core again
+  in float32; four names timed; every host name once through the counted
+  boundary."""
+  from spartan_tpu_torch import special
+  from spartan_tpu_torch.expr import fio
+  S = sp.special
+  gen = torch.Generator(device=device).manual_seed(P24_SEED)
+  rng = np.random.default_rng(P24_SEED)
+  names = {c[0] for c in SPECIAL_CASES}
+  check(names == set(special.__all__) - set(special._HOST_NAMES),
+        "phase 24's special cases are not the device names")
+  worst, pending, times, walls = [], [], {}, {}
+  special.counts.update(reads=0, turns=0)
+  t0 = time.perf_counter()
+  for name, spec, kw, rtol, atol in SPECIAL_CASES:
+    n = SPECIAL_SLOW_N if name in SPECIAL_SLOW else SPECIAL_N
+    drawn = special_args(spec, n, torch.float64, gen, device)
+    args = drawn
+    if name in SPECIAL_ROUND_TRIPS:  # inv_boxcox(boxcox(x)) against x
+      args = [getattr(S, SPECIAL_ROUND_TRIPS[name])(*drawn).evaluate(),
+              drawn[1]]
+    fn = getattr(S, name)
+    t_name = time.perf_counter()
+
+    def outputs():
+      out = fn(*args, **kw)
+      outs = out if isinstance(out, tuple) else (out,)
+      check(all(isinstance(o, sp.Expr) for o in outs), f"{name} is not lazy")
+      return [o.evaluate().data for o in outs]
+    res = outputs()
+    if name in SPECIAL_TIMED:
+      times[name] = event_ms(outputs)[0]
+    pick = torch.as_tensor(rng.choice(n, min(n, SPECIAL_SAMPLE),
+                                      replace=False), device=device)
+    rows = torch.as_tensor(rng.choice(int(round(n ** 0.5)), 16,
+                                      replace=False), device=device)
+    host = special_sample(drawn, pick, rows)
+    # a reduction's rows (its output along axis 1 or the whole row)
+    got = [(r[rows] if "m" in spec else r[pick]).cpu().numpy() for r in res]
+    pending.append((name, rtol, atol, got,
+                    pool.submit(special_scipy, name, host, kw)))
+    walls[name] = time.perf_counter() - t_name
+    del drawn, args, res
+  wall = time.perf_counter() - t0
+  for name, rtol, atol, got, fut in pending:
+    want = fut.result()
+    want = want if isinstance(want, tuple) else (want,)
+    worst.append((max(_special_err(g, w, rtol, atol)
+                      for g, w in zip(got, want)), name))
+  worst.sort(reverse=True)
+  print(f"  sp.special: {len(SPECIAL_CASES)} device names at {SPECIAL_N} "
+        f"float64 points ({', '.join(SPECIAL_SLOW)} at {SPECIAL_SLOW_N}) in "
+        f"{wall:.2f} s; converging loops read the host "
+        f"{special.counts['reads']} times over {special.counts['turns']} "
+        "turns; the largest error over its bound (atol + rtol |scipy|, the "
+        "CPU test's bounds but where SPECIAL_CASES widens one; <= 1 "
+        "passes): " + ", ".join(
+            f"{name} {err:.3g}" for err, name in worst[:8]))
+  print("  the longest names (host clock, the sample and its copy "
+        "included): " + ", ".join(f"{n} {w:.2f} s" for n, w in sorted(
+            walls.items(), key=lambda kv: -kv[1])[:10]))
+  check(worst[0][0] <= 1.0, f"sp.special.{worst[0][1]} strays from scipy "
+        f"({worst[0][0]:.3g} of its bound)")
+  print("  ms at 2^24 float64 points (CUDA events; betainc and hyp1f1 "
+        "read the host every 8 turns, which the time includes) (" + card
+        + "): " + ", ".join(
+      f"{name} {times[name]:.3f}" for name in SPECIAL_TIMED))
+  worst32 = []
+  for name, spec in SPECIAL_F32:
+    args = special_args(spec, SPECIAL_N, torch.float32, gen, device)
+    res = getattr(S, name)(*args).evaluate().data
+    check(res.dtype == torch.float32, f"{name} of float32 is {res.dtype}")
+    pick = torch.as_tensor(rng.choice(SPECIAL_N, SPECIAL_SAMPLE,
+                                      replace=False), device=device)
+    host = [a.astype(np.float64) if isinstance(a, np.ndarray) else a
+            for a in special_sample(args, pick, None)]
+    want = special_scipy(name, host, {})
+    got = res[pick].double().cpu().numpy()
+    worst32.append((_special_err(got, want, 2e-4,
+                                 2e-5 * float(np.abs(want).max())), name))
+  worst32.sort(reverse=True)
+  print("  float32 pass of the direct core at 2^24: the largest error over "
+        "its bound: " + ", ".join(f"{name} {err:.3g}"
+                                  for err, name in worst32[:5]))
+  check(worst32[0][0] <= 1.0, f"float32 sp.special.{worst32[0][1]} strays")
+  # every host name once through the counted boundary: scipy's module is
+  # swapped for one that records the call, the operand an expr on the card
+  calls = []
+
+  class Recorder:
+    def __getattr__(self, name):
+      def record(*a, **k):
+        calls.append((name, np.asarray(a[0]).tolist()))
+        return name
+      return record
+  wrapped = [n for n in special._HOST_NAMES
+             if not isinstance(getattr(S, n), type)]
+  before = fio.counts["host_runs"]
+  real = special._ss
+  special._ss = Recorder()
+  try:
+    operand = sp.from_numpy(np.array([0.5, 1.5]))
+    for n in wrapped:
+      check(getattr(S, n)(operand) == n, f"sp.special.{n}'s boundary")
+  finally:
+    special._ss = real
+  counted = fio.counts["host_runs"] - before
+  import scipy.special as ssp
+  xp = np.linspace(0.5, 4.0, 9)
+  for a, w in zip(S.airy(sp.from_numpy(xp)), ssp.airy(xp)):
+    check(np.allclose(a, w, rtol=1e-12, atol=0), "sp.special.airy")
+  check(np.allclose(S.struve(0, xp), ssp.struve(0, xp), rtol=1e-12)
+        and np.allclose(S.yn(1, sp.from_numpy(xp)), ssp.yn(1, xp),
+                        rtol=1e-12), "sp.special.struve/yn")
+  counted_real = fio.counts["host_runs"] - before - counted
+  print(f"  sp.special's {len(wrapped)} wrapped host names each once: "
+        f"{counted} host runs, each called with its expr operand on the "
+        f"host; airy, struve and yn against scipy: {counted_real} more")
+  check(counted == len(wrapped) == len(calls)
+        and all(c == [0.5, 1.5] for _, c in calls) and counted_real == 3,
+        "the host boundary's count")
+
+
+def cli_start():
+  """``python -m spartan_tpu_torch.examples knn`` as a subprocess on the
+  card, started here and read by :func:`cli_items` (a fresh process pays
+  its first CUDA use while this one works)."""
+  return time.perf_counter(), subprocess.Popen(
+      [sys.executable, "-m", "spartan_tpu_torch.examples", "knn"],
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+      cwd=pathlib.Path(__file__).parent)
+
+
+def cli_items(card: str, started) -> None:
+  """Every registered runner of the examples' CLI in this process at its
+  own size, then the subprocess of :func:`cli_start`: exit 0 and the
+  reference's keys."""
+  import ast
+
+  from spartan_tpu_torch.examples.__main__ import _RUNNERS, WAITING
+  t0 = time.perf_counter()
+  secs = {}
+  for name, runner in sorted(_RUNNERS.items()):
+    t = time.perf_counter()
+    out = runner()
+    secs[name] = time.perf_counter() - t
+    check(isinstance(out, dict) and out, f"runner {name} returned {out!r}")
+  print(f"  {len(_RUNNERS)} runners in {time.perf_counter() - t0:.2f} s "
+        f"(waiting: {', '.join(n for n, _ in WAITING)}); the slowest: "
+        + ", ".join(f"{n} {s:.2f} s" for n, s in sorted(
+            secs.items(), key=lambda kv: -kv[1])[:4]))
+  t_start, proc = started
+  stdout, stderr = proc.communicate(timeout=300)
+  last = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+  print(f"  python -m spartan_tpu_torch.examples knn: exit {proc.returncode} "
+        f"{time.perf_counter() - t_start:.2f} s after its start: {last}")
+  check(proc.returncode == 0, f"the CLI failed: {stderr[-2000:]}")
+  out = ast.literal_eval(last)
+  check(set(out) == {"accuracy", "seconds", "example", "mesh"}
+        and out["accuracy"] > 0.95, f"the CLI printed {out}")
+
+
+def phase_learn_special(device, card: str, oracles: dict, procs, R,
+                        s21) -> dict:
+  """Phase 24: the remaining examples through learn's estimators at full
+  width, sp.special at 2^24 points and the CLI; returns the launches of
+  K5a and K3a/K3b its ratings items counted."""
+  from spartan_tpu_torch.expr import fio
+  t0 = time.perf_counter()
+  runs = fio.counts["host_runs"]
+  ORACLE_WAIT[0] = 0.0
+
+  def since(what: str) -> None:
+    print(f"  [{time.perf_counter() - t0:.2f} s into phase 24: {what}]")
+
+  cli = cli_start()
+  gmm = gmm_start(procs)  # its oracle runs in a worker meanwhile
+  pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
+  with pool:
+    regression_items(device, card, oracles)
+    since("the regressions")
+    knn_item(card, oracles)
+    naive_bayes_item(device, pool)
+    since("k-NN and naive Bayes")
+    netflix_items(device, card)
+    since("netflix SGD")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = ratings_items(R, s21)
+    since("ALS and TruncatedSVD on the ratings")
+    black_scholes_item(device, card, pool)
+    clustering_items(device, card, gmm)
+    del gmm
+    since("Black-Scholes and the clustering")
+    gc.collect()
+    torch.cuda.empty_cache()
+    special_items(device, card, pool)
+    since("sp.special")
+  gc.collect()
+  torch.cuda.empty_cache()
+  cli_items(card, cli)
+  host_runs = fio.counts["host_runs"] - runs
+  print(f"  phase 24 host_runs {host_runs}; "
+        f"{time.perf_counter() - t0:.2f} s, {ORACLE_WAIT[0]:.2f} s of it "
+        "waiting for the oracle processes")
+  return launches
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -6524,6 +7429,7 @@ def main() -> None:
   pagerank_oracle = procs.submit(urand_pagerank_oracle, PR_BIG_N, 1)
   oracles23 = submit_phase23_oracles(procs)
   oracles22 = submit_phase22_oracles(procs)
+  oracles24 = submit_phase24_oracles(procs)
 
   print("phase 1: build the kernels, one nvcc per source, in parallel")
   build.load_all(KERNELS)
@@ -6700,7 +7606,7 @@ def main() -> None:
         "shape, expm_multiply at 2^22), LaplacianNd, the densified and host "
         "functions, and sp.scipy_linalg at 4096^2 float64")
   HOST_SPANS.clear()
-  spectral = phase_spectral(device, card)
+  spectral, ratings, svds_s = phase_spectral(device, card)
   k3["spmv_ell"]["launches"] += spectral["ell"]
   k3["spmv_csr"]["launches"] += spectral["csr"]
   print_host_spans(21, done(21))
@@ -6725,8 +7631,23 @@ def main() -> None:
         "unknown heat equation, the sampled rules over 2^24 + 1 samples, "
         "fixed_quad/tanhsinh/qmc_quad")
   phase_optimize_integrate(device, card, oracles23)
-  procs.shutdown()
   done(23)
+  gc.collect()
+  torch.cuda.empty_cache()
+  print("phase 24: the remaining examples through learn's 14 estimators at "
+        "full width (the regressions at config 3's shape, the clustering at "
+        "config 4's, k-NN, naive Bayes, netflix SGD at MovieLens 20M's "
+        "shape, ALS and TruncatedSVD on phase 21's ratings through K5a and "
+        "K3a/K3b, Black-Scholes on 2^26 options), sp.special's 116 device "
+        "names at 2^24 points, and the examples' CLI")
+  learned = phase_learn_special(device, card, oracles24, procs, ratings,
+                                svds_s)
+  del ratings, svds_s
+  procs.shutdown()
+  k5["launches"] += learned["k5"]
+  k3["spmv_ell"]["launches"] += learned["ell"]
+  k3["spmv_csr"]["launches"] += learned["csr"]
+  done(24)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

@@ -18,7 +18,7 @@ ROADMAP.md): the builtins, the loops, autodiff (``sp.grad`` and its kin,
 arrays with ``sp.sparse``'s builders, ``sp.sparse.linalg``'s solvers and
 ``sp.sparse.csgraph``, ``sp.linalg``,
 ``sp.fft``, ``sp.random``, ``sp.scipy_linalg``, ``sp.optimize``,
-``sp.integrate`` and array files; names not yet ported are absent
+``sp.integrate``, ``sp.special`` and array files; names not yet ported are absent
 rather than stubbed.
 """
 
@@ -97,6 +97,7 @@ for _name in scipy_linalg.__all__:
 del _name
 from spartan_tpu_torch import optimize  # noqa: E402  (scipy.optimize)
 from spartan_tpu_torch import integrate  # noqa: E402  (scipy.integrate)
+from spartan_tpu_torch import special  # noqa: E402  (scipy.special)
 
 __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "Mesh", "SpartanArray", "get_mesh", "make_mesh", "with_mesh",
@@ -106,5 +107,5 @@ __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "cond", "remat", "compile", "grad", "value_and_grad", "jvp",
            "hessian", "hvp", "minimize", "sgd_train", "checkpoint", "from_file", "load", "save", "interop",
            "sparse", "linalg", "fft", "random", "sparse_linalg", "scipy_linalg",
-           "optimize", "integrate",
+           "optimize", "integrate", "special",
            "SparseArray", "sparse_diagonal", "sprandn"] + list(_builtin_all)

@@ -3,7 +3,8 @@ item 1.5): the exact sorted list of ``spartan_tpu.__all__`` names that
 ``spartan_tpu_torch`` does not export yet, and of
 ``spartan_tpu.sparse_linalg.__all__`` names that
 ``spartan_tpu_torch.sparse_linalg`` lacks; ``sp.sparse``'s constructors,
-``sp.sparse.csgraph``, ``sp.optimize`` and ``sp.integrate``.
+``sp.sparse.csgraph``, ``sp.optimize``, ``sp.integrate`` and
+``sp.special``; the ``learn`` estimators and the example modules.
 A change that ports a name must take it off its list; the port is whole
 when both lists are empty."""
 
@@ -14,8 +15,7 @@ import spartan_tpu_torch as sp
 import spartan_tpu_torch.sparse_linalg as spl
 
 MISSING = sorted("""
-cluster interpolate ndimage signal smart_tile spatial special stats
-tiling_plan
+cluster interpolate ndimage signal smart_tile spatial stats tiling_plan
 """.split())
 
 # every name of the reference's sparse_linalg is ported
@@ -25,13 +25,13 @@ MISSING_SPARSE_LINALG = []
 def test_the_names_the_port_still_lacks():
   lacking = sorted(set(ref.__all__) - set(sp.__all__))
   assert lacking == MISSING
-  assert len(MISSING) == 9
+  assert len(MISSING) == 8
 
 
 def test_every_exported_name_is_defined():
   for name in sp.__all__:
     assert hasattr(sp, name), name
-  assert len(set(sp.__all__)) == 393
+  assert len(set(sp.__all__)) == 394
 
 
 def test_the_sparse_linalg_names_the_port_still_lacks():
@@ -90,3 +90,39 @@ def test_sp_integrate_has_every_name_of_the_reference():
   assert len(ref_int.__all__) == 34
   for name in ref_int.__all__:
     assert hasattr(sp.integrate, name), name
+
+
+def test_sp_special_has_every_name_of_the_reference():
+  """``sp.special`` carries every name of the reference's
+  ``special.__all__`` (which depends on the installed scipy: both are
+  computed here against the same one), and no other; its host names are
+  the reference's."""
+  import spartan_tpu.special as ref_special
+
+  import spartan_tpu_torch.special as special
+  assert sp.special is special
+  assert special.__all__ == ref_special.__all__
+  assert special._HOST_NAMES == ref_special._HOST_NAMES
+  assert len(set(special.__all__) - set(special._HOST_NAMES)) == 116
+  for name in ref_special.__all__:
+    assert hasattr(sp.special, name), name
+
+
+def test_learn_and_the_examples_match_the_reference():
+  """``spartan_tpu_torch.learn`` exports the reference's 14 estimators; the
+  example modules are the reference's but ``oscillator``, which waits for
+  ``sp.signal`` (``examples.__main__.WAITING``)."""
+  import pkgutil
+
+  import spartan_tpu.examples as ref_examples
+  import spartan_tpu.learn as ref_learn
+
+  import spartan_tpu_torch.examples as examples
+  import spartan_tpu_torch.learn as learn
+  from spartan_tpu_torch.examples.__main__ import WAITING
+  assert learn.__all__ == ref_learn.__all__
+  assert len(learn.__all__) == 14
+  mods = {m.name for m in pkgutil.iter_modules(examples.__path__)}
+  ref_mods = {m.name for m in pkgutil.iter_modules(ref_examples.__path__)}
+  assert ref_mods - mods == {name for name, _ in WAITING} == {"oscillator"}
+  assert mods <= ref_mods

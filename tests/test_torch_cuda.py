@@ -2525,3 +2525,82 @@ def test_differential_evolution_on_card(device):
       recombination=0.2)
   _kept_on_card(seen, runs)
   assert res.fun <= 1e-8 and np.abs(res.x).max() <= 1e-5
+
+
+# -- learn's estimators, the examples and sp.special on the card --------------
+# ALS on a SparseArray takes K5a; sp.special's betainc (a
+# converging continued fraction) and gammaincinv (90 fixed halvings a side)
+# against scipy at the CPU test's bounds; netflix SGD's two routes within
+# 16 ulps of a row's absolute sum (the scatter route adds with atomics).
+
+
+def test_learn_als_on_a_sparse_array_launches_k5a_on_card(device):
+  import scipy.sparse as ss
+
+  from spartan_tpu_torch import learn
+  from spartan_tpu_torch.examples import als as ALS
+  A = ss.random(3000, 2000, density=0.01, random_state=7, format="csr",
+                dtype=np.float32)
+  S = sps.from_scipy(A)
+  # ALS's factors are float64: no densified route, the CSR kernel
+  assert sps._spmm_route(S, torch.float64, 8, on_accel=True)[0] == "winmm"
+  K5.reset_counts()
+  est = learn.ALS(n_factors=8, iterations=2, reg=0.1, seed=0).fit(S)
+  assert K5.counts["launches"] == 4 and K5.counts["plain_runs"] == 0
+  U, V = ALS.fit(S, k=8, iterations=2, reg=0.1, seed=0)
+  np.testing.assert_allclose(est.user_factors_, U, rtol=0,
+                             atol=1e-6 * np.abs(U).max())
+  np.testing.assert_allclose(est.item_factors_, V, rtol=0,
+                             atol=1e-6 * np.abs(V).max())
+
+
+def test_special_betainc_and_gammaincinv_on_card(device):
+  import scipy.special as ssp
+  rng = np.random.default_rng(22)
+  a, b = rng.uniform(0.5, 8.0, 4096), rng.uniform(0.5, 8.0, 4096)
+  x = rng.uniform(0.01, 0.99, 4096)
+  got = sp.special.betainc(sp.from_numpy(a), sp.from_numpy(b),
+                           sp.from_numpy(x)).evaluate()
+  assert got.data.device.type == "cuda"
+  np.testing.assert_allclose(got.glom(), ssp.betainc(a, b, x), rtol=1e-12,
+                             atol=1e-13)
+  y = np.array([1e-290, 1e-150, 1e-12, 1e-8, 0.3, 0.5, 0.7, 1 - 1e-8,
+                1 - 1e-12])
+  for s in (0.5, 2.5, 8.0):
+    # the reference test's bounds (an underflowed root is the bracket's
+    # floor, exp(-708), within its atol of scipy's 0)
+    np.testing.assert_allclose(sp.special.gammaincinv(s, y).glom(),
+                               ssp.gammaincinv(s, y), rtol=1e-11,
+                               atol=1e-13)
+  x32 = sp.from_numpy(x.astype(np.float32))
+  got32 = sp.special.betainc(2.0, 3.5, x32).glom()
+  assert got32.dtype == np.float32
+  np.testing.assert_allclose(got32, ssp.betainc(2.0, 3.5, x.astype(
+      np.float32).astype(np.float64)), rtol=2e-4, atol=2e-5)
+
+
+def test_netflix_step_routes_agree_on_card(device):
+  from spartan_tpu_torch.examples import netflix_sgd as nf
+  rng = np.random.default_rng(5)
+  nu, ni, k, B = 5000, 800, 16, 2048
+  U, V = rng.standard_normal((nu, k)), rng.standard_normal((ni, k))
+  users, items = rng.integers(0, nu, B), rng.integers(0, ni, B)
+  ratings = rng.uniform(0.5, 5.0, B)
+  args = [sp.from_numpy(v) for v in (U, V, users, items, ratings)]
+  a = sp.evaluate(sp.ListExpr(list(nf.sgd_step(*args, use_matmul=True))))
+  b = sp.evaluate(sp.ListExpr(list(nf.sgd_step(*args, use_matmul=False))))
+  e = ((U[users] * V[items]).sum(1) - ratings)[:, None]
+  for got, want, base, idx, g in (
+      (a[0], b[0], U, users, e * V[items] + 0.02 * U[users]),
+      (a[1], b[1], V, items, e * U[users] + 0.02 * V[items])):
+    mass = np.abs(base).copy()
+    np.add.at(mass, idx, np.abs(0.05 * g))
+    assert np.abs(got.glom() - want.glom()).max() <= (
+        16 * 2.0 ** -53 * mass).max()
+
+
+def test_examples_cli_on_card(device, capsys):
+  from spartan_tpu_torch.examples.__main__ import main
+  assert main(["knn"]) == 0
+  printed = capsys.readouterr().out.strip().splitlines()[-1]
+  assert "'accuracy': 1.0" in printed and "'example': 'knn'" in printed

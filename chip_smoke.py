@@ -264,12 +264,31 @@ raises on any failure:
      learn.TruncatedSVD (K3a/K3b) on phase 21's ratings against als.fit
      and phase 21's svds; Black-Scholes on 2^26 options against
      price_numpy on 2^20 of them; sp.special's 116 device names at 2^24
-     float64 points (the betainc and kolmogorov inverses at 2^18), each
+     float64 points (the betainc and kolmogorov inverses at 2^18; four of
+     them, betaincinv/betainccinv/stdtrit/fdtri, trimmed to phase 25's
+     t/f/beta ppf and isf for the script's time), each
      held to scipy on 2^16 sampled points at the CPU test's bounds, the
      direct core again in float32, four names timed, every host name once
      through the counted boundary; every runner of the examples' CLI in
      process, and ``python -m spartan_tpu_torch.examples knn`` as a
      subprocess.
+ 25. sp.stats and sp.signal (no kernel: their maps are torch code): every
+     method of the 24 device distributions at 2^22 float64 points with
+     nontrivial loc, scale and shape (the betainc bisections, t/f/beta's
+     ppf and isf and binom/nbinom's cdf and ppf, at 2^16), each held to
+     scipy on 2^16 of them, a float32 pass, 2^22 draws of each held to its
+     own cdf by the KS bound at alpha 1e-6 (discrete: mean and variance);
+     29 descriptive statistics on a 2^14 x 2^10 float64 matrix along axis
+     0, 1 and None, 22 hypothesis tests on 2^20 samples with ties for the
+     rank tests and gaussian_kde of 4096 3-D points at 2^16 points, all
+     against scipy; convolve/correlate at 2^20 x 255, fftconvolve at
+     2^22 x 4095, convolve2d on 4096^2, the spectra at 2^22 samples with
+     the stft -> istft round trip, hilbert, resample, resample_poly,
+     savgol, medfilt, medfilt2d, lombscargle, czt and the waveforms;
+     lfilter/filtfilt at 2^14 and sosfilt/sosfiltfilt at 2^12 samples on
+     256 channels and decimate, with lfilter's host and device us a
+     sample; oscillator.run() within one Welch bin.  Its scipy oracles run
+     in the worker processes from before the build.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
@@ -280,7 +299,8 @@ sharded kernels, summed over the three meshes, and each counted solve and
 the scan of phase 19 for K3a, K3b and K3d, phase 20's two Lanczos
 runs for K3b and K3a and its sparse norm for K1, each counted solve of
 phase 21 for K3a and K3b, phase 22's compiled calls for K1 and K3b, and
-phase 24's learn.ALS for K5a and learn.TruncatedSVD for K3a and K3b)
+phase 24's learn.ALS for K5a and learn.TruncatedSVD for K3a and K3b;
+phase 25's sp.stats and sp.signal reach no kernel)
 and read just after.  K4
 has no caller in the package: its count is the launches of phase 9's
 checks.  The
@@ -6543,6 +6563,12 @@ SPECIAL_N, SPECIAL_SAMPLE = 1 << 24, 1 << 16
 SPECIAL_SLOW = ("betaincinv", "betainccinv", "stdtrit", "fdtri", "bdtri",
                 "nbdtri", "kolmogi")
 SPECIAL_SLOW_N = 1 << 18
+# trimmed for the script's time (it ran 1016.58 s after phase 0 with them
+# on an H100 80GB HBM3 at 700 W): the four that bisect through betainc's
+# continued fraction by ``special._betaincinv_kern`` run in phase 25
+# instead, as t/f/beta's ppf and isf at 2^16 points against scipy (the
+# CPU test holds each name)
+SPECIAL_IN_PHASE25 = ("betaincinv", "betainccinv", "stdtrit", "fdtri")
 SPECIAL_TIMED = ("betainc", "gammaincinv", "hyp1f1", "ellipk")
 
 
@@ -7191,7 +7217,8 @@ def _special_err(got, want, rtol, atol) -> float:
 
 def special_items(device, card: str, pool) -> None:
   """Every device name of sp.special at 2^24 float64 points of its domain
-  (the betainc/kolmogorov inverses at 2^18), each held to scipy on a seeded
+  (the betainc/kolmogorov inverses at 2^18; betaincinv, betainccinv,
+  stdtrit and fdtri in phase 25 instead), each held to scipy on a seeded
   sample of 2^16 of those points (whole rows of the 4096 x 4096 matrix for
   the reductions), scipy computed on host threads; the direct core again
   in float32; four names timed; every host name once through the counted
@@ -7208,6 +7235,8 @@ def special_items(device, card: str, pool) -> None:
   special.counts.update(reads=0, turns=0)
   t0 = time.perf_counter()
   for name, spec, kw, rtol, atol in SPECIAL_CASES:
+    if name in SPECIAL_IN_PHASE25:
+      continue
     n = SPECIAL_SLOW_N if name in SPECIAL_SLOW else SPECIAL_N
     drawn = special_args(spec, n, torch.float64, gen, device)
     args = drawn
@@ -7243,8 +7272,9 @@ def special_items(device, card: str, pool) -> None:
     worst.append((max(_special_err(g, w, rtol, atol)
                       for g, w in zip(got, want)), name))
   worst.sort(reverse=True)
-  print(f"  sp.special: {len(SPECIAL_CASES)} device names at {SPECIAL_N} "
-        f"float64 points ({', '.join(SPECIAL_SLOW)} at {SPECIAL_SLOW_N}) in "
+  print(f"  sp.special: {len(pending)} device names at {SPECIAL_N} "
+        f"float64 points ({', '.join(n for n in SPECIAL_SLOW if n not in SPECIAL_IN_PHASE25)} at "
+        f"{SPECIAL_SLOW_N}; {', '.join(SPECIAL_IN_PHASE25)} in phase 25) in "
         f"{wall:.2f} s; converging loops read the host "
         f"{special.counts['reads']} times over {special.counts['turns']} "
         "turns; the largest error over its bound (atol + rtol |scipy|, the "
@@ -7401,6 +7431,754 @@ def phase_learn_special(device, card: str, oracles: dict, procs, R,
   return launches
 
 
+# phase 25: sp.stats and sp.signal at full width, and the oscillator.
+# Cuts, each for the phase's time (it aims at 30-40 s of the script's 1200):
+# the ppf/isf of t, f and beta and the cdf/ppf of binom and nbinom run at
+# 2^16 points, not 2^22 (each bisection step calls betainc's continued
+# fraction, 64-180 steps of about 10^3 launches), and so do the draws of t,
+# f and beta (they go through the same ppf).
+P25_SEED = 25
+DIST_N, DIST_SLOW_N, DIST_SAMPLE = 1 << 22, 1 << 16, 1 << 16
+RVS_N = 1 << 22
+RVS_ALPHA = 1e-6
+DESC_SHAPE = (1 << 14, 1 << 10)
+DESC_SAMPLE = 1 << 16
+TEST_N = 1 << 20
+KDE_N, KDE_POINTS, KDE_SAMPLE = 4096, 1 << 16, 1 << 12
+CONV_N, CONV_TAPS = 1 << 20, 255
+FFTCONV_N, FFTCONV_TAPS = 1 << 22, 4095
+CONV2_SIDE, CONV2_K = 4096, 7
+SPEC_N, SPEC_SEG = 1 << 22, 1024
+MED2_SIDE = 2048
+LS_N, LS_F = 1 << 14, 1 << 12
+FILT_CH, LF_N, SOS_N = 256, 1 << 14, 1 << 12
+LF_PROF = (1 << 11, 1 << 10)  # the profiled lfilter passes' samples
+SIG_SAMPLE = 1 << 16
+
+# (name, shape parameters, loc, scale, low z, high z): points z on
+# [low, high] of the standardized variable, x = loc + scale z
+DIST_CASES = [
+    ("norm", (), 0.5, 1.7, -6.0, 6.0),
+    ("t", (5.0,), 0.3, 1.5, -8.0, 8.0),
+    ("chi2", (4.0,), 0.2, 2.0, 0.01, 25.0),
+    ("gamma", (2.5,), 0.1, 1.3, 0.01, 20.0),
+    ("beta", (2.0, 3.0), -0.5, 2.0, 0.001, 0.999),
+    ("f", (4.0, 9.0), 0.1, 1.2, 0.01, 10.0),
+    ("expon", (), 0.4, 2.0, 0.0, 15.0),
+    ("uniform", (), 1.0, 3.0, 0.0, 1.0),
+    ("laplace", (), 0.2, 1.1, -10.0, 10.0),
+    ("logistic", (), -0.3, 0.8, -15.0, 15.0),
+    ("cauchy", (), 0.5, 1.3, -50.0, 50.0),
+    ("lognorm", (0.8,), 0.1, 1.5, 0.01, 15.0),
+    ("gumbel_r", (), 0.3, 1.2, -2.0, 12.0),
+    ("gumbel_l", (), -0.2, 0.9, -12.0, 2.0),
+    ("pareto", (2.5,), 0.1, 0.7, 1.001, 50.0),
+    ("weibull_min", (1.7,), 0.2, 1.4, 0.01, 5.0),
+    ("rayleigh", (), 0.1, 1.6, 0.01, 6.0),
+    ("halfnorm", (), -0.4, 1.2, 0.0, 5.0),
+    ("truncnorm", (-1.0, 2.0), 0.3, 1.4, -1.0, 2.0),
+    ("poisson", (3.5,), 2.0, None, 0, 15),
+    ("binom", (12.0, 0.3), 1.0, None, 0, 12),
+    ("nbinom", (5.0, 0.4), 0.0, None, 0, 30),
+    ("geom", (0.3,), -1.0, None, 1, 20),
+    ("bernoulli", (0.4,), 0.0, None, 0, 1),
+]
+# the cases whose ppf (and isf, or cdf for the discrete) bisect through
+# betainc: run at DIST_SLOW_N
+DIST_SLOW = {("t", "ppf"), ("t", "isf"), ("f", "ppf"), ("f", "isf"),
+             ("beta", "ppf"), ("beta", "isf"), ("binom", "cdf"),
+             ("binom", "ppf"), ("nbinom", "cdf"), ("nbinom", "ppf")}
+CONT_METHODS = ("logpdf", "pdf", "cdf", "sf", "logcdf", "logsf", "ppf",
+                "isf")
+DISC_METHODS = ("logpmf", "pmf", "cdf", "sf", "ppf")
+DEVICE_ENTROPY = ("norm", "gamma", "expon", "uniform", "laplace",
+                  "logistic", "cauchy", "gumbel_r", "gumbel_l", "bernoulli")
+# (rtol, atol) a method; the logs of the tails take an absolute bound (a
+# complement 1 - cdf near 1 keeps about 1e-16 absolute)
+DIST_TOL = {"logpdf": (1e-9, 1e-12), "pdf": (1e-9, 1e-13),
+            "logpmf": (1e-9, 1e-12), "pmf": (1e-9, 1e-13),
+            "cdf": (1e-9, 1e-13), "sf": (1e-9, 1e-13),
+            "logcdf": (1e-9, 1e-9), "logsf": (1e-9, 1e-9),
+            "ppf": (1e-8, 1e-10), "isf": (1e-8, 1e-10),
+            "moments": (1e-10, 1e-13)}
+
+
+def _dist_args(case):
+  name, shape, loc, scale = case[:4]
+  return shape + ((loc,) if scale is None else (loc, scale))
+
+
+def dist_points(case, n):
+  """(x, q) of a case: n points of its support (integers for a discrete
+  one) and n levels in (1e-3, 1 - 1e-3), NumPy's draw from the seed."""
+  name, shape, loc, scale, lo, hi = case
+  rx, rq = (np.random.default_rng([P25_SEED, DIST_CASES.index(case), i])
+            for i in (0, 1))
+  if scale is None:
+    x = rx.integers(lo, hi + 1, n).astype(np.float64) + loc
+  else:
+    x = loc + scale * rx.uniform(lo, hi, n)
+  return x, rq.uniform(1e-3, 1 - 1e-3, n)
+
+
+def dist_oracle() -> dict:
+  """scipy.stats on the first DIST_SAMPLE points of each case (a worker
+  process)."""
+  import scipy.stats as sst
+  out = {}
+  for case in DIST_CASES:
+    name, scale = case[0], case[3]
+    x, q = dist_points(case, DIST_SAMPLE)
+    d = getattr(sst, name)
+    a = _dist_args(case)
+    for m in (DISC_METHODS if scale is None else CONT_METHODS):
+      out[name, m] = getattr(d, m)(q if m in ("ppf", "isf") else x, *a)
+    out[name, "moments"] = np.array(
+        [d.mean(*a), d.var(*a), d.std(*a), d.median(*a),
+         *d.interval(0.9, *a),
+         d.entropy(*a) if name in DEVICE_ENTROPY else np.nan])
+    out[name, "kurtosis"] = float(d.stats(*a, moments="k"))
+  return out
+
+
+def desc_data():
+  """The descriptive statistics' matrices (2^14 x 2^10 float64): normal
+  M, lognormal P (positive), rounded R (ties), E (positive weights)."""
+  rng = np.random.default_rng([P25_SEED, 100])
+  M = rng.standard_normal(DESC_SHAPE) * 1.5 + 0.5
+  return {"M": M, "P": np.exp(0.3 * M), "R": np.round(M * 2),
+          "E": np.abs(M) + 0.1}
+
+
+# (label, function, data, keyword arguments)
+DESC_CASES = [
+    ("moment3", "moment", "M", {"order": 3}),
+    ("skew", "skew", "M", {}), ("skew_unbiased", "skew", "M", {"bias": False}),
+    ("kurtosis", "kurtosis", "M", {}),
+    ("kurtosis_unbiased", "kurtosis", "M", {"bias": False}),
+    ("gmean", "gmean", "P", {}), ("hmean", "hmean", "P", {}),
+    ("pmean", "pmean", "P", {"p": 2.5}), ("sem", "sem", "M", {}),
+    ("zscore", "zscore", "M", {}), ("gzscore", "gzscore", "P", {}),
+    ("iqr", "iqr", "M", {}), ("mad", "median_abs_deviation", "M", {}),
+    ("variation", "variation", "P", {}),
+    ("tmean", "tmean", "M", {"limits": (-1.0, 2.0)}),
+    ("tvar", "tvar", "M", {"limits": (-1.0, 2.0)}),
+    ("tstd", "tstd", "M", {"limits": (-1.0, 2.0)}),
+    ("tsem", "tsem", "M", {"limits": (-1.0, 2.0)}),
+    ("tmin", "tmin", "M", {"lowerlimit": -1.0}),
+    ("tmax", "tmax", "M", {"upperlimit": 2.0}),
+    ("trim_mean", "trim_mean", "M", {"proportiontocut": 0.1}),
+    ("mode", "mode", "R", {}), ("rankdata", "rankdata", "R", {}),
+    ("entropy", "entropy", "E", {}), ("circmean", "circmean", "M", {}),
+    ("circvar", "circvar", "M", {}), ("circstd", "circstd", "M", {}),
+    ("gstd", "gstd", "P", {}), ("describe", "describe", "M", {}),
+]
+DESC_AXES = (0, 1, None)
+
+
+def _desc_flat(out):
+  """A result as a list of float64 arrays (tuples flattened)."""
+  if isinstance(out, tuple):
+    return [a for o in out for a in _desc_flat(o)]
+  return [np.asarray(out, dtype=np.float64).reshape(-1)]
+
+
+def desc_pick(size: int) -> np.ndarray:
+  return np.random.default_rng([P25_SEED, 101]).choice(
+      size, min(size, DESC_SAMPLE), replace=False)
+
+
+def desc_oracle() -> dict:
+  """scipy.stats's descriptive statistics of desc_data along 0, 1 and None
+  (a worker process); a result longer than DESC_SAMPLE is sampled."""
+  import scipy.stats as sst
+  data = desc_data()
+  out = {}
+  for label, fn, key, kw in DESC_CASES:
+    for ax in DESC_AXES:
+      res = getattr(sst, fn)(data[key], axis=ax, **kw)
+      if fn == "describe":
+        res = (res.nobs, res.minmax, res.mean, res.variance, res.skewness,
+               res.kurtosis)
+      flat = _desc_flat(res)
+      out[label, ax] = [f[desc_pick(f.size)] if f.size > DESC_SAMPLE else f
+                        for f in flat]
+  return out
+
+
+def test_data():
+  """The hypothesis tests' 2^20-sample vectors: x, y (y = 0.5 x + noise),
+  z (shifted), their rounded copies (ties for the rank tests), observed
+  and expected counts and p-values."""
+  rng = np.random.default_rng([P25_SEED, 200])
+  x = rng.standard_normal(TEST_N)
+  y = 0.5 * x + rng.standard_normal(TEST_N)
+  z = rng.standard_normal(TEST_N) + 0.002
+  fe = rng.uniform(50.0, 150.0, 4096)
+  fo = np.round(fe + rng.standard_normal(4096) * np.sqrt(fe))
+  fe = fe * fo.sum() / fe.sum()
+  return {"x": x, "y": y, "z": z, "xr": np.round(x * 4),
+          "yr": np.round(y * 4), "zr": np.round(z * 4), "fo": fo, "fe": fe,
+          "pv": rng.uniform(0.01, 1.0, 4096)}
+
+
+def _test_calls(S, d):
+  """The tests as (label, thunk) over the module ``S`` (sp.stats or
+  scipy.stats) and the data ``d``."""
+  mw = {"method": "asymptotic"} if S.__name__ == "scipy.stats" else {}
+  return [
+      ("ttest_1samp", lambda: S.ttest_1samp(d["x"], 0.001)),
+      ("ttest_ind", lambda: S.ttest_ind(d["x"], d["z"])),
+      ("ttest_welch", lambda: S.ttest_ind(d["x"], d["y"], equal_var=False)),
+      ("ttest_rel", lambda: S.ttest_rel(d["x"], d["z"])),
+      ("pearsonr", lambda: S.pearsonr(d["x"], d["y"])),
+      ("spearmanr", lambda: S.spearmanr(d["xr"], d["yr"])),
+      ("chisquare", lambda: S.chisquare(d["fo"], d["fe"])),
+      ("f_oneway", lambda: S.f_oneway(d["x"], d["y"], d["z"])),
+      ("bartlett", lambda: S.bartlett(d["x"], d["y"], d["z"])),
+      ("levene", lambda: S.levene(d["x"], d["y"], d["z"])),
+      ("skewtest", lambda: S.skewtest(d["x"])),
+      ("kurtosistest", lambda: S.kurtosistest(d["x"])),
+      ("normaltest", lambda: S.normaltest(d["x"])),
+      ("jarque_bera", lambda: S.jarque_bera(d["x"])),
+      ("mannwhitneyu", lambda: S.mannwhitneyu(d["xr"], d["zr"], **mw)),
+      ("ranksums", lambda: S.ranksums(d["xr"], d["zr"])),
+      ("kruskal", lambda: S.kruskal(d["xr"], d["yr"], d["zr"])),
+      ("combine_fisher", lambda: S.combine_pvalues(d["pv"])),
+      ("combine_stouffer",
+       lambda: S.combine_pvalues(d["pv"], method="stouffer")),
+      ("linregress", lambda: S.linregress(d["x"], d["y"])),
+      ("ks_2samp", lambda: S.ks_2samp(d["x"], d["z"])),
+      ("kstest", lambda: S.kstest(d["x"], "norm")),
+  ]
+
+
+def _test_values(res):
+  if hasattr(res, "intercept_stderr"):
+    return [float(res.slope), float(res.intercept), float(res.rvalue),
+            float(res.pvalue), float(res.stderr),
+            float(res.intercept_stderr)]
+  return [float(np.asarray(res.statistic)), float(np.asarray(res.pvalue))]
+
+
+def test_oracle() -> dict:
+  import scipy.stats as sst
+  return {label: _test_values(fn())
+          for label, fn in _test_calls(sst, test_data())}
+
+
+def kde_data():
+  rng = np.random.default_rng([P25_SEED, 300])
+  cov = np.array([[1.0, 0.3, 0.1], [0.3, 2.0, -0.4], [0.1, -0.4, 0.5]])
+  ds = rng.multivariate_normal([0.0, 1.0, -1.0], cov, KDE_N).T
+  pts = rng.multivariate_normal([0.0, 1.0, -1.0], 1.5 * cov, KDE_POINTS).T
+  return ds, pts
+
+
+def kde_oracle() -> dict:
+  import scipy.stats as sst
+  ds, pts = kde_data()
+  k = sst.gaussian_kde(ds)
+  return {"evaluate": k.evaluate(pts[:, :KDE_SAMPLE]),
+          "logpdf": k.logpdf(pts[:, :KDE_SAMPLE]),
+          "gauss": k.integrate_gaussian(np.array([0.2, 0.8, -0.9]),
+                                        np.eye(3) * 0.5)}
+
+
+def signal_data():
+  """The convolution, spectral and resampling inputs (NumPy's draws)."""
+  rng = np.random.default_rng([P25_SEED, 400])
+  t = np.arange(SPEC_N) / 1000.0
+  return {"x": rng.standard_normal(CONV_N),
+          "h": rng.standard_normal(CONV_TAPS),
+          "xl": rng.standard_normal(FFTCONV_N),
+          "hl": rng.standard_normal(FFTCONV_TAPS),
+          "img": rng.standard_normal((CONV2_SIDE, CONV2_SIDE)),
+          "k2": rng.standard_normal((CONV2_K, CONV2_K)),
+          "s": np.sin(2 * np.pi * 50.0 * t) + rng.standard_normal(SPEC_N),
+          "s2": np.cos(2 * np.pi * 50.0 * t + 0.3)
+          + rng.standard_normal(SPEC_N),
+          "m2": rng.standard_normal((MED2_SIDE, MED2_SIDE)),
+          "lt": (lt := np.sort(rng.uniform(0, 100.0, LS_N))),
+          "ly": np.sin(2 * np.pi * 0.7 * lt) + rng.standard_normal(LS_N),
+          "lf": np.linspace(0.05, 20.0, LS_F)}
+
+
+def sig_pick(size: int) -> np.ndarray:
+  return np.random.default_rng([P25_SEED, 401]).choice(
+      size, min(size, SIG_SAMPLE), replace=False)
+
+
+def _sig_calls(S, d):
+  """(label, thunk) of the signal items over ``S`` (sp.signal or
+  scipy.signal)."""
+  sc = S.__name__ == "scipy.signal"
+  return [
+      ("convolve", lambda: S.convolve(d["x"], d["h"], method="direct")
+       if not sc else S.convolve(d["x"], d["h"])),
+      ("correlate", lambda: S.correlate(d["x"], d["h"], mode="same")),
+      ("fftconvolve", lambda: S.fftconvolve(d["xl"], d["hl"])),
+      ("convolve2d", lambda: S.convolve2d(d["img"], d["k2"], mode="same")
+       if not sc else S.fftconvolve(d["img"], d["k2"], mode="same")),
+      ("welch", lambda: S.welch(d["s"], fs=1000.0, nperseg=SPEC_SEG)[1]),
+      ("csd", lambda: S.csd(d["s"], d["s2"], fs=1000.0,
+                            nperseg=SPEC_SEG)[1]),
+      ("coherence", lambda: S.coherence(d["s"], d["s2"], fs=1000.0,
+                                        nperseg=SPEC_SEG)[1]),
+      ("periodogram", lambda: S.periodogram(d["s"], fs=1000.0)[1]),
+      ("spectrogram", lambda: S.spectrogram(d["s"], fs=1000.0,
+                                            nperseg=SPEC_SEG)[2]),
+      ("stft", lambda: S.stft(d["s"], fs=1000.0, nperseg=SPEC_SEG)[2]),
+      ("hilbert", lambda: S.hilbert(d["x"])),
+      ("resample", lambda: S.resample(d["x"], 3 * CONV_N // 4)),
+      ("resample_poly", lambda: S.resample_poly(d["x"], 3, 2)),
+      ("savgol", lambda: S.savgol_filter(d["x"], 31, 3)),
+      ("medfilt", lambda: S.medfilt(d["x"], 5)),
+      ("medfilt2d", lambda: S.medfilt2d(d["m2"], 3)),
+      ("lombscargle", lambda: S.lombscargle(d["lt"], d["ly"], d["lf"])),
+      ("czt", lambda: S.czt(d["x"][:1 << 16], m=1 << 12,
+                            w=np.exp(-2j * np.pi / 8192.0))),
+      ("detrend", lambda: S.detrend(d["xl"])),
+      ("square", lambda: S.square(d["xl"] * 10, 0.3)),
+      ("sawtooth", lambda: S.sawtooth(d["xl"] * 10, 0.7)),
+      ("chirp", lambda: S.chirp(abs(d["xl"]), 1.0, 2.0, 10.0,
+                                method="logarithmic")),
+      ("gausspulse", lambda: S.gausspulse(d["xl"] * 0.002, fc=500)),
+      ("sweep_poly", lambda: S.sweep_poly(d["xl"], [0.05, -0.75, 2.0, 5.0])),
+  ]
+
+
+def signal_oracle() -> dict:
+  import scipy.signal as ssig
+  d = signal_data()
+  out = {}
+  for label, fn in _sig_calls(ssig, d):
+    v = np.asarray(fn()).reshape(-1)
+    out[label] = (v[sig_pick(v.size)], float(np.abs(v).max()))
+  return out
+
+
+def filter_data():
+  rng = np.random.default_rng([P25_SEED, 500])
+  return rng.standard_normal((FILT_CH, LF_N))
+
+
+def filter_oracle() -> dict:
+  """scipy's recurrences on the 256 channels (a worker process)."""
+  import scipy.signal as ssig
+  X = filter_data()
+  b, a = ssig.butter(4, 0.1)
+  sos = ssig.butter(8, 0.1, output="sos")
+  rows = np.random.default_rng([P25_SEED, 501]).choice(FILT_CH, min(16, FILT_CH),
+                                                      replace=False)
+  return {"rows": rows,
+          "lfilter": ssig.lfilter(b, a, X, axis=-1)[rows],
+          "filtfilt": ssig.filtfilt(b, a, X, axis=-1)[rows],
+          "sosfilt": ssig.sosfilt(sos, X[:, :SOS_N], axis=-1)[rows],
+          "sosfiltfilt": ssig.sosfiltfilt(sos, X[:, :SOS_N], axis=-1)[rows],
+          "decimate": ssig.decimate(X, 4, axis=-1)[rows]}
+
+
+def submit_phase25_oracles(procs) -> dict:
+  """Phase 25's scipy oracles, submitted to the worker processes before
+  the build: every input is NumPy's draw from a seed, made again there."""
+  return {"dist": procs.submit(dist_oracle),
+          "desc": procs.submit(desc_oracle),
+          "test": procs.submit(test_oracle),
+          "kde": procs.submit(kde_oracle),
+          "signal": procs.submit(signal_oracle),
+          "filter": procs.submit(filter_oracle)}
+
+
+def _err_over(got, want, rtol, atol) -> float:
+  """The worst |got - want| / (atol + rtol |want|) (NaN and inf must
+  agree): <= 1 passes."""
+  got = np.asarray(got, dtype=np.complex128 if np.iscomplexobj(got)
+                   or np.iscomplexobj(want) else np.float64)
+  want = np.asarray(want, dtype=got.dtype)
+  if got.shape != want.shape:
+    return np.inf
+  if ((np.isnan(got) != np.isnan(want)).any()
+      or (np.isinf(got) != np.isinf(want)).any()
+      or (np.isinf(want) & (got != want)).any()):
+    return np.inf
+  fin = np.isfinite(want)
+  if not fin.any():
+    return 0.0
+  diff = np.abs(got[fin] - want[fin])
+  lim = atol + rtol * np.abs(want[fin])
+  return float(np.max(np.where(lim > 0, diff / np.where(lim > 0, lim, 1),
+                               np.where(diff > 0, np.inf, 0.0))))
+
+
+def _held25(label: str, err: float, tol: float, why: str) -> None:
+  print(f"  {label}: {err:.3g} (bound {tol:.3g}: {why})")
+  check(err <= tol, f"phase 25: {label} {err:.3g} > {tol:.3g}")
+
+
+def _host25(e) -> np.ndarray:
+  return np.asarray(sp.lazify(e).glom())
+
+
+def dist_items(device, oracle) -> float:
+  """Every method of the 24 device distributions at DIST_N float64 points
+  on the card (the betainc bisections at DIST_SLOW_N), held to scipy on
+  the first DIST_SAMPLE; float32 for norm/expon/gamma/beta; the draws of
+  each against its own cdf (KS) or its mean and variance.  Returns the
+  seconds of the slow cases."""
+  St = sp.stats
+  want = oracle_result(oracle)
+  worst, slow_s = [], {}
+  t0 = time.perf_counter()
+  for case in DIST_CASES:
+    name, scale = case[0], case[3]
+    dist = getattr(St, name)
+    a = _dist_args(case)
+    x, q = dist_points(case, DIST_N)
+    xd, qd = (torch.as_tensor(v, device=device) for v in (x, q))
+    for m in (DISC_METHODS if scale is None else CONT_METHODS):
+      slow = (name, m) in DIST_SLOW
+      arg = qd if m in ("ppf", "isf") else xd
+      if slow:
+        arg = arg[:DIST_SLOW_N]
+      t_m = time.perf_counter()
+      got = getattr(dist, m)(arg, *a).evaluate().data
+      torch.cuda.synchronize()
+      if slow:
+        slow_s[f"{name}.{m}"] = time.perf_counter() - t_m
+      check(got.shape == arg.shape and got.dtype == torch.float64,
+            f"{name}.{m} gave {tuple(got.shape)} {got.dtype}")
+      rtol, atol = DIST_TOL[m]
+      worst.append((_err_over(got[:DIST_SAMPLE].cpu().numpy(),
+                              want[name, m], rtol, atol), f"{name}.{m}"))
+    ent = (float(_host25(dist.entropy(*a))) if name in DEVICE_ENTROPY
+           else np.nan)
+    if (name, "ppf") in DIST_SLOW:
+      # one bisection for the three levels (median() and interval() would
+      # run one each)
+      levels = _host25(dist.ppf(np.array([0.5, 0.05, 0.95]), *a)).tolist()
+    else:
+      lo, hi = dist.interval(0.9, *a)
+      levels = [float(_host25(e)) for e in (dist.median(*a), lo, hi)]
+    mom = [float(_host25(e)) for e in (dist.mean(*a), dist.var(*a),
+                                       dist.std(*a))] + levels + [ent]
+    worst.append((_err_over(np.array(mom), want[name, "moments"],
+                            *DIST_TOL["moments"]), f"{name}.moments"))
+    del xd, qd
+  wall = time.perf_counter() - t0
+  worst.sort(reverse=True)
+  print(f"  sp.stats' 24 distributions, {sum(len(DISC_METHODS if c[3] is None else CONT_METHODS) for c in DIST_CASES)} "
+        f"method cases at {DIST_N} float64 points ({len(DIST_SLOW)} at "
+        f"{DIST_SLOW_N}) in {wall:.2f} s; the largest error over its bound "
+        "(atol + rtol |scipy|; <= 1 passes): " + ", ".join(
+            f"{n} {e:.3g}" for e, n in worst[:6]))
+  print("  the betainc bisections' seconds: " + ", ".join(
+      f"{n} {s:.2f}" for n, s in sorted(slow_s.items())))
+  check(worst[0][0] <= 1.0, f"sp.stats.{worst[0][1]} strays from scipy "
+        f"({worst[0][0]:.3g} of its bound)")
+  # float32: the same points rounded to float32, against scipy's float64
+  # of those float32 points
+  import scipy.stats as sst
+  worst32, t32 = [], time.perf_counter()
+  for name in ("norm", "expon", "gamma", "beta"):
+    case = next(c for c in DIST_CASES if c[0] == name)
+    a = _dist_args(case)
+    x, q = (v.astype(np.float32) for v in dist_points(case, DIST_N))
+    dist = getattr(St, name)
+    for m in ("pdf", "cdf", "ppf"):
+      n = DIST_SLOW_N if name == "beta" and m == "ppf" else DIST_N
+      arg = torch.as_tensor(q if m == "ppf" else x, device=device)[:n]
+      got = getattr(dist, m)(arg, *a).evaluate().data
+      check(got.dtype == torch.float32, f"float32 {name}.{m}: {got.dtype}")
+      host = (q if m == "ppf" else x)[:DIST_SAMPLE].astype(np.float64)
+      w = getattr(getattr(sst, name), m)(host, *a)
+      worst32.append((_err_over(got[:DIST_SAMPLE].double().cpu().numpy(), w,
+                                2e-4, 2e-5 * float(np.abs(w).max())),
+                      f"{name}.{m}"))
+  worst32.sort(reverse=True)
+  print("  float32 pass (norm, expon, gamma, beta: pdf, cdf, ppf at "
+        f"{DIST_N}, beta's ppf at {DIST_SLOW_N}) in "
+        f"{time.perf_counter() - t32:.2f} s: the largest error over its bound (2e-4 relative, "
+        "2e-5 of the largest value): " + ", ".join(
+            f"{n} {e:.3g}" for e, n in worst32[:4]))
+  check(worst32[0][0] <= 1.0, f"float32 sp.stats.{worst32[0][1]} strays")
+  # the draws: each continuous one's KS distance from its own cdf (held to
+  # scipy's within 1e-9 above, which moves the distance by no more), at
+  # sqrt(ln(2/alpha) / 2n); the discrete ones' mean and variance
+  t1 = time.perf_counter()
+  ks = []
+  for i, case in enumerate(DIST_CASES):
+    name, scale = case[0], case[3]
+    dist = getattr(St, name)
+    a = _dist_args(case)
+    slow = (name, "ppf") in DIST_SLOW
+    n = DIST_SLOW_N if slow else RVS_N
+    draws = dist.rvs(*a, size=n, random_state=P25_SEED + i).evaluate().data
+    check(draws.shape == (n,) and bool(torch.isfinite(draws).all()),
+          f"{name}.rvs")
+    if scale is None:
+      mu, var = float(_host25(dist.mean(*a))), float(_host25(dist.var(*a)))
+      kurt = want[name, "kurtosis"]
+      m_err = abs(float(draws.mean()) - mu) / (6 * np.sqrt(var / n))
+      v_err = abs(float(draws.var()) - var) / (
+          6 * var * np.sqrt((kurt + 2) / n))
+      ks.append((max(m_err, v_err), f"{name} (mean, variance at 6 s.e.)"))
+      continue
+    F = dist.cdf(torch.sort(draws).values, *a).evaluate().data
+    i_n = torch.arange(1, n + 1, dtype=F.dtype, device=F.device) / n
+    d = float(torch.maximum((i_n - F).max(), (F - (i_n - 1.0 / n)).max()))
+    ks.append((d / np.sqrt(np.log(2 / RVS_ALPHA) / (2 * n)), name))
+  ks.sort(reverse=True)
+  print(f"  rvs: {RVS_N} draws of each distribution (t, f, beta at "
+        f"{DIST_SLOW_N}) in {time.perf_counter() - t1:.2f} s; the KS "
+        f"distance over its bound (alpha {RVS_ALPHA}) or the moments' "
+        "error over 6 standard errors, the largest: " + ", ".join(
+            f"{n} {e:.3g}" for e, n in ks[:4]))
+  check(ks[0][0] <= 1.0, f"sp.stats.{ks[0][1]}.rvs strays from its "
+        f"distribution ({ks[0][0]:.3g} of its bound)")
+  return wall
+
+
+def desc_items(device, oracle) -> None:
+  """The descriptive statistics on the 2^14 x 2^10 float64 matrices along
+  axis 0, 1 and None, each held to scipy (results longer than DESC_SAMPLE
+  on a sample) at rtol 1e-9."""
+  St = sp.stats
+  data = desc_data()
+  dev = {k: sp.from_numpy(v) for k, v in data.items()}
+  t0 = time.perf_counter()
+  got = {}
+  for label, fn, key, kw in DESC_CASES:
+    for ax in DESC_AXES:
+      res = getattr(St, fn)(dev[key], axis=ax, **kw)
+      if fn == "describe":
+        res = (res.nobs, res.minmax, res.mean, res.variance, res.skewness,
+               res.kurtosis)
+      flat = [_host25(e) if isinstance(e, sp.Expr) else np.asarray(e)
+              for e in (res if isinstance(res, tuple) else (res,))
+              for e in (e if isinstance(e, tuple) else (e,))]
+      got[label, ax] = [np.asarray(f, np.float64).reshape(-1) for f in flat]
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  want = oracle_result(oracle)
+  worst = []
+  for (label, ax), outs in got.items():
+    outs = [f[desc_pick(f.size)] if f.size > DESC_SAMPLE else f
+            for f in outs]
+    worst.append((max(_err_over(g, w, 1e-9, 1e-12)
+                      for g, w in zip(outs, want[label, ax])), f"{label}[{ax}]"))
+  worst.sort(reverse=True)
+  print(f"  {len(DESC_CASES)} descriptive statistics x 3 axes on "
+        f"{DESC_SHAPE[0]} x {DESC_SHAPE[1]} float64 in {wall:.2f} s (host "
+        "copies included); the largest error over 1e-12 + 1e-9 |scipy|: "
+        + ", ".join(f"{n} {e:.3g}" for e, n in worst[:5]))
+  check(worst[0][0] <= 1.0, f"sp.stats.{worst[0][1]} strays from scipy")
+
+
+def test_items(oracle) -> None:
+  """The hypothesis tests on 2^20-sample vectors, statistics held to scipy
+  at 1e-9 and p-values at 1e-8: a t or F p-value is betainc's continued
+  fraction (XLA's, as the reference runs it) at a = df / 2 of about 10^6,
+  whose prefactor exp(a ln x + b ln(1 - x) - ln B(a, b)) carries ln B's
+  rounding, 1.3e7 x 2^-52, about 3e-9 relative (1.2e-9 on the CPU
+  beside scipy).  The KS p-values, asymptotic with Stephens' correction
+  here, at 2e-2 absolute as the reference test holds them."""
+  d = {k: sp.from_numpy(v) for k, v in test_data().items()}
+  t0 = time.perf_counter()
+  got, walls = {}, {}
+  for label, fn in _test_calls(sp.stats, d):
+    t_l = time.perf_counter()
+    got[label] = _test_values(fn())
+    walls[label] = time.perf_counter() - t_l
+  wall = time.perf_counter() - t0
+  want = oracle_result(oracle)
+  worst = []
+  for label, vals in got.items():
+    if label in ("ks_2samp", "kstest"):
+      worst.append((max(_err_over(vals[0], want[label][0], 1e-9, 1e-12),
+                        abs(vals[1] - want[label][1]) / 2e-2), label))
+      continue
+    p_at = 3 if label == "linregress" else 1
+    stats_ = [v for i, v in enumerate(vals) if i != p_at]
+    want_ = [v for i, v in enumerate(want[label]) if i != p_at]
+    worst.append((max(_err_over(stats_, want_, 1e-9, 1e-14),
+                      _err_over(vals[p_at], want[label][p_at], 1e-8, 1e-14)),
+                  label))
+  worst.sort(reverse=True)
+  print(f"  {len(got)} hypothesis tests on {TEST_N}-sample vectors in "
+        f"{wall:.2f} s (the slowest: " + ", ".join(
+            f"{n} {s:.2f} s" for n, s in sorted(
+                walls.items(), key=lambda kv: -kv[1])[:4])
+        + "); the largest error over its bound: " + ", ".join(
+            f"{n} {e:.3g}" for e, n in worst[:5]))
+  check(worst[0][0] <= 1.0, f"sp.stats.{worst[0][1]} strays from scipy")
+
+
+def kde_item(oracle) -> None:
+  ds, pts = kde_data()
+  t0 = time.perf_counter()
+  kde = sp.stats.gaussian_kde(sp.from_numpy(ds))
+  P = sp.from_numpy(pts)
+  dens = kde.evaluate(P).evaluate().data
+  logd = kde.logpdf(P).evaluate().data
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  gauss = float(kde.integrate_gaussian(np.array([0.2, 0.8, -0.9]),
+                                       np.eye(3) * 0.5))
+  want = oracle_result(oracle)
+  err = max(_err_over(dens[:KDE_SAMPLE].cpu().numpy(), want["evaluate"],
+                      1e-9, 1e-15),
+            _err_over(logd[:KDE_SAMPLE].cpu().numpy(), want["logpdf"],
+                      1e-9, 1e-9),
+            _err_over(gauss, want["gauss"], 1e-10, 0.0))
+  _held25(f"gaussian_kde of {KDE_N} points in 3-D at {KDE_POINTS} points "
+          f"({KDE_POINTS * KDE_N * 8 / 1e9:.1f} GB pairwise, {wall:.2f} s), "
+          "evaluate/logpdf/integrate_gaussian against scipy", err, 1.0,
+          "atol + 1e-9 |scipy|")
+
+
+def signal_items(device, oracle) -> None:
+  """Convolution, spectra, resampling, smoothing, rank filters, Lomb-Scargle,
+  czt and the waveforms, each held to scipy on a sample at 1e-9 of the
+  output's largest value; stft -> istft round trip within 1e-10."""
+  d = signal_data()
+  dd = {k: sp.from_numpy(v) for k, v in d.items()}
+  t0 = time.perf_counter()
+  outs, walls = {}, {}
+  for label, fn in _sig_calls(sp.signal, dd):
+    t_l = time.perf_counter()
+    v = sp.lazify(fn()).evaluate().data.reshape(-1)
+    torch.cuda.synchronize()
+    walls[label] = time.perf_counter() - t_l
+    pick = torch.as_tensor(sig_pick(v.numel()), device=v.device)
+    outs[label] = v[pick].cpu().numpy()
+  wall = time.perf_counter() - t0
+  f, tt, Z = sp.signal.stft(dd["s"], fs=1000.0, nperseg=SPEC_SEG)
+  _, back = sp.signal.istft(Z, fs=1000.0, nperseg=SPEC_SEG)
+  back = back.evaluate().data
+  trip = float((back[:SPEC_N] - dd["s"].evaluate().data).abs().max())
+  want = oracle_result(oracle)
+  worst = []
+  for label, got in outs.items():
+    w, scale = want[label]
+    worst.append((_err_over(got, w, 0.0, 1e-9 * scale), label))
+  worst.sort(reverse=True)
+  print(f"  {len(outs)} signal items in {wall:.2f} s; the slowest: "
+        + ", ".join(f"{n} {s:.2f} s" for n, s in sorted(
+            walls.items(), key=lambda kv: -kv[1])[:4]))
+  print("  the largest error over 1e-9 of the output's largest value: "
+        + ", ".join(f"{n} {e:.3g}" for e, n in worst[:5]))
+  check(worst[0][0] <= 1.0, f"sp.signal.{worst[0][1]} strays from scipy")
+  _held25(f"stft -> istft of {SPEC_N} samples (nperseg {SPEC_SEG})", trip,
+          1e-10 * float(np.abs(d["s"]).max()), "1e-10 of max |x|")
+
+
+def filter_items(device, card: str, oracle) -> None:
+  """lfilter and filtfilt (butter 4, 0.1) over 256 channels of 2^14
+  samples, sosfilt/sosfiltfilt (butter 8 as sections) of 2^12, decimate
+  (q = 4, iir) of 2^14, at the reference test's bounds against scipy; the
+  host and device us a sample of one lfilter pass."""
+  import scipy.signal as ssig
+  S = sp.signal
+  X = torch.as_tensor(filter_data(), device=device)
+  b, a = ssig.butter(4, 0.1)
+  sos = ssig.butter(8, 0.1, output="sos")
+  runs = {"lfilter": lambda: S.lfilter(b, a, X, axis=-1),
+          "filtfilt": lambda: S.filtfilt(b, a, X, axis=-1),
+          "sosfilt": lambda: S.sosfilt(sos, X[:, :SOS_N], axis=-1),
+          "sosfiltfilt": lambda: S.sosfiltfilt(sos, X[:, :SOS_N], axis=-1),
+          "decimate": lambda: S.decimate(X, 4, axis=-1)}
+  bounds = {"lfilter": 1e-10, "filtfilt": 1e-9, "sosfilt": 1e-10,
+            "sosfiltfilt": 1e-7, "decimate": 1e-8}
+  got, walls = {}, {}
+  for label, fn in runs.items():
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got[label] = fn().evaluate().data
+    torch.cuda.synchronize()
+    walls[label] = time.perf_counter() - t0
+  want = oracle_result(oracle)
+  rows = torch.as_tensor(want["rows"], device=device)
+  for label, bnd in bounds.items():
+    err = float(np.abs(got[label][rows].cpu().numpy() - want[label]).max())
+    _held25(f"{label} of {FILT_CH} channels ({walls[label]:.2f} s)", err,
+            bnd, "the reference test's bound")
+  # one lfilter pass a sample: the synced walls of LF_N and LF_PROF[1]
+  # samples differenced (the set-up taken out); the device-busy time under
+  # torch.profiler of LF_PROF's two runs differenced (a profile of 5e4
+  # launches takes the profiler a minute to fold)
+  def lfilter_pass(n):
+    return lambda: S.lfilter(b, a, X[:, :n], axis=-1).evaluate()
+  walls = []
+  for n in (LF_N, LF_PROF[1]):
+    torch.cuda.synchronize()
+    with Timer() as t_wall:
+      lfilter_pass(n)()
+      torch.cuda.synchronize()
+    walls.append(t_wall.elapsed)
+  devs = [device_share(lfilter_pass(n))[1] for n in LF_PROF]
+  host_us = (walls[0] - walls[1]) * 1e6 / (LF_N - LF_PROF[1])
+  dev = ("not measured" if None in devs else
+         f"{(devs[0] - devs[1]) * 1e3 / (LF_PROF[0] - LF_PROF[1]):.3f} us")
+  print(f"  lfilter's loop over {FILT_CH} channels: host {host_us:.3f} us a "
+        f"sample, device {dev} a sample (three launches a sample; walls of "
+        f"{LF_N} and {LF_PROF[1]} samples, profiles of {LF_PROF[0]} and "
+        f"{LF_PROF[1]}, differenced) ({card})")
+
+
+def oscillator_item() -> None:
+  """oscillator.run() on the card: the recovered frequency within one
+  Welch bin (fs / 512) of the expected one."""
+  from spartan_tpu_torch.examples import oscillator
+  t0 = time.perf_counter()
+  got, want = oscillator.run()
+  wall = time.perf_counter() - t0
+  bin_hz = (2048 - 1) / 40.0 / 512
+  _held25(f"oscillator.run() ({wall:.2f} s): recovered {got:.12g} Hz, "
+          f"expected {want:.12g} Hz; |difference|", abs(got - want), bin_hz,
+          "one Welch bin, fs / 512")
+
+
+def phase_stats_signal(device, card: str, oracles: dict) -> None:
+  """Phase 25: sp.stats and sp.signal at full width, and the oscillator."""
+  from spartan_tpu_torch.expr import fio
+  t0 = time.perf_counter()
+  runs = fio.counts["host_runs"]
+  ORACLE_WAIT[0] = 0.0
+
+  def since(what: str) -> None:
+    print(f"  [{time.perf_counter() - t0:.2f} s into phase 25: {what}]")
+
+  dist_items(device, oracles["dist"])
+  since("the distributions")
+  desc_items(device, oracles["desc"])
+  test_items(oracles["test"])
+  kde_item(oracles["kde"])
+  since("descriptive statistics, tests, gaussian_kde")
+  gc.collect()
+  torch.cuda.empty_cache()
+  signal_items(device, oracles["signal"])
+  filter_items(device, card, oracles["filter"])
+  since("the signal items and the recurrences")
+  oscillator_item()
+  # one host name of each module through its counted boundary
+  before = fio.counts["host_runs"]
+  v = sp.from_numpy(np.linspace(-2.0, 2.0, 64))
+  import scipy.stats as sst
+  check(abs(sp.stats.shapiro(v).statistic
+            - sst.shapiro(np.linspace(-2.0, 2.0, 64)).statistic) < 1e-12
+        and float(np.asarray(sp.stats.t.entropy(5.0)))
+        == float(sst.t.entropy(5.0))
+        and list(sp.signal.correlation_lags(5, 3)) == list(range(-2, 5)),
+        "the host boundaries")
+  check(fio.counts["host_runs"] - before == 3,
+        f"the host boundaries counted {fio.counts['host_runs'] - before}")
+  host_runs = fio.counts["host_runs"] - runs
+  print(f"  phase 25 host_runs {host_runs}; "
+        f"{time.perf_counter() - t0:.2f} s, {ORACLE_WAIT[0]:.2f} s of it "
+        "waiting for the oracle processes")
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -7430,6 +8208,7 @@ def main() -> None:
   oracles23 = submit_phase23_oracles(procs)
   oracles22 = submit_phase22_oracles(procs)
   oracles24 = submit_phase24_oracles(procs)
+  oracles25 = submit_phase25_oracles(procs)
 
   print("phase 1: build the kernels, one nvcc per source, in parallel")
   build.load_all(KERNELS)
@@ -7643,11 +8422,22 @@ def main() -> None:
   learned = phase_learn_special(device, card, oracles24, procs, ratings,
                                 svds_s)
   del ratings, svds_s
-  procs.shutdown()
   k5["launches"] += learned["k5"]
   k3["spmv_ell"]["launches"] += learned["ell"]
   k3["spmv_csr"]["launches"] += learned["csr"]
   done(24)
+  gc.collect()
+  torch.cuda.empty_cache()
+  print("phase 25: sp.stats and sp.signal at full width: every method of "
+        "the 24 device distributions at 2^22 float64 points and their "
+        "draws, the descriptive statistics on 2^14 x 2^10 along each axis, "
+        "the hypothesis tests on 2^20 samples, gaussian_kde at 2^16 points, "
+        "the convolutions, spectra and filters at 2^20-2^22 samples, "
+        "lfilter/filtfilt/sosfilt/sosfiltfilt/decimate on 256 channels, and "
+        "the oscillator example")
+  phase_stats_signal(device, card, oracles25)
+  procs.shutdown()
+  done(25)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

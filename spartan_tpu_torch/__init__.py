@@ -18,7 +18,8 @@ ROADMAP.md): the builtins, the loops, autodiff (``sp.grad`` and its kin,
 arrays with ``sp.sparse``'s builders, ``sp.sparse.linalg``'s solvers and
 ``sp.sparse.csgraph``, ``sp.linalg``,
 ``sp.fft``, ``sp.random``, ``sp.scipy_linalg``, ``sp.optimize``,
-``sp.integrate``, ``sp.special`` and array files; names not yet ported are absent
+``sp.integrate``, ``sp.special``, ``sp.stats``, ``sp.signal`` and array
+files; names not yet ported are absent
 rather than stubbed.
 """
 
@@ -98,6 +99,8 @@ del _name
 from spartan_tpu_torch import optimize  # noqa: E402  (scipy.optimize)
 from spartan_tpu_torch import integrate  # noqa: E402  (scipy.integrate)
 from spartan_tpu_torch import special  # noqa: E402  (scipy.special)
+from spartan_tpu_torch import stats  # noqa: E402  (scipy.stats)
+from spartan_tpu_torch import signal  # noqa: E402  (scipy.signal)
 
 __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "Mesh", "SpartanArray", "get_mesh", "make_mesh", "with_mesh",
@@ -107,5 +110,5 @@ __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "cond", "remat", "compile", "grad", "value_and_grad", "jvp",
            "hessian", "hvp", "minimize", "sgd_train", "checkpoint", "from_file", "load", "save", "interop",
            "sparse", "linalg", "fft", "random", "sparse_linalg", "scipy_linalg",
-           "optimize", "integrate", "special",
+           "optimize", "integrate", "special", "stats", "signal",
            "SparseArray", "sparse_diagonal", "sprandn"] + list(_builtin_all)

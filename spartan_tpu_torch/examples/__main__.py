@@ -21,7 +21,7 @@ _RUNNERS = {}
 
 # reference runners that wait for a module the port lacks, with the reason;
 # the PR that ports the module registers the runner and takes it off here
-WAITING = (("oscillator", "needs sp.signal (butter, filtfilt, welch)"),)
+WAITING = ()
 
 
 def _register(name):
@@ -29,6 +29,14 @@ def _register(name):
     _RUNNERS[name] = fn
     return fn
   return deco
+
+
+@_register("oscillator")
+def _oscillator():
+  from spartan_tpu_torch.examples import oscillator
+  got, want = oscillator.run()
+  return {"recovered_hz": got, "expected_hz": want,
+          "rel_err": abs(got - want) / want}
 
 
 @_register("linreg")

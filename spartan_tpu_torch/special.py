@@ -8,9 +8,9 @@ expressions around it:
 * **direct core** — every name the reference wraps from
   ``jax.scipy.special`` is a lazy ``sp.map`` of a torch function:
   ``torch.special``'s own where it has one (``gammaln``, ``digamma``,
-  ``gammainc``, ``erfinv``, ``ndtr``, ``i0``, ...), else the algorithm
-  ``jax.scipy.special`` uses, written in torch ops (``gamma``,
-  ``betainc``'s continued fraction, ``zeta``'s Euler–Maclaurin sum, the
+  ``gammainc``, ``erfinv``, ``i0``, ...), else the algorithm
+  ``jax.scipy.special`` uses, written in torch ops (``gamma``, ``ndtr``'s
+  erfc form (torch's loses the left tail), ``betainc``'s continued fraction, ``zeta``'s Euler–Maclaurin sum, the
   Cephes exponential integrals, ``hyp1f1``/``hyp2f1``'s series,
   ``spence``, ``sici``, ``fresnel``, Bessel ``J_n``'s backward recurrence,
   ``sph_harm_y``; ``zeta`` and ``erfcx`` also because torch's CUDA forms
@@ -301,6 +301,19 @@ def _betainc(a, b, x):
   result = torch.where(result_is_zero, 0.0, result)
   result = torch.where(result_is_one, 1.0, result)
   return torch.where(result_is_nan, math.nan, result)
+
+
+def _ndtr(x):
+  """The standard normal CDF in jax's form: ``(1 + erf(x/√2)) / 2`` near
+  0, else ``erfc(|x|/√2) / 2`` (or one minus it), relative-exact in the
+  left tail.  torch's ``special.ndtr``, on the CPU and on the card, loses
+  that tail (2.5e-8 relative at x = -6, 0 below x ≈ -8.3)."""
+  w = x * (0.5 * _SQRT2)
+  z = torch.abs(w)
+  y = torch.where(z < 0.5 * _SQRT2, 1.0 + torch.special.erf(w),
+                  torch.where(w > 0, 2.0 - torch.special.erfc(z),
+                              torch.special.erfc(z)))
+  return 0.5 * y
 
 
 def _gammainc(a, x):
@@ -790,7 +803,7 @@ _DIRECT = {
     "beta": (_beta, 2), "betaln": (_betaln, 2),
     "betainc": (_betainc, 3),
     "erfinv": (torch.special.erfinv, 1),
-    "ndtr": (torch.special.ndtr, 1), "ndtri": (torch.special.ndtri, 1),
+    "ndtr": (_ndtr, 1), "ndtri": (torch.special.ndtri, 1),
     "log_ndtr": (torch.special.log_ndtr, 1),
     "expit": (torch.special.expit, 1), "logit": (torch.special.logit, 1),
     "entr": (_entr, 1), "rel_entr": (_rel_entr, 2),
@@ -1537,12 +1550,15 @@ def _betaincinv_left(a, b, y):
 
 def _betaincinv_kern(a, b, y):
   # Two mirrored log-space bisections (I_x(a,b) = 1 - I_{1-x}(b,a)): the
-  # left solve is machine-exact for x→0, the mirror for x→1; select by
-  # which tail y lives in.
+  # left solve is machine-exact for x→0, the mirror for x→1.  Each element
+  # solves the side its y lives in, all of them in one bisection over the
+  # swapped (a, b, 1 - y) where y > 1/2: each element's halvings are its
+  # side's, at half the continued fractions of solving both sides.
   a, b, y = _bcast(a, b, y)
-  xl = _betaincinv_left(a, b, y)
-  xr = 1.0 - _betaincinv_left(b, a, 1.0 - y)
-  x = torch.where(y <= 0.5, xl, xr)
+  left = y <= 0.5
+  u = _betaincinv_left(torch.where(left, a, b), torch.where(left, b, a),
+                       torch.where(left, y, 1.0 - y))
+  x = torch.where(left, u, 1.0 - u)
   return torch.where(y <= 0, 0.0, torch.where(y >= 1, 1.0, x))
 
 

@@ -4,7 +4,8 @@ item 1.5): the exact sorted list of ``spartan_tpu.__all__`` names that
 ``spartan_tpu.sparse_linalg.__all__`` names that
 ``spartan_tpu_torch.sparse_linalg`` lacks; ``sp.sparse``'s constructors,
 ``sp.sparse.csgraph``, ``sp.optimize``, ``sp.integrate`` and
-``sp.special``; the ``learn`` estimators and the example modules.
+``sp.special``, ``sp.stats`` and ``sp.signal``; the ``learn`` estimators
+and the example modules.
 A change that ports a name must take it off its list; the port is whole
 when both lists are empty."""
 
@@ -15,7 +16,7 @@ import spartan_tpu_torch as sp
 import spartan_tpu_torch.sparse_linalg as spl
 
 MISSING = sorted("""
-cluster interpolate ndimage signal smart_tile spatial stats tiling_plan
+cluster interpolate ndimage smart_tile spatial tiling_plan
 """.split())
 
 # every name of the reference's sparse_linalg is ported
@@ -25,13 +26,13 @@ MISSING_SPARSE_LINALG = []
 def test_the_names_the_port_still_lacks():
   lacking = sorted(set(ref.__all__) - set(sp.__all__))
   assert lacking == MISSING
-  assert len(MISSING) == 8
+  assert len(MISSING) == 6
 
 
 def test_every_exported_name_is_defined():
   for name in sp.__all__:
     assert hasattr(sp, name), name
-  assert len(set(sp.__all__)) == 394
+  assert len(set(sp.__all__)) == 396
 
 
 def test_the_sparse_linalg_names_the_port_still_lacks():
@@ -108,10 +109,29 @@ def test_sp_special_has_every_name_of_the_reference():
     assert hasattr(sp.special, name), name
 
 
+def test_sp_stats_and_sp_signal_have_every_name_of_the_reference():
+  """``sp.stats``'s ``__all__`` and ``_HOST_NAMES`` and ``sp.signal``'s
+  ``__all__`` (157 names) are the reference's, computed in this process
+  against the same scipy."""
+  import spartan_tpu.signal as ref_signal
+  import spartan_tpu.stats as ref_stats
+
+  import spartan_tpu_torch.signal as signal
+  import spartan_tpu_torch.stats as stats
+  assert sp.stats is stats and sp.signal is signal
+  assert stats.__all__ == ref_stats.__all__
+  assert stats._HOST_NAMES == ref_stats._HOST_NAMES
+  assert signal.__all__ == ref_signal.__all__
+  assert len(signal.__all__) == 157
+  for mod, ref_mod in ((stats, ref_stats), (signal, ref_signal)):
+    for name in ref_mod.__all__:
+      assert hasattr(mod, name), name
+
+
 def test_learn_and_the_examples_match_the_reference():
   """``spartan_tpu_torch.learn`` exports the reference's 14 estimators; the
-  example modules are the reference's but ``oscillator``, which waits for
-  ``sp.signal`` (``examples.__main__.WAITING``)."""
+  example modules are the reference's, none waiting
+  (``examples.__main__.WAITING`` is empty), and each has its CLI runner."""
   import pkgutil
 
   import spartan_tpu.examples as ref_examples
@@ -124,5 +144,9 @@ def test_learn_and_the_examples_match_the_reference():
   assert len(learn.__all__) == 14
   mods = {m.name for m in pkgutil.iter_modules(examples.__path__)}
   ref_mods = {m.name for m in pkgutil.iter_modules(ref_examples.__path__)}
-  assert ref_mods - mods == {name for name, _ in WAITING} == {"oscillator"}
-  assert mods <= ref_mods
+  assert mods == ref_mods
+  assert WAITING == ()
+  from spartan_tpu.examples.__main__ import _RUNNERS as REF_RUNNERS
+
+  from spartan_tpu_torch.examples.__main__ import _RUNNERS
+  assert sorted(_RUNNERS) == sorted(REF_RUNNERS)

@@ -11,7 +11,9 @@ searches, order statistics and scans, and the loops (``while_loop``,
 ``scan_iters``, ``cond``) and the Krylov solvers of ``sp.sparse.linalg``
 with their matvecs on K3a/K3b/K3d on the card; ``least_squares``,
 ``solve_ivp`` and ``differential_evolution`` with every evaluation on
-cuda tensors and no host route.  Run on a machine with
+cuda tensors and no host route; ``sp.signal``'s filter loops, ``sp.stats``'
+betainc inverses and normal tail, a sign-bit NaN through ``medfilt``, and
+the oscillator example.  Run on a machine with
 an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -2604,3 +2606,94 @@ def test_examples_cli_on_card(device, capsys):
   assert main(["knn"]) == 0
   printed = capsys.readouterr().out.strip().splitlines()[-1]
   assert "'accuracy': 1.0" in printed and "'example': 'knn'" in printed
+
+
+# -- sp.stats and sp.signal on the card ---------------------------------------
+
+def test_lfilter_of_a_float64_batch_on_card(device):
+  """lfilter's loop over the samples on cuda tensors (three launches a
+  sample, no host read), batched along axis 0 and -1, and filtfilt and
+  sosfiltfilt, against scipy at the reference test's bounds."""
+  import scipy.signal as ssig
+  rng = np.random.default_rng(23)
+  X = rng.standard_normal((64, 2000))
+  b, a = ssig.butter(4, 0.1)
+  got = sp.signal.lfilter(b, a, X, axis=-1).evaluate()
+  assert got.data.device.type == "cuda"
+  np.testing.assert_allclose(got.glom(), ssig.lfilter(b, a, X, axis=-1),
+                             atol=1e-10)
+  np.testing.assert_allclose(
+      sp.signal.lfilter(b, a, X.T, axis=0).glom(),
+      ssig.lfilter(b, a, X.T, axis=0), atol=1e-10)
+  np.testing.assert_allclose(sp.signal.filtfilt(b, a, X).glom(),
+                             ssig.filtfilt(b, a, X), atol=1e-9)
+  sos = ssig.butter(8, 0.1, output="sos")
+  np.testing.assert_allclose(sp.signal.sosfiltfilt(sos, X[:, :500]).glom(),
+                             ssig.sosfiltfilt(sos, X[:, :500]), atol=1e-7)
+  zi = ssig.lfilter_zi(b, a) * X[0, 0]
+  y, zf = sp.signal.lfilter(b, a, X[0], zi=zi)
+  want_y, want_zf = ssig.lfilter(b, a, X[0], zi=zi)
+  np.testing.assert_allclose(y.glom(), want_y, atol=1e-10)
+  np.testing.assert_allclose(zf.glom(), want_zf, atol=1e-10)
+
+
+def test_stats_inverses_and_normal_tail_on_card(device):
+  """t.ppf and binom.cdf through betainc's continued fraction on the card,
+  the normal CDF's left tail (F3: torch.special.ndtr is 2.5e-8 off at -6
+  and 0 below -8.3 on the card too) and a test's p-value, against scipy."""
+  import scipy.stats as sst
+  rng = np.random.default_rng(24)
+  q = rng.uniform(0.001, 0.999, 4096)
+  got = sp.stats.t.ppf(sp.from_numpy(q), 5.0, 0.3, 1.5).evaluate()
+  assert got.data.device.type == "cuda"
+  np.testing.assert_allclose(got.glom(), sst.t.ppf(q, 5.0, 0.3, 1.5),
+                             rtol=1e-9, atol=1e-10)
+  k = rng.integers(0, 13, 4096).astype(np.float64)
+  np.testing.assert_allclose(sp.stats.binom.cdf(k, 12, 0.3).glom(),
+                             sst.binom.cdf(k, 12, 0.3), rtol=1e-10,
+                             atol=1e-12)
+  z = np.linspace(-37.0, -0.5, 500)
+  np.testing.assert_allclose(sp.stats.norm.cdf(z).glom(), sst.norm.cdf(z),
+                             rtol=1e-13, atol=0)
+  x, y = rng.standard_normal(5000), rng.standard_normal(5000) + 0.05
+  res, want = sp.stats.ttest_ind(x, y), sst.ttest_ind(x, y)
+  np.testing.assert_allclose([float(res.statistic), float(res.pvalue)],
+                             [want.statistic, want.pvalue], rtol=1e-10)
+  r = sp.stats.rankdata(np.round(x * 3)).glom()
+  np.testing.assert_array_equal(r, sst.rankdata(np.round(x * 3)))
+
+
+def test_medfilt_with_sign_bit_nans_on_card(device):
+  """medfilt sorts its stack of shifted copies through sort_expr, which
+  makes every NaN the one quiet NaN first: a NaN with its sign bit set
+  sorts last, as NumPy's, not first as the card's radix sort would put
+  it.  Held to the port's CPU result bit for bit and, away from the NaNs,
+  to scipy."""
+  import scipy.signal as ssig
+  rng = np.random.default_rng(25)
+  x = rng.standard_normal(4096)
+  x[[100, 2000]] = -np.nan
+  x[3000] = np.nan
+  assert np.signbit(x[100])
+  got = sp.signal.medfilt(x, 5).glom()
+  sp.initialize(["--device=cpu"])
+  try:
+    want = sp.signal.medfilt(x, 5).glom()
+  finally:
+    sp.initialize(["--device=cuda"])
+  np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+  np.testing.assert_array_equal(got[~np.isnan(got)], want[~np.isnan(want)])
+  # away from the NaNs, scipy's median of the same windows (its own filter
+  # is given zeros for the NaNs: a window that holds none does not see them)
+  clean = np.ones(4096, bool)
+  for i in (100, 2000, 3000):
+    clean[i - 2:i + 3] = False
+  np.testing.assert_array_equal(
+      got[clean], ssig.medfilt(np.nan_to_num(x, nan=0.0), 5)[clean])
+
+
+def test_oscillator_on_card(device):
+  from spartan_tpu_torch.examples import oscillator
+  got, want = oscillator.run()
+  assert got == 0.299853515625
+  assert abs(got - want) < (2048 - 1) / 40.0 / 512

@@ -1,7 +1,8 @@
 """The port's remaining examples (``ridge_reg``, ``svm``, ``lasso``,
 ``naive_bayes``, ``fuzzy_kmeans``, ``gmm``, ``knn``, ``black_scholes``,
-``netflix_sgd``) and the CLI runner (``examples/__main__``) against the
-reference's on its 8-device mesh, from the same seeded NumPy data.
+``netflix_sgd``, ``oscillator``) and the CLI runner (``examples/__main__``)
+against the reference's on its 8-device mesh, from the same seeded NumPy
+data.
 
 Tolerance: float64 results are held to the reference's at rtol 1e-10 (the
 same sums in another order: XLA's tree reductions over 8 shards against
@@ -10,7 +11,7 @@ torch's on one device), to each other (``fit`` against ``fit_fused`` or
 reference test's own bounds, and to the NumPy oracles the examples carry
 (``lasso.fit_numpy``, ``gmm.em_numpy``, ``black_scholes.price_numpy``).
 k-NN's labels are compared exactly on continuous data (no tied distances).
-About 40 s serial on one core.
+About 45 s serial on one core.
 """
 
 import numpy as np
@@ -325,7 +326,7 @@ def test_netflix_fit_accepts_the_tile_hint():
 # -- the CLI runner ----------------------------------------------------------
 
 NEW_RUNNERS = ["svm", "naive_bayes", "fuzzy_kmeans", "netflix", "ridge",
-               "black_scholes", "lasso", "gmm", "knn"]
+               "black_scholes", "lasso", "gmm", "knn", "oscillator"]
 
 
 def test_the_cli_registers_every_reference_runner_but_the_waiting():
@@ -333,8 +334,28 @@ def test_the_cli_registers_every_reference_runner_but_the_waiting():
 
   from spartan_tpu_torch.examples.__main__ import _RUNNERS, WAITING
   waiting = {name for name, _ in WAITING}
-  assert waiting == {"oscillator"}
+  assert waiting == set()
   assert set(_RUNNERS) == set(REF_RUNNERS) - waiting
+
+
+def test_oscillator_recovers_the_references_welch_bin():
+  """The oscillator: RK45's samples against the reference's, then from the
+  same NumPy noise the same Welch bin, 0.299853515625 Hz (one bin is
+  fs / 512 = 0.09995 Hz; the expected frequency 0.31791 Hz lies in it)."""
+  from spartan_tpu.examples import oscillator as r_osc
+
+  from spartan_tpu_torch.examples import oscillator as p_osc
+  t, x = p_osc.simulate()
+  rt, rx = r_osc.simulate()
+  np.testing.assert_array_equal(t, rt)
+  np.testing.assert_allclose(np.asarray(x), np.asarray(rx), rtol=0,
+                             atol=1e-9)
+  got = p_osc.recover_frequency(t, x)
+  assert got == r_osc.recover_frequency(rt, np.asarray(rx)) == 0.299853515625
+  got, want = p_osc.run()
+  assert got == 0.299853515625
+  assert want == 2.0 * np.sqrt(1 - 0.05 ** 2) / (2 * np.pi)
+  assert abs(got - want) < (2048 - 1) / 40.0 / 512
 
 
 def test_every_example_module_is_ported_and_has_an_entry():
@@ -348,7 +369,7 @@ def test_every_example_module_is_ported_and_has_an_entry():
                 if not m.name.startswith("_"))
   ref_mods = sorted(m.name for m in pkgutil.iter_modules(ref_pkg.__path__)
                     if not m.name.startswith("_"))
-  assert mods == [m for m in ref_mods if m != "oscillator"]
+  assert mods == ref_mods
   for m in mods:
     mod = importlib.import_module(f"spartan_tpu_torch.examples.{m}")
     assert hasattr(mod, "run") or hasattr(mod, "fit"), m
@@ -377,4 +398,10 @@ def test_main_runs_a_runner_on_the_cpu(capsys):
   printed = eval(capsys.readouterr().out.strip().splitlines()[-1])
   assert set(printed) == {"accuracy", "seconds", "example", "mesh"}
   assert printed["example"] == "knn" and printed["accuracy"] == 1.0
-  assert main(["oscillator", "--device=cpu"]) == 1
+  assert main(["oscillator", "--device=cpu"]) == 0
+  printed = eval(capsys.readouterr().out.strip().splitlines()[-1],
+                 {"np": np})
+  assert set(printed) == {"recovered_hz", "expected_hz", "rel_err",
+                          "seconds", "example", "mesh"}
+  assert printed["recovered_hz"] == 0.299853515625
+  assert main(["no_such_example", "--device=cpu"]) == 1

@@ -507,3 +507,51 @@ def test_every_exported_function_takes_a_python_scalar(ns, name, arg):
     return
   assert not isinstance(got, Exception), (got, want)
   _hold(got, want, values=name not in _DRAWS and name != "ndarray")
+
+
+# -- F3: ``sp.special.ndtr`` lost the normal CDF's left tail ------------------
+
+_TAIL = np.concatenate([np.linspace(-37.0, -0.5, 400),
+                        np.linspace(-0.8, 0.8, 33), np.linspace(0.5, 8.0, 40)])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ndtr_keeps_the_left_tail(dtype):
+  """F3: ``sp.special.ndtr`` was ``torch.special.ndtr``, which computes
+  (1 + erf(x/√2)) / 2 on the CPU and on the card: 2.5e-8 relative at
+  x = -6 and 0 below x ≈ -8.3, where the reference (jax's erfc form) and
+  scipy are exact to 1e-15.  Now jax's form.  Held to scipy at 1e-13
+  relative in float64 (the erfc's own error, down to 1e-300) and to the
+  reference at the same bound; float32 to 2e-5 relative above float32's
+  smallest normal (x/√2 rounded to float32, amplified x² times by the
+  tail's conditioning: about 170 ulps at x = -13).  The old form gave 1.0
+  relative there (0 for a value of 1e-38)."""
+  import scipy.special as ssp
+  x = _TAIL.astype(dtype)
+  got = np.asarray(sp.special.ndtr(sp.from_numpy(x)).glom())
+  assert got.dtype == dtype
+  want = ssp.ndtr(x.astype(np.float64))
+  if dtype == np.float64:
+    np.testing.assert_allclose(got, want, rtol=1e-13, atol=0)
+    theirs = np.asarray(ref.special.ndtr(x).glom())
+    np.testing.assert_allclose(got, theirs, rtol=1e-13, atol=0)
+    return
+  normal = want > np.finfo(np.float32).tiny
+  np.testing.assert_allclose(got[normal], want[normal], rtol=2e-5, atol=0)
+
+
+def test_the_normal_distributions_keep_their_tails():
+  """F3 through ``sp.stats``: norm/lognorm/halfnorm/truncnorm's cdf and
+  logcdf take the same ndtr; norm.logcdf at -6..-30 sigma within 1e-13
+  relative of scipy's."""
+  import scipy.stats as sst
+  z = np.linspace(-30.0, -6.0, 25)
+  np.testing.assert_allclose(np.asarray(sp.stats.norm.cdf(z).glom()),
+                             sst.norm.cdf(z), rtol=1e-13, atol=0)
+  np.testing.assert_allclose(np.asarray(sp.stats.norm.logcdf(z).glom()),
+                             sst.norm.logcdf(z), rtol=1e-13, atol=0)
+  np.testing.assert_allclose(np.asarray(sp.stats.norm.sf(-z).glom()),
+                             sst.norm.sf(-z), rtol=1e-13, atol=0)
+  w = np.exp(z / 4)
+  np.testing.assert_allclose(np.asarray(sp.stats.lognorm.cdf(w, 0.5).glom()),
+                             sst.lognorm.cdf(w, 0.5), rtol=1e-13, atol=0)

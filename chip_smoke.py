@@ -266,7 +266,8 @@ raises on any failure:
      price_numpy on 2^20 of them; sp.special's 116 device names at 2^24
      float64 points (the betainc and kolmogorov inverses at 2^18; four of
      them, betaincinv/betainccinv/stdtrit/fdtri, trimmed to phase 25's
-     t/f/beta ppf and isf for the script's time), each
+     t/f/beta ppf and isf for the script's time, and bdtri/nbdtri/kolmogi
+     to the CPU test for phase 26's), each
      held to scipy on 2^16 sampled points at the CPU test's bounds, the
      direct core again in float32, four names timed, every host name once
      through the counted boundary; every runner of the examples' CLI in
@@ -274,8 +275,9 @@ raises on any failure:
      subprocess.
  25. sp.stats and sp.signal (no kernel: their maps are torch code): every
      method of the 24 device distributions at 2^22 float64 points with
-     nontrivial loc, scale and shape (the betainc bisections, t/f/beta's
-     ppf and isf and binom/nbinom's cdf and ppf, at 2^16), each held to
+     nontrivial loc, scale and shape (the betainc bisections, t.ppf,
+     f.isf, beta.ppf, binom.cdf and nbinom.ppf, at 2^16; the other five to
+     the CPU test for phase 26's time), each held to
      scipy on 2^16 of them, a float32 pass, 2^22 draws of each held to its
      own cdf by the KS bound at alpha 1e-6 (discrete: mean and variance);
      29 descriptive statistics on a 2^14 x 2^10 float64 matrix along axis
@@ -289,6 +291,22 @@ raises on any failure:
      256 channels and decimate, with lfilter's host and device us a
      sample; oscillator.run() within one Welch bin.  Its scipy oracles run
      in the worker processes from before the build.
+ 26. sp.ndimage and sp.spatial (their maps are torch code; sum_labels of a
+     float32 image without labels is sp.sum, K1): gaussian (sigma 3),
+     uniform (5), median (3), sobel on both axes and 3x3 and 5x5
+     correlate on an 8192^2 float32 image, held to scipy's float32 on 64
+     rows, and a sigma-2 Gaussian of a 256^3 volume; the 3x3 correlate
+     timed at 16384^2 beside K4's row; binary_opening, binary_fill_holes
+     and label of 8192^2 blobs (smoothed noise above one standard
+     deviation) exactly scipy's, with the loops' rounds and host reads,
+     and sum_labels, mean, maximum_position and center_of_mass over every
+     label; zoom 1.5, rotate 30 degrees and map_coordinates of 2^22 points
+     at order 1 on 4096^2; cdist of 8192 x 8192 points in 64 dimensions
+     (euclidean, and cityblock in chunks), a KDTree's 8 nearest of 8192
+     queries among 2^18 points (8 GB of tile in 1 GB chunks, the indices
+     held to scipy's cKDTree where no near tie can swap them) and Rotation
+     over 2^20 quaternions; each item's seconds and the phase's peak
+     device memory.  Its scipy oracles run in the worker processes.
 
 The count of each kernel's launches is set to 0 just before the path that
 runs it (phases 3-4, 15, 16 and 17 for K1, phase 6 for K3a/K3b, phase 8 for
@@ -299,8 +317,9 @@ sharded kernels, summed over the three meshes, and each counted solve and
 the scan of phase 19 for K3a, K3b and K3d, phase 20's two Lanczos
 runs for K3b and K3a and its sparse norm for K1, each counted solve of
 phase 21 for K3a and K3b, phase 22's compiled calls for K1 and K3b, and
-phase 24's learn.ALS for K5a and learn.TruncatedSVD for K3a and K3b;
-phase 25's sp.stats and sp.signal reach no kernel)
+phase 24's learn.ALS for K5a and learn.TruncatedSVD for K3a and K3b,
+phase 26's sum_labels without labels for K1; phase 25's sp.stats and
+sp.signal reach no kernel)
 and read just after.  K4
 has no caller in the package: its count is the launches of phase 9's
 checks.  The
@@ -6569,6 +6588,12 @@ SPECIAL_SLOW_N = 1 << 18
 # instead, as t/f/beta's ppf and isf at 2^16 points against scipy (the
 # CPU test holds each name)
 SPECIAL_IN_PHASE25 = ("betaincinv", "betainccinv", "stdtrit", "fdtri")
+# trimmed for phase 26's time: the other three launch-bound inverses
+# (bdtri and nbdtri bisect through betainc's continued fraction as the four
+# above do, kolmogi through kolmogorov's 100 terms, which this phase runs
+# forward at 2^24); tests/test_torch_special.py holds each against scipy
+# and the reference on the CPU
+SPECIAL_OFF_CARD = ("bdtri", "nbdtri", "kolmogi")
 SPECIAL_TIMED = ("betainc", "gammaincinv", "hyp1f1", "ellipk")
 
 
@@ -7235,7 +7260,7 @@ def special_items(device, card: str, pool) -> None:
   special.counts.update(reads=0, turns=0)
   t0 = time.perf_counter()
   for name, spec, kw, rtol, atol in SPECIAL_CASES:
-    if name in SPECIAL_IN_PHASE25:
+    if name in SPECIAL_IN_PHASE25 or name in SPECIAL_OFF_CARD:
       continue
     n = SPECIAL_SLOW_N if name in SPECIAL_SLOW else SPECIAL_N
     drawn = special_args(spec, n, torch.float64, gen, device)
@@ -7273,8 +7298,9 @@ def special_items(device, card: str, pool) -> None:
                       for g, w in zip(got, want)), name))
   worst.sort(reverse=True)
   print(f"  sp.special: {len(pending)} device names at {SPECIAL_N} "
-        f"float64 points ({', '.join(n for n in SPECIAL_SLOW if n not in SPECIAL_IN_PHASE25)} at "
-        f"{SPECIAL_SLOW_N}; {', '.join(SPECIAL_IN_PHASE25)} in phase 25) in "
+        f"float64 points ({', '.join(n for n in SPECIAL_SLOW if n not in SPECIAL_IN_PHASE25 + SPECIAL_OFF_CARD)} at "
+        f"{SPECIAL_SLOW_N}; {', '.join(SPECIAL_IN_PHASE25)} in phase 25; "
+        f"{', '.join(SPECIAL_OFF_CARD)} on the CPU only) in "
         f"{wall:.2f} s; converging loops read the host "
         f"{special.counts['reads']} times over {special.counts['turns']} "
         "turns; the largest error over its bound (atol + rtol |scipy|, the "
@@ -7488,6 +7514,14 @@ DIST_CASES = [
 DIST_SLOW = {("t", "ppf"), ("t", "isf"), ("f", "ppf"), ("f", "isf"),
              ("beta", "ppf"), ("beta", "isf"), ("binom", "cdf"),
              ("binom", "ppf"), ("nbinom", "cdf"), ("nbinom", "ppf")}
+# trimmed for phase 26's time: one bisection method of each of the five
+# distributions stays on the card (t.ppf, f.isf, beta.ppf, binom.cdf,
+# nbinom.ppf; the moments' ppf levels and the draws of t, f and beta bisect
+# too); tests/test_torch_stats.py holds these five against scipy on the
+# CPU, and the card test test_stats_inverses_and_normal_tail_on_card t.ppf
+# and binom.cdf
+DIST_OFF_CARD = {("t", "isf"), ("f", "ppf"), ("beta", "isf"),
+                 ("binom", "ppf"), ("nbinom", "cdf")}
 CONT_METHODS = ("logpdf", "pdf", "cdf", "sf", "logcdf", "logsf", "ppf",
                 "isf")
 DISC_METHODS = ("logpmf", "pmf", "cdf", "sf", "ppf")
@@ -7837,6 +7871,8 @@ def dist_items(device, oracle) -> float:
     x, q = dist_points(case, DIST_N)
     xd, qd = (torch.as_tensor(v, device=device) for v in (x, q))
     for m in (DISC_METHODS if scale is None else CONT_METHODS):
+      if (name, m) in DIST_OFF_CARD:
+        continue
       slow = (name, m) in DIST_SLOW
       arg = qd if m in ("ppf", "isf") else xd
       if slow:
@@ -7867,9 +7903,11 @@ def dist_items(device, oracle) -> float:
     del xd, qd
   wall = time.perf_counter() - t0
   worst.sort(reverse=True)
-  print(f"  sp.stats' 24 distributions, {sum(len(DISC_METHODS if c[3] is None else CONT_METHODS) for c in DIST_CASES)} "
-        f"method cases at {DIST_N} float64 points ({len(DIST_SLOW)} at "
-        f"{DIST_SLOW_N}) in {wall:.2f} s; the largest error over its bound "
+  print(f"  sp.stats' 24 distributions, {sum(len(DISC_METHODS if c[3] is None else CONT_METHODS) for c in DIST_CASES) - len(DIST_OFF_CARD)} "
+        f"method cases at {DIST_N} float64 points "
+        f"({len(DIST_SLOW) - len(DIST_OFF_CARD)} at {DIST_SLOW_N}; "
+        f"{len(DIST_OFF_CARD)} on the CPU only) in {wall:.2f} s; the largest "
+        "error over its bound "
         "(atol + rtol |scipy|; <= 1 passes): " + ", ".join(
             f"{n} {e:.3g}" for e, n in worst[:6]))
   print("  the betainc bisections' seconds: " + ", ".join(
@@ -8179,6 +8217,468 @@ def phase_stats_signal(device, card: str, oracles: dict) -> None:
         "waiting for the oracle processes")
 
 
+# -- phase 26: sp.ndimage and sp.spatial --------------------------------------
+
+P26_SEED = 26
+IMG_SIDE = 8192  # the filters' and the morphology's images: 268 MB float32
+IMG_ROWS = 64  # rows of each 8192^2 filter held to scipy (the 5 first and last)
+VOL_SIDE = 256  # the 3-D Gaussian's volume
+VOL_SAMPLE = 1 << 16
+BLOB_SIGMA, BLOB_LEVEL = 4.0, 1.0  # smoothed noise above 1 standard deviation
+CORR_SIDE = 16384  # the 3x3 correlate timed at K4's shape
+INTERP_SIDE, COORD_N = 4096, 1 << 22
+CDIST_N, CDIST_D = 8192, 64
+KD_N, KD_Q, KD_K = 1 << 18, 8192, 8  # 8 GB of float32 tile in 1 GB chunks
+ROT_N, ROT_SAMPLE = 1 << 20, 1 << 16
+U32 = 2.0 ** -24  # float32's unit roundoff
+# K4's row of PERF.md §6 at 16384^2 float32, the 3x3 correlate's shape: its
+# ms and cuDNN's (NVIDIA H100 80GB HBM3, 700 W)
+K4_MS, K4_CUDNN_MS = 1.0029, 28.6450
+
+
+def _rng26(k: int):
+  return np.random.default_rng([P26_SEED, k])
+
+
+def image26():
+  return _rng26(1).standard_normal((IMG_SIDE, IMG_SIDE), dtype=np.float32)
+
+
+def weights26():
+  r = _rng26(2)
+  return r.standard_normal((3, 3)), r.standard_normal((5, 5))
+
+
+def rows26(n: int) -> np.ndarray:
+  inner = _rng26(4).choice(np.arange(5, n - 5), IMG_ROWS - 10, replace=False)
+  return np.sort(np.concatenate([np.arange(5), n - 5 + np.arange(5), inner]))
+
+
+# (label, the call on a module with scipy.ndimage's API, float32 passes as
+# (taps, sum |w|) for the bound; None: exact, the values are the input's)
+W3, W5 = weights26()
+FILTERS26 = [
+    ("gaussian_filter sigma 3", lambda M, x: M.gaussian_filter(x, 3.0),
+     [(25, 1.0), (25, 1.0)]),
+    ("uniform_filter 5", lambda M, x: M.uniform_filter(x, 5),
+     [(5, 1.0), (5, 1.0)]),
+    ("median_filter 3", lambda M, x: M.median_filter(x, 3), None),
+    ("sobel axis 0", lambda M, x: M.sobel(x, 0), [(3, 2.0), (3, 4.0)]),
+    ("sobel axis 1", lambda M, x: M.sobel(x, 1), [(3, 2.0), (3, 4.0)]),
+    ("correlate 3x3", lambda M, x: M.correlate(x, W3),
+     [(9, float(np.abs(W3).sum()))]),
+    ("correlate 5x5", lambda M, x: M.correlate(x, W5),
+     [(25, float(np.abs(W5).sum()))]),
+]
+
+
+def conv_atol(passes, x_max: float) -> float:
+  """A float32 filter's bound against scipy's float32 result: each pass
+  sums ``taps`` rounded products (taps + 3 roundings of the window's
+  absolute sum, with the weights' own and the output's), an earlier pass's
+  error carried through the later weights; times 4, since cuDNN may take a
+  Winograd or FFT algorithm whose rounding is a few times the direct
+  sum's."""
+  err, scale = 0.0, x_max
+  for taps, wsum in passes:
+    scale *= wsum
+    err = err * wsum + (taps + 3) * U32 * scale
+  return 4.0 * err
+
+
+def blobs26():
+  """Thresholded smoothed noise: blobs of many sizes (scipy, float64)."""
+  import scipy.ndimage as ndi
+  noise = _rng26(11).standard_normal((IMG_SIDE, IMG_SIDE))
+  smooth = ndi.gaussian_filter(noise, BLOB_SIGMA)
+  return smooth > BLOB_LEVEL * smooth.std()
+
+
+def weights_image26():
+  return _rng26(5).random((IMG_SIDE, IMG_SIDE), dtype=np.float32)
+
+
+def interp26():
+  return _rng26(6).standard_normal((INTERP_SIDE, INTERP_SIDE),
+                                   dtype=np.float32)
+
+
+def coords26():
+  return _rng26(7).uniform(-1.0, INTERP_SIDE, (2, COORD_N))
+
+
+def cdist26():
+  r = _rng26(8)
+  return (r.standard_normal((CDIST_N, CDIST_D), dtype=np.float32),
+          r.standard_normal((CDIST_N, CDIST_D), dtype=np.float32))
+
+
+def kd26():
+  r = _rng26(9)
+  return (r.random((KD_N, 3), dtype=np.float32),
+          r.random((KD_Q, 3), dtype=np.float32))
+
+
+def quats26():
+  r = _rng26(10)
+  return r.standard_normal((ROT_N, 4)), r.standard_normal((ROT_N, 3))
+
+
+def filter_oracle26() -> dict:
+  """scipy.ndimage's float32 filters of image26 at rows26 (a worker)."""
+  import scipy.ndimage as ndi
+  x = image26()
+  rows = rows26(IMG_SIDE)
+  out = {label: fn(ndi, x)[rows] for label, fn, _ in FILTERS26}
+  vol = _rng26(3).standard_normal((VOL_SIDE,) * 3, dtype=np.float32)
+  pick = _rng26(12).choice(vol.size, VOL_SAMPLE, replace=False)
+  out["volume"] = ndi.gaussian_filter(vol, 2.0).reshape(-1)[pick]
+  out["x_max"] = float(np.abs(x).max())
+  out["vol_max"] = float(np.abs(vol).max())
+  return out
+
+
+def morph_oracle26() -> dict:
+  """The blobs, scipy's opening, filled holes and labels of them, and the
+  measurements of weights_image26 over every label (a worker; the binary
+  images packed to bits)."""
+  import scipy.ndimage as ndi
+  B = blobs26()
+  lab, n = ndi.label(B)
+  xw = weights_image26()
+  idx = np.arange(1, n + 1)
+  return {"blobs": np.packbits(B), "opening": np.packbits(
+      ndi.binary_opening(B)), "fill": np.packbits(ndi.binary_fill_holes(B)),
+          "labels": lab, "n": n, "sum": ndi.sum_labels(xw, lab, idx),
+          "mean": ndi.mean(xw, lab, idx),
+          "max_pos": np.asarray(ndi.maximum_position(xw, lab, idx)),
+          "max_ties": ndi.sum_labels(xw == np.r_[0, ndi.maximum(
+              xw, lab, idx)].astype(np.float32)[lab], lab, idx),
+          "com": np.asarray(ndi.center_of_mass(xw, lab, idx)),
+          "total": float(xw.sum(dtype=np.float64))}
+
+
+def interp_oracle26() -> dict:
+  import scipy.ndimage as ndi
+  img = interp26()
+  zoomed = ndi.zoom(img, 1.5, order=1)
+  return {"zoom": zoomed[rows26(zoomed.shape[0])],
+          "rotate": ndi.rotate(img, 30.0, reshape=False, order=1)[
+              rows26(INTERP_SIDE)],
+          "coords": ndi.map_coordinates(img, coords26(), order=1),
+          "x_max": float(np.abs(img).max())}
+
+
+def spatial_oracle26() -> dict:
+  """scipy.spatial's distances at sampled rows, cKDTree's 9 nearest and
+  Rotation's conversions at sampled rotations (a worker, float64)."""
+  import scipy.spatial as ssp
+  import scipy.spatial.distance as ssd
+  from scipy.spatial.transform import Rotation as SR
+  a, b = (v.astype(np.float64) for v in cdist26())
+  rows = rows26(CDIST_N)
+  pts, q = (v.astype(np.float64) for v in kd26())
+  d9, i9 = ssp.cKDTree(pts).query(q, k=KD_K + 1)
+  quats, vecs = quats26()
+  pick = _rng26(13).choice(ROT_N, ROT_SAMPLE, replace=False)
+  R = SR.from_quat(quats)
+  return {"euclidean": ssd.cdist(a[rows], b),
+          "cityblock": ssd.cdist(a[rows], b, "cityblock"),
+          "a_sq": (a[rows] ** 2).sum(1), "b_sq": (b ** 2).sum(1),
+          "d9": d9, "i9": i9, "matrix": R[pick].as_matrix(),
+          "euler": R[pick].as_euler("zyx"),
+          "apply": R[pick].apply(vecs[pick]),
+          "mean": R.mean().as_matrix()}
+
+
+def submit_phase26_oracles(procs) -> dict:
+  """Phase 26's scipy oracles, submitted after phase 25's to the worker
+  processes that start before the build."""
+  return {"filters": procs.submit(filter_oracle26),
+          "morph": procs.submit(morph_oracle26),
+          "interp": procs.submit(interp_oracle26),
+          "spatial": procs.submit(spatial_oracle26)}
+
+
+def _held26(label: str, err: float, tol: float, why: str, secs: float):
+  print(f"  {label}: {secs:.2f} s; {err:.3g} (bound {tol:.3g}: {why})")
+  check(err <= tol, f"phase 26: {label} {err:.3g} > {tol:.3g}")
+
+
+def _wrapped(a: np.ndarray) -> np.ndarray:
+  """An angle difference folded into [-pi, pi]."""
+  return np.abs((a + np.pi) % (2 * np.pi) - np.pi)
+
+
+def image_filter_items(device, card: str, oracle) -> None:
+  """The filters on one 8192^2 float32 image and the 3-D Gaussian on a
+  256^3 volume, held to scipy's float32 results at sampled rows; the 3x3
+  correlate timed at 16384^2 beside K4."""
+  N = sp.ndimage
+  want = oracle_result(oracle)
+  X = sp.from_numpy(image26())
+  rows = torch.as_tensor(rows26(IMG_SIDE), device=device)
+  for label, fn, passes in FILTERS26:
+    t0 = time.perf_counter()
+    out = fn(N, X).evaluate().data
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(out.dtype == torch.float32 and tuple(out.shape) == (IMG_SIDE,) * 2,
+          f"{label}: {out.dtype} {tuple(out.shape)}")
+    got = out[rows].cpu().numpy()
+    err = float(np.abs(got.astype(np.float64) - want[label]).max())
+    if passes is None:
+      _held26(label, err, 0.0, "exact: an element of its window", secs)
+    else:
+      tol = conv_atol(passes, want["x_max"])
+      _held26(label, err, tol, "float32 sums, conv_atol", secs)
+    del out
+  del X
+  vol = sp.from_numpy(_rng26(3).standard_normal((VOL_SIDE,) * 3,
+                                                dtype=np.float32))
+  t0 = time.perf_counter()
+  out = N.gaussian_filter(vol, 2.0).evaluate().data
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t0
+  pick = torch.as_tensor(_rng26(12).choice(VOL_SIDE ** 3, VOL_SAMPLE,
+                                           replace=False), device=device)
+  got = out.reshape(-1)[pick].cpu().numpy().astype(np.float64)
+  _held26(f"gaussian_filter sigma 2 on {VOL_SIDE}^3",
+          float(np.abs(got - want["volume"]).max()),
+          conv_atol([(17, 1.0)] * 3, want["vol_max"]),
+          "float32 sums, conv_atol", secs)
+  del vol, out
+  # the 3x3 correlate at K4's shape: the port's map (one pad, then cuDNN's
+  # conv2d) and cuDNN's conv2d alone on the padded grid
+  from spartan_tpu_torch import ndimage as nd
+  x16 = torch.randn((CORR_SIDE, CORR_SIDE), device=device,
+                    generator=torch.Generator(device=device).manual_seed(
+                        P26_SEED))
+  kern = nd._corr_kernel(W3, "reflect", 0.0, (0, 0))
+  xp = nd._pad(x16, [(1, 1), (1, 1)], "reflect", 0.0)
+  w = torch.as_tensor(W3, dtype=torch.float32, device=device)
+  ms = time_in_turns({"ndimage.correlate": lambda: kern(x16),
+                      "conv2d": lambda: F.conv2d(xp[None, None],
+                                                 w[None, None])},
+                     reps=3)
+  b_ms, _ = bound(2 * CORR_SIDE ** 2 * 4, 0.0)
+  print(f"  ndimage.correlate 3x3 at {CORR_SIDE}^2 float32 ({card}): "
+        f"{ms['ndimage.correlate']:.4f} ms (the reflect pad and cuDNN's "
+        f"conv2d), conv2d alone {ms['conv2d']:.4f} ms; bound {b_ms:.4f} ms "
+        f"(bytes); K4 {K4_MS:.4f} ms and cuDNN {K4_CUDNN_MS:.4f} ms at this "
+        "shape in PERF.md §6")
+  del x16, xp
+
+
+def morph_items(device, oracle) -> int:
+  """Opening, filled holes and labels of the 8192^2 blobs, exactly
+  scipy's; the measurements over every label at float32 bounds; the
+  unlabelled sum through K1.  Returns K1's launches."""
+  from spartan_tpu_torch import ndimage as nd
+  N = sp.ndimage
+  want = oracle_result(oracle)
+  nbits = IMG_SIDE * IMG_SIDE
+
+  def unpack(bits):
+    return np.unpackbits(bits)[:nbits].reshape(IMG_SIDE, IMG_SIDE) \
+        .astype(bool)
+  B = sp.from_numpy(unpack(want["blobs"]))
+  t0 = time.perf_counter()
+  opened = N.binary_opening(B).glom()
+  _held26("binary_opening", float(np.count_nonzero(
+      opened != unpack(want["opening"]))), 0.0, "exact, pixels differing",
+          time.perf_counter() - t0)
+  for name, run, key in (("binary_fill_holes", lambda: N.binary_fill_holes(
+      B).glom(), "flood_rounds"), ("label", lambda: N.label(B),
+                                   "label_rounds")):
+    before = dict(nd.counts)
+    t0 = time.perf_counter()
+    got = run()
+    secs = time.perf_counter() - t0
+    rounds = nd.counts[key] - before[key]
+    reads = nd.counts["reads"] - before["reads"]
+    if name == "label":
+      labels, n = got
+      diff = float(np.count_nonzero(labels != want["labels"])) + abs(
+          n - want["n"])
+    else:
+      diff = float(np.count_nonzero(got != unpack(want["fill"])))
+    _held26(f"{name} ({rounds} rounds, {reads} host reads)", diff, 0.0,
+            "exact, pixels differing", secs)
+  print(f"  {n} labels of the {IMG_SIDE}^2 blobs")
+  L = sp.from_numpy(labels)
+  XW = sp.from_numpy(weights_image26())
+  idx = np.arange(1, n + 1)
+  for name, fn, key in (
+      ("sum_labels", lambda: N.sum_labels(XW, L, idx), "sum"),
+      ("mean", lambda: N.mean(XW, L, idx), "mean"),
+      ("maximum_position", lambda: np.asarray(N.maximum_position(XW, L, idx)),
+       "max_pos"),
+      ("center_of_mass", lambda: np.asarray(N.center_of_mass(XW, L, idx)),
+       "com")):
+    t0 = time.perf_counter()
+    got = fn()
+    secs = time.perf_counter() - t0
+    if key == "max_pos":
+      one = want["max_ties"] == 1
+      _held26(f"{name} over the {int(one.sum())} labels of one maximal "
+              "pixel", float(np.count_nonzero(got[one] != want[key][one])),
+              0.0, "exact", secs)
+    else:
+      _held26(f"{name} over {n} labels", _err_over(got, want[key], 2 * U32,
+                                                   0.0), 1.0,
+              "float64 segment sums rounded once to float32: 2^-23 "
+              "relative", secs)
+  launches = K.counts["launches"]
+  t0 = time.perf_counter()
+  total = N.sum_labels(XW)
+  launches = K.counts["launches"] - launches
+  check(launches >= 1, "sum_labels of a float32 image did not launch K1")
+  _held26(f"sum_labels without labels (K1, {launches} launch)",
+          rel_err(total, want["total"]), 1e-5,
+          "K1's float32 accumulator bound (phase 2)",
+          time.perf_counter() - t0)
+  return launches
+
+
+def interp_items(device, oracle) -> None:
+  """zoom 1.5, rotate 30 degrees and map_coordinates of 2^22 points, order
+  1, on a 4096^2 float32 image, against scipy's float32 results: both
+  blend in float64 and round once, so they agree to an ulp at the image's
+  scale."""
+  N = sp.ndimage
+  want = oracle_result(oracle)
+  img = sp.from_numpy(interp26())
+  tol = 2 * U32 * want["x_max"]
+  for label, fn, key in (
+      ("zoom 1.5", lambda: N.zoom(img, 1.5, order=1), "zoom"),
+      ("rotate 30, reshape=False",
+       lambda: N.rotate(img, 30.0, reshape=False, order=1), "rotate"),
+      (f"map_coordinates of {COORD_N} points",
+       lambda: N.map_coordinates(img, coords26(), order=1), "coords")):
+    t0 = time.perf_counter()
+    out = fn().evaluate().data
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(out.dtype == torch.float32, f"{label}: {out.dtype}")
+    if key == "coords":
+      got = out.cpu().numpy()
+    else:
+      rows = torch.as_tensor(rows26(out.shape[0]), device=out.device)
+      got = out[rows].cpu().numpy()
+    _held26(label, float(np.abs(got.astype(np.float64)
+                                - want[key].astype(np.float64)).max()),
+            tol, "one float32 rounding each of a float64 blend", secs)
+    del out
+
+
+def spatial_items(device, oracle) -> None:
+  """cdist of 8192 x 8192 points in 64 dimensions (euclidean by the matmul
+  form, cityblock by the chunked broadcast), a KDTree's 8 nearest of 8192
+  queries among 2^18 points (8 GB of tile in 1 GB chunks) and Rotation
+  over 2^20 quaternions, against scipy."""
+  from spartan_tpu_torch import spatial as sp_mod
+  from spartan_tpu_torch import spatial_distance as dist_mod
+  want = oracle_result(oracle)
+  a, b = (sp.from_numpy(v) for v in cdist26())
+  rows = torch.as_tensor(rows26(CDIST_N), device=device)
+  for m in ("euclidean", "cityblock"):
+    chunks = dist_mod.counts["chunks"]
+    t0 = time.perf_counter()
+    out = sp.spatial.distance.cdist(a, b, m).evaluate().data
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = out[rows].double().cpu().numpy()
+    if m == "euclidean":
+      # |a|^2 + |b|^2 - 2ab in float32: each term within 64 roundings of
+      # its size, so d^2 within 64 u (|a|^2 + |b|^2) + 2 x 64 u |a||b|
+      s = want["a_sq"][:, None] + want["b_sq"][None, :]
+      err = float((np.abs(got ** 2 - want[m] ** 2) / (
+          3 * CDIST_D * U32 * s)).max())
+      _held26(f"cdist {m} {CDIST_N}^2 x {CDIST_D}", err, 1.0,
+              "d^2 within 3 x 64 u (|a|^2 + |b|^2), the matmul form", secs)
+    else:
+      _held26(f"cdist {m} {CDIST_N}^2 x {CDIST_D} "
+              f"({dist_mod.counts['chunks'] - chunks} chunks)",
+              _err_over(got, want[m], CDIST_D * U32, 0.0), 1.0,
+              "64 float32 roundings of the sum", secs)
+    del out
+  del a, b
+  pts, q = kd26()
+  tree = sp.spatial.KDTree(sp.from_numpy(pts))
+  tiles = sp_mod.counts["tile_chunks"]
+  t0 = time.perf_counter()
+  d, i = tree.query(sp.from_numpy(q), k=KD_K)
+  got_d, got_i = (v.glom() for v in sp.TupleExpr([d, i]).evaluate())
+  secs = time.perf_counter() - t0
+  d9 = want["d9"]
+  # the tile's |q|^2 + |x|^2 - 2 q.x in float32 (3 terms a dot) is within
+  # e2 = 40 u (|q|^2 + 3) of d^2, points in the unit cube: it picks the 8
+  # (their distances then taken again as |q - x|) up to swaps within e2
+  e2 = 40 * U32 * ((q.astype(np.float64) ** 2).sum(1) + 3.0)[:, None]
+  d2_err = float((np.abs(got_d.astype(np.float64) ** 2 - d9[:, :KD_K] ** 2)
+                  / (2 * e2 + 8 * U32 * d9[:, :KD_K] ** 2)).max())
+  clear = (np.diff(d9 ** 2, axis=1) > 2 * e2).all(1)
+  idx_diff = int(np.count_nonzero(got_i[clear] != want["i9"][clear, :KD_K]))
+  _held26(f"KDTree({KD_N} points).query(k={KD_K}) of {KD_Q} queries "
+          f"({sp_mod.counts['tile_chunks'] - tiles} tile chunks): squared "
+          "distances", d2_err, 1.0, "2 e2 + 8 u d^2", secs)
+  _held26(f"  the indices of the {int(clear.sum())} queries whose 9 "
+          "nearest are more than 2 e2 apart", float(idx_diff), 0.0, "exact",
+          0.0)
+  del tree, d, i
+  quats, vecs = quats26()
+  pick = torch.as_tensor(_rng26(13).choice(ROT_N, ROT_SAMPLE, replace=False),
+                         device=device)
+  R = sp.spatial.transform.Rotation.from_quat(sp.from_numpy(quats))
+  V = sp.from_numpy(vecs)
+  for label, fn, key, tol in (
+      ("as_matrix", lambda: R.as_matrix(), "matrix", 1e-14),
+      ("apply", lambda: R.apply(V), "apply", 1e-13),
+      ("as_euler zyx", lambda: R.as_euler("zyx"), "euler", 1e-10)):
+    t0 = time.perf_counter()
+    out = fn().evaluate().data
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = out[pick].cpu().numpy()
+    diff = _wrapped(got - want[key]) if key == "euler" else np.abs(
+        got - want[key])
+    _held26(f"Rotation of {ROT_N} quaternions: {label}", float(diff.max()),
+            tol, "float64", secs)
+  t0 = time.perf_counter()
+  mean = R.mean().as_matrix().glom()
+  _held26(f"Rotation of {ROT_N} quaternions: mean",
+          float(np.abs(mean - want["mean"]).max()), 1e-10,
+          "float64, the top eigenvector of the 4 x 4 moment",
+          time.perf_counter() - t0)
+
+
+def phase_ndimage_spatial(device, card: str, oracles: dict) -> dict:
+  """Phase 26: sp.ndimage and sp.spatial at the sizes their users run."""
+  t0 = time.perf_counter()
+  ORACLE_WAIT[0] = 0.0
+  torch.cuda.reset_peak_memory_stats()
+
+  def since(what: str) -> None:
+    print(f"  [{time.perf_counter() - t0:.2f} s into phase 26: {what}]")
+  image_filter_items(device, card, oracles["filters"])
+  since("the filters")
+  gc.collect()
+  torch.cuda.empty_cache()
+  k1 = morph_items(device, oracles["morph"])
+  since("morphology, label and the measurements")
+  gc.collect()
+  torch.cuda.empty_cache()
+  interp_items(device, oracles["interp"])
+  since("interpolation")
+  spatial_items(device, oracles["spatial"])
+  print(f"  phase 26 peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"{time.perf_counter() - t0:.2f} s, {ORACLE_WAIT[0]:.2f} s of it "
+        "waiting for the oracle processes")
+  return {"k1": k1}
+
+
 def main() -> None:
   # phase 0: identify the card; no card, no result
   if not torch.cuda.is_available():
@@ -8209,6 +8709,7 @@ def main() -> None:
   oracles22 = submit_phase22_oracles(procs)
   oracles24 = submit_phase24_oracles(procs)
   oracles25 = submit_phase25_oracles(procs)
+  oracles26 = submit_phase26_oracles(procs)
 
   print("phase 1: build the kernels, one nvcc per source, in parallel")
   build.load_all(KERNELS)
@@ -8436,8 +8937,20 @@ def main() -> None:
         "lfilter/filtfilt/sosfilt/sosfiltfilt/decimate on 256 channels, and "
         "the oscillator example")
   phase_stats_signal(device, card, oracles25)
-  procs.shutdown()
   done(25)
+  gc.collect()
+  torch.cuda.empty_cache()
+  print("phase 26: sp.ndimage and sp.spatial at full width: gaussian, "
+        "uniform, median, sobel and 3x3/5x5 correlate on an 8192^2 float32 "
+        "image, a 256^3 Gaussian, the 3x3 correlate timed at 16384^2; "
+        "opening, fill_holes and label of 8192^2 blobs and the measurements "
+        "over every label (sum_labels without labels through K1); zoom, "
+        "rotate and 2^22-point map_coordinates on 4096^2; cdist of 8192^2 x "
+        "64, a KDTree's 8 nearest among 2^18 points, Rotation over 2^20")
+  nd26 = phase_ndimage_spatial(device, card, oracles26)
+  procs.shutdown()
+  k1["launches"] += nd26["k1"]
+  done(26)
   print(f"  total wall {time.perf_counter() - t_start:.2f} s after phase 0")
 
   rows = [("fused_sum", "fused_reduce.cu",

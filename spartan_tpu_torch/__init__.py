@@ -18,8 +18,9 @@ ROADMAP.md): the builtins, the loops, autodiff (``sp.grad`` and its kin,
 arrays with ``sp.sparse``'s builders, ``sp.sparse.linalg``'s solvers and
 ``sp.sparse.csgraph``, ``sp.linalg``,
 ``sp.fft``, ``sp.random``, ``sp.scipy_linalg``, ``sp.optimize``,
-``sp.integrate``, ``sp.special``, ``sp.stats``, ``sp.signal`` and array
-files; names not yet ported are absent
+``sp.integrate``, ``sp.special``, ``sp.stats``, ``sp.signal``,
+``sp.ndimage``, ``sp.spatial`` (with ``spatial.distance`` and
+``spatial.transform``) and array files; names not yet ported are absent
 rather than stubbed.
 """
 
@@ -101,6 +102,8 @@ from spartan_tpu_torch import integrate  # noqa: E402  (scipy.integrate)
 from spartan_tpu_torch import special  # noqa: E402  (scipy.special)
 from spartan_tpu_torch import stats  # noqa: E402  (scipy.stats)
 from spartan_tpu_torch import signal  # noqa: E402  (scipy.signal)
+from spartan_tpu_torch import ndimage  # noqa: E402  (scipy.ndimage)
+from spartan_tpu_torch import spatial  # noqa: E402  (scipy.spatial)
 
 __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "Mesh", "SpartanArray", "get_mesh", "make_mesh", "with_mesh",
@@ -111,4 +114,5 @@ __all__ = ["initialize", "shutdown", "FLAGS", "util", "TileExtent", "Tiling",
            "hessian", "hvp", "minimize", "sgd_train", "checkpoint", "from_file", "load", "save", "interop",
            "sparse", "linalg", "fft", "random", "sparse_linalg", "scipy_linalg",
            "optimize", "integrate", "special", "stats", "signal",
+           "ndimage", "spatial",
            "SparseArray", "sparse_diagonal", "sprandn"] + list(_builtin_all)

@@ -4,8 +4,9 @@ item 1.5): the exact sorted list of ``spartan_tpu.__all__`` names that
 ``spartan_tpu.sparse_linalg.__all__`` names that
 ``spartan_tpu_torch.sparse_linalg`` lacks; ``sp.sparse``'s constructors,
 ``sp.sparse.csgraph``, ``sp.optimize``, ``sp.integrate`` and
-``sp.special``, ``sp.stats`` and ``sp.signal``; the ``learn`` estimators
-and the example modules.
+``sp.special``, ``sp.stats``, ``sp.signal``, ``sp.ndimage`` and
+``sp.spatial`` with its ``distance`` and ``transform``; the ``learn``
+estimators and the example modules.
 A change that ports a name must take it off its list; the port is whole
 when both lists are empty."""
 
@@ -16,7 +17,7 @@ import spartan_tpu_torch as sp
 import spartan_tpu_torch.sparse_linalg as spl
 
 MISSING = sorted("""
-cluster interpolate ndimage smart_tile spatial tiling_plan
+cluster interpolate smart_tile tiling_plan
 """.split())
 
 # every name of the reference's sparse_linalg is ported
@@ -26,13 +27,13 @@ MISSING_SPARSE_LINALG = []
 def test_the_names_the_port_still_lacks():
   lacking = sorted(set(ref.__all__) - set(sp.__all__))
   assert lacking == MISSING
-  assert len(MISSING) == 6
+  assert len(MISSING) == 4
 
 
 def test_every_exported_name_is_defined():
   for name in sp.__all__:
     assert hasattr(sp, name), name
-  assert len(set(sp.__all__)) == 396
+  assert len(set(sp.__all__)) == 398
 
 
 def test_the_sparse_linalg_names_the_port_still_lacks():
@@ -126,6 +127,39 @@ def test_sp_stats_and_sp_signal_have_every_name_of_the_reference():
   for mod, ref_mod in ((stats, ref_stats), (signal, ref_signal)):
     for name in ref_mod.__all__:
       assert hasattr(mod, name), name
+
+
+def test_sp_ndimage_and_sp_spatial_have_every_name_of_the_reference():
+  """``sp.ndimage`` (75 names), ``sp.spatial`` (17), ``sp.spatial.distance``
+  (29) and ``sp.spatial.transform`` (4) export the reference's ``__all__``;
+  the Qhull family and ``RotationSpline``/``RigidTransform`` are scipy's own
+  objects, as the reference re-exports them."""
+  import scipy.spatial as ssp
+  import scipy.spatial.transform as sst
+
+  import spartan_tpu.ndimage as ref_nd
+  import spartan_tpu.spatial as ref_spatial
+  import spartan_tpu.spatial_distance as ref_dist
+  import spartan_tpu.spatial_transform as ref_tr
+
+  import spartan_tpu_torch.ndimage as nd
+  import spartan_tpu_torch.spatial as spatial
+  import spartan_tpu_torch.spatial_distance as dist
+  import spartan_tpu_torch.spatial_transform as tr
+  assert sp.ndimage is nd and sp.spatial is spatial
+  assert sp.spatial.distance is dist and sp.spatial.transform is tr
+  for mod, ref_mod, n in ((nd, ref_nd, 75), (spatial, ref_spatial, 17),
+                          (dist, ref_dist, 29), (tr, ref_tr, 4)):
+    assert mod.__all__ == ref_mod.__all__
+    assert len(mod.__all__) == n
+    for name in ref_mod.__all__:
+      assert hasattr(mod, name), name
+  assert spatial._HOST_NAMES == ref_spatial._HOST_NAMES
+  for name in spatial._HOST_NAMES:
+    assert getattr(sp.spatial, name) is getattr(ssp, name), name
+  assert tr._HOST_NAMES == ref_tr._HOST_NAMES
+  assert sp.spatial.transform.RotationSpline is sst.RotationSpline
+  assert sp.spatial.transform.RigidTransform is sst.RigidTransform
 
 
 def test_learn_and_the_examples_match_the_reference():

@@ -13,7 +13,9 @@ with their matvecs on K3a/K3b/K3d on the card; ``least_squares``,
 ``solve_ivp`` and ``differential_evolution`` with every evaluation on
 cuda tensors and no host route; ``sp.signal``'s filter loops, ``sp.stats``'
 betainc inverses and normal tail, a sign-bit NaN through ``medfilt``, and
-the oscillator example.  Run on a machine with
+the oscillator example; ``sp.ndimage``'s filters, loops and label, its
+measurements' segment reductions against a float64 host oracle,
+``KDTree.query``'s ties, ``cdist``'s chunked route and ``Rotation``.  Run on a machine with
 an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -2697,3 +2699,108 @@ def test_oscillator_on_card(device):
   got, want = oscillator.run()
   assert got == 0.299853515625
   assert abs(got - want) < (2048 - 1) / 40.0 / 512
+
+
+def test_ndimage_on_card(device):
+  """sp.ndimage on cuda tensors: the conv filters (cuDNN, TF32 off), the
+  rank filters' sorted stacks, the loops and label against scipy, and the
+  order-1 gather; float64 at the CPU test's bounds."""
+  import scipy.ndimage as ndi
+  rng = np.random.default_rng(26)
+  A = rng.standard_normal((300, 257))
+  w = rng.standard_normal((3, 4))
+  got = sp.ndimage.correlate(A, w, mode="mirror", origin=(0, 1)).evaluate()
+  assert got.data.device.type == "cuda"
+  np.testing.assert_allclose(got.glom(), ndi.correlate(
+      A, w, mode="mirror", origin=(0, 1)), rtol=1e-10, atol=1e-12)
+  np.testing.assert_allclose(sp.ndimage.gaussian_filter(A, 2.5).glom(),
+                             ndi.gaussian_filter(A, 2.5), atol=1e-12)
+  np.testing.assert_array_equal(sp.ndimage.median_filter(A, 4).glom(),
+                                ndi.median_filter(A, 4))
+  B = ndi.gaussian_filter(rng.standard_normal((300, 257)), 3) > 0.05
+  np.testing.assert_array_equal(sp.ndimage.binary_fill_holes(B).glom(),
+                                ndi.binary_fill_holes(B))
+  got, n = sp.ndimage.label(B)
+  want, m = ndi.label(B)
+  assert n == m
+  np.testing.assert_array_equal(got, want)
+  np.testing.assert_allclose(sp.ndimage.rotate(A, 30.0, order=1).glom(),
+                             ndi.rotate(A, 30.0, order=1), atol=1e-10)
+
+
+def test_measurement_segment_reductions_on_card(device):
+  """The per-label measurements by index_add_/scatter_reduce on the card
+  (atomics: the float64 sums' order varies) against a float64 host oracle
+  (np.add.at, np.minimum.at): sums and means within 1e-13 relative of
+  each label's absolute sum, extrema and their first positions exact."""
+  import scipy.ndimage as ndi
+  rng = np.random.default_rng(27)
+  lab, n = ndi.label(ndi.gaussian_filter(rng.standard_normal((512, 512)),
+                                         2) > 0.1)
+  x = rng.standard_normal((512, 512))
+  idx = np.arange(1, n + 1)
+  sums = np.zeros(n + 1)
+  np.add.at(sums, lab.ravel(), x.ravel())
+  abs_sums = np.zeros(n + 1)
+  np.add.at(abs_sums, lab.ravel(), np.abs(x.ravel()))
+  got = sp.ndimage.sum_labels(x, sp.from_numpy(lab), idx)
+  assert np.all(np.abs(got - sums[1:]) <= 1e-13 * abs_sums[1:])
+  mins = np.full(n + 1, np.inf)
+  np.minimum.at(mins, lab.ravel(), x.ravel())
+  np.testing.assert_array_equal(sp.ndimage.minimum(x, lab, idx), mins[1:])
+  assert sp.ndimage.maximum_position(x, lab, idx) == \
+      ndi.maximum_position(x, lab, idx)
+  np.testing.assert_allclose(sp.ndimage.center_of_mass(x * x, lab, idx),
+                             ndi.center_of_mass(x * x, lab, idx), rtol=1e-12)
+
+
+def test_kdtree_query_ties_on_card(device):
+  """torch.topk on CUDA promises no order among equal values: the query's
+  stable rule gives the lower index first among equal distances on the
+  card too, the CPU's indices, on a lattice with duplicate points."""
+  lat = np.stack(np.meshgrid(np.arange(40.0), np.arange(40.0),
+                             indexing="ij"), -1).reshape(-1, 2)
+  lat = np.concatenate([lat, lat[:200], lat[500:700]])
+  q = np.concatenate([lat[:300] + 0.5, lat[:100]])
+  d, i = sp.spatial.KDTree(lat).query(q, k=9)
+  got_d, got_i = d.glom(), i.glom()
+  sp.initialize(["--device=cpu"])
+  try:
+    d0, i0 = sp.spatial.KDTree(lat).query(q, k=9)
+    want_d, want_i = d0.glom(), i0.glom()
+  finally:
+    sp.initialize(["--device=cuda"])
+  np.testing.assert_array_equal(got_i, want_i)
+  np.testing.assert_allclose(got_d, want_d, rtol=1e-15)
+
+
+def test_spatial_distance_and_rotation_on_card(device):
+  """cdist through the matmul form and the chunked broadcast (a budget
+  small enough to cut a's rows) and Rotation's conversions on the card."""
+  import scipy.spatial.distance as ssd
+  from scipy.spatial.transform import Rotation as SR
+
+  from spartan_tpu_torch import spatial_distance as dist_mod
+  rng = np.random.default_rng(28)
+  a, b = rng.standard_normal((300, 16)), rng.standard_normal((200, 16))
+  np.testing.assert_allclose(sp.spatial.distance.cdist(a, b).glom(),
+                             ssd.cdist(a, b), rtol=1e-10, atol=1e-12)
+  saved = dist_mod.BUDGET
+  dist_mod.BUDGET = 32 * 200 * 16 * 8
+  try:
+    for m in ("cityblock", "chebyshev", "braycurtis"):
+      np.testing.assert_allclose(sp.spatial.distance.cdist(a, b, m).glom(),
+                                 ssd.cdist(a, b, m), rtol=1e-12)
+  finally:
+    dist_mod.BUDGET = saved
+  q = rng.standard_normal((1000, 4))
+  r = sp.spatial.transform.Rotation.from_quat(q)
+  np.testing.assert_allclose(r.as_matrix().glom(),
+                             SR.from_quat(q).as_matrix(), atol=1e-14)
+  np.testing.assert_allclose(r.as_euler("zyx").glom(),
+                             SR.from_quat(q).as_euler("zyx"), atol=1e-10)
+  v = rng.standard_normal((1000, 3))
+  np.testing.assert_allclose(r.apply(v).glom(), SR.from_quat(q).apply(v),
+                             atol=1e-13)
+  np.testing.assert_allclose(r.mean().as_matrix().glom(),
+                             SR.from_quat(q).mean().as_matrix(), atol=1e-12)
